@@ -1,0 +1,108 @@
+"""Builds and loads the port's CUDA kernels.
+
+All `csrc/*.cu` sources compile in ONE `nvcc` call into a shared library
+with a plain C interface, loaded through `ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/libevstore_kernels-<sha>.so csrc/*.cu
+
+The sources include no PyTorch header, so the build takes seconds, not the
+minutes a `torch.utils.cpp_extension` build takes.  The library's name
+carries a hash of the sources: a changed source builds anew, an unchanged one
+is reused.  The build writes to a temporary name and `os.replace`s it, so two
+processes building at once cannot leave a torn file.  Nothing here runs at
+import time: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+# C entry points: name -> argtypes (every one returns a cudaError_t as int)
+SIGNATURES = {
+    # x, ly, out, B, T, D, self_interaction, is_bf16, samples/block, device,
+    # stream
+    "interaction_fwd": (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P),
+    # primary, C, secondary, M, idx, out, R, row_bytes, device, stream
+    "gather_rows": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _I, _P),
+}
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    name = f"libevstore_kernels-{h.hexdigest()[:16]}.so"
+    return os.path.join(BUILD_DIR, name)
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+        nvcc = cand if os.path.exists(cand) else None
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (neither on PATH nor under "
+                           "$CUDA_HOME/bin); the CUDA kernels cannot be built")
+    return nvcc
+
+
+def build() -> str:
+    """Compile the library unless it exists; returns its path.  The
+    compiler's report (registers, shared memory, spills per kernel) is kept
+    beside it as `<name>.log`."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *[
+        s for s in sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")

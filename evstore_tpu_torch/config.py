@@ -1,0 +1,121 @@
+"""Configuration dataclasses for the PyTorch/CUDA port.
+
+The port keeps its own copy of the JAX package's configuration
+(`evstore_tpu/config.py`) so that it imports nothing of that package.
+Field names and defaults are the same for what the port reads (qr/md
+tables and weighted pooling come with their slice), with one rename: the
+JAX package's `use_pallas_interaction` / `use_pallas_gather` select Pallas
+kernels that do not exist here; their counterparts `use_interaction_kernel` /
+`use_gather_kernel` select the port's hand-written CUDA kernels
+(`ops/cuda_interaction.py`, `ops/cuda_gather.py`) and default to on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+
+def _tuple(xs) -> Tuple[int, ...]:
+    return tuple(int(x) for x in xs)
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    """Model architecture (the reference's --arch-* flags)."""
+
+    embedding_dim: int = 36
+    table_sizes: Tuple[int, ...] = (4, 3, 2)
+    mlp_bot: Tuple[int, ...] = (4, 3, 2)     # input dim first
+    mlp_top: Tuple[int, ...] = (8, 4, 2, 1)  # output dim last
+    interaction_op: str = "dot"              # dot | cat
+    interaction_itself: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    # the dot interaction through the CUDA kernel (csrc/interaction_fwd.cu)
+    use_interaction_kernel: bool = True
+    # plain-table row lookups through the CUDA kernel (csrc/gather_rows.cu)
+    use_gather_kernel: bool = True
+    loss_threshold: float = 0.0
+
+    @property
+    def num_tables(self) -> int:
+        return len(self.table_sizes)
+
+    @property
+    def num_dense_features(self) -> int:
+        return self.mlp_bot[0]
+
+    def top_mlp_input_dim(self) -> int:
+        d = self.mlp_bot[-1]
+        n = self.num_tables
+        if self.interaction_op == "dot":
+            ni = n + 1
+            offset = 1 if self.interaction_itself else 0
+            return d + (ni * (ni - 1)) // 2 + offset * ni
+        if self.interaction_op == "cat":
+            return d * (n + 1)
+        raise ValueError(f"unsupported interaction op {self.interaction_op}")
+
+    def validate(self) -> None:
+        if self.mlp_bot[-1] != self.embedding_dim:
+            raise ValueError(
+                f"bottom MLP output dim {self.mlp_bot[-1]} must equal "
+                f"embedding dim {self.embedding_dim} for "
+                f"'{self.interaction_op}' interaction")
+        if self.mlp_top[0] != self.top_mlp_input_dim():
+            raise ValueError(
+                f"top MLP input dim {self.mlp_top[0]} != interaction output "
+                f"{self.top_mlp_input_dim()}")
+
+
+def make_dlrm_config(embedding_dim: int, table_sizes: Sequence[int],
+                     mlp_bot_hidden: Sequence[int],
+                     mlp_top_hidden: Sequence[int],
+                     num_dense: int = 13, **kw) -> DLRMConfig:
+    """Build a config with the top-MLP input dim derived automatically."""
+    mlp_bot = _tuple([num_dense, *mlp_bot_hidden, embedding_dim])
+    cfg = DLRMConfig(embedding_dim=embedding_dim,
+                     table_sizes=_tuple(table_sizes), mlp_bot=mlp_bot,
+                     mlp_top=(1,), **kw)
+    mlp_top = _tuple([cfg.top_mlp_input_dim(), *mlp_top_hidden, 1])
+    cfg = dataclasses.replace(cfg, mlp_top=mlp_top)
+    cfg.validate()
+    return cfg
+
+
+KAGGLE_TABLE_SIZES = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                      93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10,
+                      5652, 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+
+
+def kaggle_dlrm_config(**kw) -> DLRMConfig:
+    """Criteo Kaggle: emb dim 36, bot 13-512-256-64-36, top 512-256-1
+    (bench/dlrm_s_criteo_kaggle.sh:24)."""
+    return make_dlrm_config(36, KAGGLE_TABLE_SIZES, (512, 256, 64),
+                            (512, 256), **kw)
+
+
+def kaggle_small_dlrm_config(max_rows: int = 100_000, **kw) -> DLRMConfig:
+    """Kaggle model shape with tables clipped to max_rows."""
+    sizes = tuple(min(s, max_rows) for s in KAGGLE_TABLE_SIZES)
+    return make_dlrm_config(36, sizes, (512, 256, 64), (512, 256), **kw)
+
+
+def tiny_dlrm_config(**kw) -> DLRMConfig:
+    """CPU-sized fixture (the reference's tiny default model)."""
+    return make_dlrm_config(4, (40, 30, 20), (8,), (8,), num_dense=4, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    """Cache configuration: the JAX package's fields that the device C1
+    cache reads, with the same names and defaults.  The C2/C3 tiers' fields
+    come with those tiers."""
+
+    policy: str = "evlfu"                  # the device cache runs EvLFU
+    n_caching_layers: int = 1              # the device cache is C1 only
+    total_size: int = 64_000               # C1 entries
+    main_precision: int = 32               # 32 (int8 not ported yet)
+    flush_rate: float = 0.3                # EvLFU perfect-set flush share
+    perfect_item_cap: float = 0.95         # EvLFU perfect-set trigger

@@ -1,0 +1,123 @@
+"""The port's device C1 cache, policy and store against the JAX package's,
+on the CPU.
+
+The port's `DeviceC1Cache(device="cpu")` and the JAX `DeviceC1Cache` serve
+the same grouped-Zipf request stream over 26 tables of 40-300 rows, with a
+capacity small enough that evictions, perfect-set flushes and segment
+flushes occur.  Per batch the rows must be bit-exact and the stats equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from evstore_tpu.cache.device_cache import DeviceC1Cache as JaxDeviceC1Cache
+from evstore_tpu.cache.policy import EvLFU as JaxEvLFU
+from evstore_tpu.cache.storage import StorageManager as JaxStorageManager
+from evstore_tpu.config import CacheConfig as JaxCacheConfig
+from evstore_tpu.data.synthetic import RandomDataConfig, random_batches
+from evstore_tpu_torch.cache.device_cache import DeviceC1Cache
+from evstore_tpu_torch.cache.policy import EvLFU
+from evstore_tpu_torch.cache.storage import StorageManager
+from evstore_tpu_torch.config import CacheConfig
+
+N_TABLES, DIM = 26, 8
+STAT_KEYS = ("requests", "perfect_hits", "hit_rate", "size", "segments",
+             "bytes_shipped", "capacity", "hbm_bytes")
+
+
+def _tables(seed=0):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(40, 301, N_TABLES)
+    return [rng.uniform(-0.9, 0.9, (int(n), DIM)).astype(np.float32)
+            for n in sizes]
+
+
+@pytest.mark.parametrize("capacity,perfect_item_cap,seed", [
+    (60, 0.95, 0),       # barely two groups: constant eviction, NO_SLOT path
+    (300, 0.95, 1),      # evictions and segment flushes
+    (300, 0.1, 2),       # perfect-set flushes
+    (2000, 0.95, 3),     # mostly hits
+])
+def test_device_cache_matches_jax(capacity, perfect_item_cap, seed):
+    tables = _tables(seed)
+    kw = dict(policy="evlfu", total_size=capacity, main_precision=32,
+              perfect_item_cap=perfect_item_cap)
+    jc = JaxDeviceC1Cache(JaxCacheConfig(**kw),
+                          JaxStorageManager("dummy", dim=DIM).load(
+                              tables=tables), N_TABLES, DIM, insert_bucket=16)
+    pc = DeviceC1Cache(CacheConfig(**kw),
+                       StorageManager("dummy", dim=DIM).load(tables=tables),
+                       N_TABLES, DIM, insert_bucket=16, device="cpu")
+    dcfg = RandomDataConfig(num_dense=4, table_sizes=[len(t) for t in tables],
+                            batch_size=24, num_batches=8, seed=seed,
+                            distribution="grouped_zipf", group_noise=0.1)
+    for _, idx, _ in random_batches(dcfg):
+        ref = np.asarray(jc.lookup_batch(idx))
+        got = pc.lookup_batch(idx)
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      ref.view(np.int32))
+        np.testing.assert_array_equal(
+            got.numpy(), np.stack([tables[t][idx[:, t]]
+                                   for t in range(N_TABLES)], axis=1))
+        js, ps = jc.stats(), pc.stats()
+        assert {k: ps[k] for k in STAT_KEYS} == {k: js[k] for k in STAT_KEYS}
+    assert ps["segments"] > 8 or capacity > 1000   # flushes happened
+    assert sorted(pc._free) == sorted(jc._free)
+
+
+def test_policy_matches_jax_evlfu():
+    """Random set / promote / probe sequence: identical state throughout,
+    including the min-pointer wrap and the perfect-set flush."""
+    rng = np.random.default_rng(7)
+    ev_j, ev_p = [], []
+    jp = JaxEvLFU(40, 4, 0.3, 0.5, on_evict=lambda k, v: ev_j.append(k))
+    pp = EvLFU(40, 4, 0.3, 0.5, on_evict=lambda k, v: ev_p.append(k))
+    for step in range(3000):
+        keys = [(t, int(rng.integers(0, 30))) for t in range(4)]
+        hj, aj = jp.probe_group(keys)
+        hp, ap = pp.probe_group(keys)
+        assert (hj, aj) == (hp, ap)
+        for k, h in zip(keys, hj):
+            if h:
+                assert jp.update_agg_hit(k, aj) == pp.update_agg_hit(k, ap)
+            else:
+                jp.set(k, step, aj)
+                pp.set(k, step, ap)
+        if aj == 4:
+            jp.n_perfect = len(jp.buckets[4])
+            pp.n_perfect = len(pp.buckets[4])
+        assert jp.vals == pp.vals and jp.min_agg == pp.min_agg
+        assert [list(b) for b in jp.buckets] == [list(b) for b in pp.buckets]
+    assert ev_j == ev_p and len(ev_p) > 100
+    assert jp.stats() == pp.stats()
+
+
+def test_store_matches_jax():
+    tables = _tables(4)
+    keys = [(t, r) for t in (0, 5, 25) for r in (0, 3, 39)]
+    ps = StorageManager("dummy", dim=DIM).load(tables=tables)
+    js = JaxStorageManager("dummy", dim=DIM).load(tables=tables)
+    np.testing.assert_array_equal(ps.get_batch(keys), js.get_batch(keys))
+    ps.close()
+    assert ps.store is None
+
+
+@pytest.mark.parametrize("backend", ["file", "mmap", "sqlite", "native"])
+def test_unported_store_backends_raise(backend):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        StorageManager(backend)
+
+
+def test_unported_precisions_raise():
+    sm = StorageManager("dummy", dim=DIM).load(tables=_tables())
+    with pytest.raises(NotImplementedError, match="gather_rows_dequant_int8"):
+        DeviceC1Cache(CacheConfig(main_precision=8), sm, N_TABLES, DIM,
+                      device="cpu")
+    with pytest.raises(ValueError, match="fp32 or int8"):
+        DeviceC1Cache(CacheConfig(main_precision=16), sm, N_TABLES, DIM,
+                      device="cpu")
+    with pytest.raises(ValueError, match="one request group"):
+        DeviceC1Cache(CacheConfig(total_size=10), sm, N_TABLES, DIM,
+                      device="cpu")
