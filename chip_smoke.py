@@ -14,12 +14,19 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes and larger ones, with times (CUDA events, median
    of 20 after warm-up) beside the least time the card could take;
-3. the main path: the full-width Criteo Kaggle DLRM (26 tables, 33.8M rows,
-   dim 36) served through the device C1 cache (EvLFU, 64,000 entries) by
-   `run_inference`, with the tables in host RAM and random weights from
+3. the serving path: the full-width Criteo Kaggle DLRM (26 tables, 33.8M
+   rows, dim 36) served through the device C1 cache (EvLFU, 64,000 entries)
+   by `run_inference`, with the tables in host RAM and random weights from
    --seed; the kernels' launch counts over this phase must be above 0, the
    cache's rows must equal the store's bit for bit and the scores must equal
    those of the plain versions;
+3b. the training path: the same model with phase 3's tables on the card,
+   trained at the reference recipe's batch of 128 and lr 0.1 by
+   `make_train_step` and `train` (rwsadagrad, then sgd), with steps/s and a
+   profile of where a step's time goes; each of five rwsadagrad steps with
+   every kernel on must equal a step with every kernel switched off taken
+   from the same state; then `evaluate`; the four kernels' launch counts
+   over this phase must be above 0;
 4. the kernels' launch counts and one JSON line describing every kernel;
 5. as the last line: {"ok": true, "device": {...}}.
 
@@ -39,9 +46,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-PHASE_BUDGET_S = {"0 environment": 60, "1 build": 300,
-                  "2 kernels vs plain": 240, "3 main path": 480,
-                  "4 kernels line": 30}
+PHASE_BUDGET_S = {"0 environment": 60, "1 build": 240,
+                  "2 kernels vs plain": 240, "3 main path": 300,
+                  "3b train": 300, "4 kernels line": 30}
 
 
 class Phase:
@@ -89,6 +96,18 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def within(got, ref, rel: float, bf16_ulp: bool = False):
+    """(all |got - ref| <= rel (1 + |ref|) [+ one bf16 ulp of ref], max|d|)."""
+    import torch
+    diff = (got.float() - ref.float()).abs()
+    allow = rel * (1 + ref.float().abs())
+    if bf16_ulp:
+        mag = ref.float().abs().clamp_min(2.0 ** -126)
+        allow += torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool((diff <= allow).all()), float(diff.max()) if diff.numel() \
+        else 0.0
+
+
 def bound_ms(nbytes: float, ops: float, dtype: str):
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the peak rate of their type."""
@@ -103,12 +122,15 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    import dataclasses
+
     import numpy as np
     import torch
 
     from evstore_tpu_torch import _build
     from evstore_tpu_torch.cache.storage import StorageManager
-    from evstore_tpu_torch.config import CacheConfig, kaggle_dlrm_config
+    from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
+                                          kaggle_dlrm_config)
     from evstore_tpu_torch.data.synthetic import (RandomDataConfig,
                                                   random_batches)
     from evstore_tpu_torch.drivers.infer import run_inference
@@ -116,8 +138,14 @@ def main() -> int:
     from evstore_tpu_torch.models.embedding import init_embedding_tables
     from evstore_tpu_torch.ops.cuda_gather import gather_rows, gather_rows_ref
     from evstore_tpu_torch.ops.cuda_interaction import (
+        dot_interaction_bwd_kernel, dot_interaction_bwd_ref,
         dot_interaction_kernel, dot_interaction_ref)
+    from evstore_tpu_torch.ops.cuda_update import (scatter_sub_sorted,
+                                                   scatter_sub_sorted_ref)
     from evstore_tpu_torch.ops.interaction import num_pairs
+    from evstore_tpu_torch.train.optim import PAD_ROW, dense_parameters
+    from evstore_tpu_torch.train.train_loop import (evaluate, init_opt_state,
+                                                    make_train_step, train)
     from evstore_tpu_torch.utils.device import exact_float32
 
     if not torch.cuda.is_available():
@@ -166,11 +194,24 @@ def main() -> int:
     # ----------------------------------------------- 2 kernels vs plain
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     report = {}
+    wrappers = {"interaction_fwd": dot_interaction_kernel,
+                "interaction_bwd": dot_interaction_bwd_kernel,
+                "gather_rows": gather_rows,
+                "scatter_sub_sorted": scatter_sub_sorted}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
     with Phase("2 kernels vs plain"):
         # K1: f32 |d| <= 1e-5 (1 + |ref|) (summation order);
         # bf16: one bf16 ulp of ref plus that f32 allowance
         k1_cases = [(B, T, D, dt, False)
-                    for (B, T, D) in [(1, 26, 36), (1000, 26, 36),
+                    for (B, T, D) in [(1, 26, 36), (128, 26, 36),
+                                      (1000, 26, 36),
                                       (2048, 26, 36), (65536, 26, 36),
                                       (4096, 26, 64), (4096, 26, 128),
                                       (256, 3, 4)]
@@ -184,13 +225,8 @@ def main() -> int:
             got = dot_interaction_kernel(x, ly, si)
             ref = dot_interaction_ref(x, ly, si)
             torch.cuda.synchronize()
-            diff = (got.float() - ref.float()).abs()
-            allow = 1e-5 * (1 + ref.float().abs())
-            if dt == "bfloat16":
-                mag = ref.float().abs().clamp_min(2.0 ** -126)
-                allow = allow + torch.exp2(torch.floor(torch.log2(mag)) - 7)
-            err = float(diff.max())
-            if got.shape != ref.shape or not bool((diff <= allow).all()):
+            ok, err = within(got, ref, 1e-5, dt == "bfloat16")
+            if got.shape != ref.shape or not ok:
                 raise AssertionError(
                     f"interaction_fwd disagrees at B={B} T={T} D={D} {dt} "
                     f"self={si}: max|d| {err}")
@@ -209,7 +245,49 @@ def main() -> int:
                 report["interaction_fwd"] = dict(
                     max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                     bound_by=by, library_ms=None)
-            del x, ly, got, ref, diff, allow
+            del x, ly, got, ref
+
+        # K4: as K1, f32 |d| <= 1e-5 (1 + |ref|); bf16 adds one bf16 ulp
+        T, D = 26, 36
+        for B, dt, si in [(128, "float32", False), (2048, "float32", False),
+                          (65536, "float32", False),
+                          (65536, "bfloat16", False),
+                          (2048, "float32", True)]:
+            tdt = getattr(torch, dt)
+            P = num_pairs(T + 1, si)
+            x = torch.randn(B, D, generator=gen, device=dev).to(tdt)
+            ly = torch.randn(B, T, D, generator=gen, device=dev).to(tdt)
+            g = torch.randn(B, D + P, generator=gen, device=dev).to(tdt)
+            got = dot_interaction_bwd_kernel(x, ly, g, si)
+            ref = dot_interaction_bwd_ref(x, ly, g, si)
+            torch.cuda.synchronize()
+            checks = [within(a, b, 1e-5, dt == "bfloat16")
+                      for a, b in zip(got, ref)]
+            err = max(e for _, e in checks)
+            if not all(ok for ok, _ in checks) or any(
+                    a.shape != b.shape or a.dtype != b.dtype
+                    for a, b in zip(got, ref)):
+                raise AssertionError(
+                    f"interaction_bwd disagrees at B={B} T={T} D={D} {dt} "
+                    f"self={si}: max|d| {err}")
+            es = x.element_size()
+            F = T + 1
+            bms, by = bound_ms((2 * B * F * D + B * (D + P)) * es,
+                               2.0 * B * F * F * D + B * D, dt)
+            k_ms = time_ms(torch,
+                           lambda: dot_interaction_bwd_kernel(x, ly, g, si))
+            p_ms = time_ms(torch,
+                           lambda: dot_interaction_bwd_ref(x, ly, g, si))
+            print(f"interaction_bwd B={B} T={T} D={D} {dt} self={si}: "
+                  f"max|d| {err:.3e} kernel_ms {k_ms:.4f} plain_ms "
+                  f"{p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) "
+                  f"library_ms none (no single PyTorch call computes it) "
+                  f"[{card}]", flush=True)
+            if (B, dt, si) == (128, "float32", False):
+                report["interaction_bwd"] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+            del x, ly, g, got, ref
 
         # K2: bit-exact
         def k2_case(C, M, R, D, dt, label):
@@ -253,10 +331,73 @@ def main() -> int:
             "cache 64000x36 + buffer 512, R=2048*26 f32")
         k2_case(64000, 512, 65536 * 26, 36, "float32",
                 "cache 64000x36 + buffer 512, R=65536*26 f32")
+        k2_case(10131227, 0, 128, 36, "float32",
+                "table 10131227x36, R=128 f32 (one training step's gather)")
         k2_case(10131227, 0, 65536, 36, "float32",
                 "table 10131227x36, R=65536 f32")
         k2_case(64000, 512, 2048 * 26, 36, "bfloat16",
                 "cache 64000x36 + buffer 512, R=2048*26 bf16 (4-byte path)")
+        torch.cuda.empty_cache()
+
+        # K5: |d| <= 1e-6 (1 + |ref|) over the whole table (the kernel's
+        # compensated f32 run sums against the plain version's float64
+        # index_add_); a bf16 table adds one bf16 ulp (each side rounds
+        # once, at the store)
+        N5, D5 = kaggle_dlrm_config().table_sizes[2], 36
+        bound5 = float(np.sqrt(1.0 / N5))
+        base = (torch.rand(N5, D5, generator=gen, device=dev) * 2 - 1) \
+            * bound5
+        nrng = np.random.default_rng(args.seed + 5)
+        zipf = next(random_batches(RandomDataConfig(
+            num_dense=1, table_sizes=(N5,), batch_size=65536, num_batches=1,
+            seed=args.seed + 6, distribution="zipf",
+            zipf_alpha=1.05)))[1][:, 0]
+        zipf[nrng.random(zipf.size) < 0.05] = PAD_ROW
+
+        def k5_case(dt, ids, label):
+            tdt = getattr(torch, dt)
+            rows = torch.from_numpy(np.sort(ids).astype(np.int32)).to(dev)
+            K = rows.numel()
+            vals = torch.randn(K, D5, generator=gen, device=dev) * 1e-2
+            tab = base.to(tdt, copy=True)
+            tab_ref = tab.clone()
+            scatter_sub_sorted(tab, rows, vals)
+            scatter_sub_sorted_ref(tab_ref, rows, vals)
+            torch.cuda.synchronize()
+            ok, err = within(tab, tab_ref, 1e-6, dt == "bfloat16")
+            if not ok:
+                raise AssertionError(f"scatter_sub_sorted disagrees at "
+                                     f"{label}: max|d| {err}")
+            keep = (rows >= 0) & (rows < N5)
+            uniq, counts = torch.unique(rows[keep], return_counts=True)
+            es = tab.element_size()
+            bms, by = bound_ms(K * 4 + K * D5 * 4 + 2 * uniq.numel() * D5
+                               * es, float(K * D5 + uniq.numel() * D5),
+                               "float32")
+            lib_rows = rows[keep].long()
+            lib_vals = (-vals[keep]).to(tdt)
+            k_ms = time_ms(torch, lambda: scatter_sub_sorted(tab, rows, vals))
+            p_ms = time_ms(torch,
+                           lambda: scatter_sub_sorted_ref(tab_ref, rows, vals))
+            l_ms = time_ms(torch,
+                           lambda: tab_ref.index_add_(0, lib_rows, lib_vals))
+            print(f"scatter_sub_sorted {label}: {uniq.numel()} rows, longest "
+                  f"run {int(counts.max())}, max|d| {err:.3e} kernel_ms "
+                  f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} "
+                  f"({by}) library_ms {l_ms:.4f} (index_add_ of the valid "
+                  f"entries{', values in bf16' if dt == 'bfloat16' else ''})"
+                  f" [{card}]", flush=True)
+            return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                        bound_by=by, library_ms=l_ms)
+
+        report["scatter_sub_sorted"] = k5_case(
+            "float32", nrng.integers(0, N5, 128),
+            f"table {N5}x{D5} f32, K=128 (one recipe step)")
+        k5_case("float32", zipf,
+                f"table {N5}x{D5} f32, K=65536 zipf(1.05), 5% PAD_ROW")
+        k5_case("bfloat16", zipf,
+                f"table {N5}x{D5} bf16, K=65536 zipf(1.05), 5% PAD_ROW")
+        del base
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 3 main path
@@ -282,18 +423,18 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory() as tmp:
             cdf = os.path.join(tmp, "cdf.csv")
-            dot_interaction_kernel.launches = 0
-            gather_rows.launches = 0
+            reset_counts()
             res = run_inference(model, cfg, ccfg, scored, storage,
                                 warmup_batches=warmup, cdf_path=cdf,
                                 use_device_cache=True, device=dev)
-            launches = {"interaction_fwd": dot_interaction_kernel.launches,
-                        "gather_rows": gather_rows.launches}
+            serve_launches = read_counts()
             with open(cdf) as f:
                 cdf_lines = sum(1 for _ in f)
-        if min(launches.values()) < 1:
+        serve_launches = {k: serve_launches[k]
+                          for k in ("interaction_fwd", "gather_rows")}
+        if min(serve_launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
-                                 f"{launches}")
+                                 f"{serve_launches}")
         if res.scores is None or res.scores.shape != (8 * 2048,) or \
                 not np.isfinite(res.scores).all():
             raise AssertionError("scores missing, misshapen or not finite")
@@ -335,18 +476,181 @@ def main() -> int:
               f"{sdiff:.3e}; auc {res.metrics['auc']:.4f} (random weights "
               f"and labels)")
 
+    # ------------------------------------------------------ 3b train
+    with Phase("3b train"):
+        del res, model, storage
+        torch.cuda.empty_cache()
+        B = 128                 # the reference recipe's batch and lr
+        tcfg = TrainConfig(batch_size=B, learning_rate=0.1,
+                           optimizer="rwsadagrad")
+        sgd = dataclasses.replace(tcfg, optimizer="sgd")
+        off_cfg = dataclasses.replace(cfg, use_interaction_kernel=False,
+                                      use_gather_kernel=False)
+        off_tcfg = dataclasses.replace(tcfg, use_update_kernel=False)
+        stream = iter(list(random_batches(RandomDataConfig(
+            num_dense=cfg.num_dense_features, table_sizes=cfg.table_sizes,
+            batch_size=B, num_batches=5 + 5 + 5 + 3 + 20 + 3 + 20 + 2,
+            seed=args.seed + 3, distribution="grouped_zipf",
+            zipf_alpha=1.05, group_noise=0.1))))
+
+        def take(n):
+            return [next(stream) for _ in range(n)]
+
+        reset_counts()
+        t0 = time.perf_counter()
+        model = DLRM(cfg, device=dev, seed=args.seed, tables=tables)
+        plain = DLRM(off_cfg, device=dev, seed=args.seed, tables=tables)
+        torch.cuda.synchronize()
+        print(f"set-up: two copies of the model on the card in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+        # five rwsadagrad steps, every kernel on, each held to a step with
+        # every kernel off taken from the same state.  Compounded over
+        # steps, the two paths drift apart: adagrad divides each update by
+        # the gradient's own norm, so a rounding difference in a small,
+        # cancelling gradient becomes a weight difference of up to lr.
+        step_k, step_p = (make_train_step(cfg, tcfg),
+                          make_train_step(off_cfg, off_tcfg))
+        st_k, st_p = init_opt_state(model, tcfg), init_opt_state(plain,
+                                                                 off_tcfg)
+
+        @torch.no_grad()
+        def sync():
+            plain.load_state_dict(model.state_dict())
+            for part in ("dense", "sparse"):
+                for k, v in getattr(st_k, part).items():
+                    getattr(st_p, part)[k].copy_(v)
+
+        def diffs():
+            pk, pp = dense_parameters(model), dense_parameters(plain)
+            pairs = [(f"mlp {n}", pk[n], pp[n]) for n in pk]
+            pairs += [(f"table {t}", model.tables[t], plain.tables[t])
+                      for t in range(cfg.num_tables)]
+            pairs += [(f"acc {k}", v, getattr(st_p, part)[k])
+                      for part in ("dense", "sparse")
+                      for k, v in getattr(st_k, part).items()]
+            out = []
+            for what, a, b in pairs:
+                a, b = a.detach(), b.detach()
+                ok, _ = within(a, b, 1e-4)
+                rel = float(((a - b).abs() / (1 + b.abs())).max())
+                out.append((what, ok, rel))
+            return out
+
+        worst_loss = worst = 0.0
+        for dense, idx, y in take(5):
+            sync()
+            lk = float(step_k(model, st_k, dense, idx, y))
+            lp = float(step_p(plain, st_p, dense, idx, y))
+            worst_loss = max(worst_loss, abs(lk - lp) / abs(lp))
+            if not abs(lk - lp) <= 1e-5 * abs(lp):
+                raise AssertionError(f"loss {lk} with the kernels, {lp} "
+                                     "without")
+            for what, ok, rel in diffs():
+                worst = max(worst, rel)
+                if not ok:
+                    raise AssertionError(f"{what} differs, kernels on vs "
+                                         f"off: max|d|/(1+|ref|) {rel}")
+        print(f"kernels on vs off, 5 rwsadagrad steps each from one state: "
+              f"max rel loss diff {worst_loss:.3e}, max|d|/(1+|ref|) "
+              f"{worst:.3e} over the MLPs, tables and accumulators")
+        sync()
+        drift = []
+        for dense, idx, y in take(5):
+            lk = float(step_k(model, st_k, dense, idx, y))
+            lp = float(step_p(plain, st_p, dense, idx, y))
+            drift.append(f"{abs(lk - lp) / abs(lp):.2e}/"
+                         f"{max(e for w, _, e in diffs() if w[:3] == 'mlp'):.2e}")
+        print(f"drift compounded over 5 more steps from one state (a "
+              f"measurement, not a check), rel loss diff / MLP "
+              f"max|d|/(1+|ref|) per step: {', '.join(drift)}")
+        del plain, st_p
+        torch.cuda.empty_cache()
+
+        # where a step's time goes: the device's busy time (its kernels and
+        # copies) and the host time of the step's four spans, over 5 steps
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for dense, idx, y in take(5):
+                step_k(model, st_k, dense, idx, y)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # the spans appear twice: as host ranges and as device-side
+        # annotations over their kernels; busy time counts kernels and
+        # copies only
+        cuda = torch.autograd.DeviceType.CUDA
+        events = prof.events()
+        spans = {}
+        for e in events:
+            if e.name.startswith("train_step.") and e.device_type != cuda:
+                spans[e.name[11:]] = spans.get(e.name[11:], 0.0) \
+                    + e.cpu_time_total / 5e3
+        on_card = {}
+        for e in events:
+            if e.device_type == cuda and not e.name.startswith("train_step."):
+                n, t = on_card.get(e.name, (0, 0.0))
+                on_card[e.name] = (n + 1, t + e.device_time_total / 1e3)
+        busy_ms = sum(t for _, t in on_card.values())
+        if busy_ms > 0:
+            top = sorted(on_card.items(), key=lambda kv: -kv[1][1])[:5]
+            print(f"profile of 5 rwsadagrad steps [{card}]: wall "
+                  f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+                  f"({100 * busy_ms / wall_ms:.1f}%, idle "
+                  f"{100 - 100 * busy_ms / wall_ms:.1f}%) in "
+                  f"{sum(n for n, _ in on_card.values())} kernels and copies;"
+                  f" host ms per step: " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in spans.items())
+                  + "; top on the card: " + "; ".join(
+                      f"{k[:40]} {t:.3f} ms x{n}" for k, (n, t) in top))
+        else:
+            print("profile: no device time in the trace; device busy share "
+                  "not measured")
+
+        # timed: 3 warm-up and 20 timed steps each, through train()
+        rates = {}
+        for opt in (tcfg, sgd):
+            train(model, cfg, opt, take(3))
+            _, _, hist = train(model, cfg, opt, take(20))
+            rates[opt.optimizer] = hist["it_per_s"]
+            print(f"train {opt.optimizer} B={B} lr {opt.learning_rate} "
+                  f"[{card}]: {hist['it_per_s']:.2f} steps/s, "
+                  f"{hist['it_per_s'] * B:.1f} samples/s (20 steps)",
+                  flush=True)
+        metrics = evaluate(model, cfg, take(2))
+        train_launches = read_counts()
+        if min(train_launches.values()) < 1:
+            raise AssertionError(f"a kernel of the path never ran: "
+                                 f"{train_launches}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"evaluate gave {metrics}")
+        print(f"evaluate over 2 batches: auc {metrics['auc']:.4f}, accuracy "
+              f"{metrics['accuracy']:.4f} (random weights and labels)")
+
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
-        print(f"kernels: {json.dumps(launches)}")
+        print(f"kernels: serve {json.dumps(serve_launches)}; train "
+              f"{json.dumps(train_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
             "gather_rows": ("evstore_tpu_torch/csrc/gather_rows.cu",
                             "evstore_tpu/ops/pallas_gather.py:34"),
+            "interaction_bwd": ("evstore_tpu_torch/csrc/interaction_bwd.cu",
+                                "evstore_tpu/ops/pallas_interaction.py:213"),
+            "scatter_sub_sorted": ("evstore_tpu_torch/csrc/row_update.cu",
+                                   "evstore_tpu/ops/pallas_update.py:60"),
         }
+        by_path = {name: {"serve": serve_launches.get(name, 0),
+                          "train": train_launches[name]}
+                   for name in sources}
         line = {"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], **report[name]}
+             "launches": sum(by_path[name].values()),
+             "launches_by_path": by_path[name], **report[name]}
             for name, (src, rep) in sources.items()]}
         print(f"total: {time.perf_counter() - t_all:.2f} s")
         print(json.dumps(line))

@@ -38,8 +38,14 @@ SIGNATURES = {
     # x, ly, out, B, T, D, self_interaction, is_bf16, samples/block, device,
     # stream
     "interaction_fwd": (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P),
+    # x, ly, g, dx, dly, B, T, D, self_interaction, is_bf16, samples/block,
+    # device, stream
+    "interaction_bwd": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                        _P),
     # primary, C, secondary, M, idx, out, R, row_bytes, device, stream
     "gather_rows": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _I, _P),
+    # table, N, D, rows, vals, K, is_bf16, device, stream
+    "scatter_sub_sorted": (_P, _I64, _I, _P, _P, _I64, _I, _I, _P),
 }
 
 

@@ -8,6 +8,8 @@ JAX package's `use_pallas_interaction` / `use_pallas_gather` select Pallas
 kernels that do not exist here; their counterparts `use_interaction_kernel` /
 `use_gather_kernel` select the port's hand-written CUDA kernels
 (`ops/cuda_interaction.py`, `ops/cuda_gather.py`) and default to on.
+`TrainConfig.use_update_kernel` is the counterpart of the JAX package's
+`ESV_PALLAS_SWEEP` switch (the rwsadagrad row update, `ops/cuda_update.py`).
 """
 
 from __future__ import annotations
@@ -105,6 +107,29 @@ def kaggle_small_dlrm_config(max_rows: int = 100_000, **kw) -> DLRMConfig:
 def tiny_dlrm_config(**kw) -> DLRMConfig:
     """CPU-sized fixture (the reference's tiny default model)."""
     return make_dlrm_config(4, (40, 30, 20), (8,), (8,), num_dense=4, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters: the JAX package's fields that the port
+    reads (reference flags dlrm_s_pytorch.py:952-1018), with the same names
+    and defaults.  `pack_gather` is not ported: the packed [N/P, P*D] table
+    layout is a TPU lowering of the row gather, and the port's gather kernel
+    reads the logical [N, D] layout directly."""
+
+    batch_size: int = 128
+    test_batch_size: int = 128
+    learning_rate: float = 0.1
+    optimizer: str = "sgd"                 # sgd | adagrad | rwsadagrad
+    loss_function: str = "bce"             # bce | mse | wbce
+    loss_weights: Tuple[float, float] = (1.0, 1.0)
+    # LR policy (LRPolicyScheduler, dlrm_s_pytorch.py:168-202)
+    lr_num_warmup_steps: int = 0
+    lr_decay_start_step: int = 0
+    lr_num_decay_steps: int = 0
+    print_freq: int = 1024
+    # the rwsadagrad row update through the CUDA kernel (csrc/row_update.cu)
+    use_update_kernel: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,31 +27,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Pair p -> (i, j) in np.tril_indices row-major order.  Row i starts at
-// q(q-1)/2 with q = i (k=-1) or q = i+1 (k=0, self_interaction).
-__device__ __forceinline__ void pair_of(int p, int self, int* i, int* j) {
-  int q = (int)((1.0f + sqrtf(1.0f + 8.0f * (float)p)) * 0.5f);
-  while (q * (q - 1) / 2 > p) --q;
-  while ((q + 1) * q / 2 <= p) ++q;
-  *i = self ? q - 1 : q;
-  *j = p - q * (q - 1) / 2;
-}
+using evstore::from_f32;
+using evstore::pair_of;
+using evstore::to_f32;
 
 template <typename T>
 __global__ void interaction_fwd_kernel(const T* __restrict__ x,

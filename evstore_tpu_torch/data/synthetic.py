@@ -1,6 +1,6 @@
-"""Random request streams for serving (one-hot).
+"""Random request streams for serving and training (one-hot).
 
-A copy of `RandomDataConfig` and `random_batches` from
+A copy of `RandomDataConfig`, `random_batches` and `learnable_batches` from
 `evstore_tpu/data/synthetic.py`, for bag size 1 and uniform dense features.
 The same config and seed give the same batches as the JAX package: the
 calls on the numpy generator are the same, in the same order.  The
@@ -93,3 +93,22 @@ def random_batches(cfg: RandomDataConfig) -> Iterator[Batch]:
             idx[:, t] = raw.astype(np.int32)
         labels = rng.integers(0, 2, cfg.batch_size).astype(np.float32)
         yield dense.astype(np.float32), idx, labels
+
+
+def learnable_batches(cfg: RandomDataConfig, hidden_seed: int = 42
+                      ) -> Iterator[Batch]:
+    """Random inputs with labels drawn from a hidden linear model, so that a
+    DLRM can reduce its loss: the fixture of the 'training learns' checks.
+    The hidden model comes from `hidden_seed`, independent of `cfg.seed`, so
+    train and eval streams with different data seeds share it."""
+    hidden = np.random.default_rng(hidden_seed)
+    w_dense = hidden.normal(0, 1, (cfg.num_dense,))
+    tables = [hidden.normal(0, 1.5, (s,)) for s in cfg.table_sizes]
+    rng = np.random.default_rng(cfg.seed + 1)
+    for dense, idx, _ in random_batches(cfg):
+        score = dense @ w_dense
+        for t, tab in enumerate(tables):
+            score = score + tab[idx[:, t]]
+        p = 1.0 / (1.0 + np.exp(-score))
+        labels = (rng.random(cfg.batch_size) < p).astype(np.float32)
+        yield dense, idx, labels

@@ -3,23 +3,25 @@
 Port of `evstore_tpu/models/dlrm.py`: bottom MLP (a ReLU after every layer)
 -> embedding rows -> pairwise interaction -> top MLP (linear last layer) ->
 logits.  `forward` takes pre-looked-up rows (`emb_rows`), which is how the
-device C1 cache splices into the model, as in the JAX package.  The MLPs are
-`nn.Linear` layers, whose weight is [out, in]; the JAX package stores
-[in, out] (see `convert.py`).
+device C1 cache and the train step splice into the model, as in the JAX
+package; it is differentiable with respect to `emb_rows` and the MLPs.
+The MLPs are `nn.Linear` layers, whose weight is [out, in]; the JAX package
+stores [in, out] (see `convert.py`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from evstore_tpu_torch.config import DLRMConfig
 from evstore_tpu_torch.models.embedding import (init_embedding_tables,
                                                 sparse_arch_lookup)
-from evstore_tpu_torch.ops.cuda_interaction import dot_interaction_kernel
+from evstore_tpu_torch.ops.cuda_interaction import DotInteraction
 from evstore_tpu_torch.ops.interaction import cat_interaction, dot_interaction
 from evstore_tpu_torch.utils.device import resolve_device
 
@@ -42,12 +44,14 @@ def _mlp(dims, rng: np.random.Generator, dtype) -> nn.ModuleList:
 
 
 class DLRM(nn.Module):
-    """Dense arch, interaction and, with `tables=True`, the plain embedding
-    tables.  With `tables=False` the rows live elsewhere (the EVStore store
-    behind the device cache) and `forward` needs `emb_rows`."""
+    """Dense arch, interaction and the plain embedding tables.  `tables` is
+    True to draw the tables from `seed`, a sequence of [n, D] float32 numpy
+    arrays to copy onto the device (the caller's arrays are not changed by
+    training), or False when the rows live elsewhere (the EVStore store
+    behind the device cache); `forward` then needs `emb_rows`."""
 
     def __init__(self, cfg: DLRMConfig, *, device=None, seed: int = 0,
-                 tables: bool = True):
+                 tables: Union[bool, Sequence[np.ndarray]] = True):
         super().__init__()
         cfg.validate()
         if cfg.interaction_op not in ("dot", "cat"):
@@ -61,11 +65,18 @@ class DLRM(nn.Module):
         self.bot = _mlp(cfg.mlp_bot, rng, dtype)
         self.top = _mlp(cfg.mlp_top, rng, dtype)
         self.tables = nn.ParameterList()
-        if tables:
-            for t in init_embedding_tables(cfg.table_sizes,
-                                           cfg.embedding_dim, rng):
-                self.tables.append(nn.Parameter(
-                    torch.from_numpy(t).to(dtype), requires_grad=False))
+        if tables is True:
+            tables = init_embedding_tables(cfg.table_sizes,
+                                           cfg.embedding_dim, rng)
+        elif tables is False:
+            tables = []
+        elif [np.shape(t) for t in tables] != [
+                (n, cfg.embedding_dim) for n in cfg.table_sizes]:
+            raise ValueError("the tables' shapes do not match the config")
+        for t in tables:
+            self.tables.append(nn.Parameter(
+                torch.from_numpy(t).to(device=dev, dtype=dtype, copy=True),
+                requires_grad=False))
         self.to(dev)
 
     def _apply_mlp(self, layers: nn.ModuleList, x: torch.Tensor,
@@ -86,7 +97,7 @@ class DLRM(nn.Module):
     def interact(self, x: torch.Tensor, ly: torch.Tensor) -> torch.Tensor:
         if self.cfg.interaction_op == "cat":
             return cat_interaction(x, ly)
-        dot = (dot_interaction_kernel if self.cfg.use_interaction_kernel
+        dot = (DotInteraction.apply if self.cfg.use_interaction_kernel
                else dot_interaction)
         return dot(x.contiguous(), ly.contiguous(),
                    self.cfg.interaction_itself)
@@ -114,3 +125,21 @@ class DLRM(nn.Module):
             p = p.clamp(self.cfg.loss_threshold,
                         1.0 - self.cfg.loss_threshold)
         return p
+
+
+def dlrm_loss(logits: torch.Tensor, targets: torch.Tensor,
+              loss_function: str = "bce",
+              loss_weights=(1.0, 1.0)) -> torch.Tensor:
+    """BCE (with logits, the same math as the reference's sigmoid +
+    nn.BCELoss), MSE, or weighted BCE (dlrm_s_pytorch.py:297-312,150-167)."""
+    t = targets.float()
+    if loss_function == "mse":
+        return torch.mean((torch.sigmoid(logits) - t) ** 2)
+    if loss_function not in ("bce", "wbce"):
+        raise ValueError(f"unsupported loss function {loss_function}")
+    # log-sigmoid BCE
+    per = -(t * F.logsigmoid(logits) + (1.0 - t) * F.logsigmoid(-logits))
+    if loss_function == "wbce":
+        w = torch.where(t > 0.5, loss_weights[1], loss_weights[0])
+        return torch.sum(w * per) / torch.sum(w)
+    return torch.mean(per)

@@ -1,10 +1,15 @@
-"""The dot interaction through the CUDA kernel `csrc/interaction_fwd.cu`.
+"""The dot interaction and its VJP through the CUDA kernels
+`csrc/interaction_fwd.cu` and `csrc/interaction_bwd.cu`.
 
-Port of the TPU kernel `evstore_tpu/ops/pallas_interaction.py::
-_blocked_fwd_kernel`.  The wrapper launches the kernel for a CUDA tensor and
-takes the plain version (`dot_interaction_ref`) only for a CPU tensor; any
-other device, dtype or shape it cannot take raises.  Unlike the TPU kernel,
-it takes any batch size and widths up to 128.
+Ports of the TPU kernels `evstore_tpu/ops/pallas_interaction.py::
+_blocked_fwd_kernel` and `_blocked_bwd_kernel`.  Each wrapper launches its
+kernel for CUDA tensors and takes its plain version (`dot_interaction_ref`,
+`dot_interaction_bwd_ref`) only for CPU tensors; any other device, dtype or
+shape it cannot take raises.  Unlike the TPU kernels, they take any batch
+size and widths up to 128.  `DotInteraction` is the autograd Function whose
+forward is the one kernel and whose backward is the other.  Its backward is
+the true VJP: a self-interaction pair carries twice its cotangent, where the
+TPU backward kernel carries it once.
 """
 
 from __future__ import annotations
@@ -12,10 +17,12 @@ from __future__ import annotations
 import torch
 
 from evstore_tpu_torch import _build
-from evstore_tpu_torch.ops.interaction import dot_interaction, num_pairs
+from evstore_tpu_torch.ops.interaction import (dot_interaction,
+                                               dot_interaction_bwd, num_pairs)
 
-# the plain version the kernel is held to
+# the plain versions the kernels are held to
 dot_interaction_ref = dot_interaction
+dot_interaction_bwd_ref = dot_interaction_bwd
 
 MAX_DIM = 128
 # shared memory a block stages (static launch limit, no opt-in needed)
@@ -23,50 +30,70 @@ _SMEM_BYTES = 48 * 1024
 _MAX_SAMPLES_PER_BLOCK = 8
 
 
-def samples_per_block(num_features: int, dim: int) -> int:
+def _odd(n: int) -> int:
+    """A row stride of odd length, so that rows start in distinct banks."""
+    return n + 1 if n % 2 == 0 else n
+
+
+def _sample_bytes(num_features: int, dim: int, backward: bool) -> int:
+    """Shared memory one sample takes: the forward stages the F x D
+    features, the backward also the F x F cotangent (f32, odd strides)."""
+    row = _odd(dim) + (_odd(num_features) if backward else 0)
+    return num_features * row * 4
+
+
+def samples_per_block(num_features: int, dim: int,
+                      backward: bool = False) -> int:
     """Samples one block stages: as many as fit, at most 8."""
-    row = (dim + 1 if dim % 2 == 0 else dim) * 4    # padded f32 row
-    return max(1, min(_MAX_SAMPLES_PER_BLOCK,
-                      _SMEM_BYTES // (num_features * row)))
+    return max(1, min(_MAX_SAMPLES_PER_BLOCK, _SMEM_BYTES // _sample_bytes(
+        num_features, dim, backward)))
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (the plain version runs); True for tensors on
+    one CUDA device that the kernel takes; raises otherwise."""
+    x, ly = tensors[0], tensors[1]
+    if all(t.device.type == "cpu" for t in tensors):
+        return False
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: tensors on "
+                         f"{[str(t.device) for t in tensors]}; all must be "
+                         "on one CUDA device (or all on the CPU)")
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            any(t.dtype != x.dtype for t in tensors):
+        raise TypeError(f"{name} takes float32 or bfloat16, got "
+                        f"{[t.dtype for t in tensors]}")
+    if x.dim() != 2 or ly.dim() != 3 or ly.shape[0] != x.shape[0] \
+            or ly.shape[2] != x.shape[1]:
+        raise ValueError(f"shapes x {tuple(x.shape)}, ly {tuple(ly.shape)}: "
+                         "expected [B, D] and [B, T, D]")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    D, T = x.shape[1], ly.shape[1]
+    if not 1 <= D <= MAX_DIM or T < 1:
+        raise ValueError(f"{name} takes 1 <= D <= {MAX_DIM} and T >= 1, got "
+                         f"D={D}, T={T}")
+    if _sample_bytes(T + 1, D, len(tensors) > 2) > _SMEM_BYTES:
+        raise ValueError(f"{T + 1} features of width {D} exceed one block's "
+                         "shared memory")
+    return True
 
 
 def dot_interaction_kernel(x: torch.Tensor, ly: torch.Tensor,
                            self_interaction: bool = False) -> torch.Tensor:
     """x [B, D], ly [B, T, D] (f32 or bf16) -> [B, D + P]."""
-    if x.device.type == "cpu" and ly.device.type == "cpu":
+    if not _on_card("dot_interaction_kernel", x, ly):
         return dot_interaction_ref(x, ly, self_interaction)
-    if x.device.type != "cuda" or ly.device != x.device:
-        raise ValueError(f"dot_interaction_kernel: x on {x.device}, ly on "
-                         f"{ly.device}; both must be on one CUDA device "
-                         "(or both on the CPU)")
-    if x.dtype not in (torch.float32, torch.bfloat16) or ly.dtype != x.dtype:
-        raise TypeError(f"dot_interaction_kernel takes float32 or bfloat16, "
-                        f"got {x.dtype} and {ly.dtype}")
-    if x.dim() != 2 or ly.dim() != 3 or ly.shape[0] != x.shape[0] \
-            or ly.shape[2] != x.shape[1]:
-        raise ValueError(f"shapes x {tuple(x.shape)}, ly {tuple(ly.shape)}: "
-                         "expected [B, D] and [B, T, D]")
-    if not (x.is_contiguous() and ly.is_contiguous()):
-        raise ValueError("dot_interaction_kernel takes contiguous tensors")
     B, D = x.shape
     T = ly.shape[1]
-    F = T + 1
-    if not 1 <= D <= MAX_DIM or T < 1:
-        raise ValueError(f"dot_interaction_kernel takes 1 <= D <= {MAX_DIM} "
-                         f"and T >= 1, got D={D}, T={T}")
-    dp = D + 1 if D % 2 == 0 else D
-    if F * dp * 4 > _SMEM_BYTES:
-        raise ValueError(f"{F} features of width {D} exceed one block's "
-                         "shared memory")
-    out = torch.empty((B, D + num_pairs(F, self_interaction)),
+    out = torch.empty((B, D + num_pairs(T + 1, self_interaction)),
                       dtype=x.dtype, device=x.device)
     if B == 0:
         return out
-    lib = _build.library()
-    rc = lib.interaction_fwd(
+    rc = _build.library().interaction_fwd(
         x.data_ptr(), ly.data_ptr(), out.data_ptr(), B, T, D,
         int(bool(self_interaction)), int(x.dtype == torch.bfloat16),
-        samples_per_block(F, D), x.device.index,
+        samples_per_block(T + 1, D), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "interaction_fwd")
     dot_interaction_kernel.launches += 1
@@ -74,3 +101,52 @@ def dot_interaction_kernel(x: torch.Tensor, ly: torch.Tensor,
 
 
 dot_interaction_kernel.launches = 0
+
+
+def dot_interaction_bwd_kernel(x: torch.Tensor, ly: torch.Tensor,
+                               g: torch.Tensor,
+                               self_interaction: bool = False):
+    """x [B, D], ly [B, T, D], cotangent g [B, D + P] (one dtype, f32 or
+    bf16) -> (dx [B, D], dly [B, T, D])."""
+    if not _on_card("dot_interaction_bwd_kernel", x, ly, g):
+        return dot_interaction_bwd_ref(x, ly, g, self_interaction)
+    B, D = x.shape
+    T = ly.shape[1]
+    if tuple(g.shape) != (B, D + num_pairs(T + 1, self_interaction)):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match the "
+                         f"output of x {tuple(x.shape)}, ly "
+                         f"{tuple(ly.shape)}")
+    dx = torch.empty_like(x)
+    dly = torch.empty_like(ly)
+    if B == 0:
+        return dx, dly
+    rc = _build.library().interaction_bwd(
+        x.data_ptr(), ly.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dly.data_ptr(), B, T, D, int(bool(self_interaction)),
+        int(x.dtype == torch.bfloat16),
+        samples_per_block(T + 1, D, backward=True), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "interaction_bwd")
+    dot_interaction_bwd_kernel.launches += 1
+    return dx, dly
+
+
+dot_interaction_bwd_kernel.launches = 0
+
+
+class DotInteraction(torch.autograd.Function):
+    """`dot_interaction` with the forward kernel and the backward kernel:
+    `DotInteraction.apply(x, ly, self_interaction)`."""
+
+    @staticmethod
+    def forward(ctx, x, ly, self_interaction: bool = False):
+        ctx.self_interaction = bool(self_interaction)
+        ctx.save_for_backward(x, ly)
+        return dot_interaction_kernel(x, ly, self_interaction)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ly = ctx.saved_tensors
+        dx, dly = dot_interaction_bwd_kernel(x, ly, g.contiguous(),
+                                             ctx.self_interaction)
+        return dx, dly, None

@@ -3,8 +3,9 @@
 Port of `evstore_tpu/ops/interaction.py`.  `dot`: stack the bottom-MLP output
 with the embedding rows, take each sample's Gram matrix and keep its lower
 triangle (with the diagonal under `self_interaction`), after the dense
-vector.  `cat`: plain concatenation.  The CUDA kernel for `dot` lives in
-`ops/cuda_interaction.py`; this module is its plain version.
+vector.  `cat`: plain concatenation.  The CUDA kernels for `dot` and its
+VJP live in `ops/cuda_interaction.py`; this module holds their plain
+versions.
 """
 
 from __future__ import annotations
@@ -40,6 +41,28 @@ def dot_interaction(x: torch.Tensor, ly: torch.Tensor,
     flat = gram[:, torch.from_numpy(li).to(x.device),
                 torch.from_numpy(lj).to(x.device)]
     return torch.cat([x, flat.to(x.dtype)], dim=1)
+
+
+def dot_interaction_bwd(x: torch.Tensor, ly: torch.Tensor, g: torch.Tensor,
+                        self_interaction: bool = False):
+    """The VJP of `dot_interaction`: cotangent g [B, D + P] -> (dx [B, D],
+    dly [B, T, D]) in the input dtype.
+
+    The pair cotangents fill the lower triangle dG of a [B, F, F] matrix;
+    dF = (dG + dGᵀ)·F, so an off-diagonal pair reaches (i, j) and (j, i)
+    and a diagonal pair (self_interaction) counts twice.  Every product and
+    sum is float32, and bf16 rounds once, at the end.
+    """
+    B, D = x.shape
+    F = ly.shape[1] + 1
+    feats = torch.cat([x[:, None, :], ly], dim=1).float()      # [B, F, D]
+    li, lj = (torch.from_numpy(a).to(x.device)
+              for a in _tril_indices(F, self_interaction))
+    dG = torch.zeros((B, F, F), dtype=torch.float32, device=x.device)
+    dG[:, li, lj] = g[:, D:].float()
+    dF = torch.bmm(dG + dG.transpose(1, 2), feats)            # [B, F, D]
+    dx = g[:, :D].float() + dF[:, 0]
+    return dx.to(x.dtype), dF[:, 1:].to(ly.dtype)
 
 
 def cat_interaction(x: torch.Tensor, ly: torch.Tensor,

@@ -119,12 +119,14 @@ def test_gather_wrapper_refuses_what_it_cannot_take():
 
 def test_library_name_follows_the_sources():
     srcs = [os.path.basename(s) for s in _build.sources()]
-    assert srcs == ["gather_rows.cu", "interaction_fwd.cu"]
+    assert srcs == ["common.cuh", "gather_rows.cu", "interaction_bwd.cu",
+                    "interaction_fwd.cu", "row_update.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert os.path.basename(path).startswith("libevstore_kernels-")
-    assert set(_build.SIGNATURES) == {"interaction_fwd", "gather_rows"}
+    assert set(_build.SIGNATURES) == {"interaction_fwd", "interaction_bwd",
+                                      "gather_rows", "scatter_sub_sorted"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,11 +1,15 @@
-"""The port's dot interaction (plain version and kernel wrapper) against the
-JAX package's, on the CPU.
+"""The port's dot interaction and its VJP (plain versions, kernel wrappers
+and the autograd Function) against the JAX package's, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
-JAX side runs the Pallas kernel `dot_interaction_blocked` in interpret mode
-and the XLA `dot_interaction`.  On CPU tensors the port's kernel wrapper
-takes its plain version; the CUDA kernel itself is held to that plain
-version on the card by chip_smoke.py.
+JAX side runs the Pallas kernels `dot_interaction_blocked` and
+`_blocked_bwd_impl` in interpret mode, the XLA `dot_interaction` and
+`jax.vjp` of it.  On CPU tensors the port's kernel wrappers take their plain
+versions; the CUDA kernels themselves are held to those plain versions on
+the card by chip_smoke.py.  The VJP is held to `jax.vjp` of the XLA form for
+both values of self_interaction, and to the Pallas backward only without
+it: the Pallas backward carries a diagonal pair's cotangent once, half the
+true gradient of f_i . f_i.
 
 Tolerances: float32 |got - ref| <= 1e-5 * (1 + |ref|), the tolerance
 chip_smoke.py holds the CUDA kernel to: the summation order differs, and
@@ -14,20 +18,28 @@ error of a few 1e-6 (1.8e-6 measured against XLA on the CPU);
 bfloat16 one bf16 ulp of the reference plus the same 1e-5 float32
 allowance (the f32 gram is rounded to bf16 once, and a different summation
 order can move it across a rounding boundary; on a result that cancels to
-~5e-5 the f32 summation error alone is 2 bf16 ulps there).
+~5e-5 the f32 summation error alone is 2 bf16 ulps there).  The VJP uses
+the same two rules against the Pallas backward and against a float64 numpy
+VJP of the bf16-rounded inputs, since the port rounds once, at the end.
+Against `jax.vjp` in bf16 it is held to 2^-6 of the sum of the absolute
+terms, plus that rule: XLA's bf16 VJP rounds each of up to four partial
+results (the x row, both operands of the ly gram, the passthrough sum) to
+bf16, each within half an ulp of the largest term.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from evstore_tpu.ops import interaction as jax_inter
-from evstore_tpu.ops.pallas_interaction import dot_interaction_blocked
+from evstore_tpu.ops.pallas_interaction import (_blocked_bwd_impl,
+                                                dot_interaction_blocked)
 from evstore_tpu_torch.ops import interaction as port_inter
-from evstore_tpu_torch.ops.cuda_interaction import (dot_interaction_kernel,
-                                                    dot_interaction_ref,
-                                                    samples_per_block)
+from evstore_tpu_torch.ops.cuda_interaction import (
+    DotInteraction, dot_interaction_bwd_kernel, dot_interaction_bwd_ref,
+    dot_interaction_kernel, dot_interaction_ref, samples_per_block)
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -102,6 +114,7 @@ def test_tril_order_matches_jax(F, self_interaction):
 
 def test_plain_version_is_the_reference():
     assert dot_interaction_ref is port_inter.dot_interaction
+    assert dot_interaction_bwd_ref is port_inter.dot_interaction_bwd
 
 
 @pytest.mark.parametrize("F,D,expected", [(27, 36, 8), (27, 64, 7),
@@ -113,6 +126,16 @@ def test_samples_per_block_fits_shared_memory(F, D, expected):
     assert spb * F * padded * 4 <= 48 * 1024
 
 
+@pytest.mark.parametrize("F,D,expected", [(27, 36, 7), (27, 64, 4),
+                                          (27, 128, 2), (4, 4, 8)])
+def test_backward_samples_per_block_fits_shared_memory(F, D, expected):
+    """The backward stages the F x D features and the F x F cotangent."""
+    spb = samples_per_block(F, D, backward=True)
+    assert spb == expected
+    odd = (lambda n: n + 1 if n % 2 == 0 else n)
+    assert spb * F * (odd(D) + odd(F)) * 4 <= 48 * 1024
+
+
 def test_kernel_wrapper_refuses_what_it_cannot_take():
     x = torch.zeros(4, 8, device="meta")
     ly = torch.zeros(4, 3, 8, device="meta")
@@ -120,3 +143,96 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         dot_interaction_kernel(x, ly)
     with pytest.raises(ValueError, match="CUDA device"):
         dot_interaction_kernel(torch.zeros(4, 8), ly)
+    g = torch.zeros(4, 8 + 6, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        dot_interaction_bwd_kernel(x, ly, g)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dot_interaction_bwd_kernel(torch.zeros(4, 8), torch.zeros(4, 3, 8),
+                                   g)
+
+
+def _bwd_inputs(B, T, D, dtype, self_interaction, seed=0):
+    jx, jly, tx, tly = _inputs(B, T, D, dtype, seed)
+    P = port_inter.num_pairs(T + 1, self_interaction)
+    g = np.random.default_rng(seed + 100).normal(size=(B, D + P))
+    jg = jnp.asarray(g.astype(np.float32), JAX_DT[dtype])
+    tg = torch.from_numpy(g.astype(np.float32)).to(TORCH_DT[dtype])
+    return jx, jly, jg, tx, tly, tg
+
+
+def _port_vjps(tx, tly, tg, self_interaction):
+    """(dx, dly) of the plain version, the kernel wrapper and the autograd
+    Function on the port's side."""
+    a = tx.clone().requires_grad_(True)
+    b = tly.clone().requires_grad_(True)
+    DotInteraction.apply(a, b, self_interaction).backward(tg)
+    return [port_inter.dot_interaction_bwd(tx, tly, tg, self_interaction),
+            dot_interaction_bwd_kernel(tx, tly, tg, self_interaction),
+            (a.grad, b.grad)]
+
+
+def _numpy_vjp(tx, tly, tg, self_interaction):
+    """float64 VJP of the (rounded) inputs, and the sum of the absolute
+    terms of each output."""
+    x, ly, g = (t.double().numpy() for t in (tx, tly, tg))
+    B, D = x.shape
+    F = ly.shape[1] + 1
+    feats = np.concatenate([x[:, None], ly], axis=1)
+    li, lj = port_inter._tril_indices(F, self_interaction)
+    dG = np.zeros((B, F, F))
+    dG[:, li, lj] = g[:, D:]
+    S = dG + dG.transpose(0, 2, 1)
+    dF = S @ feats
+    mag = np.abs(S) @ np.abs(feats)
+    return ((g[:, :D] + dF[:, 0], dF[:, 1:]),
+            (np.abs(g[:, :D]) + mag[:, 0], mag[:, 1:]))
+
+
+@pytest.mark.parametrize("T,D", [(3, 4), (26, 36)])
+@pytest.mark.parametrize("self_interaction", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_interaction_vjp_matches_xla(T, D, self_interaction, dtype):
+    """The plain VJP, the kernel wrapper and the autograd Function against
+    jax.vjp of the XLA dot_interaction (the true VJP, diagonal included)
+    and against a float64 numpy VJP."""
+    jx, jly, jg, tx, tly, tg = _bwd_inputs(16, T, D, dtype, self_interaction)
+    _, vjp = jax.vjp(lambda a, b: jax_inter.dot_interaction(
+        a, b, self_interaction), jx, jly)
+    refs = vjp(jg)
+    exact, terms = _numpy_vjp(tx, tly, tg, self_interaction)
+    for got in _port_vjps(tx, tly, tg, self_interaction):
+        for out, ref, ex, mag in zip(got, refs, exact, terms):
+            assert out.dtype == TORCH_DT[dtype]
+            _assert_close(out, ex.astype(np.float32), dtype)
+            if dtype == "float32":
+                _assert_close(out, ref, dtype)
+            else:
+                ref = np.asarray(jnp.asarray(ref, jnp.float32))
+                mag_r = np.maximum(np.abs(ref), np.float32(2.0 ** -126))
+                ulp = 2.0 ** (np.floor(np.log2(mag_r)) - 7)
+                allow = 2.0 ** -6 * mag + ulp + 1e-5 * (1 + np.abs(ref))
+                assert np.all(np.abs(out.float().numpy() - ref) <= allow)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_interaction_vjp_matches_pallas_backward(dtype):
+    """Without self-interaction, against the Pallas backward kernel in
+    interpret mode."""
+    jx, jly, jg, tx, tly, tg = _bwd_inputs(32, 26, 36, dtype, False, seed=3)
+    refs = _blocked_bwd_impl(jx, jly, jg, False, 16, 4, True)
+    for got in _port_vjps(tx, tly, tg, False):
+        for out, ref in zip(got, refs):
+            _assert_close(out, ref, dtype)
+
+
+def test_self_interaction_diagonal_counts_twice():
+    """d(f . f)/df = 2 f: with only the diagonal pair of feature 0 carrying
+    a cotangent, dx is the passthrough plus 2 g x."""
+    x = torch.tensor([[1.0, 2.0]])
+    ly = torch.tensor([[[3.0, 4.0]]])
+    g = torch.zeros(1, 2 + 3)
+    g[0, :2] = torch.tensor([0.5, -0.5])
+    g[0, 2] = 1.5                     # pair 0 is (0, 0)
+    dx, dly = dot_interaction_bwd_kernel(x, ly, g, True)
+    np.testing.assert_allclose(dx.numpy(), [[0.5 + 3.0, -0.5 + 6.0]])
+    np.testing.assert_allclose(dly.numpy(), [[[0.0, 0.0]]])

@@ -1,0 +1,194 @@
+"""The port's sparse row updates against the JAX package's, on the CPU:
+`rwsadagrad_row_update` (the sorted path through the row-update kernel's
+wrapper, which takes its plain version on the CPU) against the Pallas
+`rwsadagrad_row_update_pallas` in interpret mode and against
+`optim.row_update`; the plain `row_update` of every optimizer; the kernel's
+plain version against numpy; and `dedup_rows`.
+
+Inputs are made with numpy from a seed and handed to both packages.  They
+hold duplicate ids (a Zipf-like head), PAD_ROW entries and bf16 tables.
+
+Tolerances, those of tests/test_pallas_update.py: f32 tables rtol 1e-5,
+atol 1e-6, accumulators rtol 1e-5, atol 1e-7 (the port and the Pallas path
+sum pre-scaled entries, row_update scales the sum: they agree only to
+rounding); bf16 tables within one bf16 ulp of the reference plus rtol 1e-4
+(the f32 result rounds to bf16 once, and a rounding difference can cross a
+bf16 rounding boundary).  The plain row_update, which scales the sum as
+JAX does, is held to the same f32 tolerances.  dedup_rows is exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from evstore_tpu.ops.pallas_update import rwsadagrad_row_update_pallas
+from evstore_tpu.train import optim as jopt
+from evstore_tpu_torch.ops.cuda_update import (rwsadagrad_row_update,
+                                               scatter_sub_sorted,
+                                               scatter_sub_sorted_ref)
+from evstore_tpu_torch.train import optim as popt
+
+
+def _setup(N=3000, D=36, B=512, seed=0, dup=0.3, n_pad=0, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-0.1, 0.1, (N, D)).astype(np.float32)
+    if dtype == "bfloat16":    # start from values bf16 holds exactly
+        table = np.asarray(jnp.asarray(table, jnp.bfloat16), np.float32)
+    state = rng.uniform(0, 0.01, N).astype(np.float32)
+    ids = np.asarray(rng.integers(0, N, B), np.int32)
+    ids[rng.random(B) < dup] = 7            # heavy duplicates (zipf head)
+    ids[rng.random(B) < dup / 3] = N - 1    # a second run, the last row
+    if n_pad:
+        ids[rng.choice(B, n_pad, replace=False)] = jopt.PAD_ROW
+    g = rng.normal(0, 1e-2, (B, D)).astype(np.float32)
+    return table, state, ids, g
+
+
+def _port(table, state, ids, g, dtype):
+    tdt = getattr(torch, dtype)
+    return (torch.from_numpy(table).to(tdt), torch.from_numpy(state.copy()),
+            torch.from_numpy(ids), torch.from_numpy(g))
+
+
+def _assert_table(got: torch.Tensor, ref, dtype):
+    got = got.float().numpy()
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    else:
+        mag = np.maximum(np.abs(ref), np.float32(2.0 ** -126))
+        ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+        excess = np.abs(got - ref) - (ulp + 1e-4 * np.abs(ref))
+        assert np.all(excess <= 0), float(np.max(excess))
+
+
+@pytest.mark.parametrize("dtype,n_pad", [("float32", 0), ("float32", 5),
+                                         ("bfloat16", 5)])
+def test_rwsadagrad_row_update_matches_pallas(dtype, n_pad):
+    table, state, ids, g = _setup(n_pad=n_pad, dtype=dtype)
+    jdt = getattr(jnp, dtype)
+    ref_s, ref_t = rwsadagrad_row_update_pallas(
+        jnp.asarray(state), jnp.asarray(table, jdt), jnp.asarray(ids),
+        jnp.asarray(g), 0.1, tile_rows=512, interpret=True)
+    t, s, i, gr = _port(table, state, ids, g, dtype)
+    new_s, new_t = rwsadagrad_row_update(s, t, i, gr, 0.1)
+    assert new_t is t and new_s is s          # in place
+    assert new_t.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(new_s.numpy(), np.asarray(ref_s), rtol=1e-5,
+                               atol=1e-7)
+    _assert_table(new_t, ref_t, dtype)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("n_pad", [0, 5])
+def test_rwsadagrad_matches_jax_row_update(use_kernel, n_pad):
+    """Both of the port's rwsadagrad paths against JAX's row_update (its
+    dense-grad lowering at this size)."""
+    table, state, ids, g = _setup(N=2000, B=1024, seed=1, n_pad=n_pad)
+    ref_s, ref_t = jopt.row_update("rwsadagrad", jnp.asarray(state),
+                                   jnp.asarray(table), jnp.asarray(ids),
+                                   jnp.asarray(g), 0.1)
+    t, s, i, gr = _port(table, state, ids, g, "float32")
+    popt.row_update("rwsadagrad", s, t, i, gr, 0.1, use_kernel=use_kernel)
+    np.testing.assert_allclose(s.numpy(), np.asarray(ref_s), rtol=1e-5,
+                               atol=1e-7)
+    _assert_table(t, ref_t, "float32")
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adagrad"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_row_update_matches_jax(opt, dtype):
+    table, state, ids, g = _setup(N=2000, B=1024, seed=2, n_pad=7,
+                                  dtype=dtype)
+    jdt = getattr(jnp, dtype)
+    st = None if opt == "sgd" else np.zeros_like(table) + 0.01
+    ref_s, ref_t = jopt.row_update(
+        opt, None if st is None else jnp.asarray(st),
+        jnp.asarray(table, jdt), jnp.asarray(ids), jnp.asarray(g), 0.1)
+    t, _, i, gr = _port(table, state, ids, g, dtype)
+    s = None if st is None else torch.from_numpy(st.copy())
+    popt.row_update(opt, s, t, i, gr, 0.1)
+    if s is not None:
+        np.testing.assert_allclose(s.numpy(), np.asarray(ref_s), rtol=1e-5,
+                                   atol=1e-7)
+    _assert_table(t, ref_t, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_sub_sorted_semantics(dtype):
+    """table[r] -= the sum of r's run, for r in [0, N); negative ids,
+    PAD_ROW and ids >= N are inert; rows outside the batch are unchanged."""
+    N, D = 50, 5
+    rng = np.random.default_rng(3)
+    tdt = getattr(torch, dtype)
+    # start from values the table's dtype holds exactly
+    table = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)
+                             ).to(tdt).float().numpy()
+    ids = np.sort(np.concatenate([
+        rng.integers(0, N, 40), [3, 3, 3, 49, 49, -4, -1, N, N + 7,
+                                 jopt.PAD_ROW, jopt.PAD_ROW]])
+                  ).astype(np.int32)
+    vals = rng.normal(size=(ids.size, D)).astype(np.float32)
+    ref = table.astype(np.float64)
+    for r, v in zip(ids, vals):
+        if 0 <= r < N:
+            ref[r] -= v
+    t = torch.from_numpy(table).to(tdt)
+    before = t.clone()
+    out = scatter_sub_sorted(t, torch.from_numpy(ids), torch.from_numpy(vals))
+    assert out is t
+    touched = np.zeros(N, bool)
+    touched[ids[(ids >= 0) & (ids < N)]] = True
+    assert torch.equal(t[~torch.from_numpy(touched)],
+                       before[~torch.from_numpy(touched)])
+    ref_t = torch.from_numpy(ref.astype(np.float32)).to(tdt)
+    _assert_table(t, ref_t.float().numpy(), dtype)
+    empty = scatter_sub_sorted_ref(t.clone(), torch.zeros(0, dtype=torch.int32),
+                                   torch.zeros(0, D))
+    assert torch.equal(empty, t)
+
+
+def test_dedup_rows_matches_jax():
+    idx = np.asarray([3, 1, 3, 7, jopt.PAD_ROW, 1, 7, 7], np.int32)
+    g = np.arange(16, dtype=np.float32).reshape(8, 2)
+    juniq, jsum, jvalid = jopt.dedup_rows(jnp.asarray(idx), jnp.asarray(g), 8)
+    keep = np.asarray(jvalid) > 0
+    uniq, summed = popt.dedup_rows(torch.from_numpy(idx),
+                                   torch.from_numpy(g), 10)
+    np.testing.assert_array_equal(uniq.numpy(), np.asarray(juniq)[keep])
+    np.testing.assert_array_equal(summed.numpy(), np.asarray(jsum)[keep])
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adagrad", "rwsadagrad"])
+def test_dense_update_matches_jax(opt):
+    jinit, jdense, _ = jopt.make_optimizer(opt)
+    rng = np.random.default_rng(4)
+    p = rng.normal(size=(6, 3)).astype(np.float32)
+    g = rng.normal(size=(6, 3)).astype(np.float32)
+    s = rng.random((6, 3)).astype(np.float32)
+    js = {} if opt == "sgd" else {"w": jnp.asarray(s)}
+    js2, jp2 = jdense(js, {"w": jnp.asarray(p)}, {"w": jnp.asarray(g)}, 0.1)
+    param = torch.nn.Parameter(torch.from_numpy(p.copy()))
+    param.grad = torch.from_numpy(g)
+    ps = {} if opt == "sgd" else {"w": torch.from_numpy(s.copy())}
+    popt.make_optimizer(opt)[1](ps, {"w": param}, 0.1)
+    np.testing.assert_allclose(param.detach().numpy(), np.asarray(jp2["w"]),
+                               rtol=1e-6, atol=1e-7)
+    if opt != "sgd":
+        np.testing.assert_allclose(ps["w"].numpy(), np.asarray(js2["w"]),
+                                   rtol=1e-6)
+
+
+def test_pad_row_is_the_jax_sentinel():
+    assert popt.PAD_ROW == int(jopt.PAD_ROW)
+
+
+def test_update_wrapper_refuses_what_it_cannot_take():
+    t = torch.zeros(4, 8, device="meta")
+    rows = torch.zeros(3, dtype=torch.int32, device="meta")
+    vals = torch.zeros(3, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        scatter_sub_sorted(t, rows, vals)
+    with pytest.raises(ValueError, match="CUDA device"):
+        scatter_sub_sorted(torch.zeros(4, 8), rows, torch.zeros(3, 8))
