@@ -115,10 +115,10 @@ class TrainConfig:
     reads (reference flags dlrm_s_pytorch.py:952-1018), with the same names
     and defaults.  `pack_gather` is not ported: the packed [N/P, P*D] table
     layout is a TPU lowering of the row gather, and the port's gather kernel
-    reads the logical [N, D] layout directly."""
+    reads the logical [N, D] layout directly.  `batch_size` and
+    `test_batch_size` come with the training driver that makes batches;
+    `train` and `evaluate` take the size of the batches they are given."""
 
-    batch_size: int = 128
-    test_batch_size: int = 128
     learning_rate: float = 0.1
     optimizer: str = "sgd"                 # sgd | adagrad | rwsadagrad
     loss_function: str = "bce"             # bce | mse | wbce

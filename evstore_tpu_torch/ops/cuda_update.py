@@ -12,7 +12,10 @@ kernel touches only the rows in the batch.
 ids, sum each sorted segment, update the row accumulators, pre-scale each
 entry by lr / (sqrt(state_row) + eps) and apply with the kernel.  It never
 waits for the device: every buffer is sized by the batch, not by the number
-of distinct ids.  The table and the state are updated in place.
+of distinct ids.  The table and the state are updated in place.  The kernel
+sums each run in a fixed order; the segment sums that feed the accumulators
+come from `index_add_`, whose atomics on the card add in any order, so the
+accumulators and the per-row scale agree between runs only to rounding.
 """
 
 from __future__ import annotations
@@ -108,6 +111,7 @@ def rwsadagrad_row_update(state: torch.Tensor, table: torch.Tensor,
     seg_at = torch.where(valid, seg_row, 0)                   # adds 0 there
     st_rows = state[seg_at] + inc
     state.index_add_(0, seg_at, inc)
-    scale = lr / (torch.sqrt(st_rows) + eps)                  # per segment
+    # per segment; 0 for inert ids, whose entries the kernel skips anyway
+    scale = torch.where(valid, lr / (torch.sqrt(st_rows) + eps), 0.0)
     scatter_sub_sorted(table, rows_sorted, g_sorted * scale[seg][:, None])
     return state, table

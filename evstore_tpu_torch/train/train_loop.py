@@ -122,12 +122,11 @@ def make_eval_step(cfg: DLRMConfig):
     return eval_step
 
 
-def evaluate(model: DLRM, cfg: DLRMConfig, batches: Iterable,
-             eval_step=None) -> Dict[str, float]:
+def evaluate(model: DLRM, cfg: DLRMConfig, batches: Iterable
+             ) -> Dict[str, float]:
     """Run inference over batches and compute the reference's metric block
     (dlrm_s_pytorch.py:760-866)."""
-    if eval_step is None:
-        eval_step = make_eval_step(cfg)
+    eval_step = make_eval_step(cfg)
     scores, labels = [], []
     for batch in batches:
         dense_x, idx, y = unpack_batch(batch)

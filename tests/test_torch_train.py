@@ -14,11 +14,15 @@ TF32 off; the summation order of the gradients differs between XLA and
 PyTorch, and rwsadagrad's kernel path scales each entry before summing
 where JAX scales the sum.  The LR policy and the conversions are exact.
 The full-width kernel-vs-plain test holds each step, taken from one shared
-state, to chip_smoke.py phase 3b's rule: losses rtol 1e-5, every tensor
-|d| <= 1e-4 (1 + |ref|).  A shared state per step, because over several
-steps rwsadagrad lets the two paths drift apart: it divides each update by
-the gradient's own norm, so a rounding difference in a small, cancelling
-gradient becomes a weight difference of up to lr.
+state, to chip_smoke.py phase 3b's rule: losses rtol 1e-5, MLP weights and
+tables |d| <= 1e-4 (1 + |ref|), accumulators |d| <= 1e-4 (|ref| + the mean
+magnitude of their nonzero entries).  A shared state per step, because at
+this size (tables cut to 3,000 rows, so ids repeat far more often than in
+the full tables) five compounded steps let the rounding differences of the
+two row updates grow past that rule in the top MLP: adagrad divides each
+update by the gradient's own accumulated norm, and a small weight change
+can flip a ReLU.  chip_smoke.py phase 3b holds the full-size model to the
+rule over five compounded steps as well.
 """
 
 import dataclasses
@@ -83,7 +87,7 @@ def test_train_step_matches_jax(opt, kernels):
     cj, cp, params, model = _models(seed=1, **kw)
     lr = 0.3 if opt == "sgd" else 0.1
     tj = jcfg.TrainConfig(batch_size=32, learning_rate=lr, optimizer=opt)
-    tp = pcfg.TrainConfig(batch_size=32, learning_rate=lr, optimizer=opt,
+    tp = pcfg.TrainConfig(learning_rate=lr, optimizer=opt,
                           use_update_kernel=kernels == "on")
     jstep = jax.jit(jloop.make_train_step(cj, tj))
     pstep = make_train_step(cp, tp)
@@ -133,8 +137,7 @@ def test_kernel_and_plain_paths_agree_per_step_at_full_width():
     sizes = tuple(min(s, 3000) for s in pcfg.KAGGLE_TABLE_SIZES)
     cfg = pcfg.make_dlrm_config(36, sizes, (512, 256, 64), (512, 256))
     off = dataclasses.replace(cfg, **KERNELS_OFF)
-    tcfg = pcfg.TrainConfig(batch_size=128, learning_rate=0.1,
-                            optimizer="rwsadagrad")
+    tcfg = pcfg.TrainConfig(learning_rate=0.1, optimizer="rwsadagrad")
     off_t = dataclasses.replace(tcfg, use_update_kernel=False)
     model, plain = DLRM(cfg, device="cpu"), DLRM(off, device="cpu")
     sk, sp = init_opt_state(model, tcfg), init_opt_state(plain, off_t)
@@ -146,10 +149,19 @@ def test_kernel_and_plain_paths_agree_per_step_at_full_width():
                 getattr(sp, part)[k].copy_(v)
         lk, lp = fk(model, sk, dense, idx, y), fp(plain, sp, dense, idx, y)
         np.testing.assert_allclose(float(lk), float(lp), rtol=1e-5)
-        got = {**model.state_dict(), **sk.dense, **sk.sparse}
-        ref = {**plain.state_dict(), **sp.dense, **sp.sparse}
+        got, ref = model.state_dict(), plain.state_dict()
         for k, v in ref.items():
             assert torch.all((got[k] - v).abs() <= 1e-4 * (1 + v.abs())), k
+        # the accumulators, relative to their own size: their entries are
+        # sums of squared gradients, whose scale differs by orders of
+        # magnitude between tensors
+        for part in ("dense", "sparse"):
+            for k, v in getattr(sp, part).items():
+                a = getattr(sk, part)[k]
+                scale = v[v != 0].abs().mean() if bool((v != 0).any()) \
+                    else torch.tensor(0.0)
+                assert torch.all((a - v).abs()
+                                 <= 1e-4 * (v.abs() + scale)), f"acc {k}"
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adagrad", "rwsadagrad"])
@@ -221,7 +233,7 @@ def test_train_then_evaluate_learns():
     learnable batches; then `evaluate` on a held-out stream of the same
     hidden model, and on the training stream."""
     cfg, dcfg = _learnable()
-    tcfg = pcfg.TrainConfig(batch_size=128, learning_rate=0.2,
+    tcfg = pcfg.TrainConfig(learning_rate=0.2,
                             optimizer="rwsadagrad", print_freq=20)
     model = DLRM(cfg, device="cpu", seed=1)
     logged = []
