@@ -9,17 +9,30 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
 
 0. environment: the card's name and power limit (nvidia-smi), torch and
    nvcc versions, the TF32 switches (off);
-1. build: one nvcc call compiles every kernel of the port (or reuses the
-   library built from the same sources);
+1. build: one nvcc per source compiles the port's kernels, all at once,
+   while g++ builds the port's copy of the C++ tier engine beside them (or
+   reuses the libraries built from the same sources);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes and larger ones, with times (CUDA events, median
    of 20 after warm-up) beside the least time the card could take;
 3. the serving path: the full-width Criteo Kaggle DLRM (26 tables, 33.8M
-   rows, dim 36) served through the device C1 cache (EvLFU, 64,000 entries)
-   by `run_inference`, with the tables in host RAM and random weights from
-   --seed; the kernels' launch counts over this phase must be above 0, the
-   cache's rows must equal the store's bit for bit and the scores must equal
-   those of the plain versions;
+   rows, dim 36) served by `run_inference` through the tier engine's
+   device C1 cache (`NativeDeviceC1Cache`, EvLFU, 64,000 fp32 entries),
+   with the tables in host RAM and random weights from --seed, warmed up
+   until C1 is full and then scored over 64 batches of 2048, once with
+   `pipeline_depth` 0 and once with 2, which must give the same scores and
+   cache stats; the kernels' launch counts over the first run must be
+   above 0, the cache's rows must equal the store's bit for bit and the
+   scores must equal those of the plain versions; then the Python
+   `DeviceC1Cache` at fp32 and at int8 for a few batches, held to the
+   store's rows and to their int8 round trip;
+3c. the published three-tier configuration (int8 C1, 4-bit C2, alt-key C3,
+   48-48-4, 75,425 entries), warmed up until all three tiers are full
+   and then scored over 64 batches through `run_inference` with
+   `pipeline_depth` 2: the int8 gather's launch count must be above 0, C2
+   and C3 must be live, and one more batch's int8 rows must equal the
+   plain version's on the same cache state and miss buffer, on the int8
+   grid;
 3b. the training path: the same model with phase 3's tables on the card,
    trained at the reference recipe's batch of 128 and lr 0.1 by
    `make_train_step` and `train` (rwsadagrad, then sgd), with steps/s and a
@@ -30,6 +43,9 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    must be above 0;
 4. the kernels' launch counts and one JSON line describing every kernel;
 5. as the last line: {"ok": true, "device": {...}}.
+
+Each serving phase closes its caches, and so their engines (each holds a
+copy of the 4.86 GB of tables), before the next one starts.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -47,9 +63,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-PHASE_BUDGET_S = {"0 environment": 60, "1 build": 240,
-                  "2 kernels vs plain": 240, "3 main path": 300,
-                  "3b train": 300, "4 kernels line": 30}
+PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
+                  "2 kernels vs plain": 150, "3 main path": 200,
+                  "3c three tiers int8": 200, "3b train": 240,
+                  "4 kernels line": 30}
 
 
 class Phase:
@@ -142,22 +159,30 @@ def main() -> int:
     import numpy as np
     import torch
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from evstore_tpu_torch import _build
+    from evstore_tpu_torch.cache.device_cache import DeviceC1Cache
     from evstore_tpu_torch.cache.storage import StorageManager
+    from evstore_tpu_torch.cache.tiers import AltKeyResolver
     from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
                                           kaggle_dlrm_config)
     from evstore_tpu_torch.data.synthetic import (RandomDataConfig,
                                                   random_batches)
-    from evstore_tpu_torch.drivers.infer import run_inference
+    from evstore_tpu_torch.drivers.infer import build_cache, run_inference
     from evstore_tpu_torch.models.dlrm import DLRM
     from evstore_tpu_torch.models.embedding import init_embedding_tables
-    from evstore_tpu_torch.ops.cuda_gather import gather_rows, gather_rows_ref
+    from evstore_tpu_torch.native import build as engine_build
+    from evstore_tpu_torch.ops.cuda_gather import (
+        gather_rows, gather_rows_dequant_int8, gather_rows_dequant_int8_ref,
+        gather_rows_ref)
     from evstore_tpu_torch.ops.cuda_interaction import (
         dot_interaction_bwd_kernel, dot_interaction_bwd_ref,
         dot_interaction_kernel, dot_interaction_ref)
     from evstore_tpu_torch.ops.cuda_update import (scatter_sub_sorted,
                                                    scatter_sub_sorted_ref)
     from evstore_tpu_torch.ops.interaction import num_pairs
+    from evstore_tpu_torch.ops.quant import dequantize_int8, np_quantize_int8
     from evstore_tpu_torch.train.optim import PAD_ROW, dense_parameters
     from evstore_tpu_torch.train.train_loop import (evaluate, init_opt_state,
                                                     make_train_step, train)
@@ -192,13 +217,26 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1 build
     with Phase("1 build"):
-        t0 = time.perf_counter()
-        fresh = not os.path.exists(_build.library_path())
-        path = _build.build()
+        # nvcc (the kernels) and g++ (the tier engine) run side by side
+        def timed(build, path):
+            fresh = not os.path.exists(path)
+            t0 = time.perf_counter()
+            build()
+            return fresh, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            k_fut = ex.submit(timed, _build.build, _build.library_path())
+            e_fut = ex.submit(timed, engine_build.build,
+                              engine_build.library_path())
+            (k_fresh, k_s), (e_fresh, e_s) = k_fut.result(), e_fut.result()
+        path = _build.library_path()
         _build.library()
         print(f"kernel library {os.path.relpath(path)} "
-              f"({'built' if fresh else 'reused'} in "
-              f"{time.perf_counter() - t0:.2f} s, one nvcc call)")
+              f"({'built' if k_fresh else 'reused'} in {k_s:.2f} s, one "
+              f"nvcc per source side by side, then a link)")
+        print(f"tier engine {os.path.relpath(engine_build.library_path())} "
+              f"({'built' if e_fresh else 'reused'} in {e_s:.2f} s, g++ "
+              f"{' '.join(engine_build.FLAGS)})")
         log = path[:-3] + ".log"
         if os.path.exists(log):
             with open(log) as f:
@@ -212,6 +250,7 @@ def main() -> int:
     wrappers = {"interaction_fwd": dot_interaction_kernel,
                 "interaction_bwd": dot_interaction_bwd_kernel,
                 "gather_rows": gather_rows,
+                "gather_rows_dequant_int8": gather_rows_dequant_int8,
                 "scatter_sub_sorted": scatter_sub_sorted}
 
     def reset_counts():
@@ -342,16 +381,59 @@ def main() -> int:
                         bound_by=by, library_ms=l_ms)
 
         report["gather_rows"] = k2_case(
-            64000, 512, 2048 * 26, 36, "float32",
-            "cache 64000x36 + buffer 512, R=2048*26 f32")
-        k2_case(64000, 512, 65536 * 26, 36, "float32",
-                "cache 64000x36 + buffer 512, R=65536*26 f32")
+            64000, 4096, 2048 * 26, 36, "float32",
+            "cache 64000x36 + buffer 4096, R=2048*26 f32")
+        k2_case(64000, 4096, 65536 * 26, 36, "float32",
+                "cache 64000x36 + buffer 4096, R=65536*26 f32")
         k2_case(10131227, 0, 128, 36, "float32",
                 "table 10131227x36, R=128 f32 (one training step's gather)")
         k2_case(10131227, 0, 65536, 36, "float32",
                 "table 10131227x36, R=65536 f32")
-        k2_case(64000, 512, 2048 * 26, 36, "bfloat16",
-                "cache 64000x36 + buffer 512, R=2048*26 bf16 (4-byte path)")
+        k2_case(64000, 4096, 2048 * 26, 36, "bfloat16",
+                "cache 64000x36 + buffer 4096, R=2048*26 bf16 (4-byte path)")
+        torch.cuda.empty_cache()
+
+        # K3: bit for bit (IEEE division in both); the int8 C1 cache of the
+        # three-tier configuration holds 36,204 rows
+        def k3_case(C, M, R, D, label):
+            cache = torch.randint(0, 256, (C, D), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            buf = torch.randint(0, 256, (M, D), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            idx = torch.randint(0, C + M, (R,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            q = R // 4
+            idx[:q] = idx[q:2 * q]
+            idx[R // 2: R // 2 + M] = torch.arange(C, C + M, device=dev,
+                                                   dtype=torch.int32)
+            got = gather_rows_dequant_int8(cache, idx, buf)
+            ref = gather_rows_dequant_int8_ref(cache, idx, buf)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"gather_rows_dequant_int8 differs at "
+                                     f"{label}")
+            err = float((got - ref).abs().max())
+            uniq = int(torch.unique(idx).numel())
+            bms, by = bound_ms(uniq * D + R * 4 + R * D * 4, 3.0 * R * D,
+                               "float32")
+            k_ms = time_ms(torch,
+                           lambda: gather_rows_dequant_int8(cache, idx, buf))
+            p_ms = time_ms(torch, lambda: gather_rows_dequant_int8_ref(
+                cache, idx, buf))
+            print(f"gather_rows_dequant_int8 {label}: bit-exact, kernel_ms "
+                  f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} "
+                  f"({by}) library_ms none (no single PyTorch call computes "
+                  f"it) [{card}]", flush=True)
+            return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                        bound_by=by, library_ms=None)
+
+        report["gather_rows_dequant_int8"] = k3_case(
+            36204, 4096, 2048 * 26, 36,
+            "cache 36204x36 u8 + buffer 4096, R=2048*26")
+        k3_case(36204, 4096, 65536 * 26, 36,
+                "cache 36204x36 u8 + buffer 4096, R=65536*26")
+        k3_case(36204, 4096, 2048 * 26, 7,
+                "cache 36204x7 u8 + buffer 4096, R=2048*26 (byte path)")
         torch.cuda.empty_cache()
 
         # K5: |d| <= 1e-6 (1 + |ref|) over the whole table (the kernel's
@@ -416,6 +498,58 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 3 main path
+    N_SCORED = 64           # scored batches of 2048 per serving run
+    WARM_CAP = 200          # warm-up batches allowed for the tiers to fill
+
+    def serve_line(label, res, split):
+        """Rates, latency and the host time per scored batch."""
+        n_b = res.latency["count"] // 2048
+        per = {k: 1e3 * v / n_b for k, v in split.items()}
+        batch_ms = 1e3 * res.elapsed_s / n_b
+        print(f"{label} [{card}]: {res.requests} requests in "
+              f"{res.elapsed_s:.3f} s = {res.requests / res.elapsed_s:.1f} "
+              f"requests/s; p50 {res.latency['p50_s'] * 1e6:.2f} us, p99 "
+              f"{res.latency['p99_s'] * 1e6:.2f} us per request (fenced "
+              f"batch time / 2048)", flush=True)
+        print(f"  host ms per batch of 2048: {batch_ms:.3f} in all; engine "
+              f"assign {per['assign']:.3f}; pad and quantise "
+              f"{per['pack']:.3f}; wait for the stream's queued work "
+              f"{per['wait']:.3f}; H2D copies and the apply's launches "
+              f"{per['copy']:.3f}; the rest (forward launches and the "
+              f"fenced wait for the device) "
+              f"{batch_ms - sum(per.values()):.3f}"
+              + (" (the lookups ran on the prefetch thread, beside the "
+                 "rest)" if label.endswith("depth 2") else ""))
+
+    def serve_stream():
+        """The request stream of the serving phases, from --seed."""
+        return random_batches(RandomDataConfig(
+            num_dense=cfg.num_dense_features, table_sizes=cfg.table_sizes,
+            batch_size=2048, num_batches=WARM_CAP + N_SCORED + 1,
+            seed=args.seed + 1, distribution="grouped_zipf", zipf_alpha=1.05,
+            group_noise=0.1))
+
+    def warm_up(cache, full):
+        """run_inference's warm-up pass, done here on the stream until
+        `full(cache.stats())` holds, so that the scored batches see the
+        tiers in steady state and the host split counts them only.
+        Returns the warm-up batches, the scored ones and one more."""
+        it = serve_stream()
+        warm = []
+        with torch.inference_mode():
+            for b in it:
+                cache.lookup_batch(b[1])
+                warm.append(b)
+                if full(cache.stats()):
+                    break
+                if len(warm) == WARM_CAP:
+                    raise AssertionError(f"the tiers were not full after "
+                                         f"{WARM_CAP} warm-up batches: "
+                                         f"{cache.stats()}")
+        torch.cuda.synchronize()
+        cache.host_s = dict.fromkeys(cache.host_s, 0.0)
+        return warm, [next(it) for _ in range(N_SCORED)], next(it)
+
     with Phase("3 main path"):
         cfg = kaggle_dlrm_config()
         t0 = time.perf_counter()
@@ -427,30 +561,38 @@ def main() -> int:
         model = DLRM(cfg, device=dev, seed=args.seed, tables=False)
         ccfg = CacheConfig(policy="evlfu", n_caching_layers=1,
                            total_size=64000, main_precision=32)
-        batches = list(random_batches(RandomDataConfig(
-            num_dense=cfg.num_dense_features, table_sizes=cfg.table_sizes,
-            batch_size=2048, num_batches=2 + 8 + 1, seed=args.seed + 1,
-            distribution="grouped_zipf", zipf_alpha=1.05, group_noise=0.1)))
-        warmup, scored, extra = batches[:2], batches[2:10], batches[10]
         print(f"set-up: {len(tables)} tables, "
               f"{sum(cfg.table_sizes)} rows, {host_gb:.2f} GB in host RAM, "
               f"{time.perf_counter() - t0:.2f} s")
 
+        # run 1, pipeline_depth 0, through a cache built here, so that it
+        # can be looked into after the run
+        t0 = time.perf_counter()
+        cache = build_cache(ccfg, cfg, storage, use_device_cache=True,
+                            device=dev)
+        print(f"NativeDeviceC1Cache: engine loaded in "
+              f"{time.perf_counter() - t0:.2f} s")
+        warmup, scored, extra = warm_up(
+            cache, lambda s: s["size"] >= s["capacity"])
+        print(f"warm-up: {len(warmup)} batches of 2048 until C1 held "
+              f"{cache.stats()['size']} of {cache.capacity} entries; "
+              f"{N_SCORED} scored batches follow")
         with tempfile.TemporaryDirectory() as tmp:
             cdf = os.path.join(tmp, "cdf.csv")
             reset_counts()
             res = run_inference(model, cfg, ccfg, scored, storage,
-                                warmup_batches=warmup, cdf_path=cdf,
-                                use_device_cache=True, device=dev)
+                                cdf_path=cdf, use_device_cache=True,
+                                cache=cache, device=dev)
             serve_launches = read_counts()
             with open(cdf) as f:
                 cdf_lines = sum(1 for _ in f)
+        split = dict(cache.host_s)
         serve_launches = {k: serve_launches[k]
                           for k in ("interaction_fwd", "gather_rows")}
         if min(serve_launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{serve_launches}")
-        if res.scores is None or res.scores.shape != (8 * 2048,) or \
+        if res.scores is None or res.scores.shape != (N_SCORED * 2048,) or \
                 not np.isfinite(res.scores).all():
             raise AssertionError("scores missing, misshapen or not finite")
         if cdf_lines < 3:
@@ -460,7 +602,7 @@ def main() -> int:
         # the plain versions (not counted above)
         dense, idx, _ = extra
         with torch.inference_mode():
-            rows = res.cache.lookup_batch(idx)
+            rows = cache.lookup_batch(idx)
             store_rows = torch.from_numpy(np.stack(
                 [tables[t][idx[:, t]] for t in range(cfg.num_tables)],
                 axis=1)).to(dev)
@@ -477,23 +619,153 @@ def main() -> int:
                          <= 1e-5 * (1 + ref.abs())).all()):
                 raise AssertionError(f"scores differ from the plain "
                                      f"versions': max|d| {sdiff}")
+        cache.close()
+        del cache, rows, store_rows
+
+        # run 2, pipeline_depth 2: run_inference builds, warms up and closes
+        # its own cache; the same scores and stats as run 1
+        reset_counts()
+        res2 = run_inference(model, cfg, ccfg, scored, storage,
+                             warmup_batches=warmup, use_device_cache=True,
+                             pipeline_depth=2, device=dev)
+        depth2_launches = read_counts()
+        if not np.array_equal(res2.scores, res.scores):
+            raise AssertionError("pipeline_depth 2 changed the scores")
+        if res2.cache_stats != res.cache_stats:
+            raise AssertionError(f"pipeline_depth 2 changed the cache stats:"
+                                 f" {res2.cache_stats} != {res.cache_stats}")
         s = res.cache_stats
-        print(f"main path [{card}]: {res.requests} requests in "
-              f"{res.elapsed_s:.3f} s = {res.requests / res.elapsed_s:.1f} "
-              f"requests/s; p50 {res.latency['p50_s'] * 1e6:.2f} us, p99 "
-              f"{res.latency['p99_s'] * 1e6:.2f} us per request "
-              f"(fenced batch time / 2048)")
+        serve_line("main path, NativeDeviceC1Cache fp32, pipeline_depth 0",
+                   res, split)
+        print(f"main path, pipeline_depth 2 [{card}]: {res2.requests} "
+              f"requests in {res2.elapsed_s:.3f} s = "
+              f"{res2.requests / res2.elapsed_s:.1f} requests/s; p50 "
+              f"{res2.latency['p50_s'] * 1e6:.2f} us, p99 "
+              f"{res2.latency['p99_s'] * 1e6:.2f} us per request; scores "
+              f"and stats equal to depth 0's; launches "
+              f"{json.dumps(depth2_launches)}")
         print(f"cache [{card}]: hit_rate {s['hit_rate']:.6f} perfect_hits "
-              f"{s['perfect_hits']} segments {s['segments']} bytes_shipped "
-              f"{s['bytes_shipped']} size {s['size']} requests "
-              f"{s['requests']}")
+              f"{s['perfect_hits']} bytes_shipped {s['bytes_shipped']} size "
+              f"{s['size']} requests {s['requests']}")
         print(f"check: rows bit-exact vs store; scores vs plain max|d| "
               f"{sdiff:.3e}; auc {res.metrics['auc']:.4f} (random weights "
               f"and labels)")
 
+        # the Python DeviceC1Cache, at fp32 and int8, for two batches each:
+        # rows equal to the store's, or to their int8 round trip
+        for prec in (32, 8):
+            pc = DeviceC1Cache(dataclasses.replace(ccfg, main_precision=prec),
+                               storage, cfg.num_tables, cfg.embedding_dim,
+                               device=dev)
+            t0 = time.perf_counter()
+            for _, idx, _ in warmup[:2]:
+                with torch.inference_mode():
+                    rows = pc.lookup_batch(idx)
+                want = np.stack([tables[t][idx[:, t]]
+                                 for t in range(cfg.num_tables)], axis=1)
+                if prec == 8:
+                    want = dequantize_int8(torch.from_numpy(
+                        np_quantize_int8(want))).numpy()
+                if not np.array_equal(rows.cpu().numpy().view(np.int32),
+                                      want.view(np.int32)):
+                    raise AssertionError(f"DeviceC1Cache rows at "
+                                         f"main_precision={prec} differ")
+            ps = pc.stats()
+            print(f"DeviceC1Cache main_precision={prec} [{card}]: 2 batches "
+                  f"of 2048 in {time.perf_counter() - t0:.3f} s, rows "
+                  f"bit-exact vs the store's"
+                  f"{' int8 round trip' if prec == 8 else ''}; segments "
+                  f"{ps['segments']} bytes_shipped {ps['bytes_shipped']}")
+            del pc
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------ 3c three tiers, int8
+    with Phase("3c three tiers int8"):
+        # bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh: int8 C1, 4-bit C2,
+        # alt-key C3, 48-48-4, 75,425 entries.  The alt keys are a listed
+        # cut: one uniform row of the same table for each row, from --seed
+        # (the reference's come from an offline kNN).
+        ccfg3 = CacheConfig(policy="evlfu", n_caching_layers=3,
+                            total_size=75425, main_precision=8,
+                            secondary_precision=4, size_proportion=(48, 48, 4))
+        t0 = time.perf_counter()
+        arng = np.random.default_rng(args.seed + 4)
+        resolver = AltKeyResolver([arng.integers(0, n, n, dtype=np.uint32)
+                                   for n in cfg.table_sizes])
+        cache = build_cache(ccfg3, cfg, storage, resolver,
+                            use_device_cache=True, device=dev)
+        print(f"set-up: tiers {ccfg3.tier_capacities()}, alt keys and "
+              f"engine in {time.perf_counter() - t0:.2f} s")
+        caps = ccfg3.tier_capacities()
+        warmup3, scored3, extra3 = warm_up(
+            cache, lambda s: (s["size"] >= caps[0] and s["c2"]["size"] >= caps[1]
+                              and s["c3"]["size"] >= caps[2]))
+        s_start = cache.stats()
+        print(f"warm-up: {len(warmup3)} batches of 2048 until C1, C2 and "
+              f"C3 were full: {s_start}; {N_SCORED} scored batches follow")
+        reset_counts()
+        res3 = run_inference(model, cfg, ccfg3, scored3, storage,
+                             altkey_resolver=resolver, use_device_cache=True,
+                             pipeline_depth=2, cache=cache, device=dev)
+        int8_launches = read_counts()
+        split3 = dict(cache.host_s)
+        int8_launches = {k: int8_launches[k] for k in
+                         ("interaction_fwd", "gather_rows_dequant_int8")}
+        if min(int8_launches.values()) < 1:
+            raise AssertionError(f"a kernel of the path never ran: "
+                                 f"{int8_launches}")
+        s3 = res3.cache_stats
+        if not (s3["c2"]["hit_rate"] > 0 and s3["c3"]["size"] > 0):
+            raise AssertionError(f"C2 or C3 is not live: {s3}")
+        if res3.scores is None or res3.scores.shape != (N_SCORED * 2048,) or \
+                not np.isfinite(res3.scores).all():
+            raise AssertionError("scores missing, misshapen or not finite")
+
+        # one more batch: the int8 apply's rows against the plain version
+        # on the same cache state and miss buffer (not counted above)
+        _, idx, _ = extra3
+        assign = cache.assigner.assign_batch(idx)
+        with torch.inference_mode():
+            rows = cache._apply_assign(assign)
+            slots, _, _, buf = assign
+            bk = cache.insert_bucket
+            buf_q = np.zeros((max(bk, -(-len(buf) // bk) * bk),
+                              cfg.embedding_dim), np.float32)
+            buf_q[:len(buf)] = buf
+            ref = gather_rows_dequant_int8_ref(
+                cache.cache_values, torch.from_numpy(slots).to(dev),
+                torch.from_numpy(np_quantize_int8(buf_q)).to(dev))
+            grid = dequantize_int8(torch.arange(256, device=dev,
+                                                dtype=torch.uint8))
+            if not torch.equal(rows.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError("the int8 apply's rows differ from the "
+                                     "plain version's")
+            if not bool(torch.isin(rows, grid).all()):
+                raise AssertionError("an int8 row value is off the grid")
+        serve_line("three tiers, NativeDeviceC1Cache int8, pipeline_depth 2",
+                   res3, split3)
+        n_req = s3["requests"] - s_start["requests"]
+        c1_hr = (s3["hit_rate"] * s3["requests"] - s_start["hit_rate"]
+                 * s_start["requests"]) / n_req
+        print(f"cache [{card}]: over the {n_req} scored requests (every "
+              f"tier full at their start): C1 hit_rate {c1_hr:.6f}, C3 "
+              f"hits {s3['c3']['hits'] - s_start['c3']['hits']}; C2 "
+              f"cumulative hit_rate {s_start['c2']['hit_rate']:.6f} at the "
+              f"start, {s3['c2']['hit_rate']:.6f} at the end; at the end: "
+              f"C1 {s3['size']} of {s3['capacity']}, C2 {s3['c2']}, C3 "
+              f"{s3['c3']}, perfect_hits {s3['perfect_hits']}, "
+              f"bytes_shipped {s3['bytes_shipped']}, requests "
+              f"{s3['requests']} (warm-up included)")
+        print(f"check: the extra batch's int8 rows bit-exact vs the plain "
+              f"version on the same state and buffer, all on the int8 grid;"
+              f" auc {res3.metrics['auc']:.4f} (random weights and labels)")
+        cache.close()
+        del cache, rows, ref, resolver, warmup3, scored3
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------ 3b train
     with Phase("3b train"):
-        del res, model, storage
+        del res, res2, res3, model, storage
         torch.cuda.empty_cache()
         B = 128                 # the reference recipe's batch and lr
         tcfg = TrainConfig(learning_rate=0.1, optimizer="rwsadagrad")
@@ -644,7 +916,8 @@ def main() -> int:
                   f"{100 * busy_ms / 5 / step_ms:.1f}% of an unprofiled step "
                   f"({step_ms:.2f} ms, 1 / median steps/s)")
         metrics = evaluate(model, cfg, take(2))
-        train_launches = read_counts()
+        train_launches = {k: v for k, v in read_counts().items()
+                          if k != "gather_rows_dequant_int8"}
         if min(train_launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{train_launches}")
@@ -655,20 +928,25 @@ def main() -> int:
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
-        print(f"kernels: serve {json.dumps(serve_launches)}; train "
+        print(f"kernels: serve {json.dumps(serve_launches)}; serve_int8 "
+              f"{json.dumps(int8_launches)}; train "
               f"{json.dumps(train_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
             "gather_rows": ("evstore_tpu_torch/csrc/gather_rows.cu",
                             "evstore_tpu/ops/pallas_gather.py:34"),
+            "gather_rows_dequant_int8": (
+                "evstore_tpu_torch/csrc/gather_rows_dequant_int8.cu",
+                "evstore_tpu/ops/pallas_gather.py:88"),
             "interaction_bwd": ("evstore_tpu_torch/csrc/interaction_bwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:213"),
             "scatter_sub_sorted": ("evstore_tpu_torch/csrc/row_update.cu",
                                    "evstore_tpu/ops/pallas_update.py:60"),
         }
         by_path = {name: {"serve": serve_launches.get(name, 0),
-                          "train": train_launches[name]}
+                          "serve_int8": int8_launches.get(name, 0),
+                          "train": train_launches.get(name, 0)}
                    for name in sources}
         line = {"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

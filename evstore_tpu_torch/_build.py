@@ -1,17 +1,20 @@
 """Builds and loads the port's CUDA kernels.
 
-All `csrc/*.cu` sources compile in ONE `nvcc` call into a shared library
-with a plain C interface, loaded through `ctypes`:
+Each `csrc/*.cu` source compiles in its own `nvcc` process, all started
+together, and one more `nvcc` links the objects into a shared library with
+a plain C interface, loaded through `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libevstore_kernels-<sha>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libevstore_kernels-<sha>.so *.o
 
 The sources include no PyTorch header, so the build takes seconds, not the
 minutes a `torch.utils.cpp_extension` build takes.  The library's name
 carries a hash of the sources: a changed source builds anew, an unchanged one
-is reused.  The build writes to a temporary name and `os.replace`s it, so two
-processes building at once cannot leave a torn file.  Nothing here runs at
-import time: the first kernel launch builds.
+is reused.  The build works in a directory of its own and `os.replace`s the
+library into place, so two processes building at once cannot leave a torn
+file.  Nothing here runs at import time: the first kernel launch builds.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -44,6 +49,9 @@ SIGNATURES = {
                         _P),
     # primary, C, secondary, M, idx, out, R, row_bytes, device, stream
     "gather_rows": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _I, _P),
+    # primary, C, secondary, M, idx, out, R, D, device, stream
+    "gather_rows_dequant_int8": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _I,
+                                 _P),
     # table, N, D, rows, vals, K, is_bf16, device, stream
     "scatter_sub_sorted": (_P, _I64, _I, _P, _P, _I64, _I, _I, _P),
 }
@@ -76,6 +84,20 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run(cmds) -> str:
+    """Run the commands side by side; raise on the first that fails;
+    return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+
+
 def build() -> str:
     """Compile the library unless it exists; returns its path.  The
     compiler's report (registers, shared memory, spills per kernel) is kept
@@ -84,16 +106,18 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *[
-        s for s in sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [s for s in sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(s)[:-3] + ".o")
+                for s in cus]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                    for s, o in zip(cus, objs)])
+        lib = os.path.join(tmp, os.path.basename(out))
+        log += _run([[nvcc, *ARCH, "-shared", "-o", lib, *objs]])
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(log)
+        os.replace(lib, out)
     return out
 
 

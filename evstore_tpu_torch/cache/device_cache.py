@@ -1,31 +1,44 @@
 """Device-resident C1 cache: EvLFU-managed rows living in the card's memory.
 
-Port of `DeviceC1Cache` from `evstore_tpu/cache/device_cache.py`, at fp32.
-The hot rows of all embedding tables live in ONE fixed-size [C, D] tensor on
-the card, so device memory is bounded by the cache capacity, not the table
-sizes.  The EvLFU policy runs on the host and maps keys to cache slots; the
-host side (free list, pending and pinned slots, segments, the padded miss
-buffer, NO_SLOT deferral, stats) is the JAX class's, line for line.
+Port of `DeviceC1Cache` and `NativeDeviceC1Cache` from
+`evstore_tpu/cache/device_cache.py`, at fp32 and int8.  The hot rows of all
+embedding tables live in ONE fixed-size [C, D] tensor on the card (float32,
+or uint8 codes of the 8-bit codec at `main_precision=8`), so device memory
+is bounded by the cache capacity, not the table sizes.  The EvLFU policy
+runs on the host and maps keys to cache slots.
 
-Per segment the device does two things:
+Per device apply the card does two things:
 
 1. copy the shipped miss rows into their slots (`index_copy_`; the slots
-   come from a dict, so none repeats and the copy is deterministic);
-2. gather every request's rows with the row-gather kernel
-   (`ops/cuda_gather.py`): an index below C reads a cache slot, an index
-   C + m reads row m of the miss buffer, so concat(cache, buffer) is never
-   built.
+   are unique, so the copy is deterministic);
+2. gather every request's rows with the two-source gather kernel
+   (`ops/cuda_gather.py`: `gather_rows` at fp32, `gather_rows_dequant_int8`
+   at int8): an index below C reads a cache slot, an index C + m reads row
+   m of the miss buffer, so concat(cache, buffer) is never built.
 
-Within a segment a row inserted this segment is gathered from the miss
-buffer, never from its slot, so slots freed by evictions can be reused at
-once; a slot that served a hit this segment is pinned until the segment is
-applied.  `lookup_batch` returns the rows on the card, with no host round
-trip.
+Within an apply a row inserted by it is gathered from the miss buffer,
+never from its slot, so slots freed by evictions can be reused at once; a
+slot that served a hit is pinned until the apply.  At int8 the host
+quantises the padded miss buffer (`np_quantize_int8`) and ships the codes,
+as the JAX package does.  `lookup_batch` returns float32 rows on the card,
+with no host round trip.
+
+- `DeviceC1Cache` runs the policy in Python, line for line the JAX class's
+  (free list, pending and pinned slots, segments, the padded miss buffer,
+  NO_SLOT deferral, stats), and applies once per segment.
+- `NativeDeviceC1Cache` is the production configuration: the policy, the
+  free list and the miss reads run in the C++ tier engine
+  (`native/__init__.py::NativeAssigner`), one call per batch, and the card
+  applies once per batch.  With `n_caching_layers` 2-3 the engine's host C2
+  (DRAM, secondary precision) and C3 (alt keys) stand behind the device
+  C1, and serve its misses without a store read.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Set, Tuple
+import concurrent.futures
+import time
+from typing import Dict, Iterable, Iterator, List, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +46,47 @@ import torch
 from evstore_tpu_torch.cache.policy import EvLFU
 from evstore_tpu_torch.cache.storage import StorageManager
 from evstore_tpu_torch.config import CacheConfig
-from evstore_tpu_torch.ops.cuda_gather import gather_rows
+from evstore_tpu_torch.models.embedding import check_ids
+from evstore_tpu_torch.native import NativeAssigner, NativeTieredCache
+from evstore_tpu_torch.ops.cuda_gather import (gather_rows,
+                                               gather_rows_dequant_int8)
+from evstore_tpu_torch.ops.quant import np_quantize_int8
 from evstore_tpu_torch.utils.device import resolve_device
 
 Key = Tuple[int, int]
+
+
+def _check_precision(cfg: CacheConfig) -> None:
+    if cfg.main_precision not in (32, 8):
+        raise ValueError(f"device cache supports fp32 or int8 rows, got "
+                         f"main_precision={cfg.main_precision}")
+
+
+def _apply(cache_values: torch.Tensor, slots: np.ndarray,
+           scat_slots: np.ndarray, scat_m: np.ndarray,
+           buf: np.ndarray) -> torch.Tensor:
+    """One device apply: cache[scat_slots] = buf[scat_m], then gather
+    `slots` over (cache, buf).  buf is float32 rows, or uint8 codes for a
+    uint8 cache.  The three index arrays cross in one int32 copy."""
+    dev = cache_values.device
+    n_s, n_c = slots.size, scat_slots.size
+    ints = torch.from_numpy(np.concatenate(
+        [slots.ravel(), scat_slots, scat_m]).astype(np.int32, copy=False)
+    ).to(dev)
+    buf_d = torch.from_numpy(buf).to(dev)
+    if n_c:
+        cache_values.index_copy_(0, ints[n_s:n_s + n_c].long(),
+                                 buf_d[ints[n_s + n_c:].long()])
+    slots_d = ints[:n_s].view(slots.shape)
+    if cache_values.dtype == torch.uint8:
+        return gather_rows_dequant_int8(cache_values, slots_d, buf_d)
+    return gather_rows(cache_values, slots_d, secondary=buf_d)
+
+
+def _pad(M: int, bucket: int) -> int:
+    """Miss-buffer rows shipped for M misses: a multiple of `bucket`, at
+    least one bucket (the JAX package's static shapes)."""
+    return max(bucket, ((M + bucket - 1) // bucket) * bucket)
 
 
 class DeviceC1Cache:
@@ -45,13 +95,7 @@ class DeviceC1Cache:
     def __init__(self, cfg: CacheConfig, storage: StorageManager,
                  n_tables: int, dim: int, insert_bucket: int = 512,
                  device=None):
-        if cfg.main_precision == 8:
-            raise NotImplementedError(
-                "the int8 C1 cache needs the int8 gather+dequant kernel "
-                "(evstore_tpu/ops/pallas_gather.py::gather_rows_dequant_int8)"
-                ", which is not ported yet; use main_precision=32")
-        if cfg.main_precision != 32:
-            raise ValueError("device cache supports fp32 or int8 rows")
+        _check_precision(cfg)
         if cfg.total_size < n_tables:
             raise ValueError(f"capacity {cfg.total_size} < one request group "
                              f"({n_tables} rows)")
@@ -74,9 +118,10 @@ class DeviceC1Cache:
 
         self.policy = EvLFU(self.capacity, n_tables, cfg.flush_rate,
                             cfg.perfect_item_cap, on_evict=_on_evict)
-        self.cache_values = torch.zeros((self.capacity, dim),
-                                        dtype=torch.float32,
-                                        device=self.device)
+        self.cache_values = torch.zeros(
+            (self.capacity, dim),
+            dtype=torch.uint8 if self.precision == 8 else torch.float32,
+            device=self.device)
         self.n_requests = 0
         self.n_perfect = 0
         self.n_segments = 0
@@ -95,28 +140,20 @@ class DeviceC1Cache:
         self._pending = still
 
     def _apply_segment(self, seg_slots, ins_keys, scatter_map) -> torch.Tensor:
-        slots = np.stack(seg_slots)
         M = len(ins_keys)
-        bk = self.insert_bucket
-        Mp = max(bk, ((M + bk - 1) // bk) * bk)
+        Mp = _pad(M, self.insert_bucket)
         buf = np.zeros((Mp, self.dim), np.float32)
         if M:
             buf[:M] = self.storage.get_batch(ins_keys)
+        if self.precision == 8:
+            buf = np_quantize_int8(buf)
+        self.bytes_shipped += buf.nbytes
         # the JAX class pads the scatter to Mp with dropped entries; here
         # only the real (slot, buffer row) pairs go to the card
-        scat_slots = np.fromiter(scatter_map.keys(), np.int64,
-                                 len(scatter_map))
-        scat_m = np.fromiter(scatter_map.values(), np.int64,
-                             len(scatter_map))
-        self.bytes_shipped += Mp * self.dim * 4
-        dev = self.device
-        buf_d = torch.from_numpy(buf).to(dev)
-        if len(scatter_map):
-            self.cache_values.index_copy_(
-                0, torch.from_numpy(scat_slots).to(dev),
-                buf_d[torch.from_numpy(scat_m).to(dev)])
-        out = gather_rows(self.cache_values, torch.from_numpy(slots).to(dev),
-                          secondary=buf_d)
+        n = len(scatter_map)
+        out = _apply(self.cache_values, np.stack(seg_slots),
+                     np.fromiter(scatter_map.keys(), np.int32, n),
+                     np.fromiter(scatter_map.values(), np.int32, n), buf)
         self._pinned.clear()
         self._sweep_pending()
         self.n_segments += 1
@@ -126,8 +163,9 @@ class DeviceC1Cache:
 
     def lookup_batch(self, idx: np.ndarray) -> torch.Tensor:
         """[B, T] int -> [B, T, D] fp32 rows on the cache's device; updates
-        cache state."""
+        cache state.  Raises ValueError for an id outside its table."""
         idx = np.asarray(idx)
+        check_ids(idx, self.storage.table_sizes())
         B, T = idx.shape
         C = self.capacity
         outputs: List[torch.Tensor] = []
@@ -220,6 +258,144 @@ class DeviceC1Cache:
             "size": s["size"],
             "capacity": self.capacity,
             "segments": self.n_segments,
-            "hbm_bytes": int(self.capacity * self.dim * 4),
+            "hbm_bytes": self.cache_values.nbytes,
             "bytes_shipped": self.bytes_shipped,
         }
+
+
+class NativeDeviceC1Cache:
+    """The device C1 cache with its policy, free list and miss reads in the
+    C++ tier engine: per batch, one engine call gives (slots, scatter, miss
+    buffer) and one apply runs on the card, its miss buffer padded to a
+    multiple of `insert_bucket` rows.
+
+    With `n_caching_layers` 1 the engine is only the backing store and its
+    reader pool.  With 2 or 3 it also holds the host tiers C2 and C3, and
+    the device C1 takes its share of the budget (`tier_capacities()[0]`).
+
+    The host time of each batch is summed in `host_s`: `assign` (the engine
+    call), `pack` (padding and quantising the miss buffer on the host),
+    `wait` (the wait for the work already queued on the stream, such as the
+    previous batch's forward) and `copy` (the host-to-device copies and the
+    apply's launches).  A copy from pageable memory waits for the stream
+    anyway; waiting just before it times that wait apart from the copy.
+    The cache owns its engine: `close()` frees it."""
+
+    def __init__(self, cfg: CacheConfig, n_tables: int, dim: int,
+                 insert_bucket: int = 4096, n_reader_threads: int = 4,
+                 device=None):
+        _check_precision(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.n_tables = n_tables
+        self.dim = dim
+        self.insert_bucket = insert_bucket
+        self.precision = cfg.main_precision
+        if cfg.n_caching_layers >= 2:
+            # the hybrid stack: device C1 over the engine's host C2 (DRAM,
+            # secondary precision) and C3 (alt keys); a true miss goes to C1
+            # or C2 by the reference's rule (evlfu_8.cpp:724-736)
+            self.engine = NativeTieredCache(cfg, n_tables, dim,
+                                            n_reader_threads)
+            self.capacity = cfg.tier_capacities()[0]
+        else:
+            # the engine is the store and reader pool only; its tiers idle
+            self.engine = NativeTieredCache(
+                CacheConfig(policy="evlfu", n_caching_layers=1,
+                            total_size=1), n_tables, dim, n_reader_threads)
+            self.capacity = cfg.total_size
+        self.assigner = NativeAssigner(self.engine, self.capacity,
+                                       cfg.flush_rate, cfg.perfect_item_cap)
+        self.cache_values = torch.zeros(
+            (self.capacity, dim),
+            dtype=torch.uint8 if self.precision == 8 else torch.float32,
+            device=self.device)
+        self.bytes_shipped = 0
+        self.host_s = {"assign": 0.0, "pack": 0.0, "wait": 0.0, "copy": 0.0}
+        self._table_sizes: Sequence[int] = ()
+
+    def load_tables(self, tables: Sequence[np.ndarray]):
+        """Copy the float32 tables into the engine's store."""
+        self.engine.load_tables(tables)
+        self._table_sizes = [len(t) for t in tables]
+        return self
+
+    def load_altkeys(self, alt_tables: Sequence[np.ndarray]):
+        """C3's alt-key tables (the offline kNN product)."""
+        self.engine.load_altkeys([np.asarray(a, np.uint32)
+                                  for a in alt_tables])
+        return self
+
+    def _assign(self, idx: np.ndarray):
+        t0 = time.perf_counter()
+        out = self.assigner.assign_batch(idx)
+        self.host_s["assign"] += time.perf_counter() - t0
+        return out
+
+    def _apply_assign(self, assign) -> torch.Tensor:
+        slots, scat_slots, scat_m, buf = assign
+        t0 = time.perf_counter()
+        M = buf.shape[0]
+        buf_p = np.zeros((_pad(M, self.insert_bucket), self.dim), np.float32)
+        buf_p[:M] = buf
+        if self.precision == 8:
+            buf_p = np_quantize_int8(buf_p)
+        self.bytes_shipped += buf_p.nbytes
+        t1 = time.perf_counter()
+        self.host_s["pack"] += t1 - t0
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        t2 = time.perf_counter()
+        self.host_s["wait"] += t2 - t1
+        # only the real (slot, buffer row) pairs go to the card, where the
+        # JAX class pads them with dropped entries
+        out = _apply(self.cache_values, slots, scat_slots, scat_m, buf_p)
+        self.host_s["copy"] += time.perf_counter() - t2
+        return out
+
+    def _checked(self, idx) -> np.ndarray:
+        idx = np.asarray(idx)
+        check_ids(idx, self._table_sizes)
+        return idx
+
+    def lookup_batch(self, idx: np.ndarray) -> torch.Tensor:
+        """[B, T] int -> [B, T, D] fp32 rows on the cache's device; updates
+        cache state.  Raises ValueError for an id outside its table."""
+        return self._apply_assign(self._assign(self._checked(idx)))
+
+    def lookup_batches_pipelined(self, batches: Iterable
+                                 ) -> Iterator[torch.Tensor]:
+        """`lookup_batch` over `batches`, with the engine's assign for batch
+        k+1 on a worker thread while batch k is packed and applied here.
+        The policy order is unchanged: one worker, batches in order."""
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+            prev = None
+            for idx in batches:
+                fut = ex.submit(self._assign, self._checked(idx))
+                if prev is not None:
+                    yield self._apply_assign(prev.result())
+                prev = fut
+            if prev is not None:
+                yield self._apply_assign(prev.result())
+
+    def request_batch(self, idx: np.ndarray) -> np.ndarray:
+        """`lookup_batch` with the rows brought back to the host."""
+        return self.lookup_batch(idx).cpu().numpy()
+
+    def stats(self) -> dict:
+        s = self.assigner.stats()
+        s.update({
+            "capacity": self.capacity,
+            "hbm_bytes": self.cache_values.nbytes,
+            "bytes_shipped": self.bytes_shipped,
+        })
+        if self.cfg.n_caching_layers >= 2:
+            es = self.engine.stats()
+            for tier in ("c2", "c3"):
+                if tier in es:
+                    s[tier] = es[tier]
+        return s
+
+    def close(self):
+        """Free the engine, its copy of the tables and its reader pool."""
+        self.engine.close()

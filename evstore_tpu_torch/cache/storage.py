@@ -60,6 +60,9 @@ class StorageManager:
     def get_batch(self, keys: Sequence[Key]) -> np.ndarray:
         return self.store.get_batch(keys)
 
+    def table_sizes(self) -> List[int]:
+        return [len(t) for t in self.store.tables]
+
     def close(self):
         if self.store is not None:
             self.store.close()

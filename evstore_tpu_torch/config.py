@@ -134,13 +134,40 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """Cache configuration: the JAX package's fields that the device C1
-    cache reads, with the same names and defaults.  The C2/C3 tiers' fields
-    come with those tiers."""
+    """Cache configuration: the JAX package's fields that the device caches
+    and the tier engine read, with the same names and defaults.  The
+    reference splits them between runtime flags
+    (dlrm_s_pytorch_C1.py:1248-1268) and the C++ engine's compile-time
+    #defines (mixed_precs_caching/cache_manager.cpp:13-20)."""
 
-    policy: str = "evlfu"                  # the device cache runs EvLFU
-    n_caching_layers: int = 1              # the device cache is C1 only
-    total_size: int = 64_000               # C1 entries
-    main_precision: int = 32               # 32 (int8 not ported yet)
+    policy: str = "evlfu"                  # evlfu | lfu | lru
+    n_caching_layers: int = 1              # 1 (C1), 2 (C1+C2), 3 (C1+C2+C3)
+    total_size: int = 64_000               # entry budget at main precision
+    size_proportion: Tuple[int, int, int] = (48, 48, 4)   # C1-C2-C3 split
+    main_precision: int = 32               # C1: 32 or 8 on the device
+    secondary_precision: int = 8           # C2: 32 | 16 | 8 | 4
     flush_rate: float = 0.3                # EvLFU perfect-set flush share
     perfect_item_cap: float = 0.95         # EvLFU perfect-set trigger
+    # C1/C2 miss-splitting heuristic (mixed_precs_caching/evlfu_8.hpp:70)
+    high_agghit_threshold: int = 23
+    # C3 (aprx_embedding.hpp:30-32)
+    c3_io_batch: int = 50
+    c3_eviction: str = "recency"           # fifo | recency
+
+    def tier_capacities(self) -> Tuple[int, int, int]:
+        """Entry capacity per tier.  The reference scales entry counts by
+        the precision ratio against C1 (evlfu_8.cpp:57-100): a budget in
+        main-precision entries buys main/p more entries at precision p, and
+        a C3 alt-key entry is 4 bytes against a 144-byte fp32 row."""
+        if self.n_caching_layers == 1:
+            return (self.total_size, 0, 0)
+        ratio = self.main_precision / max(self.secondary_precision, 1)
+        if self.n_caching_layers == 2:
+            p1, p2, _ = self.size_proportion
+            return (int(self.total_size * p1 / (p1 + p2)),
+                    int(self.total_size * p2 / (p1 + p2) * ratio), 0)
+        p1, p2, p3 = self.size_proportion
+        tot = p1 + p2 + p3
+        return (int(self.total_size * p1 / tot),
+                int(self.total_size * p2 / tot * ratio),
+                int(self.total_size * p3 / tot * 36))

@@ -81,10 +81,17 @@ class DLRM(nn.Module):
 
     def _apply_mlp(self, layers: nn.ModuleList, x: torch.Tensor,
                    last_linear: bool) -> torch.Tensor:
+        """As the JAX package's `_apply_mlp`: the operands rounded to the
+        compute dtype, their products summed in float32
+        (`preferred_element_type=float32`), the bias added in float32, and
+        the compute dtype again between layers.  The matmul runs on the
+        operands upcast to float32 (TF32 off): a product of two bf16 values
+        is exact in float32, so this is the JAX sum, where a bf16 matmul
+        would round every output to bf16."""
         cdt = self.compute_dtype
         h = x.to(cdt)
         for i, lin in enumerate(layers):
-            h = torch.matmul(h, lin.weight.to(cdt).t()).float() + \
+            h = torch.matmul(h.float(), lin.weight.to(cdt).float().t()) + \
                 lin.bias.float()
             if last_linear and i == len(layers) - 1:
                 break

@@ -1,0 +1,217 @@
+"""ctypes binding for the port's copy of the C++ tier engine.
+
+Port of the serving part of `evstore_tpu/native/__init__.py`.  The engine
+(`evstore_core.cpp`, this package's own copy, built by `build.py` into
+`evstore_tpu_torch/_build/`) keeps the embedding tables in host RAM, runs
+the cache tiers' policies and reads miss rows on a pthread pool.  The ABI is
+batched: one call per batch of requests.
+
+- `NativeTieredCache` holds the engine: its backing store (tables copied in
+  or borrowed), its host tiers C2 (DRAM, secondary precision) and C3
+  (alt keys) when `n_caching_layers` >= 2, and its reader pool.
+- `NativeAssigner` is the slot-assignment front end of the device C1 cache
+  (`cache/device_cache.py::NativeDeviceC1Cache`): per batch, one call runs
+  the EvLFU policy over the cache's slots and returns the gather indices,
+  the scatter list and the miss-row buffer.
+
+Not bound yet: the training assigner (`esv_assign_batch_train`,
+`esv_fetch_rows`, `esv_assign_resident`), the host lookup path
+(`request_batch`), the file-backed store, the TSV parser, LogKV and the
+sharded engine.  Their C code is in the copy and waits for its slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import numpy as np
+
+from evstore_tpu_torch.config import CacheConfig
+from evstore_tpu_torch.native import build as _build
+
+_F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_U32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+_F64 = np.ctypeslib.ndpointer(np.float64)
+_P, _L, _I, _FL = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_float
+
+# name -> (restype, argtypes)
+SIGNATURES = {
+    # n_tables, dim, n_layers, c1/c2/c3 capacities, main and secondary
+    # precision, flush rate, perfect cap, high-agg threshold, c3 eviction,
+    # c3 io batch, reader threads, policy
+    "esv_init": (_P, [_I, _I, _I, _L, _L, _L, _I, _I, _FL, _FL, _I, _I, _I,
+                      _I, _I]),
+    "esv_load_table_mem": (_I, [_P, _I, _F32, _L]),
+    "esv_borrow_table_mem": (_I, [_P, _I, _F32, _L]),
+    "esv_load_altkeys": (_I, [_P, _I, _U32, _L]),
+    "esv_lookup_batch": (_L, [_P, _I64, _L, _F32]),
+    "esv_stats": (None, [_P, _F64]),
+    "esv_close": (None, [_P]),
+    "esv_assign_init": (_P, [_P, _L, _FL, _FL]),
+    # handle, idx, B, slots, scat_slots, scat_m, buf, maxM, &n_scat
+    "esv_assign_batch": (_L, [_P, _I64, _L, _I32, _I32, _I32, _F32, _L,
+                              ctypes.POINTER(_L)]),
+    "esv_assign_stats": (None, [_P, _F64]),
+    "esv_assign_close": (None, [_P]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def get_lib() -> ctypes.CDLL:
+    """The engine library, built at first use and loaded with RTLD_LOCAL,
+    so its `esv_*` symbols stay apart from any other copy in the process."""
+    lib = ctypes.CDLL(_build.build())
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+_EVICTION = {"fifo": 1, "recency": 2}  # aprx_embedding.hpp:32
+_POLICY = {"evlfu": 0, "lfu": 1, "lru": 2}
+
+
+class NativeTieredCache:
+    """The engine: backing store, host tiers and reader pool."""
+
+    def __init__(self, cfg: CacheConfig, n_tables: int, dim: int,
+                 n_reader_threads: int = 4):
+        self.cfg = cfg
+        self.n_tables = n_tables
+        self.dim = dim
+        self._assign_h = None
+        self._lib = get_lib()
+        c1, c2, c3 = cfg.tier_capacities()
+        self._h = self._lib.esv_init(
+            n_tables, dim, cfg.n_caching_layers, c1, c2, c3,
+            cfg.main_precision, cfg.secondary_precision,
+            cfg.flush_rate, cfg.perfect_item_cap,
+            cfg.high_agghit_threshold, _EVICTION[cfg.c3_eviction],
+            cfg.c3_io_batch, n_reader_threads, _POLICY[cfg.policy])
+        if not self._h:
+            raise ValueError(
+                f"esv_init rejected config: n_tables={n_tables} (max 64), "
+                f"dim={dim}; see evstore_core.cpp kMaxTables")
+
+    def _handle(self):
+        if self._h is None:
+            raise RuntimeError("the tier engine is closed")
+        return self._h
+
+    def load_tables(self, tables: Sequence[np.ndarray]):
+        """Copy float32 [n, dim] tables into the engine's store."""
+        for t, tab in enumerate(tables):
+            tab = np.ascontiguousarray(tab, np.float32)
+            rc = self._lib.esv_load_table_mem(self._handle(), t, tab,
+                                              tab.shape[0])
+            if rc != 0:
+                raise RuntimeError(f"esv_load_table_mem({t}) -> {rc}")
+        return self
+
+    def borrow_tables(self, tables: Sequence[np.ndarray]):
+        """Zero-copy store: the engine reads the caller's buffers, which
+        must stay alive and contiguous; changes to them are seen by later
+        fetches."""
+        self._borrowed_refs = []
+        for t, tab in enumerate(tables):
+            tab = np.ascontiguousarray(tab, np.float32)
+            self._borrowed_refs.append(tab)
+            rc = self._lib.esv_borrow_table_mem(self._handle(), t, tab,
+                                                tab.shape[0])
+            if rc != 0:
+                raise RuntimeError(f"esv_borrow_table_mem({t}) -> {rc}")
+        return self
+
+    def load_altkeys(self, alt_tables: Sequence[np.ndarray]):
+        """C3's alt-key tables: for each table, one alt row per row."""
+        for t, alts in enumerate(alt_tables):
+            alts = np.ascontiguousarray(alts, np.uint32)
+            rc = self._lib.esv_load_altkeys(self._handle(), t, alts,
+                                            alts.shape[0])
+            if rc != 0:
+                raise RuntimeError(f"esv_load_altkeys({t}) -> {rc}")
+        return self
+
+    def stats(self) -> dict:
+        s = np.zeros(8, np.float64)
+        self._lib.esv_stats(self._handle(), s)
+        out = {
+            "requests": int(s[0]), "perfect_hits": int(s[1]),
+            "c1": {"size": int(s[2]), "hit_rate": float(s[3])},
+        }
+        if self.cfg.n_caching_layers >= 2:
+            out["c2"] = {"size": int(s[4]), "hit_rate": float(s[5])}
+        if self.cfg.n_caching_layers >= 3:
+            out["c3"] = {"size": int(s[6]), "hits": int(s[7])}
+        return out
+
+    def close(self):
+        """Free the engine (and its assigner) and join its reader pool."""
+        if self._h is not None:
+            if self._assign_h is not None:
+                self._lib.esv_assign_close(self._assign_h)
+                self._assign_h = None
+            self._lib.esv_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self.close()
+
+
+class NativeAssigner:
+    """Slot assignment for the device C1 cache: the EvLFU policy, the free
+    list and the miss reads run in C++; Python gets, per batch, the gather
+    indices, the scatter list and the miss-row buffer."""
+
+    def __init__(self, engine: NativeTieredCache, capacity: int,
+                 flush_rate: float = 0.3, perfect_item_cap: float = 0.95):
+        self.engine = engine
+        self.capacity = int(capacity)
+        self.dim = engine.dim
+        self.n_tables = engine.n_tables
+        self._lib = engine._lib
+        h = self._lib.esv_assign_init(engine._handle(), self.capacity,
+                                      flush_rate, perfect_item_cap)
+        if not h:
+            raise ValueError("esv_assign_init rejected engine config")
+        engine._assign_h = h     # the engine owns the teardown
+
+    def _handle(self):
+        if self.engine._assign_h is None:
+            raise RuntimeError("the tier engine is closed")
+        return self.engine._assign_h
+
+    def assign_batch(self, idx: np.ndarray):
+        """idx [B, T] -> (slots [B, T] i32, scat_slots [n] i32,
+        scat_m [n] i32, buf [n_buf, D] f32).  `slots` index
+        concat(cache [capacity], buf); cache slot scat_slots[i] takes buffer
+        row scat_m[i].  The scatter's slots are unique."""
+        idx = np.ascontiguousarray(idx, np.int64)
+        B, T = idx.shape
+        maxM = B * T
+        slots = np.empty((B, T), np.int32)
+        scat_slots = np.empty(maxM, np.int32)
+        scat_m = np.empty(maxM, np.int32)
+        buf = np.empty((maxM, self.dim), np.float32)
+        n_scat = ctypes.c_long(0)
+        n_buf = self._lib.esv_assign_batch(
+            self._handle(), idx.reshape(-1), B, slots.reshape(-1),
+            scat_slots, scat_m, buf.reshape(-1), maxM, ctypes.byref(n_scat))
+        if n_buf == -2:
+            raise ValueError("esv_assign_batch: row id out of [0, 2^40)")
+        if n_buf < 0:
+            raise RuntimeError("esv_assign_batch: buffer overflow")
+        return (slots, scat_slots[:n_scat.value], scat_m[:n_scat.value],
+                buf[:n_buf])
+
+    def stats(self) -> dict:
+        s = np.zeros(4, np.float64)
+        self._lib.esv_assign_stats(self._handle(), s)
+        return {"requests": int(s[0]), "perfect_hits": int(s[1]),
+                "size": int(s[2]), "hit_rate": float(s[3])}

@@ -1,13 +1,19 @@
-"""Row gather through the CUDA kernel `csrc/gather_rows.cu`.
+"""Row gathers through the CUDA kernels `csrc/gather_rows.cu` and
+`csrc/gather_rows_dequant_int8.cu`.
 
-Port of the TPU kernel `evstore_tpu/ops/pallas_gather.py::_gather_kernel`,
-extended to two sources for the device C1 cache: an index below
-`primary.shape[0]` reads `primary`, a larger one reads
-`secondary[idx - primary.shape[0]]`.  The wrapper launches the kernel for a
-CUDA tensor and takes the plain version (`gather_rows_ref`) only for a CPU
-tensor.  It checks no index on the device (that would need a sync): callers
-validate indices on the host, and the kernel writes a zero row for an index
-out of range rather than reading out of bounds.
+`gather_rows` ports the TPU kernel
+`evstore_tpu/ops/pallas_gather.py::_gather_kernel`, and
+`gather_rows_dequant_int8` ports `gather_rows_dequant_int8` of the same
+file: the gather of uint8 rows of the 8-bit codec, dequantised to float32
+as (v / 254) * 2 - 1 (`ops/quant.py`).  Both have a two-source form for the
+device C1 cache: an index below `primary.shape[0]` reads `primary`, a larger
+one reads `secondary[idx - primary.shape[0]]`.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version (`*_ref`) only for CPU tensors.  An index outside [0, C + M) gives a
+zero row, in the kernels and in the plain versions alike; no index is
+checked on the device (that would need a sync).  The callers that take ids
+from the host check them there (`models/embedding.py::check_ids`).
 """
 
 from __future__ import annotations
@@ -17,14 +23,64 @@ from typing import Optional
 import torch
 
 from evstore_tpu_torch import _build
+from evstore_tpu_torch.ops.quant import dequantize_int8
+
+
+def _take_or_zero(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`index_select` of rows, with a zero row for an index outside
+    [0, len(src))."""
+    flat = idx.reshape(-1).long()
+    ok = (flat >= 0) & (flat < src.shape[0])
+    rows = torch.zeros((flat.numel(), src.shape[1]), dtype=src.dtype,
+                       device=src.device)
+    rows[ok] = torch.index_select(src, 0, flat[ok])
+    return rows.reshape(*idx.shape, src.shape[1])
+
+
+def _sources(primary, secondary):
+    return primary if secondary is None else torch.cat([primary, secondary])
 
 
 def gather_rows_ref(primary: torch.Tensor, idx: torch.Tensor,
                     secondary: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: `index_select` on the concatenated sources."""
-    src = primary if secondary is None else torch.cat([primary, secondary])
-    rows = torch.index_select(src, 0, idx.reshape(-1).long())
-    return rows.reshape(*idx.shape, primary.shape[1])
+    return _take_or_zero(_sources(primary, secondary), idx)
+
+
+def gather_rows_dequant_int8_ref(primary: torch.Tensor, idx: torch.Tensor,
+                                 secondary: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """The plain version: `index_select` on the concatenated uint8 sources,
+    then `dequantize_int8`; a zero row for an index out of range."""
+    src = _sources(primary, secondary)
+    ok = ((idx >= 0) & (idx < src.shape[0]))[..., None]
+    return torch.where(ok, dequantize_int8(_take_or_zero(src, idx)), 0.0)
+
+
+def _check_sources(name, primary, idx, secondary, dtypes):
+    """The checks both wrappers make on CUDA tensors."""
+    tensors = [primary, idx] + ([] if secondary is None else [secondary])
+    dev = primary.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device "
+                         "(or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if primary.dtype not in dtypes:
+        raise TypeError(f"{name} takes {' or '.join(map(str, dtypes))} rows,"
+                        f" got {primary.dtype}")
+    if primary.dim() != 2:
+        raise ValueError(f"{name} takes [N, D] rows, got "
+                         f"{tuple(primary.shape)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{name} takes int32 indices, got {idx.dtype}")
+    if secondary is not None and (secondary.dtype != primary.dtype
+                                  or secondary.dim() != 2
+                                  or secondary.shape[1] != primary.shape[1]):
+        raise ValueError(f"secondary {tuple(secondary.shape)} "
+                         f"{secondary.dtype} does not match primary "
+                         f"{tuple(primary.shape)} {primary.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
 
 
 def gather_rows(primary: torch.Tensor, idx: torch.Tensor,
@@ -34,27 +90,12 @@ def gather_rows(primary: torch.Tensor, idx: torch.Tensor,
     tensors = [primary, idx] + ([] if secondary is None else [secondary])
     if all(t.device.type == "cpu" for t in tensors):
         return gather_rows_ref(primary, idx, secondary)
+    _check_sources("gather_rows", primary, idx, secondary,
+                   (torch.float32, torch.bfloat16))
     dev = primary.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("gather_rows: all tensors must be on one CUDA device "
-                         "(or all on the CPU), got "
-                         f"{[str(t.device) for t in tensors]}")
-    if primary.dim() != 2 or primary.element_size() * primary.shape[1] % 4:
-        raise ValueError(f"gather_rows takes [N, D] rows of a multiple of 4 "
-                         f"bytes, got {tuple(primary.shape)} {primary.dtype}")
-    if primary.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gather_rows takes float32 or bfloat16 rows, got "
-                        f"{primary.dtype}")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"gather_rows takes int32 indices, got {idx.dtype}")
-    if secondary is not None and (secondary.dtype != primary.dtype
-                                  or secondary.dim() != 2
-                                  or secondary.shape[1] != primary.shape[1]):
-        raise ValueError(f"secondary {tuple(secondary.shape)} "
-                         f"{secondary.dtype} does not match primary "
-                         f"{tuple(primary.shape)} {primary.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gather_rows takes contiguous tensors")
+    if primary.element_size() * primary.shape[1] % 4:
+        raise ValueError(f"gather_rows takes rows of a multiple of 4 bytes, "
+                         f"got {tuple(primary.shape)} {primary.dtype}")
     D = primary.shape[1]
     out = torch.empty((*idx.shape, D), dtype=primary.dtype, device=dev)
     if idx.numel() == 0:
@@ -73,3 +114,34 @@ def gather_rows(primary: torch.Tensor, idx: torch.Tensor,
 
 
 gather_rows.launches = 0
+
+
+def gather_rows_dequant_int8(primary: torch.Tensor, idx: torch.Tensor,
+                             secondary: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """primary uint8 [C, D], optional secondary uint8 [M, D], idx int32 of
+    any shape -> idx.shape + [D] float32 rows, (v / 254) * 2 - 1, bit for
+    bit the plain version's."""
+    tensors = [primary, idx] + ([] if secondary is None else [secondary])
+    if all(t.device.type == "cpu" for t in tensors):
+        return gather_rows_dequant_int8_ref(primary, idx, secondary)
+    _check_sources("gather_rows_dequant_int8", primary, idx, secondary,
+                   (torch.uint8,))
+    dev = primary.device
+    D = primary.shape[1]
+    out = torch.empty((*idx.shape, D), dtype=torch.float32, device=dev)
+    if idx.numel() == 0:
+        return out
+    lib = _build.library()
+    rc = lib.gather_rows_dequant_int8(
+        primary.data_ptr(), primary.shape[0],
+        None if secondary is None else secondary.data_ptr(),
+        0 if secondary is None else secondary.shape[0],
+        idx.data_ptr(), out.data_ptr(), idx.numel(), D, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "gather_rows_dequant_int8")
+    gather_rows_dequant_int8.launches += 1
+    return out
+
+
+gather_rows_dequant_int8.launches = 0

@@ -25,7 +25,8 @@ import torch
 
 from evstore_tpu_torch.config import DLRMConfig, TrainConfig
 from evstore_tpu_torch.models.dlrm import DLRM, dlrm_loss
-from evstore_tpu_torch.models.embedding import sparse_arch_lookup
+from evstore_tpu_torch.models.embedding import (check_ids,
+                                                sparse_arch_lookup)
 from evstore_tpu_torch.train.metrics import binary_metrics
 from evstore_tpu_torch.train.optim import (OptState, dense_parameters,
                                            lr_schedule, make_optimizer,
@@ -61,11 +62,18 @@ def _tensor(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return a.to(device=dev, dtype=dtype)
 
 
-def _one_hot(idx: torch.Tensor) -> torch.Tensor:
-    if idx.dim() != 2:
+def _ids(idx, cfg: DLRMConfig, dev: torch.device) -> torch.Tensor:
+    """One-hot ids [B, T] as an int32 tensor.  Ids still on the host are
+    checked there (`check_ids`: ValueError outside [0, N)); a tensor is
+    taken as it is."""
+    if not isinstance(idx, torch.Tensor):
+        idx = np.asarray(idx)
+    if idx.ndim != 2:
         raise NotImplementedError(
             "multi-hot [B, T, L] bags are not ported yet; idx must be [B, T]")
-    return idx
+    if isinstance(idx, np.ndarray):
+        check_ids(idx, cfg.table_sizes)
+    return _tensor(idx, dev, torch.int32)
 
 
 def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
@@ -84,7 +92,7 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
                    labels) -> torch.Tensor:
         dev = _check(model, cfg)
         dense_x = _tensor(dense_x, dev, torch.float32)
-        idx = _one_hot(_tensor(idx, dev, torch.int32))
+        idx = _ids(idx, cfg, dev)
         labels = _tensor(labels, dev, torch.float32)
         tables = list(model.tables)
         with span("train_step.gather"), torch.no_grad():
@@ -118,7 +126,7 @@ def make_eval_step(cfg: DLRMConfig):
         with torch.inference_mode():
             return torch.sigmoid(model(
                 _tensor(dense_x, dev, torch.float32),
-                _one_hot(_tensor(idx, dev, torch.int32))))
+                _ids(idx, cfg, dev)))
     return eval_step
 
 

@@ -1,7 +1,7 @@
 """Device resolution for the port's entry points.
 
-Every entry point (`run_inference`, `build_cache`, `DeviceC1Cache`, `DLRM`)
-runs on the card unless the caller passes `device="cpu"`.  A machine without
+Every entry point (`run_inference`, `build_cache`, `DeviceC1Cache`,
+`NativeDeviceC1Cache`, `DLRM`) runs on the card unless the caller passes `device="cpu"`.  A machine without
 a CUDA device raises rather than falling back to the CPU.
 """
 

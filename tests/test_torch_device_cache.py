@@ -5,6 +5,10 @@ The port's `DeviceC1Cache(device="cpu")` and the JAX `DeviceC1Cache` serve
 the same grouped-Zipf request stream over 26 tables of 40-300 rows, with a
 capacity small enough that evictions, perfect-set flushes and segment
 flushes occur.  Per batch the rows must be bit-exact and the stats equal.
+At int8 the uint8 cache state is equal exactly and the rows agree within
+1.2e-7 (one f32 ulp near 1: jitted JAX contracts the decode
+(v/254)*2-1 into fma(v, 2/254, -1); the port computes the formula, and is
+held to it bit for bit).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ from evstore_tpu_torch.cache.device_cache import DeviceC1Cache
 from evstore_tpu_torch.cache.policy import EvLFU
 from evstore_tpu_torch.cache.storage import StorageManager
 from evstore_tpu_torch.config import CacheConfig
+from evstore_tpu_torch.ops.quant import dequantize_int8, np_quantize_int8
 
 N_TABLES, DIM = 26, 8
 STAT_KEYS = ("requests", "perfect_hits", "hit_rate", "size", "segments",
@@ -110,14 +115,68 @@ def test_unported_store_backends_raise(backend):
         StorageManager(backend)
 
 
+@pytest.mark.parametrize("capacity,seed", [(60, 0), (300, 1)])
+def test_device_cache_int8_matches_jax(capacity, seed):
+    """main_precision=8: the padded miss buffer is quantised on the host
+    (numpy, half to even), shipped as uint8, copied into the uint8 cache
+    and gathered through the int8 gather+dequant's two-source form."""
+    tables = _tables(seed)
+    kw = dict(policy="evlfu", total_size=capacity, main_precision=8)
+    jc = JaxDeviceC1Cache(JaxCacheConfig(**kw),
+                          JaxStorageManager("dummy", dim=DIM).load(
+                              tables=tables), N_TABLES, DIM, insert_bucket=16)
+    pc = DeviceC1Cache(CacheConfig(**kw),
+                       StorageManager("dummy", dim=DIM).load(tables=tables),
+                       N_TABLES, DIM, insert_bucket=16, device="cpu")
+    assert pc.cache_values.dtype == torch.uint8
+    dcfg = RandomDataConfig(num_dense=4, table_sizes=[len(t) for t in tables],
+                            batch_size=24, num_batches=6, seed=seed,
+                            distribution="grouped_zipf", group_noise=0.1)
+    for _, idx, _ in random_batches(dcfg):
+        ref = np.asarray(jc.lookup_batch(idx))
+        got = pc.lookup_batch(idx).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1.2e-7)
+        store = np.stack([tables[t][idx[:, t]] for t in range(N_TABLES)],
+                         axis=1)
+        np.testing.assert_array_equal(
+            got, dequantize_int8(torch.from_numpy(
+                np_quantize_int8(store))).numpy())
+        np.testing.assert_array_equal(pc.cache_values.numpy(),
+                                      np.asarray(jc.cache_values))
+        js, ps = jc.stats(), pc.stats()
+        assert {k: ps[k] for k in STAT_KEYS} == {k: js[k] for k in STAT_KEYS}
+    assert ps["hbm_bytes"] == capacity * DIM
+
+
+def test_host_ids_outside_their_table_raise():
+    """The port's rule: ids still on the host that fall outside [0, N)
+    raise ValueError before any state changes.  (The JAX class would read
+    the store with a wrapped negative id.)"""
+    tables = _tables(5)
+    pc = DeviceC1Cache(CacheConfig(total_size=60),
+                       StorageManager("dummy", dim=DIM).load(tables=tables),
+                       N_TABLES, DIM, insert_bucket=16, device="cpu")
+    idx = np.zeros((2, N_TABLES), np.int64)
+    for t, bad in ((3, -1), (25, len(tables[25]))):
+        wrong = idx.copy()
+        wrong[1, t] = bad
+        with pytest.raises(ValueError, match=f"table {t} is outside"):
+            pc.lookup_batch(wrong)
+    with pytest.raises(ValueError, match="do not match"):
+        pc.lookup_batch(idx[:, :5])
+    assert pc.stats()["requests"] == 0
+
+
 def test_unported_precisions_raise():
+    """16- and 4-bit C1 rows are not ported (the device caches take 32 or
+    8); the capacity must hold one request group."""
     sm = StorageManager("dummy", dim=DIM).load(tables=_tables())
-    with pytest.raises(NotImplementedError, match="gather_rows_dequant_int8"):
-        DeviceC1Cache(CacheConfig(main_precision=8), sm, N_TABLES, DIM,
-                      device="cpu")
-    with pytest.raises(ValueError, match="fp32 or int8"):
-        DeviceC1Cache(CacheConfig(main_precision=16), sm, N_TABLES, DIM,
-                      device="cpu")
+    for p in (16, 4):
+        with pytest.raises(ValueError, match="fp32 or int8"):
+            DeviceC1Cache(CacheConfig(main_precision=p), sm, N_TABLES, DIM,
+                          device="cpu")
+    DeviceC1Cache(CacheConfig(main_precision=8), sm, N_TABLES, DIM,
+                  device="cpu")
     with pytest.raises(ValueError, match="one request group"):
         DeviceC1Cache(CacheConfig(total_size=10), sm, N_TABLES, DIM,
                       device="cpu")

@@ -1,11 +1,22 @@
-"""The port's row gather (kernel wrapper on CPU tensors, plain version,
-plain-table lookup) against the JAX package's, bit for bit, and the kernel
-build module's host-side logic.
+"""The port's row gathers (kernel wrappers on CPU tensors, plain versions,
+plain-table lookup) against the JAX package's, and the kernel build
+module's host-side logic.
 
-The JAX side runs the Pallas kernel `gather_rows` in interpret mode.  On CPU
-tensors the port's wrapper takes its plain version; the CUDA kernel is held
-to it on the card by chip_smoke.py.  Tolerance: none, rows are moved as
-bytes.
+The JAX side runs the Pallas kernels `gather_rows` and
+`gather_rows_dequant_int8` in interpret mode.  On CPU tensors the port's
+wrappers take their plain versions; the CUDA kernels are held to those on
+the card by chip_smoke.py.
+
+Tolerances: none for the float gather, whose rows are moved as bytes.  The
+int8 gather+dequant is bit for bit the codec's formula (v / 254) * 2 - 1 in
+numpy over all 256 codes, and within 1.2e-7 (one f32 ulp near 1) of the
+JAX functions: jitted JAX contracts the formula into fma(v, 2/254, -1),
+which differs on 130 of the 256 codes by at most 5.96e-8.
+
+Ids outside [0, N) on device tensors give a zero row in the port (its
+kernels and plain versions alike), a deliberate departure from the JAX
+package, whose `take_rows` clips them; ids still on the host raise (see
+tests/test_torch_native_device_cache.py and test_torch_train.py).
 """
 
 import os
@@ -18,10 +29,21 @@ import torch
 from evstore_tpu.config import tiny_dlrm_config as jax_tiny
 from evstore_tpu.models import embedding as jax_emb
 from evstore_tpu.ops.pallas_gather import gather_rows as jax_gather_rows
+from evstore_tpu.ops.pallas_gather import gather_rows_dequant_int8 as \
+    jax_gather_dequant
+from evstore_tpu.ops.pallas_gather import gather_rows_dequant_int8_ref as \
+    jax_gather_dequant_ref
+from evstore_tpu.ops.quant import np_quantize_int8 as jax_np_quantize_int8
 from evstore_tpu_torch import _build
 from evstore_tpu_torch.config import tiny_dlrm_config
 from evstore_tpu_torch.models import embedding as port_emb
-from evstore_tpu_torch.ops.cuda_gather import gather_rows, gather_rows_ref
+from evstore_tpu_torch.ops.cuda_gather import (gather_rows,
+                                               gather_rows_dequant_int8,
+                                               gather_rows_dequant_int8_ref,
+                                               gather_rows_ref)
+from evstore_tpu_torch.ops.quant import dequantize_int8, np_quantize_int8
+
+INT8_ATOL = 1.2e-7
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -117,16 +139,134 @@ def test_gather_wrapper_refuses_what_it_cannot_take():
                     secondary=torch.zeros(2, 8, device="meta"))
 
 
+def test_dequant_wrapper_refuses_what_it_cannot_take():
+    u8 = dict(dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_rows_dequant_int8(
+            torch.zeros(4, 8, device="meta", **u8),
+            torch.zeros(3, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_rows_dequant_int8(
+            torch.zeros(4, 8, **u8), torch.zeros(3, dtype=torch.int32),
+            torch.zeros(2, 8, device="meta", **u8))
+
+
+def _codes(rng, shape):
+    return rng.integers(0, 256, shape).astype(np.uint8)
+
+
+def test_dequant_is_the_codec_formula_on_every_code():
+    """Bit for bit (v / 254) * 2 - 1 in numpy float32, on all 256 codes,
+    through the plain decoder and the gather's plain version."""
+    v = np.arange(256, dtype=np.uint8)
+    ref = (v.astype(np.float32) / np.float32(254)) * np.float32(2) \
+        - np.float32(1)
+    got = dequantize_int8(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    table = torch.from_numpy(v.reshape(64, 4))
+    rows = gather_rows_dequant_int8(table, torch.arange(64,
+                                                        dtype=torch.int32))
+    np.testing.assert_array_equal(rows.numpy().reshape(-1).view(np.int32),
+                                  ref.view(np.int32))
+    # jitted JAX contracts the formula: within one ulp, not equal
+    jax_rows = np.asarray(jax_gather_dequant_ref(jnp.asarray(v[:, None]),
+                                                 jnp.arange(256)))[:, 0]
+    np.testing.assert_allclose(jax_rows, ref, rtol=0, atol=INT8_ATOL)
+
+
+@pytest.mark.parametrize("D", [4, 36, 512])
+def test_gather_dequant_matches_jax(D):
+    """The Pallas kernel in interpret mode (D % 4 == 0 there) and the JAX
+    plain version, on the same uint8 rows and indices."""
+    rng = np.random.default_rng(D)
+    table = _codes(rng, (300, D))
+    idx = rng.integers(0, 300, 64).astype(np.int32)
+    idx[10:20] = idx[3]
+    idx[-1] = 299
+    got = gather_rows_dequant_int8(torch.from_numpy(table),
+                                   torch.from_numpy(idx)).numpy()
+    assert got.shape == (64, D) and got.dtype == np.float32
+    for ref in (jax_gather_dequant(jnp.asarray(table), jnp.asarray(idx),
+                                   tile_b=16, interpret=True),
+                jax_gather_dequant_ref(jnp.asarray(table),
+                                       jnp.asarray(idx))):
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=0,
+                                   atol=INT8_ATOL)
+
+
+@pytest.mark.parametrize("shape,D", [((40,), 36), ((8, 26), 36),
+                                     ((8, 26), 7)])
+def test_two_source_gather_dequant_matches_take_over_concat(shape, D):
+    """Cache codes and a miss buffer of codes: an index < C reads the cache,
+    C + m buffer row m; any D (7 takes the kernel's byte path)."""
+    rng = np.random.default_rng(2)
+    C, M = 50, 16
+    cache, buf = _codes(rng, (C, D)), _codes(rng, (M, D))
+    idx = rng.integers(0, C + M, shape).astype(np.int32)
+    idx.flat[0], idx.flat[-1] = C, C + M - 1
+    ref = dequantize_int8(torch.from_numpy(
+        np.concatenate([cache, buf])[idx])).numpy()
+    got = gather_rows_dequant_int8(torch.from_numpy(cache),
+                                   torch.from_numpy(idx),
+                                   torch.from_numpy(buf))
+    assert got.shape == (*shape, D)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        got.numpy(), gather_rows_dequant_int8_ref(
+            torch.from_numpy(cache), torch.from_numpy(idx),
+            torch.from_numpy(buf)).numpy())
+
+
+def test_quantizer_matches_jax():
+    """numpy's round (half to even) on the host, as the JAX package has it,
+    including the values that fall exactly between two codes."""
+    x = np.concatenate([np.linspace(-1.2, 1.2, 4001, dtype=np.float32),
+                        (np.arange(255, dtype=np.float32) + 0.5) / 127 - 1])
+    np.testing.assert_array_equal(np_quantize_int8(x),
+                                  jax_np_quantize_int8(x))
+
+
+def test_ids_outside_the_sources_give_zero_rows():
+    """The port's rule on device tensors: a zero row, in the float gather
+    and the int8 gather (not the -1.0 that code 0 decodes to).  The JAX
+    package's `take_rows` agrees on a table of 2,048 rows or fewer (its
+    one-hot lookup) and clips the ids to rows 0 and N-1 on a larger one."""
+    rng = np.random.default_rng(3)
+    for N in (30, 3000):
+        table = rng.normal(size=(N, 8)).astype(np.float32)
+        codes = _codes(rng, (N, 8))
+        idx = np.asarray([-5, -1, 0, N - 1, N, N + 1, 2 ** 31 - 1], np.int32)
+        ok = (idx >= 0) & (idx < N)
+        got = gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+        np.testing.assert_array_equal(got.numpy()[~ok], 0.0)
+        np.testing.assert_array_equal(got.numpy()[ok], table[idx[ok]])
+        got8 = gather_rows_dequant_int8(torch.from_numpy(codes),
+                                        torch.from_numpy(idx)).numpy()
+        np.testing.assert_array_equal(got8[~ok], 0.0)
+        two = gather_rows_dequant_int8(torch.from_numpy(codes[:20]),
+                                       torch.from_numpy(idx),
+                                       torch.from_numpy(codes[20:])).numpy()
+        np.testing.assert_array_equal(two, got8)
+        jax_rows = np.asarray(jax_emb.take_rows(jnp.asarray(table),
+                                                jnp.asarray(idx)))
+        np.testing.assert_array_equal(
+            jax_rows[~ok], 0.0 if N <= 2048
+            else table[np.clip(idx[~ok], 0, N - 1)])
+
+
 def test_library_name_follows_the_sources():
     srcs = [os.path.basename(s) for s in _build.sources()]
-    assert srcs == ["common.cuh", "gather_rows.cu", "interaction_bwd.cu",
+    assert srcs == ["common.cuh", "gather_rows.cu",
+                    "gather_rows_dequant_int8.cu", "interaction_bwd.cu",
                     "interaction_fwd.cu", "row_update.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert os.path.basename(path).startswith("libevstore_kernels-")
-    assert set(_build.SIGNATURES) == {"interaction_fwd", "interaction_bwd",
-                                      "gather_rows", "scatter_sub_sorted"}
+    assert set(_build.SIGNATURES) == {
+        "interaction_fwd", "interaction_bwd", "gather_rows",
+        "gather_rows_dequant_int8", "scatter_sub_sorted"}
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -140,3 +280,31 @@ def test_failed_launch_raises():
     _build.check(0, "k")
     with pytest.raises(RuntimeError, match="cudaError 9"):
         _build.check(9, "k")
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc per .cu with -c, then one link with -shared; the library
+    lands under its hashed name with the compilers' report beside it.  A
+    stand-in nvcc records its arguments and writes its -o file."""
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho "$@" >> ' + str(calls) + '\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\necho "ptxas info: 0 spills"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    path = _build.build()
+    assert path == _build.library_path() and os.path.exists(path)
+    lines = calls.read_text().splitlines()
+    cus = [s for s in _build.sources() if s.endswith(".cu")]
+    compiles = [ln for ln in lines if " -c " in ln]
+    links = [ln for ln in lines if "-shared" in ln]
+    assert len(compiles) == len(cus) == 5 and len(links) == 1
+    assert sorted(ln.split()[-1] for ln in compiles) == sorted(cus)
+    assert all("sm_90a" in ln for ln in lines)
+    assert "0 spills" in open(path[:-3] + ".log").read()
+    assert sorted(os.listdir(tmp_path / "out")) == sorted(
+        [os.path.basename(path), os.path.basename(path)[:-3] + ".log"])
+    assert _build.build() == path and len(calls.read_text().splitlines()) \
+        == len(lines)                      # reused, not rebuilt

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points refuse to fall back to the CPU when no card is present."""
+"""The port stands alone: it imports neither JAX nor the JAX package, builds
+its C++ engine from its own copy into its own `_build/`, names no path of
+the JAX package in its code, and its entry points refuse to fall back to
+the CPU when no card is present."""
 
 import ast
 import os
@@ -34,6 +36,9 @@ def _imported_names(path: pathlib.Path):
 def test_every_port_module_imports_without_jax():
     mods = list(_port_modules())
     assert "evstore_tpu_torch.drivers.infer" in mods and len(mods) >= 20
+    assert {"evstore_tpu_torch.native", "evstore_tpu_torch.native.build",
+            "evstore_tpu_torch.ops.quant", "evstore_tpu_torch.cache.tiers",
+            "evstore_tpu_torch.data.loader"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -61,10 +66,55 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             f"{path.name} imports {name}"
 
 
+def _code_strings(path: pathlib.Path):
+    """The string constants of a module, docstrings left out."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.value
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_code_names_a_path_of_the_jax_package(path):
+    """Code (not the docstrings that cite what was ported) names no file or
+    directory of `evstore_tpu/`: the port builds and loads its own."""
+    for text in _code_strings(path):
+        assert "evstore_tpu/" not in text and text != "evstore_tpu", \
+            f"{path.name}: {text!r}"
+
+
+def test_native_sources_include_nothing_of_the_jax_package():
+    srcs = sorted(PORT.rglob("*.cpp")) + sorted(PORT.rglob("*.cu")) \
+        + sorted(PORT.rglob("*.cuh"))
+    assert PORT / "native" / "evstore_core.cpp" in srcs
+    for src in srcs:
+        for line in src.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "evstore_tpu" not in line, f"{src.name}: {line}"
+
+
+def test_the_engine_builds_inside_the_port():
+    from evstore_tpu_torch.native import build
+    for path in (build.SRC, build.BUILD_DIR, build.library_path()):
+        assert pathlib.Path(path).resolve().is_relative_to(PORT)
+    assert pathlib.Path(build.BUILD_DIR) == PORT / "_build"
+
+
 def test_entry_points_without_a_card_raise():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    from evstore_tpu_torch.cache.device_cache import DeviceC1Cache
+    from evstore_tpu_torch.cache.device_cache import (DeviceC1Cache,
+                                                      NativeDeviceC1Cache)
     from evstore_tpu_torch.cache.storage import StorageManager
     from evstore_tpu_torch.config import CacheConfig, tiny_dlrm_config
     from evstore_tpu_torch.drivers.infer import build_cache, run_inference
@@ -84,6 +134,12 @@ def test_entry_points_without_a_card_raise():
         DeviceC1Cache(CacheConfig(total_size=60), sm, 3, cfg.embedding_dim)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DLRM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NativeDeviceC1Cache(CacheConfig(total_size=60), 3,
+                            cfg.embedding_dim)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NativeDeviceC1Cache(CacheConfig(total_size=60), 3,
+                            cfg.embedding_dim, device=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_inference(model, cfg, CacheConfig(total_size=60), [], sm,
                       use_device_cache=True, device="cuda")

@@ -3,10 +3,17 @@ converted from the JAX pytree, the model forward, the inference driver
 through the device C1 cache, and the copied host modules (request streams,
 metrics, latency CDF).
 
+Both packages' `run_inference(use_device_cache=True)` serve through their
+`NativeDeviceC1Cache` (each with its own copy of the C++ tier engine), at
+fp32, at int8 and as the three-tier hybrid with alt keys.
+
 Tolerances: scores rtol 1e-5 (float32, TF32 off; summation order differs
 between XLA and PyTorch); metrics atol 1e-6; everything the port copies or
-moves (weights, rows, streams, policy counters) exact.
+moves (weights, rows, streams, policy counters, cache stats and bytes
+shipped) exact.
 """
+
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +23,7 @@ import torch
 
 from evstore_tpu import config as jcfg
 from evstore_tpu.cache.storage import StorageManager as JaxStorageManager
+from evstore_tpu.cache.tiers import AltKeyResolver as JaxAltKeyResolver
 from evstore_tpu.data import synthetic as jsyn
 from evstore_tpu.drivers.infer import run_inference as jax_run_inference
 from evstore_tpu.models.dlrm import dlrm_forward, init_dlrm
@@ -24,8 +32,10 @@ from evstore_tpu.train import metrics as jmetrics
 from evstore_tpu.utils.trace import LatencyRecorder as JaxLatencyRecorder
 from evstore_tpu_torch import config as pcfg
 from evstore_tpu_torch.cache.storage import StorageManager
+from evstore_tpu_torch.cache.tiers import AltKeyResolver
 from evstore_tpu_torch.convert import params_from_jax, params_to_numpy
 from evstore_tpu_torch.data import synthetic as psyn
+from evstore_tpu_torch.data.loader import PrefetchIterator, prefetch
 from evstore_tpu_torch.drivers.infer import build_cache, run_inference
 from evstore_tpu_torch.models.dlrm import DLRM
 from evstore_tpu_torch.train import metrics as pmetrics
@@ -218,18 +228,239 @@ def test_lookup_only_and_cdf(tmp_path):
 
 
 def test_unported_driver_options_raise():
+    """What the port does not serve yet: the host paths, the LFU/LRU
+    baselines, 16- and 4-bit C1 rows and stores other than a loaded dummy
+    one."""
     cj, cp, params, model, tables = _models("tiny")
     sm = StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables)
     batches = psyn.random_batches(psyn.RandomDataConfig(**_stream(cp, 1)))
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        run_inference(model, cp, pcfg.CacheConfig(), batches, sm,
-                      use_device_cache=True, pipeline_depth=2, device="cpu")
     with pytest.raises(NotImplementedError, match="TieredCache"):
         run_inference(model, cp, pcfg.CacheConfig(), batches, sm,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="EvLFU over C1"):
-        build_cache(pcfg.CacheConfig(n_caching_layers=2), cp, sm,
+    for use_device_cache in (False, True):
+        with pytest.raises(NotImplementedError, match="use_native"):
+            run_inference(model, cp, pcfg.CacheConfig(), batches, sm,
+                          use_native=True, use_device_cache=use_device_cache,
+                          device="cpu")
+    for policy in ("lfu", "lru"):
+        with pytest.raises(NotImplementedError, match="baseline"):
+            build_cache(pcfg.CacheConfig(policy=policy), cp, sm,
+                        use_device_cache=True, device="cpu")
+    for p in (16, 4):
+        with pytest.raises(ValueError, match="fp32 or int8"):
+            build_cache(pcfg.CacheConfig(main_precision=p), cp, sm,
+                        use_device_cache=True, device="cpu")
+    with pytest.raises(ValueError, match="dummy store"):
+        build_cache(pcfg.CacheConfig(), cp,
+                    StorageManager("dummy", dim=cp.embedding_dim),
                     use_device_cache=True, device="cpu")
+    for backend in ("file", "mmap", "sqlite", "logkv", "native"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            StorageManager(backend)
     with pytest.raises(NotImplementedError, match="gaussian"):
         next(psyn.random_batches(psyn.RandomDataConfig(
             distribution="gaussian")))
+
+
+NATIVE = {
+    "fp32": dict(n_caching_layers=1, total_size=400, main_precision=32),
+    "int8": dict(n_caching_layers=1, total_size=400, main_precision=8),
+    # the published C1+C2+C3 shape: int8 C1, 4-bit C2, alt-key C3, 48-48-4
+    "c1c2c3": dict(n_caching_layers=3, total_size=900, main_precision=8,
+                   secondary_precision=4, size_proportion=(48, 48, 4),
+                   c3_io_batch=10),
+}
+
+
+def _altkeys(sizes, seed=12):
+    """One uniform row of the same table per row (a stand-in for the
+    offline kNN product)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, n, n) for n in sizes]
+
+
+@pytest.mark.parametrize("name", list(NATIVE))
+def test_run_inference_through_the_native_cache_matches_jax(name):
+    """Both drivers serve through NativeDeviceC1Cache on the same stream:
+    metrics within atol 1e-6; requests, perfect hits, hit rate, bytes
+    shipped and the C2/C3 stats equal."""
+    cj, cp, params, model, tables = _models("narrow26", seed=2)
+    kw = dict(policy="evlfu", **NATIVE[name])
+    sc = _stream(cp, 10, B=32)
+    warm = {**sc, "seed": 6, "num_batches": 2}
+    alts = _altkeys(cp.table_sizes)
+    ref = jax_run_inference(
+        params, cj, jcfg.CacheConfig(**kw),
+        jsyn.random_batches(jsyn.RandomDataConfig(**sc)),
+        JaxStorageManager("dummy", dim=cj.embedding_dim).load(tables=tables),
+        altkey_resolver=JaxAltKeyResolver(alts),
+        warmup_batches=jsyn.random_batches(jsyn.RandomDataConfig(**warm)),
+        use_device_cache=True, log_fn=lambda *_: None)
+    got = run_inference(
+        model, cp, pcfg.CacheConfig(**kw),
+        psyn.random_batches(psyn.RandomDataConfig(**sc)),
+        StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables),
+        altkey_resolver=AltKeyResolver(alts),
+        warmup_batches=psyn.random_batches(psyn.RandomDataConfig(**warm)),
+        use_device_cache=True, device="cpu", log_fn=lambda *_: None)
+    assert got.requests == ref.requests == 320
+    assert set(got.metrics) == set(ref.metrics)
+    for k, v in ref.metrics.items():
+        np.testing.assert_allclose(got.metrics[k], v, atol=1e-6, err_msg=k)
+    assert got.cache_stats == ref.cache_stats
+    assert got.cache_stats["requests"] == 384
+    if name == "c1c2c3":
+        assert got.cache_stats["c2"]["hit_rate"] > 0
+        assert got.cache_stats["c3"]["size"] > 0
+
+
+@pytest.mark.parametrize("name", ["int8", "c1c2c3"])
+def test_scores_through_the_native_cache_match_jax_forward(name):
+    cj, cp, params, model, tables = _models("narrow26", seed=1)
+    sm = StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables)
+    cache = build_cache(pcfg.CacheConfig(**NATIVE[name]), cp, sm,
+                        AltKeyResolver(_altkeys(cp.table_sizes)),
+                        use_device_cache=True, device="cpu")
+    for dense, idx, _ in psyn.random_batches(
+            psyn.RandomDataConfig(**_stream(cp, 4, seed=3))):
+        rows = cache.lookup_batch(idx)
+        with torch.inference_mode():
+            got = torch.sigmoid(model(torch.from_numpy(dense), None,
+                                      emb_rows=rows))
+        ref = jax.nn.sigmoid(dlrm_forward(params, jnp.asarray(dense),
+                                          jnp.asarray(idx), cj,
+                                          emb_rows=jnp.asarray(rows.numpy())))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
+    cache.close()
+
+
+def _threads():
+    return set(threading.enumerate())
+
+
+@pytest.mark.parametrize("name", list(NATIVE))
+def test_pipelined_run_equals_sequential(name):
+    """pipeline_depth=2 runs the lookups on a prefetch thread: the same
+    scores and stats as pipeline_depth=0, and the thread is joined."""
+    cj, cp, params, model, tables = _models("narrow26", seed=3)
+    sc = _stream(cp, 8, B=32, seed=7)
+    before = _threads()
+    res = {}
+    for depth in (0, 2):
+        res[depth] = run_inference(
+            model, cp, pcfg.CacheConfig(**NATIVE[name]),
+            psyn.random_batches(psyn.RandomDataConfig(**sc)),
+            StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables),
+            altkey_resolver=AltKeyResolver(_altkeys(cp.table_sizes)),
+            use_device_cache=True, pipeline_depth=depth, device="cpu",
+            log_fn=lambda *_: None)
+        assert _threads() == before
+    np.testing.assert_array_equal(res[2].scores, res[0].scores)
+    assert res[2].cache_stats == res[0].cache_stats
+    assert res[2].metrics == res[0].metrics
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_a_failing_run_leaves_no_thread(depth):
+    """A batch iterator that raises, and an id outside its table: the error
+    reaches the caller, and the prefetch thread is joined."""
+    cj, cp, params, model, tables = _models("tiny")
+    sm = StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables)
+    good = list(psyn.random_batches(psyn.RandomDataConfig(**_stream(cp, 3))))
+
+    def failing():
+        yield from good[:2]
+        raise RuntimeError("the stream broke")
+
+    before = _threads()
+    with pytest.raises(RuntimeError, match="the stream broke"):
+        run_inference(model, cp, pcfg.CacheConfig(total_size=60), failing(),
+                      sm, use_device_cache=True, pipeline_depth=depth,
+                      device="cpu", log_fn=lambda *_: None)
+    assert _threads() == before
+    dense, idx, y = good[2]
+    idx = idx.copy()
+    idx[3, 1] = cp.table_sizes[1]
+    with pytest.raises(ValueError, match="table 1 is outside"):
+        run_inference(model, cp, pcfg.CacheConfig(total_size=60),
+                      good[:2] + [(dense, idx, y)], sm,
+                      use_device_cache=True, pipeline_depth=depth,
+                      device="cpu", log_fn=lambda *_: None)
+    assert _threads() == before
+
+
+def test_the_caller_owns_a_cache_it_passes():
+    """run_inference closes a cache it built; a cache passed in stays open
+    for the caller to look into, and the caller closes it."""
+    cj, cp, params, model, tables = _models("tiny")
+    sm = StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables)
+    batches = list(psyn.random_batches(psyn.RandomDataConfig(
+        **_stream(cp, 3))))
+    cache = build_cache(pcfg.CacheConfig(total_size=60), cp, sm,
+                        use_device_cache=True, device="cpu")
+    res = run_inference(model, cp, pcfg.CacheConfig(total_size=60),
+                        batches[:2], sm, cache=cache, device="cpu",
+                        log_fn=lambda *_: None)
+    assert res.cache_stats == cache.stats()        # still open
+    assert res.cache_stats["requests"] == 32
+    rows = cache.lookup_batch(batches[2][1])
+    np.testing.assert_array_equal(
+        rows.numpy(), np.stack([tables[t][batches[2][1][:, t]]
+                                for t in range(cp.num_tables)], axis=1))
+    cache.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        cache.lookup_batch(batches[2][1])
+
+
+def test_prefetch_iterator():
+    """Batches in order, moved to the device; an error after the batches
+    before it; close() joins the worker even when the consumer stops
+    early."""
+    before = _threads()
+    data = [(np.arange(3) + i, np.ones((2, 2), np.float32)) for i in range(5)]
+    with prefetch(data, depth=2, to_device="cpu") as it:
+        got = list(it)
+    assert [int(a[0]) for a, _ in got] == [0, 1, 2, 3, 4]
+    assert all(isinstance(a, torch.Tensor) for pair in got for a in pair)
+
+    def failing():
+        yield from data[:2]
+        raise KeyError("boom")
+
+    it = PrefetchIterator(failing(), depth=1)
+    assert next(it) is data[0] and next(it) is data[1]
+    with pytest.raises(KeyError, match="boom"):
+        next(it)
+    it.close()
+    endless = PrefetchIterator(iter(lambda: data[0], None), depth=2,
+                               transform=lambda b: b[0])
+    assert int(next(endless)[0]) == 0
+    endless.close()
+    assert _threads() == before
+
+
+def test_bf16_forward_matches_jax():
+    """compute_dtype=bfloat16 at the Kaggle MLP widths (4 tables of
+    200-1,000 rows, B=256, PRNGKey(0)): the matmuls sum exact products of
+    bf16 operands in float32, as JAX's preferred_element_type=float32 does.
+    Tolerance 1e-5 (1 + |ref|) on the logits: the summation order differs,
+    and a bf16 rounding between layers may still land on the other side of
+    a boundary.  A bf16 matmul, which rounds every output to bf16, missed
+    by 3.4e-4."""
+    kw = dict(compute_dtype="bfloat16", use_interaction_kernel=False)
+    args = (36, (200, 450, 700, 1000), (512, 256, 64), (512, 256))
+    cj = jcfg.make_dlrm_config(*args, compute_dtype="bfloat16")
+    cp = pcfg.make_dlrm_config(*args, **kw)
+    params = init_dlrm(jax.random.PRNGKey(0), cj)
+    npp = jax.tree_util.tree_map(np.asarray, params)
+    model = DLRM(cp, device="cpu")
+    model.load_state_dict(params_from_jax(npp.dense, npp.sparse, cp,
+                                          device="cpu")[0])
+    dense, idx, _ = next(psyn.random_batches(
+        psyn.RandomDataConfig(**_stream(cp, 1, B=256, dist="uniform"))))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(dense), torch.from_numpy(idx)).numpy()
+    ref = np.asarray(dlrm_forward(params, jnp.asarray(dense),
+                                  jnp.asarray(idx), cj))
+    assert np.all(np.abs(got - ref) <= 1e-5 * (1 + np.abs(ref))), \
+        float(np.abs(got - ref).max())

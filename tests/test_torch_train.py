@@ -273,3 +273,75 @@ def test_unported_training_inputs_raise():
         make_train_step(other, pcfg.TrainConfig())(model, st, dense, idx, y)
     with pytest.raises(ValueError, match="unsupported optimizer"):
         init_opt_state(model, pcfg.TrainConfig(optimizer="adam"))
+
+
+@pytest.mark.parametrize("kernels", ["on", "off"])
+def test_bf16_sgd_step_matches_jax(kernels):
+    """One sgd step at compute_dtype=bfloat16 (f32 parameters).  The loss
+    within rtol 1e-5; the top MLP and the tables within 1e-4 (1 + |ref|).
+    The bottom MLP within 2e-4 (1 + |ref|): its gradient comes through the
+    interaction's VJP, which the port computes in float32 and rounds to
+    bf16 once, at the end, where XLA rounds after each product, so a bf16
+    cotangent can differ by an ulp and move a weight's update by
+    lr * 2^-8 |g| (1.27e-4 at most here)."""
+    kw = dict(KERNELS_OFF if kernels == "off" else {},
+              compute_dtype="bfloat16")
+    args, base = SMALL
+    cj = jcfg.make_dlrm_config(*args, **base, compute_dtype="bfloat16")
+    cp = pcfg.make_dlrm_config(*args, **base, **kw)
+    params = init_dlrm(jax.random.PRNGKey(1), cj)
+    npp = jax.tree_util.tree_map(np.asarray, params)
+    model = DLRM(cp, device="cpu")
+    model.load_state_dict(params_from_jax(npp.dense, npp.sparse, cp,
+                                          device="cpu")[0])
+    tj = jcfg.TrainConfig(batch_size=32, learning_rate=0.3, optimizer="sgd")
+    tp = pcfg.TrainConfig(learning_rate=0.3, optimizer="sgd")
+    dense, idx, y = _batches(cp, n=1)[0]
+    params, _, jloss = jax.jit(jloop.make_train_step(cj, tj))(
+        params, jloop.init_opt_state(params, tj), jnp.asarray(dense),
+        jnp.asarray(idx), jnp.asarray(y))
+    ploss = make_train_step(cp, tp)(model, init_opt_state(model, tp), dense,
+                                    idx, y)
+    np.testing.assert_allclose(float(ploss), float(jloss), rtol=1e-5)
+
+    def within(got, ref, rel, what):
+        ref = np.asarray(ref)
+        d = np.abs(np.asarray(got) - ref) / (1 + np.abs(ref))
+        assert d.max() <= rel, (what, float(d.max()))
+
+    dense_j = jax.tree_util.tree_map(np.asarray, params.dense)
+    dense_p, sparse_p = params_to_numpy(model)
+    for part, rel in (("bot", 2e-4), ("top", 1e-4)):
+        for name, lyr in dense_j[part].items():
+            for k in ("w", "b"):
+                within(dense_p[part][name][k], lyr[k], rel,
+                       f"{part}.{name}.{k}")
+    for t in range(cp.num_tables):
+        within(sparse_p[f"table_{t}"]["kind_plain"],
+               params.sparse[f"table_{t}"]["kind_plain"], 1e-4, f"table_{t}")
+
+
+def test_host_ids_outside_their_table_raise():
+    """The port's id rule on the training side: numpy ids outside [0, N)
+    raise ValueError in the train step and in `evaluate`; the JAX step
+    clips them in its lookup and wraps a negative one in its row update."""
+    _, cp, _, model = _models()
+    step = make_train_step(cp, pcfg.TrainConfig())
+    st = init_opt_state(model, pcfg.TrainConfig())
+    dense, idx, y = _batches(cp, n=1)[0]
+    before = params_to_numpy(model)
+    for t, bad in ((0, -1), (2, cp.table_sizes[2])):
+        wrong = idx.copy()
+        wrong[5, t] = bad
+        with pytest.raises(ValueError, match=f"table {t} is outside"):
+            step(model, st, dense, wrong, y)
+        with pytest.raises(ValueError, match="outside"):
+            evaluate(model, cp, [(dense, wrong, y)])
+        with pytest.raises(ValueError, match="outside"):
+            train(model, cp, pcfg.TrainConfig(), [(dense, wrong, y)],
+                  log_fn=lambda *_: None)
+    assert st.step == 0
+    after = params_to_numpy(model)
+    for t in range(cp.num_tables):
+        np.testing.assert_array_equal(after[1][f"table_{t}"]["kind_plain"],
+                                      before[1][f"table_{t}"]["kind_plain"])

@@ -192,3 +192,36 @@ def test_update_wrapper_refuses_what_it_cannot_take():
         scatter_sub_sorted(t, rows, vals)
     with pytest.raises(ValueError, match="CUDA device"):
         scatter_sub_sorted(torch.zeros(4, 8), rows, torch.zeros(3, 8))
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adagrad", "rwsadagrad"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ids_outside_the_table_are_inert(opt, use_kernel):
+    """The port's rule for ids outside [0, N) on device tensors: a row
+    update leaves the table alone.  The JAX `row_update` wraps a negative
+    id as numpy does (id -1 updates row N-1); every in-range row agrees.
+    Ids on the host never get here: `train` raises for them."""
+    N, D = 50, 4
+    rng = np.random.default_rng(5)
+    table = rng.uniform(-0.1, 0.1, (N, D)).astype(np.float32)
+    ids = np.asarray([3, -1, 7, 3, N], np.int32)
+    g = rng.normal(0, 1, (ids.size, D)).astype(np.float32)
+    st = (None if opt == "sgd" else
+          np.full((N,) if opt == "rwsadagrad" else (N, D), 0.01, np.float32))
+    ref_s, ref_t = jopt.row_update(
+        opt, None if st is None else jnp.asarray(st), jnp.asarray(table),
+        jnp.asarray(ids[:4]), jnp.asarray(g[:4]), 0.1)
+    ref_t = np.asarray(ref_t)
+    assert np.abs(ref_t[N - 1] - table[N - 1]).max() > 0.05   # JAX wraps
+    t = torch.from_numpy(table.copy())
+    s = None if st is None else torch.from_numpy(st.copy())
+    popt.row_update(opt, s, t, torch.from_numpy(ids), torch.from_numpy(g),
+                    0.1, use_kernel=use_kernel)
+    np.testing.assert_array_equal(t.numpy()[N - 1], table[N - 1])
+    np.testing.assert_allclose(t.numpy()[:N - 1], ref_t[:N - 1], rtol=1e-5,
+                               atol=1e-6)
+    if s is not None:
+        np.testing.assert_array_equal(s.numpy()[N - 1], st[N - 1])
+        np.testing.assert_allclose(s.numpy()[:N - 1],
+                                   np.asarray(ref_s)[:N - 1], rtol=1e-5,
+                                   atol=1e-7)
