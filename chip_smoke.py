@@ -14,7 +14,10 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    reuses the libraries built from the same sources);
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes and larger ones, with times (CUDA events, median
-   of 20 after warm-up) beside the least time the card could take;
+   of 20 after warm-up) beside the least time the card could take; the
+   two-stage Gram forward (K6) also against the one-stage forward (K1) on
+   the same inputs, and its op `DotInteractionGram`, forward and backward,
+   against `DotInteraction` and the plain forward and VJP;
 3. the serving path: the full-width Criteo Kaggle DLRM (26 tables, 33.8M
    rows, dim 36) served by `run_inference` through the tier engine's
    device C1 cache (`NativeDeviceC1Cache`, EvLFU, 64,000 fp32 entries),
@@ -33,6 +36,20 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    and C3 must be live, and one more batch's int8 rows must equal the
    plain version's on the same cache state and miss buffer, on the int8
    grid;
+3d. the host tiers, over the same tables written to 26 .bin files in a
+   temporary directory: (a) the published C1 as the reference's driver
+   runs it, the Python `TieredCache` (EvLFU, 64,000 fp32) over an
+   `MmapStore`, 16 scored batches, held to the plain forward on the
+   store's rows; (b) the published C1+C2+C3 through the engine's host path
+   (`use_native`), reading the files and the alt keys' .bin files, 64
+   batches; (c) the LFU and LRU baselines at 64,000, Python (4 batches)
+   and in the engine (64); (d) 256 requests of batch size 1 through (b)'s
+   engine, each timed alone; (e) the A/B of the two interaction forwards
+   on (b)'s rows: the bottom MLP, `DotInteractionGram` (K6) and the top
+   MLP must give (b)'s scores; (g) the engine's host path at phase 3's C1
+   with the tables in RAM; (f) the TCP service in batched mode over a
+   fresh fp32 C1 of the engine, its rows equal to the store's; each run
+   prints requests/s, p50/p99, stats and its host split;
 3b. the training path: the same model with phase 3's tables on the card,
    trained at the reference recipe's batch of 128 and lr 0.1 by
    `make_train_step` and `train` (rwsadagrad, then sgd), with steps/s and a
@@ -41,11 +58,14 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    from the same state, and so must five more that compound from one
    state; then `evaluate`; the four kernels' launch counts over this phase
    must be above 0;
-4. the kernels' launch counts and one JSON line describing every kernel;
+4. the kernels' launch counts by path (serve, serve_int8, serve_host,
+   gram_ab, train) and one JSON line describing every kernel, each of
+   which must have launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
-copy of the 4.86 GB of tables), before the next one starts.
+copy of the 4.86 GB of tables, or reads the files), its stores and its
+temporary files before the next one starts.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -55,6 +75,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -65,8 +86,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "2 kernels vs plain": 150, "3 main path": 200,
-                  "3c three tiers int8": 200, "3b train": 240,
-                  "4 kernels line": 30}
+                  "3c three tiers int8": 200, "3d host tiers": 240,
+                  "3b train": 240, "4 kernels line": 30}
 
 
 class Phase:
@@ -164,7 +185,13 @@ def main() -> int:
     from evstore_tpu_torch import _build
     from evstore_tpu_torch.cache.device_cache import DeviceC1Cache
     from evstore_tpu_torch.cache.storage import StorageManager
-    from evstore_tpu_torch.cache.tiers import AltKeyResolver
+    from evstore_tpu_torch.cache.service import (EmbeddingClient,
+                                                 EmbeddingServer)
+    from evstore_tpu_torch.cache.storage import write_ev_tables_binary
+    from evstore_tpu_torch.cache.tiers import (AltKeyResolver, altkey_encode,
+                                               write_altkeys_binary)
+    from evstore_tpu_torch.drivers.infer import TRUE_PER_REQUEST
+    from evstore_tpu_torch.native import NativeTieredCache
     from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
                                           kaggle_dlrm_config)
     from evstore_tpu_torch.data.synthetic import (RandomDataConfig,
@@ -177,12 +204,14 @@ def main() -> int:
         gather_rows, gather_rows_dequant_int8, gather_rows_dequant_int8_ref,
         gather_rows_ref)
     from evstore_tpu_torch.ops.cuda_interaction import (
-        dot_interaction_bwd_kernel, dot_interaction_bwd_ref,
+        DotInteraction, DotInteractionGram, dot_interaction_bwd_kernel,
+        dot_interaction_bwd_ref, dot_interaction_gram_kernel,
         dot_interaction_kernel, dot_interaction_ref)
     from evstore_tpu_torch.ops.cuda_update import (scatter_sub_sorted,
                                                    scatter_sub_sorted_ref)
     from evstore_tpu_torch.ops.interaction import num_pairs
-    from evstore_tpu_torch.ops.quant import dequantize_int8, np_quantize_int8
+    from evstore_tpu_torch.ops.quant import (dequantize, dequantize_int8,
+                                             np_quantize_int8)
     from evstore_tpu_torch.train.optim import PAD_ROW, dense_parameters
     from evstore_tpu_torch.train.train_loop import (evaluate, init_opt_state,
                                                     make_train_step, train)
@@ -249,6 +278,7 @@ def main() -> int:
     report = {}
     wrappers = {"interaction_fwd": dot_interaction_kernel,
                 "interaction_bwd": dot_interaction_bwd_kernel,
+                "interaction_gram": dot_interaction_gram_kernel,
                 "gather_rows": gather_rows,
                 "gather_rows_dequant_int8": gather_rows_dequant_int8,
                 "scatter_sub_sorted": scatter_sub_sorted}
@@ -342,6 +372,76 @@ def main() -> int:
                     max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                     bound_by=by, library_ms=None)
             del x, ly, g, got, ref
+
+        # K6, the two-stage (Gram) forward: K1's rules, against the plain
+        # version and against K1 on the same inputs (the same function)
+        for B, dt, si in [(128, "float32", False), (2048, "float32", False),
+                          (65536, "float32", False),
+                          (65536, "bfloat16", False),
+                          (2048, "float32", True)]:
+            tdt = getattr(torch, dt)
+            x = torch.randn(B, D, generator=gen, device=dev).to(tdt)
+            ly = torch.randn(B, T, D, generator=gen, device=dev).to(tdt)
+            got = dot_interaction_gram_kernel(x, ly, si)
+            ref = dot_interaction_ref(x, ly, si)
+            k1 = dot_interaction_kernel(x, ly, si)
+            torch.cuda.synchronize()
+            ok, err = within(got, ref, 1e-5, dt == "bfloat16")
+            ok1, err1 = within(got, k1, 1e-5, dt == "bfloat16")
+            if got.shape != ref.shape or got.dtype != ref.dtype or not ok \
+                    or not ok1:
+                raise AssertionError(
+                    f"interaction_gram disagrees at B={B} T={T} D={D} {dt} "
+                    f"self={si}: max|d| {err} vs plain, {err1} vs K1")
+            P = num_pairs(T + 1, si)
+            es = x.element_size()
+            bms, by = bound_ms((B * (T + 1) * D + B * (D + P)) * es,
+                               2.0 * B * P * D, dt)
+            k_ms = time_ms(torch,
+                           lambda: dot_interaction_gram_kernel(x, ly, si))
+            k1_ms = time_ms(torch, lambda: dot_interaction_kernel(x, ly, si))
+            p_ms = time_ms(torch, lambda: dot_interaction_ref(x, ly, si))
+            print(f"interaction_gram B={B} T={T} D={D} {dt} self={si}: "
+                  f"max|d| {err:.3e} vs plain, {err1:.3e} vs K1; kernel_ms "
+                  f"{k_ms:.4f} K1_ms {k1_ms:.4f} plain_ms {p_ms:.4f} "
+                  f"bound_us {bms * 1e3:.2f} ({by}) library_ms none (no "
+                  f"single PyTorch call computes it) [{card}]", flush=True)
+            if (B, dt, si) == (2048, "float32", False):
+                report["interaction_gram"] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+            del x, ly, got, ref, k1
+
+        # the op: DotInteractionGram (K6 and the plain VJP) against
+        # DotInteraction (K1 and K4) and the plain forward and VJP, B=128
+        B = 128
+        P = num_pairs(T + 1, False)
+        x0 = torch.randn(B, D, generator=gen, device=dev)
+        ly0 = torch.randn(B, T, D, generator=gen, device=dev)
+        g0 = torch.randn(B, D + P, generator=gen, device=dev)
+        outs = {}
+        for name, op in (("gram", DotInteractionGram.apply),
+                         ("K1+K4", DotInteraction.apply)):
+            a = x0.clone().requires_grad_(True)
+            b = ly0.clone().requires_grad_(True)
+            out = op(a, b, False)
+            out.backward(g0)
+            outs[name] = (out.detach(), a.grad, b.grad)
+        outs["plain"] = (dot_interaction_ref(x0, ly0),
+                         *dot_interaction_bwd_ref(x0, ly0, g0))
+        torch.cuda.synchronize()
+        op_err = 0.0
+        for other in ("K1+K4", "plain"):
+            for u, v in zip(outs["gram"], outs[other]):
+                ok, err = within(u, v, 1e-5)
+                op_err = max(op_err, err)
+                if not ok:
+                    raise AssertionError(f"DotInteractionGram differs from "
+                                         f"{other}: max|d| {err}")
+        print(f"DotInteractionGram B=128 T={T} D={D} f32, forward and "
+              f"backward: max|d| {op_err:.3e} against DotInteraction (K1 "
+              f"and K4) and the plain forward and VJP", flush=True)
+        del x0, ly0, g0, outs
 
         # K2: bit-exact
         def k2_case(C, M, R, D, dt, label):
@@ -529,16 +629,17 @@ def main() -> int:
             seed=args.seed + 1, distribution="grouped_zipf", zipf_alpha=1.05,
             group_noise=0.1))
 
-    def warm_up(cache, full):
+    def warm_up(cache, full, n_scored=N_SCORED):
         """run_inference's warm-up pass, done here on the stream until
         `full(cache.stats())` holds, so that the scored batches see the
         tiers in steady state and the host split counts them only.
         Returns the warm-up batches, the scored ones and one more."""
         it = serve_stream()
         warm = []
+        look = getattr(cache, "lookup_batch", None) or cache.request_batch
         with torch.inference_mode():
             for b in it:
-                cache.lookup_batch(b[1])
+                look(b[1])
                 warm.append(b)
                 if full(cache.stats()):
                     break
@@ -547,8 +648,16 @@ def main() -> int:
                                          f"{WARM_CAP} warm-up batches: "
                                          f"{cache.stats()}")
         torch.cuda.synchronize()
-        cache.host_s = dict.fromkeys(cache.host_s, 0.0)
-        return warm, [next(it) for _ in range(N_SCORED)], next(it)
+        if hasattr(cache, "host_s"):
+            cache.host_s = dict.fromkeys(cache.host_s, 0.0)
+        return warm, [next(it) for _ in range(n_scored)], next(it)
+
+    def seeded_altkeys():
+        """C3's alt keys: for each row, `altkey_encode` of one uniform row
+        of the same table, from --seed."""
+        arng = np.random.default_rng(args.seed + 4)
+        return [altkey_encode(t, arng.integers(0, n, n)).astype(np.uint32)
+                for t, n in enumerate(cfg.table_sizes)]
 
     with Phase("3 main path"):
         cfg = kaggle_dlrm_config()
@@ -689,9 +798,7 @@ def main() -> int:
                             total_size=75425, main_precision=8,
                             secondary_precision=4, size_proportion=(48, 48, 4))
         t0 = time.perf_counter()
-        arng = np.random.default_rng(args.seed + 4)
-        resolver = AltKeyResolver([arng.integers(0, n, n, dtype=np.uint32)
-                                   for n in cfg.table_sizes])
+        resolver = AltKeyResolver(seeded_altkeys())
         cache = build_cache(ccfg3, cfg, storage, resolver,
                             use_device_cache=True, device=dev)
         print(f"set-up: tiers {ccfg3.tier_capacities()}, alt keys and "
@@ -761,6 +868,317 @@ def main() -> int:
               f" auc {res3.metrics['auc']:.4f} (random weights and labels)")
         cache.close()
         del cache, rows, ref, resolver, warmup3, scored3
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 3d host tiers
+    def host_line(label, res, n_batches, B=2048):
+        """Rates, latency, stats and the host split per batch of a run
+        through a cache that hands back host rows."""
+        per = {k: 1e3 * v / n_batches for k, v in res.host_s.items()}
+        print(f"{label} [{card}]: {res.requests} requests in "
+              f"{res.elapsed_s:.3f} s = {res.requests / res.elapsed_s:.1f} "
+              f"requests/s; p50 {res.latency['p50_s'] * 1e6:.2f} us, p99 "
+              f"{res.latency['p99_s'] * 1e6:.2f} us per request; host ms "
+              f"per batch of {B}: {1e3 * res.elapsed_s / n_batches:.3f} in "
+              f"all; the cache's request_batch {per['lookup']:.3f}; H2D "
+              f"copy of the rows {per['copy']:.3f}; forward and fence "
+              f"{per['forward']:.3f}; stats (warm-up included) "
+              f"{json.dumps(res.cache_stats)}", flush=True)
+
+    def store_rows(idx):
+        return np.stack([tables[t][idx[:, t]] for t in range(cfg.num_tables)],
+                        axis=1)
+
+    def check_plain(res, batches, label):
+        """The scores of an fp32 run against the plain forward on the
+        store's own rows, 1e-5 (1 + |ref|)."""
+        worst = 0.0
+        with torch.inference_mode():
+            for i, (dense, idx, _) in enumerate(batches):
+                dense_t = torch.from_numpy(dense).to(dev)
+                ref = torch.sigmoid(model.top_mlp(dot_interaction_ref(
+                    model.bottom_mlp(dense_t),
+                    torch.from_numpy(store_rows(idx)).to(dev)))).cpu()
+                got = torch.from_numpy(res.scores[i * len(idx):
+                                                  (i + 1) * len(idx)])
+                ok, err = within(got, ref, 1e-5)
+                worst = max(worst, err)
+                if not ok:
+                    raise AssertionError(f"{label}: scores differ from the "
+                                         f"plain forward on the store's rows"
+                                         f": max|d| {err}")
+        return worst
+
+    def served(res, n):
+        if res.scores is None or res.scores.shape != (n * 2048,) or \
+                not np.isfinite(res.scores).all():
+            raise AssertionError("scores missing, misshapen or not finite")
+
+    host_launches = dict.fromkeys(wrappers, 0)
+
+    def serve_host(*a, **kw):
+        """run_inference with the launch counts set to 0 just before and
+        added to the serve_host path's just after."""
+        reset_counts()
+        res = run_inference(*a, device=dev, **kw)
+        for k, v in read_counts().items():
+            host_launches[k] += v
+        return res
+
+    with Phase("3d host tiers"):
+        tmp3d = tempfile.TemporaryDirectory()
+        bins = tmp3d.name
+        free = shutil.disk_usage(bins).free
+        print(f"files in {bins}: {free / 1e9:.2f} GB free, the tables take "
+              f"{host_gb:.2f} GB", flush=True)
+        t0 = time.perf_counter()
+        write_ev_tables_binary(tables, bins)
+        alts = seeded_altkeys()
+        write_altkeys_binary(alts, bins)
+        print(f"wrote 26 ev-table-<t>.bin and alt-keys-<t>.bin files in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        sizes = list(cfg.table_sizes)
+        mm = StorageManager("mmap", dim=cfg.embedding_dim).load(
+            bin_dir=bins, table_sizes=sizes)
+
+        # (a) bench/dlrm_s_criteo_kaggle_C1.sh: the Python TieredCache,
+        # EvLFU C1 of 64,000 fp32 entries, over the mmap store
+        ccfg_a = CacheConfig(policy="evlfu", n_caching_layers=1,
+                             total_size=64000, main_precision=32)
+        tc = build_cache(ccfg_a, cfg, mm)
+        warm_a, scored_a, extra_a = warm_up(
+            tc, lambda s: s["c1"]["size"] >= 64000, n_scored=16)
+        res_a = serve_host(model, cfg, ccfg_a, scored_a, mm, cache=tc)
+        served(res_a, 16)
+        err_a = check_plain(res_a, scored_a, "(a) TieredCache C1 fp32")
+        rows = tc.request_batch(extra_a[1])
+        if not np.array_equal(rows.view(np.int32),
+                              store_rows(extra_a[1]).view(np.int32)):
+            raise AssertionError("(a): C1 fp32 rows differ from the store's")
+        host_line(f"3d(a) the published C1: Python TieredCache EvLFU 64,000 "
+                  f"fp32 over the mmap store, {len(warm_a)} warm-up batches",
+                  res_a, 16)
+        print(f"check (a): scores vs the plain forward on the store's rows "
+              f"max|d| {err_a:.3e}; one more batch's rows bit-exact vs the "
+              f"store's", flush=True)
+        del tc, rows
+
+        # (b) bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh (--cache-algo native):
+        # the engine's host path, int8 C1, 4-bit C2, alt-key C3, reading the
+        # .bin files; the alt keys read back from alt-keys-<t>.bin
+        ccfg_b = CacheConfig(policy="evlfu", n_caching_layers=3,
+                             total_size=75425, main_precision=8,
+                             secondary_precision=4,
+                             size_proportion=(48, 48, 4))
+        resolver = AltKeyResolver(bin_dir=bins, table_sizes=sizes)
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(resolver.tables, alts)):
+            raise AssertionError("alt keys read back differ")
+        eng = NativeTieredCache(ccfg_b, cfg.num_tables, cfg.embedding_dim)
+        eng.open_table_files(bins, sizes)
+        eng.load_altkeys(resolver.tables)
+        caps = ccfg_b.tier_capacities()
+        warm_b, scored_b, extra_b = warm_up(
+            eng, lambda s: (s["c1"]["size"] >= caps[0]
+                            and s["c2"]["size"] >= caps[1]
+                            and s["c3"]["size"] >= caps[2]))
+        s_start = eng.stats()
+
+        class Recorder:
+            """The engine, with the rows it hands back kept for (e)."""
+
+            def __init__(self, inner):
+                self.inner, self.rows = inner, []
+
+            def request_batch(self, idx):
+                out = self.inner.request_batch(idx)
+                self.rows.append(out)
+                return out
+
+            def stats(self):
+                return self.inner.stats()
+
+        rec = Recorder(eng)
+        res_b = serve_host(model, cfg, ccfg_b, scored_b, mm,
+                           altkey_resolver=resolver, use_native=True,
+                           cache=rec)
+        served(res_b, N_SCORED)
+        s_b = res_b.cache_stats
+        if not (s_b["c2"]["hit_rate"] > 0 and s_b["c3"]["size"] > 0):
+            raise AssertionError(f"C2 or C3 is not live: {s_b}")
+        grid = torch.cat([dequantize(torch.arange(n, dtype=torch.uint8),
+                                     bits) for n, bits in ((255, 8),
+                                                           (15, 4))])
+        if not np.isin(rec.rows[-1], grid.numpy()).all():
+            raise AssertionError("(b): a row is off the int8 and 4-bit "
+                                 "grids")
+        host_line(f"3d(b) the published C1+C2+C3: the engine's host path "
+                  f"(use_native), int8 C1, 4-bit C2, alt-key C3, tiers "
+                  f"{caps}, file-backed, {len(warm_b)} warm-up batches",
+                  res_b, N_SCORED)
+        print(f"cache (b) over the scored window: C3 hits "
+              f"{s_b['c3']['hits'] - s_start['c3']['hits']}, perfect hits "
+              f"{s_b['perfect_hits'] - s_start['perfect_hits']}; C2 "
+              f"cumulative hit_rate {s_start['c2']['hit_rate']:.6f} -> "
+              f"{s_b['c2']['hit_rate']:.6f}; every row on the int8 or 4-bit "
+              f"grid", flush=True)
+
+        # (d) batch size 1: 256 requests through (b)'s engine, each timed
+        # alone and fenced by a real transfer of its score
+        dense_d, idx_d, y_d = extra_b
+        singles = [(dense_d[i:i + 1], idx_d[i:i + 1], y_d[i:i + 1])
+                   for i in range(256)]
+        cdf = os.path.join(bins, "cdf-bs1.csv")
+        res_d = serve_host(model, cfg, ccfg_b, singles, mm,
+                           use_native=True, cache=eng, cdf_path=cdf)
+        with open(cdf) as f:
+            head = f.readline().strip()
+        if head != f"# method={TRUE_PER_REQUEST}" or \
+                res_d.latency["count"] != 256:
+            raise AssertionError(f"(d): CDF header {head!r}, "
+                                 f"{res_d.latency['count']} samples")
+        if res_d.scores.shape != (256,) or \
+                not np.isfinite(res_d.scores).all():
+            raise AssertionError("(d): scores missing or not finite")
+        print(f"3d(d) batch size 1 through (b)'s engine [{card}]: 256 "
+              f"requests, true per-request p50 "
+              f"{res_d.latency['p50_s'] * 1e6:.2f} us, p99 "
+              f"{res_d.latency['p99_s'] * 1e6:.2f} us; {head}", flush=True)
+        eng.close()
+        del eng, rec.inner
+
+        # (e) the K6 A/B: (b)'s scored rows through the bottom MLP, the
+        # two-stage Gram op and the top MLP, against (b)'s scores (K1)
+        reset_counts()
+        worst_e = 0.0
+        with torch.inference_mode():
+            for i, ((dense, _, _), rows) in enumerate(zip(scored_b,
+                                                          rec.rows)):
+                dense_t = torch.from_numpy(dense).to(dev)
+                rows_t = torch.from_numpy(rows).to(dev)
+                x = model.bottom_mlp(dense_t)
+                got = torch.sigmoid(model.top_mlp(DotInteractionGram.apply(
+                    x.contiguous(), rows_t, cfg.interaction_itself))).cpu()
+                ref = torch.from_numpy(res_b.scores[i * 2048:(i + 1) * 2048])
+                ok, err = within(got, ref, 1e-5)
+                worst_e = max(worst_e, err)
+                if not ok:
+                    raise AssertionError(f"(e): the Gram op's scores differ "
+                                         f"from K1's: max|d| {err}")
+        gram_launches = {"interaction_gram":
+                         read_counts()["interaction_gram"]}
+        if gram_launches["interaction_gram"] < 1:
+            raise AssertionError(f"K6 never ran in (e): {gram_launches}")
+        with torch.inference_mode():
+            def fwd_k1():
+                return model(dense_t, None, emb_rows=rows_t)
+
+            def fwd_k6():
+                return model.top_mlp(DotInteractionGram.apply(
+                    model.bottom_mlp(dense_t).contiguous(), rows_t,
+                    cfg.interaction_itself))
+
+            ab = [time_ms(torch, f) for f in (fwd_k1, fwd_k6, fwd_k6,
+                                              fwd_k1)]
+        print(f"3d(e) the K6 A/B over (b)'s {len(rec.rows)} scored batches "
+              f"[{card}]: scores vs K1's max|d| {worst_e:.3e} (limit 1e-5 "
+              f"(1 + |ref|)); the forward of one batch of 2048 with K1 "
+              f"{ab[0]:.4f} / {ab[3]:.4f} ms, with K6 {ab[1]:.4f} / "
+              f"{ab[2]:.4f} ms (CUDA events, median of 20, in the order K1, "
+              f"K6, K6, K1); launches {json.dumps(gram_launches)}",
+              flush=True)
+        del rec, dense_t, rows_t
+
+        # (c) the LFU and LRU baselines at 64,000 entries: Python
+        # (SimpleCacheFrontend over the mmap store, 4 scored batches) and
+        # the engine (its file mode, 64 scored batches)
+        for policy in ("lfu", "lru"):
+            ccfg_c = CacheConfig(policy=policy, n_caching_layers=1,
+                                 total_size=64000, main_precision=32)
+            py = build_cache(ccfg_c, cfg, mm)
+            warm_c, scored_c, _ = warm_up(
+                py, lambda s: s["cache"]["size"] >= 64000, n_scored=4)
+            res_c = serve_host(model, cfg, ccfg_c, scored_c, mm, cache=py)
+            served(res_c, 4)
+            err_c = check_plain(res_c, scored_c, f"(c) Python {policy}")
+            host_line(f"3d(c) Python {policy.upper()} 64,000 fp32 over the "
+                      f"mmap store, {len(warm_c)} warm-up batches", res_c, 4)
+            del py
+            nat = NativeTieredCache(ccfg_c, cfg.num_tables,
+                                    cfg.embedding_dim)
+            nat.open_table_files(bins, sizes)
+            warm_n, scored_n, _ = warm_up(
+                nat, lambda s: s["c1"]["size"] >= 64000)
+            res_n = serve_host(model, cfg, ccfg_c, scored_n, mm,
+                               use_native=True, cache=nat)
+            nat.close()
+            served(res_n, N_SCORED)
+            err_n = check_plain(res_n, scored_n, f"(c) native {policy}")
+            host_line(f"3d(c) the engine's {policy.upper()} 64,000 fp32, "
+                      f"file-backed, {len(warm_n)} warm-up batches", res_n,
+                      N_SCORED)
+            print(f"check (c) {policy}: scores vs the plain forward on the "
+                  f"store's rows max|d| {err_c:.3e} (Python), {err_n:.3e} "
+                  f"(engine)", flush=True)
+            del nat
+
+        # (g) the engine's host path at phase 3's C1 (EvLFU, 64,000 fp32)
+        # with the tables in RAM, as build_cache makes it from the dummy
+        # store: the host path against the device cache at the same C1,
+        # and against the file-backed runs above
+        nat = build_cache(ccfg_a, cfg, storage, use_native=True)
+        warm_g, scored_g, _ = warm_up(
+            nat, lambda s: s["c1"]["size"] >= 64000)
+        res_g = serve_host(model, cfg, ccfg_a, scored_g, storage,
+                           use_native=True, cache=nat)
+        nat.close()
+        served(res_g, N_SCORED)
+        err_g = check_plain(res_g, scored_g, "(g) native EvLFU in RAM")
+        host_line(f"3d(g) the engine's host path, EvLFU 64,000 fp32, tables "
+                  f"in RAM (phase 3's C1 and store), {len(warm_g)} warm-up "
+                  f"batches", res_g, N_SCORED)
+        print(f"check (g): scores vs the plain forward on the store's rows "
+              f"max|d| {err_g:.3e}; at the same C1 the device cache served "
+              f"{res.requests / res.elapsed_s:.1f} requests/s in phase 3 "
+              f"(depth 0)", flush=True)
+        del nat
+
+        # (f) the TCP service in batched mode over a fresh fp32 C1 of the
+        # engine, on 127.0.0.1: the rows equal the store's bit for bit
+        eng_f = NativeTieredCache(ccfg_a, cfg.num_tables, cfg.embedding_dim)
+        eng_f.open_table_files(bins, sizes)
+        srv = EmbeddingServer(eng_f, cfg.embedding_dim,
+                              mode="batched").start()
+        try:
+            cli = EmbeddingClient("127.0.0.1", srv.port, cfg.num_tables,
+                                  cfg.embedding_dim)
+            try:
+                t0 = time.perf_counter()
+                got_f = [cli.request_batch(idx) for _, idx, _ in
+                         scored_a[:4]]
+                dt_f = time.perf_counter() - t0
+            finally:
+                cli.close()
+        finally:
+            srv.stop()
+        for (_, idx, _), rows in zip(scored_a[:4], got_f):
+            if not np.array_equal(rows.view(np.int32),
+                                  store_rows(idx).view(np.int32)):
+                raise AssertionError("(f): the served rows differ from the "
+                                     "store's")
+        print(f"3d(f) EmbeddingServer batched over a fresh fp32 C1 of the "
+              f"engine, 127.0.0.1 [{card}]: 4 batches of 2048 in "
+              f"{dt_f:.3f} s = {4 * 2048 / dt_f:.1f} requests/s, rows "
+              f"bit-exact vs the store's; engine stats "
+              f"{json.dumps(eng_f.stats())}", flush=True)
+        eng_f.close()
+        mm.close()
+        tmp3d.cleanup()
+        if host_launches["interaction_fwd"] < 1:
+            raise AssertionError(f"K1 never ran on the host tiers' path: "
+                                 f"{host_launches}")
+        host_launches = {"interaction_fwd": host_launches["interaction_fwd"]}
+        del res_a, res_b, res_c, res_d, res_n, res_g, got_f, alts, resolver
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 3b train
@@ -917,7 +1335,8 @@ def main() -> int:
                   f"({step_ms:.2f} ms, 1 / median steps/s)")
         metrics = evaluate(model, cfg, take(2))
         train_launches = {k: v for k, v in read_counts().items()
-                          if k != "gather_rows_dequant_int8"}
+                          if k not in ("gather_rows_dequant_int8",
+                                       "interaction_gram")}
         if min(train_launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{train_launches}")
@@ -929,7 +1348,9 @@ def main() -> int:
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
         print(f"kernels: serve {json.dumps(serve_launches)}; serve_int8 "
-              f"{json.dumps(int8_launches)}; train "
+              f"{json.dumps(int8_launches)}; serve_host "
+              f"{json.dumps(host_launches)}; gram_ab "
+              f"{json.dumps(gram_launches)}; train "
               f"{json.dumps(train_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
@@ -941,13 +1362,21 @@ def main() -> int:
                 "evstore_tpu/ops/pallas_gather.py:88"),
             "interaction_bwd": ("evstore_tpu_torch/csrc/interaction_bwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:213"),
+            "interaction_gram": (
+                "evstore_tpu_torch/csrc/interaction_gram.cu",
+                "evstore_tpu/ops/pallas_interaction.py:41"),
             "scatter_sub_sorted": ("evstore_tpu_torch/csrc/row_update.cu",
                                    "evstore_tpu/ops/pallas_update.py:60"),
         }
-        by_path = {name: {"serve": serve_launches.get(name, 0),
-                          "serve_int8": int8_launches.get(name, 0),
-                          "train": train_launches.get(name, 0)}
+        paths = {"serve": serve_launches, "serve_int8": int8_launches,
+                 "serve_host": host_launches, "gram_ab": gram_launches,
+                 "train": train_launches}
+        by_path = {name: {path: counts.get(name, 0)
+                          for path, counts in paths.items()}
                    for name in sources}
+        idle = [name for name in sources if not sum(by_path[name].values())]
+        if idle or set(sources) != set(wrappers):
+            raise AssertionError(f"kernels that launched on no path: {idle}")
         line = {"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": sum(by_path[name].values()),

@@ -320,6 +320,15 @@ class NativeDeviceC1Cache:
         self._table_sizes = [len(t) for t in tables]
         return self
 
+    def open_table_files(self, bin_dir: str, table_sizes: Sequence[int],
+                         precision: int = 32):
+        """A file-backed store: the engine reads the rows of table t from
+        `ev-table-<t + 1>.bin` in `bin_dir` (`NativeTieredCache.
+        open_table_files`)."""
+        self.engine.open_table_files(bin_dir, table_sizes, precision)
+        self._table_sizes = list(table_sizes)
+        return self
+
     def load_altkeys(self, alt_tables: Sequence[np.ndarray]):
         """C3's alt-key tables (the offline kNN product)."""
         self.engine.load_altkeys([np.asarray(a, np.uint32)

@@ -1,24 +1,40 @@
-"""EVStore inference driver: the device C1 cache feeding the DLRM on the card.
+"""EVStore inference driver: the tiered embedding lookup feeding the DLRM.
 
-Port of `evstore_tpu/drivers/infer.py` for the device-cache path
-(`use_device_cache=True`): build the cache, run the warm-up pass, then per
-batch look the rows up in the cache (they stay on the card) and score
-`sigmoid(model(dense, idx, emb_rows=rows))`.  Per-request latency is the
-fenced batch time (`torch.cuda.synchronize()` inside the timed region)
-divided over the batch's requests; at batch size 1 it is the true
-per-request time.
+Port of `evstore_tpu/drivers/infer.py` (the reference's
+dlrm_s_pytorch_C1{,_C2,_C2_C3}.py: the tiered lookup in place of apply_emb,
+dlrm_s_pytorch_C1.py:227; the warm-up pass, :2226-2242; ev-lookup-only
+mode, :2205-2222; the per-request latency CDF, :299-330; perfect hits,
+:136,2272; the workload trace, :987-996).
 
-As in the JAX package, `build_cache` builds `NativeDeviceC1Cache`, the C++
-tier engine's device cache: C1 only, or the hybrid with the engine's host
-C2 and C3 at `n_caching_layers` 2-3.  With `pipeline_depth` > 0 the lookup
-(the engine's assign and the device apply) runs on a prefetch thread, one
-or more batches ahead of the scoring.  Both threads launch on the same
-stream (the device's default), and the fence in the timed region waits for
-both.
+`build_cache` chooses the cache as the JAX driver does:
 
-Not ported yet: the host `TieredCache` (use_device_cache=False), the
-engine's host path (use_native), the LFU/LRU baselines, the file-backed
-stores, the sharded cache (mesh) and workload tracing.
+- `policy` lfu or lru at one tier, on the host: the Python baselines
+  (`make_cache_from_policy`, `SimpleCacheFrontend`);
+- `use_device_cache=True`: `NativeDeviceC1Cache`, the C1 rows on the card
+  and its policy and miss reads in the C++ tier engine, with the engine's
+  host C2 and C3 behind it at `n_caching_layers` 2-3;
+- `use_native=True`: the engine's host path, `NativeTieredCache`, which
+  runs EvLFU, LFU or LRU and the host tiers in C++;
+- otherwise the Python `TieredCache` (1-3 tiers at 32/16/8/4 bits).
+
+The host caches hand back numpy rows; `run_inference` copies them to the
+card (`torch.from_numpy(rows).to(device)`) inside the timed region.  The
+device cache's rows stay on the card.  Then it scores
+`sigmoid(model(dense, emb_rows=rows))`.  Per-request latency is the fenced
+batch time divided over the batch's requests; at batch size 1, with no
+prefetch, each request is timed alone and fenced by a real device-to-host
+copy of its score, and the CDF file's header says which method made it.
+With `pipeline_depth` > 0 the lookup (and the host rows' copy to the card)
+runs on a prefetch thread, one or more batches ahead of the scoring, on the
+same stream, and the timed region covers only the scoring.
+
+Departures from the JAX driver, where it ignores an option: the device
+cache runs EvLFU only, so `use_device_cache=True` with policy lfu or lru
+raises, and so does `use_native=True` beside `use_device_cache=True`.  The
+stores behind the engine are its own (`open_table_files`): as in the JAX
+driver, a file-backed store raises there, and the caller opens the files
+on the cache and passes it as `cache=`.  Not ported: the sharded cache
+(`mesh`).
 """
 
 from __future__ import annotations
@@ -32,12 +48,18 @@ import torch
 
 from evstore_tpu_torch.cache.device_cache import NativeDeviceC1Cache
 from evstore_tpu_torch.cache.storage import DummyStore, StorageManager
-from evstore_tpu_torch.cache.tiers import AltKeyResolver
+from evstore_tpu_torch.cache.tiers import (AltKeyResolver, TieredCache,
+                                           make_cache_from_policy)
 from evstore_tpu_torch.config import CacheConfig, DLRMConfig
 from evstore_tpu_torch.data.loader import PrefetchIterator
+from evstore_tpu_torch.models.embedding import check_ids
+from evstore_tpu_torch.native import NativeTieredCache
 from evstore_tpu_torch.train.metrics import binary_metrics
 from evstore_tpu_torch.utils.device import resolve_device
-from evstore_tpu_torch.utils.trace import LatencyRecorder
+from evstore_tpu_torch.utils.trace import LatencyRecorder, WorkloadTracer
+
+TRUE_PER_REQUEST = "true-per-request (bs=1, fenced transfer)"
+BATCH_APPROX = "fenced batch-time/B approximation"
 
 
 @dataclasses.dataclass
@@ -48,35 +70,60 @@ class InferenceResult:
     elapsed_s: float
     requests: int
     scores: Optional[np.ndarray] = None   # the served click probabilities
+    # host seconds over the scored batches: the cache's lookup, the host
+    # rows' copy to the device, and the forward with its fence
+    host_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def build_cache(ccfg: CacheConfig, cfg: DLRMConfig, storage: StorageManager,
                 altkey_resolver: Optional[AltKeyResolver] = None,
                 use_native: bool = False, use_device_cache: bool = False,
-                device=None) -> NativeDeviceC1Cache:
-    """The tier engine's device C1 cache over the dummy store's tables,
-    with the alt keys for C3 when `n_caching_layers` >= 3."""
+                device=None):
+    """The cache `run_inference` serves through (see the module's
+    docstring); `device` is the device cache's."""
+    if (ccfg.policy in ("lfu", "lru") and ccfg.n_caching_layers == 1
+            and not use_native and not use_device_cache):
+        # the Python baselines (reference cache_algo/LFU.py, LRU.py); with
+        # use_native the engine runs the same policies
+        return make_cache_from_policy(ccfg.policy, ccfg.total_size,
+                                      cfg.num_tables, storage,
+                                      cfg.embedding_dim)
+    alts = (altkey_resolver.tables
+            if altkey_resolver is not None and ccfg.n_caching_layers >= 3
+            else None)
+    if use_device_cache:
+        if use_native:
+            raise ValueError("use_native and use_device_cache are "
+                             "exclusive: the device cache runs its own "
+                             "engine")
+        if ccfg.policy != "evlfu":
+            raise ValueError(f"the device cache runs EvLFU; the "
+                             f"{ccfg.policy!r} baseline runs on the host "
+                             f"(use_device_cache=False) or in the engine "
+                             f"(use_native=True)")
+        if not isinstance(storage.store, DummyStore):
+            raise ValueError("device cache file mode: the device cache "
+                             "loads its tables from a loaded dummy store; "
+                             "use NativeDeviceC1Cache.open_table_files "
+                             "directly")
+        dc = NativeDeviceC1Cache(ccfg, cfg.num_tables, cfg.embedding_dim,
+                                 device=device)
+        dc.load_tables(storage.store.tables)
+        if alts is not None:
+            dc.load_altkeys(alts)
+        return dc
     if use_native:
-        raise NotImplementedError(
-            "the engine's host lookup path (use_native) is not ported yet; "
-            "pass use_device_cache=True alone for the device C1 cache")
-    if not use_device_cache:
-        raise NotImplementedError(
-            "the Python TieredCache host path is not ported yet; pass "
-            "use_device_cache=True for the device C1 cache")
-    if ccfg.policy != "evlfu":
-        raise NotImplementedError(
-            f"the {ccfg.policy!r} baseline is not ported yet; the device "
-            f"cache runs EvLFU")
-    if not isinstance(storage.store, DummyStore):
-        raise ValueError("the device cache loads its tables from a loaded "
-                         "dummy store")
-    dc = NativeDeviceC1Cache(ccfg, cfg.num_tables, cfg.embedding_dim,
-                             device=device)
-    dc.load_tables(storage.store.tables)
-    if altkey_resolver is not None and ccfg.n_caching_layers >= 3:
-        dc.load_altkeys(altkey_resolver.tables)
-    return dc
+        if not isinstance(storage.store, DummyStore):
+            raise ValueError("native engine file mode: the engine loads its "
+                             "tables from a loaded dummy store; use "
+                             "NativeTieredCache.open_table_files directly")
+        nc = NativeTieredCache(ccfg, cfg.num_tables, cfg.embedding_dim)
+        nc.load_tables(storage.store.tables)
+        if alts is not None:
+            nc.load_altkeys([np.asarray(t, np.uint32) for t in alts])
+        return nc
+    return TieredCache(ccfg, storage, cfg.num_tables, cfg.embedding_dim,
+                       altkey_resolver)
 
 
 def run_inference(model: torch.nn.Module, cfg: DLRMConfig, ccfg: CacheConfig,
@@ -84,21 +131,24 @@ def run_inference(model: torch.nn.Module, cfg: DLRMConfig, ccfg: CacheConfig,
                   altkey_resolver: Optional[AltKeyResolver] = None,
                   warmup_batches: Optional[Iterable] = None,
                   ev_lookup_only: bool = False,
+                  trace_dir: Optional[str] = None,
                   cdf_path: Optional[str] = None,
                   use_native: bool = False,
                   use_device_cache: bool = False,
                   pipeline_depth: int = 0,
-                  cache: Optional[NativeDeviceC1Cache] = None,
+                  cache=None,
                   device=None,
                   log_fn=print) -> InferenceResult:
     """Serve `batches` of (dense, idx, labels) numpy arrays through the
-    device C1 cache and `model` (a `DLRM` on `device`).
+    tiered cache and `model` (a `DLRM` on `device`).
 
-    The run builds its cache with `build_cache` and closes it (and so its
-    engine) when it ends, also when it raises.  A caller that wants to look
-    into the cache afterwards builds it with `build_cache`, passes it as
-    `cache` and closes it itself.  With `pipeline_depth` > 0 the lookups run
-    on a prefetch thread that is joined when the run ends."""
+    The run builds its cache with `build_cache` and closes it (and so any
+    engine it holds) when it ends, also when it raises.  A caller that
+    wants to look into the cache afterwards, or to serve from a file-backed
+    engine, builds the cache itself, passes it as `cache` and closes it
+    itself.  With `pipeline_depth` > 0 the lookups run on a prefetch thread
+    that is joined when the run ends.  `trace_dir` receives the requests'
+    row ids, one `trace-table-<t>.csv` per table."""
     dev = resolve_device(device)
     mdev = next(model.parameters()).device
     if mdev.type != dev.type or (dev.index is not None and mdev != dev):
@@ -109,25 +159,49 @@ def run_inference(model: torch.nn.Module, cfg: DLRMConfig, ccfg: CacheConfig,
         cache = build_cache(ccfg, cfg, storage, altkey_resolver,
                             use_native, use_device_cache, dev)
     try:
-        return _serve(model, cache, batches, dev, warmup_batches,
-                      ev_lookup_only, cdf_path, pipeline_depth, log_fn)
+        return _serve(model, cfg, cache, batches, dev, warmup_batches,
+                      ev_lookup_only, trace_dir, cdf_path, pipeline_depth,
+                      log_fn)
     finally:
-        if owned:
+        if owned and hasattr(cache, "close"):
             cache.close()
 
 
-def _serve(model, cache, batches, dev, warmup_batches, ev_lookup_only,
-           cdf_path, pipeline_depth, log_fn) -> InferenceResult:
+def _serve(model, cfg, cache, batches, dev, warmup_batches, ev_lookup_only,
+           trace_dir, cdf_path, pipeline_depth, log_fn) -> InferenceResult:
     fence = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
     lat = LatencyRecorder()
+    # the device cache hands back rows on the card; the host caches numpy
+    device_rows = hasattr(cache, "lookup_batch")
+    host_s = {"lookup": 0.0, "copy": 0.0, "forward": 0.0}
+
+    def rows_of(idx):
+        """The batch's rows on the device, timed into host_s."""
+        t0 = time.perf_counter()
+        if device_rows:
+            rows = cache.lookup_batch(idx)         # stays on the card
+            host_s["lookup"] += time.perf_counter() - t0
+            return rows
+        check_ids(idx, cfg.table_sizes)
+        host = cache.request_batch(idx)
+        t1 = time.perf_counter()
+        rows = torch.from_numpy(host).to(dev)
+        host_s["lookup"] += t1 - t0
+        host_s["copy"] += time.perf_counter() - t1
+        return rows
 
     with torch.inference_mode():
-        # warm-up pass: populate the cache without scoring
+        # the warm-up pass fills the tiers without scoring
         if warmup_batches is not None:
             n = 0
             for _, idx, _ in warmup_batches:
-                cache.lookup_batch(np.asarray(idx))
+                idx = np.asarray(idx)
+                if device_rows:
+                    cache.lookup_batch(idx)
+                else:
+                    check_ids(idx, cfg.table_sizes)
+                    cache.request_batch(idx)
                 n += idx.shape[0]
             fence()
             log_fn(f"warm-up done: {n} requests; stats={cache.stats()}")
@@ -136,48 +210,63 @@ def _serve(model, cache, batches, dev, warmup_batches, ev_lookup_only,
         # the worker thread's own inference mode: the flag is per thread
         with torch.inference_mode():
             idx = np.asarray(b[1])
-            return b[0], idx, b[2], cache.lookup_batch(idx)
+            return b[0], idx, b[2], rows_of(idx)
 
+    tracer = (WorkloadTracer(trace_dir, cfg.num_tables)
+              if trace_dir is not None else None)
     stream = (PrefetchIterator(batches, pipeline_depth, transform=lookup)
               if pipeline_depth > 0
               else ((d, np.asarray(i), y, None) for d, i, y in batches))
     scores, labels = [], []
     n_req = 0
-    B = None
+    true_per_request = None
     try:
         with torch.inference_mode():
             t_start = time.perf_counter()
             for dense_x, idx, y, rows in stream:
                 B = idx.shape[0]
+                if true_per_request is None:
+                    true_per_request = B == 1 and rows is None
                 t0 = time.perf_counter()
                 if rows is None:
-                    rows = cache.lookup_batch(idx)     # stays on the card
+                    rows = rows_of(idx)
+                t1 = time.perf_counter()
                 if not ev_lookup_only:
                     dense_t = torch.from_numpy(
                         np.ascontiguousarray(dense_x, np.float32)).to(dev)
-                    scores.append(torch.sigmoid(model(dense_t, None,
-                                                      emb_rows=rows)))
+                    s = torch.sigmoid(model(dense_t, None, emb_rows=rows))
+                    if true_per_request:
+                        s = s.cpu()    # a real transfer: the honest fence
+                    scores.append(s)
                     labels.append(np.asarray(y))
-                fence()
-                dt = time.perf_counter() - t0
+                elif true_per_request:
+                    rows.cpu()         # fence the lookup the same way
+                if not true_per_request:
+                    fence()
+                t2 = time.perf_counter()
+                host_s["forward"] += t2 - t1
                 for _ in range(B):
-                    lat.record(dt / B)
+                    lat.record((t2 - t0) / B)
+                if tracer is not None:
+                    for b in range(B):
+                        tracer.record(idx[b])
                 n_req += B
             elapsed = time.perf_counter() - t_start
     finally:
         if pipeline_depth > 0:
             stream.close()
+        if tracer is not None:
+            tracer.close()
 
     if cdf_path is not None:
-        lat.write_cdf(cdf_path,
-                      method=("true-per-request (bs=1, fenced)" if B == 1
-                              else "fenced batch-time/B approximation"))
+        lat.write_cdf(cdf_path, method=(TRUE_PER_REQUEST if true_per_request
+                                        else BATCH_APPROX))
     scores = torch.cat(scores).cpu().numpy() if scores else None
     metrics = (binary_metrics(scores, np.concatenate(labels))
                if scores is not None else {})
     res = InferenceResult(metrics=metrics, cache_stats=cache.stats(),
                           latency=lat.summary(), elapsed_s=elapsed,
-                          requests=n_req, scores=scores)
+                          requests=n_req, scores=scores, host_s=host_s)
     log_fn(f"inference: {n_req} requests in {elapsed:.2f}s "
            f"({n_req / max(elapsed, 1e-9):.0f} req/s); "
            f"perfect hits = {res.cache_stats.get('perfect_hits')}")

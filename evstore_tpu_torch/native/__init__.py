@@ -9,21 +9,27 @@ batched: one call per batch of requests.
 - `NativeTieredCache` holds the engine: its backing store (tables copied in
   or borrowed), its host tiers C2 (DRAM, secondary precision) and C3
   (alt keys) when `n_caching_layers` >= 2, and its reader pool.
+  Its host lookup path, `request_batch`, serves whole batches from its
+  tiers as float32 rows on the host.  Its store holds the tables in RAM
+  (`load_tables`, `borrow_tables`) or reads the per-table .bin files
+  (`open_table_files`).
 - `NativeAssigner` is the slot-assignment front end of the device C1 cache
   (`cache/device_cache.py::NativeDeviceC1Cache`): per batch, one call runs
   the EvLFU policy over the cache's slots and returns the gather indices,
   the scatter list and the miss-row buffer.
+- The log-structured key-value store (`esv_kv_*`) is bound here and used by
+  `cache/storage.py::LogKVStore`.
 
 Not bound yet: the training assigner (`esv_assign_batch_train`,
-`esv_fetch_rows`, `esv_assign_resident`), the host lookup path
-(`request_batch`), the file-backed store, the TSV parser, LogKV and the
-sharded engine.  Their C code is in the copy and waits for its slice.
+`esv_fetch_rows`, `esv_assign_resident`), the TSV parser and the sharded
+engine.  Their C code is in the copy and waits for its slice.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Sequence
 
 import numpy as np
@@ -35,6 +41,8 @@ _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _U32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+_U64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+_U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _F64 = np.ctypeslib.ndpointer(np.float64)
 _P, _L, _I, _FL = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_float
 
@@ -48,6 +56,8 @@ SIGNATURES = {
     "esv_load_table_mem": (_I, [_P, _I, _F32, _L]),
     "esv_borrow_table_mem": (_I, [_P, _I, _F32, _L]),
     "esv_load_altkeys": (_I, [_P, _I, _U32, _L]),
+    # handle, table, path, rows, precision
+    "esv_open_table_file": (_I, [_P, _I, ctypes.c_char_p, _L, _I]),
     "esv_lookup_batch": (_L, [_P, _I64, _L, _F32]),
     "esv_stats": (None, [_P, _F64]),
     "esv_close": (None, [_P]),
@@ -57,6 +67,13 @@ SIGNATURES = {
                               ctypes.POINTER(_L)]),
     "esv_assign_stats": (None, [_P, _F64]),
     "esv_assign_close": (None, [_P]),
+    # the log-structured key-value store: path, value bytes
+    "esv_kv_open": (_P, [ctypes.c_char_p, _I]),
+    "esv_kv_put_batch": (_I, [_P, _U64, _U8, _L]),
+    "esv_kv_get_batch": (_L, [_P, _U64, _U8, _L]),
+    "esv_kv_count": (_L, [_P]),
+    "esv_kv_compact": (_L, [_P]),
+    "esv_kv_close": (None, [_P]),
 }
 
 
@@ -127,8 +144,21 @@ class NativeTieredCache:
                 raise RuntimeError(f"esv_borrow_table_mem({t}) -> {rc}")
         return self
 
+    def open_table_files(self, bin_dir: str, table_sizes: Sequence[int],
+                         precision: int = 32):
+        """File-backed store: the engine reads the rows of table t from
+        `ev-table-<t + 1>.bin` in `bin_dir`, stored at `precision`."""
+        for t, n in enumerate(table_sizes):
+            p = os.path.join(bin_dir, f"ev-table-{t + 1}.bin").encode()
+            rc = self._lib.esv_open_table_file(self._handle(), t, p, n,
+                                               precision)
+            if rc != 0:
+                raise RuntimeError(f"esv_open_table_file({t}) -> {rc}")
+        return self
+
     def load_altkeys(self, alt_tables: Sequence[np.ndarray]):
-        """C3's alt-key tables: for each table, one alt row per row."""
+        """C3's alt-key tables: for each table, one alt key per row
+        (`altkey_encode(t', r')` of its neighbour)."""
         for t, alts in enumerate(alt_tables):
             alts = np.ascontiguousarray(alts, np.uint32)
             rc = self._lib.esv_load_altkeys(self._handle(), t, alts,
@@ -136,6 +166,24 @@ class NativeTieredCache:
             if rc != 0:
                 raise RuntimeError(f"esv_load_altkeys({t}) -> {rc}")
         return self
+
+    def request_batch(self, idx: np.ndarray) -> np.ndarray:
+        """The host lookup path: idx [B, T] -> rows [B, T, D] float32, the
+        engine's tiers and policy run over the batch's requests in order."""
+        idx = np.ascontiguousarray(idx, np.int64)
+        B = idx.shape[0]
+        out = np.empty((B, self.n_tables, self.dim), np.float32)
+        rc = self._lib.esv_lookup_batch(self._handle(), idx.reshape(-1), B,
+                                        out.reshape(-1))
+        if rc == -2:
+            raise ValueError("esv_lookup_batch: row id out of [0, 2^40)")
+        return out
+
+    def request(self, group_row_ids):
+        """One request group -> (rows [T, D], None, None), the shape of the
+        Python tiers' `request`."""
+        out = self.request_batch(np.asarray(group_row_ids, np.int64)[None])
+        return out[0], None, None
 
     def stats(self) -> dict:
         s = np.zeros(8, np.float64)

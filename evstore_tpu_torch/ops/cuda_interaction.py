@@ -1,23 +1,38 @@
 """The dot interaction and its VJP through the CUDA kernels
-`csrc/interaction_fwd.cu` and `csrc/interaction_bwd.cu`.
+`csrc/interaction_fwd.cu`, `csrc/interaction_bwd.cu` and
+`csrc/interaction_gram.cu`.
 
 Ports of the TPU kernels `evstore_tpu/ops/pallas_interaction.py::
-_blocked_fwd_kernel` and `_blocked_bwd_kernel`.  Each wrapper launches its
-kernel for CUDA tensors and takes its plain version (`dot_interaction_ref`,
-`dot_interaction_bwd_ref`) only for CPU tensors; any other device, dtype or
-shape it cannot take raises.  Unlike the TPU kernels, they take any batch
-size and widths up to 128.  `DotInteraction` is the autograd Function whose
-forward is the one kernel and whose backward is the other.  Its backward is
-the true VJP: a self-interaction pair carries twice its cotangent, where the
-TPU backward kernel carries it once.
+_blocked_fwd_kernel`, `_blocked_bwd_kernel` and `_interaction_kernel`.
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version (`dot_interaction_ref`, `dot_interaction_bwd_ref`) only for CPU
+tensors; any other device, dtype or shape it cannot take raises.  Unlike
+the TPU kernels, they take any batch size and widths up to 128 (the TPU
+lowering's `tile_b` and `interpret` have no counterpart).
+
+- `DotInteraction` is the autograd Function whose forward is the one-stage
+  kernel and whose backward is the backward kernel.  Its backward is the
+  true VJP: a self-interaction pair carries twice its cotangent, where the
+  TPU backward kernel carries it once.  The model's dot interaction goes
+  through it.
+- `DotInteractionGram` is the port of the JAX package's
+  `dot_interaction_pallas`: its forward is the two-stage kernel (each
+  sample's lower-triangle Gram, then the pairs through an index table),
+  and its backward is the plain `dot_interaction_bwd`, as the reference's
+  backward is plain XLA.  No configuration routes the model through it,
+  as none does in the JAX package; it is the A/B of the two forwards.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from evstore_tpu_torch import _build
-from evstore_tpu_torch.ops.interaction import (dot_interaction,
+from evstore_tpu_torch.ops.interaction import (_tril_indices,
+                                               dot_interaction,
                                                dot_interaction_bwd, num_pairs)
 
 # the plain versions the kernels are held to
@@ -149,4 +164,91 @@ class DotInteraction(torch.autograd.Function):
         x, ly = ctx.saved_tensors
         dx, dly = dot_interaction_bwd_kernel(x, ly, g.contiguous(),
                                              ctx.self_interaction)
+        return dx, dly, None
+
+
+# ------------------------------------------- the two-stage (Gram) forward
+
+def gram_pair_table(num_features: int, self_interaction: bool) -> np.ndarray:
+    """int32 [P]: the place of pair p, (li[p], lj[p]) in np.tril_indices
+    order, in the packed lower triangle (diagonal included) that the
+    kernel's first stage fills: li (li + 1) / 2 + lj.  It stands for the
+    TPU kernel's 0/1 selectors (`_row_selectors`)."""
+    li, lj = _tril_indices(num_features, self_interaction)
+    return (li * (li + 1) // 2 + lj).astype(np.int32)
+
+
+def _gram_bytes(num_features: int, dim: int, self_interaction: bool,
+                spb: int) -> int:
+    """Shared memory of one block: the pair table, then per sample the
+    F x D features (odd stride) and the packed lower triangle."""
+    F = num_features
+    return 4 * (num_pairs(F, self_interaction)
+                + spb * (F * _odd(dim) + F * (F + 1) // 2))
+
+
+def gram_samples_per_block(num_features: int, dim: int,
+                           self_interaction: bool = False) -> int:
+    """Samples one block of the Gram kernel stages: as many as fit, at
+    most 8; 0 when not even one does."""
+    for spb in range(_MAX_SAMPLES_PER_BLOCK, 0, -1):
+        if _gram_bytes(num_features, dim, self_interaction, spb) \
+                <= _SMEM_BYTES:
+            return spb
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_table_on(num_features: int, self_interaction: bool,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(gram_pair_table(num_features,
+                                            self_interaction)).to(device)
+
+
+def dot_interaction_gram_kernel(x: torch.Tensor, ly: torch.Tensor,
+                                self_interaction: bool = False
+                                ) -> torch.Tensor:
+    """x [B, D], ly [B, T, D] (f32 or bf16) -> [B, D + P] through the
+    two-stage kernel; the same function as `dot_interaction_kernel`."""
+    if not _on_card("dot_interaction_gram_kernel", x, ly):
+        return dot_interaction_ref(x, ly, self_interaction)
+    B, D = x.shape
+    T = ly.shape[1]
+    F = T + 1
+    P = num_pairs(F, self_interaction)
+    spb = gram_samples_per_block(F, D, bool(self_interaction))
+    if spb < 1:
+        raise ValueError(f"{F} features of width {D} exceed one block's "
+                         "shared memory in the Gram kernel")
+    out = torch.empty((B, D + P), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return out
+    tab = _pair_table_on(F, bool(self_interaction), x.device)
+    rc = _build.library().interaction_gram(
+        x.data_ptr(), ly.data_ptr(), tab.data_ptr(), out.data_ptr(), B, T,
+        D, P, int(x.dtype == torch.bfloat16), spb, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "interaction_gram")
+    dot_interaction_gram_kernel.launches += 1
+    return out
+
+
+dot_interaction_gram_kernel.launches = 0
+
+
+class DotInteractionGram(torch.autograd.Function):
+    """The port of `dot_interaction_pallas`: the two-stage forward kernel
+    and the plain VJP, `DotInteractionGram.apply(x, ly, self_interaction)`."""
+
+    @staticmethod
+    def forward(ctx, x, ly, self_interaction: bool = False):
+        ctx.self_interaction = bool(self_interaction)
+        ctx.save_for_backward(x, ly)
+        return dot_interaction_gram_kernel(x, ly, self_interaction)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ly = ctx.saved_tensors
+        dx, dly = dot_interaction_bwd(x, ly, g.contiguous(),
+                                      ctx.self_interaction)
         return dx, dly, None

@@ -110,9 +110,48 @@ def test_store_matches_jax():
 
 
 @pytest.mark.parametrize("backend", ["file", "mmap", "sqlite", "native"])
-def test_unported_store_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        StorageManager(backend)
+def test_unported_store_backends_raise(backend, tmp_path):
+    """The file-backed stores are ported: the Python device cache serves
+    from them the rows that JAX's serves from the same files, and, as in
+    the JAX driver, `build_cache` refuses them behind the device cache
+    (the engine opens its own files).  The facade's `native` backend
+    raises, as JAX's does."""
+    from evstore_tpu.cache.storage import write_ev_tables_binary
+    from evstore_tpu_torch.config import make_dlrm_config
+    from evstore_tpu_torch.drivers.infer import build_cache
+    tables = _tables(6)
+    sizes = [len(t) for t in tables]
+    write_ev_tables_binary(tables, str(tmp_path))
+    kw = dict(bin_dir=str(tmp_path), table_sizes=sizes)
+    if backend == "native":
+        for sm in (StorageManager(backend, dim=DIM),
+                   JaxStorageManager(backend, dim=DIM)):
+            with pytest.raises(ValueError, match="native engine"):
+                sm.load(**kw)
+        return
+    ps = StorageManager(backend, dim=DIM).load(
+        **kw, db_path=str(tmp_path / "p.db"))
+    js = JaxStorageManager(backend, dim=DIM).load(
+        **kw, db_path=str(tmp_path / "j.db"))
+    ccfg = dict(policy="evlfu", total_size=60)
+    pc = DeviceC1Cache(CacheConfig(**ccfg), ps, N_TABLES, DIM,
+                       insert_bucket=16, device="cpu")
+    jc = JaxDeviceC1Cache(JaxCacheConfig(**ccfg), js, N_TABLES, DIM,
+                          insert_bucket=16)
+    dcfg = RandomDataConfig(num_dense=4, table_sizes=sizes, batch_size=12,
+                            num_batches=3, seed=2,
+                            distribution="grouped_zipf", group_noise=0.1)
+    for _, idx, _ in random_batches(dcfg):
+        np.testing.assert_array_equal(pc.lookup_batch(idx).numpy(),
+                                      np.asarray(jc.lookup_batch(idx)))
+    assert {k: pc.stats()[k] for k in STAT_KEYS} == \
+        {k: jc.stats()[k] for k in STAT_KEYS}
+    cfg = make_dlrm_config(DIM, sizes, (8,), (8,), num_dense=4)
+    with pytest.raises(ValueError, match="file mode"):
+        build_cache(CacheConfig(**ccfg), cfg, ps, use_device_cache=True,
+                    device="cpu")
+    ps.close()
+    js.close()
 
 
 @pytest.mark.parametrize("capacity,seed", [(60, 0), (300, 1)])
@@ -168,8 +207,9 @@ def test_host_ids_outside_their_table_raise():
 
 
 def test_unported_precisions_raise():
-    """16- and 4-bit C1 rows are not ported (the device caches take 32 or
-    8); the capacity must hold one request group."""
+    """The device caches take 32- or 8-bit C1 rows, as the JAX package's
+    do (16- and 4-bit rows live in the host tiers); the capacity must hold
+    one request group."""
     sm = StorageManager("dummy", dim=DIM).load(tables=_tables())
     for p in (16, 4):
         with pytest.raises(ValueError, match="fp32 or int8"):

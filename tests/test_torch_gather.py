@@ -19,6 +19,7 @@ package, whose `take_rows` clips them; ids still on the host raise (see
 tests/test_torch_native_device_cache.py and test_torch_train.py).
 """
 
+import ctypes
 import os
 
 import jax.numpy as jnp
@@ -258,14 +259,18 @@ def test_library_name_follows_the_sources():
     srcs = [os.path.basename(s) for s in _build.sources()]
     assert srcs == ["common.cuh", "gather_rows.cu",
                     "gather_rows_dequant_int8.cu", "interaction_bwd.cu",
-                    "interaction_fwd.cu", "row_update.cu"]
+                    "interaction_fwd.cu", "interaction_gram.cu",
+                    "row_update.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert os.path.basename(path).startswith("libevstore_kernels-")
     assert set(_build.SIGNATURES) == {
-        "interaction_fwd", "interaction_bwd", "gather_rows",
-        "gather_rows_dequant_int8", "scatter_sub_sorted"}
+        "interaction_fwd", "interaction_bwd", "interaction_gram",
+        "gather_rows", "gather_rows_dequant_int8", "scatter_sub_sorted"}
+    # x, ly, pair table, out: four pointers, then B as a 64-bit int
+    assert _build.SIGNATURES["interaction_gram"][:5] == (
+        (ctypes.c_void_p,) * 4 + (ctypes.c_int64,))
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 
@@ -300,7 +305,7 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     cus = [s for s in _build.sources() if s.endswith(".cu")]
     compiles = [ln for ln in lines if " -c " in ln]
     links = [ln for ln in lines if "-shared" in ln]
-    assert len(compiles) == len(cus) == 5 and len(links) == 1
+    assert len(compiles) == len(cus) == 6 and len(links) == 1
     assert sorted(ln.split()[-1] for ln in compiles) == sorted(cus)
     assert all("sm_90a" in ln for ln in lines)
     assert "0 spills" in open(path[:-3] + ".log").read()

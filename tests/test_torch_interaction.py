@@ -21,6 +21,12 @@ order can move it across a rounding boundary; on a result that cancels to
 ~5e-5 the f32 summation error alone is 2 bf16 ulps there).  The VJP uses
 the same two rules against the Pallas backward and against a float64 numpy
 VJP of the bf16-rounded inputs, since the port rounds once, at the end.
+
+The per-sample Gram op (`DotInteractionGram`, the port of
+`dot_interaction_pallas`) is held to the Pallas kernel in interpret mode,
+forward and backward, by the same two rules: its backward is the plain
+VJP, as the reference's is plain XLA, and both compute the true VJP, so
+they agree with self-interaction too.
 Against `jax.vjp` in bf16 it is held to 2^-6 of the sum of the absolute
 terms, plus that rule: XLA's bf16 VJP rounds each of up to four partial
 results (the x row, both operands of the ly gram, the passthrough sum) to
@@ -35,11 +41,15 @@ import torch
 
 from evstore_tpu.ops import interaction as jax_inter
 from evstore_tpu.ops.pallas_interaction import (_blocked_bwd_impl,
-                                                dot_interaction_blocked)
+                                                _row_selectors,
+                                                dot_interaction_blocked,
+                                                dot_interaction_pallas)
 from evstore_tpu_torch.ops import interaction as port_inter
 from evstore_tpu_torch.ops.cuda_interaction import (
-    DotInteraction, dot_interaction_bwd_kernel, dot_interaction_bwd_ref,
-    dot_interaction_kernel, dot_interaction_ref, samples_per_block)
+    DotInteraction, DotInteractionGram, dot_interaction_bwd_kernel,
+    dot_interaction_bwd_ref, dot_interaction_gram_kernel,
+    dot_interaction_kernel, dot_interaction_ref, gram_pair_table,
+    gram_samples_per_block, samples_per_block)
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -236,3 +246,83 @@ def test_self_interaction_diagonal_counts_twice():
     dx, dly = dot_interaction_bwd_kernel(x, ly, g, True)
     np.testing.assert_allclose(dx.numpy(), [[0.5 + 3.0, -0.5 + 6.0]])
     np.testing.assert_allclose(dly.numpy(), [[[0.0, 0.0]]])
+
+
+# ------------------------------------- the per-sample Gram op (K6's port)
+
+@pytest.mark.parametrize("B,T,D", [(128, 26, 36), (10, 26, 36), (16, 3, 4)])
+@pytest.mark.parametrize("self_interaction", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gram_op_matches_pallas_interaction(B, T, D, self_interaction,
+                                            dtype):
+    """The op and its kernel wrapper (the plain version on the CPU) against
+    `dot_interaction_pallas` in interpret mode; B=10 is below the TPU's
+    tile of 128, which the Pallas op then shrinks to."""
+    jx, jly, tx, tly = _inputs(B, T, D, dtype, seed=B)
+    ref = dot_interaction_pallas(jx, jly, self_interaction, 128, True)
+    assert ref.dtype == JAX_DT[dtype]
+    for got in (DotInteractionGram.apply(tx, tly, self_interaction),
+                dot_interaction_gram_kernel(tx, tly, self_interaction)):
+        assert got.dtype == TORCH_DT[dtype]
+        _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("B", [128, 10])
+@pytest.mark.parametrize("self_interaction", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gram_op_gradients_match_jax_grad(B, self_interaction, dtype):
+    """jax.grad through `dot_interaction_pallas` (its XLA backward) against
+    autograd through `DotInteractionGram`, for sum(out * g) with g from
+    numpy: both backward passes get the same cotangent, in the op's
+    dtype."""
+    T, D = 26, 36
+    jx, jly, tx, tly = _inputs(B, T, D, dtype, seed=B + 1)
+    P = port_inter.num_pairs(T + 1, self_interaction)
+    g = np.random.default_rng(B + 2).normal(size=(B, D + P)).astype(
+        np.float32)
+    refs = jax.grad(lambda a, b: jnp.sum(dot_interaction_pallas(
+        a, b, self_interaction, 128, True).astype(jnp.float32)
+        * jnp.asarray(g)), argnums=(0, 1))(jx, jly)
+    a = tx.clone().requires_grad_(True)
+    b = tly.clone().requires_grad_(True)
+    (DotInteractionGram.apply(a, b, self_interaction).float()
+     * torch.from_numpy(g)).sum().backward()
+    for got, ref in zip((a.grad, b.grad), refs):
+        assert got.dtype == TORCH_DT[dtype]
+        _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("F", [2, 4, 27])
+@pytest.mark.parametrize("self_interaction", [False, True])
+def test_gram_pair_table_is_the_selectors(F, self_interaction):
+    """Pair p reads the packed lower-triangle entry (li, lj) that the
+    Pallas kernel's selector M[li][lj, p] picks."""
+    sel = _row_selectors(F, self_interaction)
+    tab = gram_pair_table(F, self_interaction)
+    assert tab.dtype == np.int32 and len(tab) == sel.shape[2]
+    li, lj = np.nonzero(sel.transpose(2, 0, 1))[1:]
+    np.testing.assert_array_equal(tab, li * (li + 1) // 2 + lj)
+    assert len(set(tab.tolist())) == len(tab)
+    assert tab.max() < F * (F + 1) // 2
+
+
+@pytest.mark.parametrize("F,D,si,expected", [(27, 36, False, 8),
+                                             (27, 36, True, 8),
+                                             (27, 64, False, 5),
+                                             (27, 128, False, 3),
+                                             (4, 4, False, 8)])
+def test_gram_samples_per_block_fits_shared_memory(F, D, si, expected):
+    spb = gram_samples_per_block(F, D, si)
+    assert spb == expected
+    P = port_inter.num_pairs(F, si)
+    dp = D + 1 if D % 2 == 0 else D
+    assert 4 * (P + spb * (F * dp + F * (F + 1) // 2)) <= 48 * 1024
+
+
+def test_gram_wrapper_refuses_what_it_cannot_take():
+    x = torch.zeros(4, 8, device="meta")
+    ly = torch.zeros(4, 3, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        dot_interaction_gram_kernel(x, ly)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dot_interaction_gram_kernel(torch.zeros(4, 8), ly)

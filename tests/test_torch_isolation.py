@@ -38,6 +38,11 @@ def test_every_port_module_imports_without_jax():
     assert "evstore_tpu_torch.drivers.infer" in mods and len(mods) >= 20
     assert {"evstore_tpu_torch.native", "evstore_tpu_torch.native.build",
             "evstore_tpu_torch.ops.quant", "evstore_tpu_torch.cache.tiers",
+            "evstore_tpu_torch.cache.storage",
+            "evstore_tpu_torch.cache.policy",
+            "evstore_tpu_torch.cache.service",
+            "evstore_tpu_torch.ops.cuda_interaction",
+            "evstore_tpu_torch.utils.trace",
             "evstore_tpu_torch.data.loader"} <= set(mods)
     code = (
         "import sys\n"
@@ -110,6 +115,22 @@ def test_the_engine_builds_inside_the_port():
     assert pathlib.Path(build.BUILD_DIR) == PORT / "_build"
 
 
+def test_logkv_binds_the_ports_engine(tmp_path):
+    """LogKVStore's `esv_kv_*` calls go to the port's engine library, built
+    in the port's `_build/`, not to the JAX package's."""
+    from evstore_tpu_torch.cache.storage import LogKVStore
+    from evstore_tpu_torch.native import build, get_lib
+    kv = LogKVStore(str(tmp_path / "kv.log"), [4], 4)
+    try:
+        assert kv._lib is get_lib()
+        assert pathlib.Path(kv._lib._name).resolve() == \
+            pathlib.Path(build.library_path()).resolve()
+        assert pathlib.Path(kv._lib._name).resolve().is_relative_to(PORT)
+        assert kv.count() == 0
+    finally:
+        kv.close()
+
+
 def test_entry_points_without_a_card_raise():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -143,6 +164,10 @@ def test_entry_points_without_a_card_raise():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_inference(model, cfg, CacheConfig(total_size=60), [], sm,
                       use_device_cache=True, device="cuda")
+    for kw in ({}, {"use_native": True}):     # the host caches too
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_inference(model, cfg, CacheConfig(total_size=60), [], sm,
+                          **kw)
 
 
 def _run_smoke(cwd):

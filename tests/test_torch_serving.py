@@ -32,7 +32,7 @@ from evstore_tpu.train import metrics as jmetrics
 from evstore_tpu.utils.trace import LatencyRecorder as JaxLatencyRecorder
 from evstore_tpu_torch import config as pcfg
 from evstore_tpu_torch.cache.storage import StorageManager
-from evstore_tpu_torch.cache.tiers import AltKeyResolver
+from evstore_tpu_torch.cache.tiers import AltKeyResolver, altkey_encode
 from evstore_tpu_torch.convert import params_from_jax, params_to_numpy
 from evstore_tpu_torch.data import synthetic as psyn
 from evstore_tpu_torch.data.loader import PrefetchIterator, prefetch
@@ -211,6 +211,22 @@ def test_latency_cdf_matches_jax(tmp_path):
     assert (tmp_path / "p.csv").read_text() == (tmp_path / "j.csv").read_text()
 
 
+def test_latency_recorder_start_stop_percentile():
+    """start/stop time a span into the samples; percentile is numpy's, as
+    in the JAX recorder, and nan with no samples."""
+    got, want = LatencyRecorder(), JaxLatencyRecorder()
+    assert np.isnan(got.percentile(50)) and np.isnan(want.percentile(50))
+    got.start()
+    got.stop()
+    assert len(got.samples) == 1 and 0 <= got.samples[0] < 1.0
+    for v in np.random.default_rng(0).exponential(1e-3, 500):
+        got.record(float(v))
+        want.record(float(v))
+    want.samples.insert(0, got.samples[0])
+    for q in (50, 90, 99):
+        assert got.percentile(q) == want.percentile(q)
+
+
 def test_lookup_only_and_cdf(tmp_path):
     cj, cp, params, model, tables = _models("tiny")
     cdf = tmp_path / "cdf.csv"
@@ -228,35 +244,33 @@ def test_lookup_only_and_cdf(tmp_path):
 
 
 def test_unported_driver_options_raise():
-    """What the port does not serve yet: the host paths, the LFU/LRU
-    baselines, 16- and 4-bit C1 rows and stores other than a loaded dummy
-    one."""
+    """What the driver still refuses: options beside the device cache that
+    the JAX driver ignores (use_native, the lfu and lru policies; the
+    device cache runs its own engine and EvLFU), 16- and 4-bit rows in the
+    device cache (as JAX's), a store that is not a loaded dummy one behind
+    the device cache or the engine (as JAX's), the facade's `native`
+    backend (as JAX's), and the unported gaussian stream."""
     cj, cp, params, model, tables = _models("tiny")
     sm = StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables)
     batches = psyn.random_batches(psyn.RandomDataConfig(**_stream(cp, 1)))
-    with pytest.raises(NotImplementedError, match="TieredCache"):
+    with pytest.raises(ValueError, match="exclusive"):
         run_inference(model, cp, pcfg.CacheConfig(), batches, sm,
-                      device="cpu")
-    for use_device_cache in (False, True):
-        with pytest.raises(NotImplementedError, match="use_native"):
-            run_inference(model, cp, pcfg.CacheConfig(), batches, sm,
-                          use_native=True, use_device_cache=use_device_cache,
-                          device="cpu")
+                      use_native=True, use_device_cache=True, device="cpu")
     for policy in ("lfu", "lru"):
-        with pytest.raises(NotImplementedError, match="baseline"):
+        with pytest.raises(ValueError, match="runs EvLFU"):
             build_cache(pcfg.CacheConfig(policy=policy), cp, sm,
                         use_device_cache=True, device="cpu")
     for p in (16, 4):
         with pytest.raises(ValueError, match="fp32 or int8"):
             build_cache(pcfg.CacheConfig(main_precision=p), cp, sm,
                         use_device_cache=True, device="cpu")
-    with pytest.raises(ValueError, match="dummy store"):
-        build_cache(pcfg.CacheConfig(), cp,
-                    StorageManager("dummy", dim=cp.embedding_dim),
-                    use_device_cache=True, device="cpu")
-    for backend in ("file", "mmap", "sqlite", "logkv", "native"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            StorageManager(backend)
+    for kw in (dict(use_device_cache=True, device="cpu"),
+               dict(use_native=True)):
+        with pytest.raises(ValueError, match="dummy store"):
+            build_cache(pcfg.CacheConfig(), cp,
+                        StorageManager("dummy", dim=cp.embedding_dim), **kw)
+    with pytest.raises(ValueError, match="native engine"):
+        StorageManager("native").load(bin_dir=".", table_sizes=[1])
     with pytest.raises(NotImplementedError, match="gaussian"):
         next(psyn.random_batches(psyn.RandomDataConfig(
             distribution="gaussian")))
@@ -273,10 +287,11 @@ NATIVE = {
 
 
 def _altkeys(sizes, seed=12):
-    """One uniform row of the same table per row (a stand-in for the
-    offline kNN product)."""
+    """One uniform row of the same table per row, as alt keys (a stand-in
+    for the offline kNN product)."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, n, n) for n in sizes]
+    return [altkey_encode(t, rng.integers(0, n, n))
+            for t, n in enumerate(sizes)]
 
 
 @pytest.mark.parametrize("name", list(NATIVE))
@@ -464,3 +479,214 @@ def test_bf16_forward_matches_jax():
                                   jnp.asarray(idx), cj))
     assert np.all(np.abs(got - ref) <= 1e-5 * (1 + np.abs(ref))), \
         float(np.abs(got - ref).max())
+
+
+# ------------------------------------------------------------ host tiers
+
+HOST = {
+    "evlfu-32": dict(total_size=400),
+    "evlfu-16": dict(total_size=400, main_precision=16),
+    "evlfu-8": dict(total_size=400, main_precision=8),
+    "evlfu-4": dict(total_size=400, main_precision=4),
+    "evlfu-approx": dict(total_size=400, approx_emb_threshold=20),
+    "c1c2-8-4": dict(n_caching_layers=2, total_size=600, main_precision=8,
+                     secondary_precision=4, size_proportion=(50, 50, 0)),
+    "c1c2c3-8-4": NATIVE["c1c2c3"],
+    "lfu": dict(policy="lfu", total_size=400),
+    "lru": dict(policy="lru", total_size=400),
+}
+NATIVE_HOST = ["evlfu-32", "evlfu-8", "c1c2-8-4", "c1c2c3-8-4", "lfu", "lru"]
+
+
+def _serve_both(kw, *, port_sm=None, jax_sm=None, seed=4, n=10, B=32,
+                port_kw=None, jax_kw=None):
+    """The port's and the JAX package's run_inference on the same model,
+    stream, warm-up, alt keys and tables; returns (port, jax) results."""
+    cj, cp, params, model, tables = _models("narrow26", seed=seed)
+    kw = {"policy": "evlfu", **kw}
+    sc = _stream(cp, n, B=B, seed=seed + 10)
+    warm = {**sc, "seed": seed + 20, "num_batches": 2}
+    alts = _altkeys(cp.table_sizes)
+    ref = jax_run_inference(
+        params, cj, jcfg.CacheConfig(**kw),
+        jsyn.random_batches(jsyn.RandomDataConfig(**sc)),
+        jax_sm(tables) if jax_sm else JaxStorageManager(
+            "dummy", dim=cj.embedding_dim).load(tables=tables),
+        altkey_resolver=JaxAltKeyResolver(alts),
+        warmup_batches=jsyn.random_batches(jsyn.RandomDataConfig(**warm)),
+        log_fn=lambda *_: None, **(jax_kw or {}))
+    got = run_inference(
+        model, cp, pcfg.CacheConfig(**kw),
+        psyn.random_batches(psyn.RandomDataConfig(**sc)),
+        port_sm(tables) if port_sm else StorageManager(
+            "dummy", dim=cp.embedding_dim).load(tables=tables),
+        altkey_resolver=AltKeyResolver(alts),
+        warmup_batches=psyn.random_batches(psyn.RandomDataConfig(**warm)),
+        device="cpu", log_fn=lambda *_: None, **(port_kw or {}))
+    y = np.concatenate([b[2] for b in psyn.random_batches(
+        psyn.RandomDataConfig(**sc))]) > 0.5
+    got.pair_weight = 1.0 / max(int(y.sum()) * int((~y).sum()), 1)
+    return got, ref
+
+
+def _assert_same_run(got, ref, n_req=320):
+    """Requests and every cache stat equal; metrics within atol 1e-6, the
+    AUC within one pair's weight 1 / (n_pos n_neg) more.  The forwards
+    agree within 1 f32 ulp, and two scores that tie in the jitted JAX
+    forward and not in the port's move the AUC by half a pair's weight
+    (1.95e-5 measured on the stream of `evlfu-32`, where the AUC of eager
+    JAX's scores equals the port's)."""
+    assert got.requests == ref.requests == n_req
+    assert set(got.metrics) == set(ref.metrics)
+    for k, v in ref.metrics.items():
+        extra = got.pair_weight if k == "auc" else 0.0
+        np.testing.assert_allclose(got.metrics[k], v, atol=1e-6 + extra,
+                                   rtol=0, err_msg=k)
+    assert got.cache_stats == ref.cache_stats
+
+
+@pytest.mark.parametrize("name", list(HOST))
+def test_run_inference_on_the_host_tiers_matches_jax(name):
+    """use_device_cache=False: the Python TieredCache at 1-3 tiers and
+    32/16/8/4 bits, with the approximate-embedding short-circuit, and the
+    LFU/LRU baselines, against the JAX driver on the same stream."""
+    got, ref = _serve_both(HOST[name])
+    _assert_same_run(got, ref)
+    assert got.cache_stats["requests"] == 384
+    assert set(got.host_s) == {"lookup", "copy", "forward"}
+    if name == "c1c2c3-8-4":
+        assert got.cache_stats["c3"]["hits"] > 0
+
+
+@pytest.mark.parametrize("name", NATIVE_HOST)
+def test_run_inference_through_the_engine_host_path_matches_jax(name):
+    """use_native=True: the port's engine against JAX's engine, EvLFU, LFU
+    and LRU, one to three tiers."""
+    got, ref = _serve_both(HOST[name], port_kw=dict(use_native=True),
+                           jax_kw=dict(use_native=True))
+    _assert_same_run(got, ref)
+    assert got.cache_stats["requests"] == 384
+
+
+@pytest.mark.parametrize("backend", ["file", "mmap", "sqlite", "logkv"])
+def test_file_backed_stores_behind_the_host_tiers_match_jax(backend,
+                                                           tmp_path):
+    """The tiers over each file-backed store, C1 at 8 bits over fp32
+    files, against the JAX driver over its own store of the same files."""
+    sizes = list(NARROW_SIZES)
+
+    def make(mod, db):
+        def load(tables):
+            bins = tmp_path / "bins"
+            if not bins.exists():
+                from evstore_tpu.cache.storage import write_ev_tables_binary
+                write_ev_tables_binary(tables, str(bins))
+            return mod(backend, dim=8).load(
+                bin_dir=str(bins), table_sizes=sizes,
+                db_path=str(tmp_path / db))
+        return load
+
+    got, ref = _serve_both(HOST["evlfu-8"],
+                           port_sm=make(StorageManager, "p.db"),
+                           jax_sm=make(JaxStorageManager, "j.db"))
+    _assert_same_run(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["native", "device"])
+def test_the_engine_serves_from_files_as_from_tables(kind, tmp_path):
+    """A cache whose engine reads the .bin files (`open_table_files`),
+    passed as `cache=`, against the JAX driver's engine over the same
+    tables in RAM: the JAX driver refuses a file store behind the engine,
+    as the port's does."""
+    from evstore_tpu.cache.storage import write_ev_tables_binary
+    from evstore_tpu_torch.cache.device_cache import NativeDeviceC1Cache
+    from evstore_tpu_torch.native import NativeTieredCache
+    cj, cp, params, model, tables = _models("narrow26", seed=4)
+    write_ev_tables_binary(tables, str(tmp_path))
+    kw = dict(NATIVE["c1c2c3"])
+    ccfg = pcfg.CacheConfig(**kw)
+    if kind == "native":
+        cache = NativeTieredCache(ccfg, cp.num_tables, cp.embedding_dim)
+        flag = dict(use_native=True)
+    else:
+        cache = NativeDeviceC1Cache(ccfg, cp.num_tables, cp.embedding_dim,
+                                    device="cpu")
+        flag = dict(use_device_cache=True)
+    cache.open_table_files(str(tmp_path), cp.table_sizes)
+    cache.load_altkeys(_altkeys(cp.table_sizes))
+    try:
+        got, ref = _serve_both(kw, port_kw=dict(cache=cache, **flag),
+                               jax_kw=flag)
+        _assert_same_run(got, ref)
+    finally:
+        cache.close()
+    fsm = JaxStorageManager("file", dim=8).load(
+        bin_dir=str(tmp_path), table_sizes=cp.table_sizes)
+    with pytest.raises(ValueError, match="file mode"):
+        jax_run_inference(params, cj, jcfg.CacheConfig(**kw), [], fsm,
+                          log_fn=lambda *_: None, **flag)
+    psm = StorageManager("file", dim=8).load(
+        bin_dir=str(tmp_path), table_sizes=cp.table_sizes)
+    with pytest.raises(ValueError, match="file mode"):
+        run_inference(model, cp, ccfg, [], psm, device="cpu",
+                      log_fn=lambda *_: None, **flag)
+
+
+def test_trace_files_match_jax(tmp_path):
+    got, ref = _serve_both(HOST["evlfu-32"],
+                           port_kw=dict(trace_dir=str(tmp_path / "p")),
+                           jax_kw=dict(trace_dir=str(tmp_path / "j")))
+    _assert_same_run(got, ref)
+    names = sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "p").iterdir())
+    assert len(names) == 26 and "trace-table-1.csv" in names
+    for n in names:
+        text = (tmp_path / "p" / n).read_text()
+        assert text == (tmp_path / "j" / n).read_text()
+        assert len(text.splitlines()) == 320
+
+
+def test_bs1_cdf_is_true_per_request(tmp_path):
+    """At batch size 1 each request is timed alone, fenced by a real
+    transfer, and the CDF file's header says so, as the JAX driver's does;
+    with a prefetch thread it is the batch-time approximation."""
+    cdf = {k: tmp_path / f"{k}.csv" for k in ("p", "j", "p2")}
+    got, ref = _serve_both(HOST["evlfu-32"], n=24, B=1,
+                           port_kw=dict(cdf_path=str(cdf["p"])),
+                           jax_kw=dict(cdf_path=str(cdf["j"])))
+    _assert_same_run(got, ref, n_req=24)
+    head = cdf["p"].read_text().splitlines()[0]
+    assert head == cdf["j"].read_text().splitlines()[0]
+    assert head == "# method=true-per-request (bs=1, fenced transfer)"
+    assert got.latency["count"] == 24
+    got2, _ = _serve_both(HOST["evlfu-32"], n=24, B=1,
+                          port_kw=dict(cdf_path=str(cdf["p2"]),
+                                       pipeline_depth=2))
+    assert cdf["p2"].read_text().splitlines()[0] == \
+        "# method=fenced batch-time/B approximation"
+    np.testing.assert_array_equal(got2.scores, got.scores)
+
+
+@pytest.mark.parametrize("name", ["evlfu-8", "lru"])
+def test_lookup_only_on_host_caches_matches_jax(name):
+    got, ref = _serve_both(HOST[name], port_kw=dict(ev_lookup_only=True),
+                           jax_kw=dict(ev_lookup_only=True))
+    assert got.metrics == ref.metrics == {} and got.scores is None
+    assert got.cache_stats == ref.cache_stats
+    assert got.latency["count"] == 320
+
+
+@pytest.mark.parametrize("name,flag", [("c1c2c3-8-4", {}),
+                                       ("lfu", {}),
+                                       ("c1c2c3-8-4", {"use_native": True})],
+                         ids=["tiers", "lfu", "native"])
+def test_host_pipelined_run_equals_sequential(name, flag):
+    """pipeline_depth=2 on a host cache: the lookup and the rows' copy run
+    on the prefetch thread; scores and stats equal depth 0's, and the
+    thread is joined."""
+    before = _threads()
+    runs = [_serve_both(HOST[name], port_kw=dict(pipeline_depth=d, **flag),
+                        jax_kw=flag)[0] for d in (0, 2)]
+    assert _threads() == before
+    np.testing.assert_array_equal(runs[1].scores, runs[0].scores)
+    assert runs[1].cache_stats == runs[0].cache_stats
