@@ -17,7 +17,13 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    of 20 after warm-up) beside the least time the card could take; the
    two-stage Gram forward (K6) also against the one-stage forward (K1) on
    the same inputs, and its op `DotInteractionGram`, forward and backward,
-   against `DotInteraction` and the plain forward and VJP;
+   against `DotInteraction` and the plain forward and VJP; the grouped
+   gather (K2 over the 26 Kaggle tables at idx [128, 26]) bit for bit; K5
+   on Zipf ids, on the cases that break a chunked design (one run of all
+   entries, runs from chunk boundaries, K=1, K = E*m +- 1, all PAD_ROW; f32
+   and bf16), each launched twice on copies of one table (bitwise equal),
+   and grouped over the 26 tables at K = 3,328; beside each K2 and K5 time,
+   the kernel's device time (profiler) and the wrapper's host time;
 3. the serving path: the full-width Criteo Kaggle DLRM (26 tables, 33.8M
    rows, dim 36) served by `run_inference` through the tier engine's
    device C1 cache (`NativeDeviceC1Cache`, EvLFU, 64,000 fp32 entries),
@@ -57,7 +63,9 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    every kernel on must equal a step with every kernel switched off taken
    from the same state, and so must five more that compound from one
    state; then `evaluate`; the four kernels' launch counts over this phase
-   must be above 0;
+   must be above 0, with one grouped gather per train or eval step and one
+   grouped row update per rwsadagrad step; kernels and copies per step and
+   the rwsadagrad / sgd rate;
 4. the kernels' launch counts by path (serve, serve_int8, serve_host,
    gram_ab, train) and one JSON line describing every kernel, each of
    which must have launched on some path;
@@ -135,6 +143,34 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_host_us(torch, fn, reps: int = 20, calls: int = 200):
+    """(device us per call, host us per call): the device time of every
+    kernel `fn` launches, summed over `reps` calls traced by torch.profiler
+    (the CUDA activity alone, so no op is counted twice); time.perf_counter
+    over `calls` unsynchronised calls.  The host time is what the call
+    costs before the device sees its launches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == cuda) / reps
+    if dev_us <= 0:
+        raise AssertionError("the profiler saw no kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return dev_us, host_us
+
+
 def within(got, ref, rel: float, bf16_ulp: bool = False):
     """(all |got - ref| <= rel (1 + |ref|) [+ one bf16 ulp of ref], max|d|)."""
     import torch
@@ -202,13 +238,14 @@ def main() -> int:
     from evstore_tpu_torch.native import build as engine_build
     from evstore_tpu_torch.ops.cuda_gather import (
         gather_rows, gather_rows_dequant_int8, gather_rows_dequant_int8_ref,
-        gather_rows_ref)
+        gather_rows_grouped, gather_rows_grouped_ref, gather_rows_ref)
     from evstore_tpu_torch.ops.cuda_interaction import (
         DotInteraction, DotInteractionGram, dot_interaction_bwd_kernel,
         dot_interaction_bwd_ref, dot_interaction_gram_kernel,
         dot_interaction_kernel, dot_interaction_ref)
-    from evstore_tpu_torch.ops.cuda_update import (scatter_sub_sorted,
-                                                   scatter_sub_sorted_ref)
+    from evstore_tpu_torch.ops.cuda_update import (
+        CHUNK, scatter_sub_sorted, scatter_sub_sorted_grouped_ref,
+        scatter_sub_sorted_ref)
     from evstore_tpu_torch.ops.interaction import num_pairs
     from evstore_tpu_torch.ops.quant import (dequantize, dequantize_int8,
                                              np_quantize_int8)
@@ -280,6 +317,7 @@ def main() -> int:
                 "interaction_bwd": dot_interaction_bwd_kernel,
                 "interaction_gram": dot_interaction_gram_kernel,
                 "gather_rows": gather_rows,
+                "gather_rows_grouped": gather_rows_grouped,
                 "gather_rows_dequant_int8": gather_rows_dequant_int8,
                 "scatter_sub_sorted": scatter_sub_sorted}
 
@@ -443,7 +481,8 @@ def main() -> int:
               f"and K4) and the plain forward and VJP", flush=True)
         del x0, ly0, g0, outs
 
-        # K2: bit-exact
+        # K2: bit-exact.  Beside each case's event time, the kernel's device
+        # time (profiler) and the wrapper's host time per call
         def k2_case(C, M, R, D, dt, label):
             tdt = getattr(torch, dt)
             primary = torch.randn(C, D, generator=gen, device=dev).to(tdt)
@@ -468,17 +507,24 @@ def main() -> int:
             bms, by = bound_ms(uniq * rb + R * 4 + R * rb, 0.0, dt)
             combined = (primary if secondary is None
                         else torch.cat([primary, secondary]))
-            k_ms = time_ms(torch, lambda: gather_rows(primary, idx, secondary))
+            call = lambda: gather_rows(primary, idx, secondary)  # noqa: E731
+            k_ms = time_ms(torch, call)
+            dev_us, host_us = device_host_us(torch, call)
             p_ms = time_ms(torch,
                            lambda: gather_rows_ref(primary, idx, secondary))
-            l_ms = time_ms(torch,
-                           lambda: torch.index_select(combined, 0, idx))
+            lib = lambda: torch.index_select(combined, 0, idx)  # noqa: E731
+            l_ms = time_ms(torch, lib)
+            l_dev, l_host = device_host_us(torch, lib)
             print(f"gather_rows {label}: bit-exact, kernel_ms {k_ms:.4f} "
-                  f"plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) "
-                  f"library_ms {l_ms:.4f} (index_select on one table) "
-                  f"[{card}]", flush=True)
-            return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
-                        bound_by=by, library_ms=l_ms)
+                  f"device_us {dev_us:.2f} host_us {host_us:.2f} plain_ms "
+                  f"{p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}, "
+                  f"{100 * bms * 1e3 / dev_us:.0f}% of it on the device) "
+                  f"library_ms {l_ms:.4f} device_us {l_dev:.2f} host_us "
+                  f"{l_host:.2f} (index_select on one table) [{card}]",
+                  flush=True)
+            return dict(max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3,
+                        plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                        library_ms=l_ms)
 
         report["gather_rows"] = k2_case(
             64000, 4096, 2048 * 26, 36, "float32",
@@ -486,12 +532,47 @@ def main() -> int:
         k2_case(64000, 4096, 65536 * 26, 36, "float32",
                 "cache 64000x36 + buffer 4096, R=65536*26 f32")
         k2_case(10131227, 0, 128, 36, "float32",
-                "table 10131227x36, R=128 f32 (one training step's gather)")
+                "table 10131227x36, R=128 f32 (one table of a training step)")
         k2_case(10131227, 0, 65536, 36, "float32",
                 "table 10131227x36, R=65536 f32")
         k2_case(64000, 4096, 2048 * 26, 36, "bfloat16",
-                "cache 64000x36 + buffer 4096, R=2048*26 bf16 (4-byte path)")
+                "cache 64000x36 + buffer 4096, R=2048*26 bf16 (8-byte path)")
         torch.cuda.empty_cache()
+
+        # the grouped K2 over the 26 Kaggle tables at the training step's
+        # idx [128, 26] (its ids, from the training stream's seed), bit-exact
+        kcfg = kaggle_dlrm_config()
+        kb = [float(np.sqrt(1.0 / n)) for n in kcfg.table_sizes]
+        ktabs = [torch.empty(n, kcfg.embedding_dim, device=dev).uniform_(
+            -b, b, generator=gen) for n, b in zip(kcfg.table_sizes, kb)]
+        kidx = next(random_batches(RandomDataConfig(
+            num_dense=1, table_sizes=kcfg.table_sizes, batch_size=128,
+            num_batches=1, seed=args.seed + 3, distribution="grouped_zipf",
+            zipf_alpha=1.05, group_noise=0.1)))[1]
+        kidx_d = torch.from_numpy(kidx.astype(np.int32)).to(dev)
+        got = gather_rows_grouped(ktabs, kidx_d)
+        ref = gather_rows_grouped_ref(ktabs, kidx_d)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError("gather_rows_grouped differs at [128, 26]")
+        rb = kcfg.embedding_dim * 4
+        uniq = sum(len(np.unique(kidx[:, t])) for t in range(kidx.shape[1]))
+        bms, by = bound_ms(uniq * rb + kidx.size * 4 + kidx.size * rb, 0.0,
+                           "float32")
+        call = lambda: gather_rows_grouped(ktabs, kidx_d)  # noqa: E731
+        k_ms = time_ms(torch, call)
+        dev_us, host_us = device_host_us(torch, call)
+        p_ms = time_ms(torch, lambda: gather_rows_grouped_ref(ktabs, kidx_d))
+        print(f"gather_rows_grouped 26 Kaggle tables (33,762,577 x 36 f32), "
+              f"idx [128, 26] (one training step): bit-exact, kernel_ms "
+              f"{k_ms:.4f} device_us {dev_us:.2f} host_us {host_us:.2f} "
+              f"plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) "
+              f"library_ms none (no single PyTorch call gathers 26 tables) "
+              f"[{card}]", flush=True)
+        report["gather_rows_grouped"] = dict(
+            max_abs_err=0.0, ms=k_ms, device_ms=dev_us / 1e3, plain_ms=p_ms,
+            bound_ms=bms, bound_by=by, library_ms=None)
+        del got, ref
 
         # K3: bit for bit (IEEE division in both); the int8 C1 cache of the
         # three-tier configuration holds 36,204 rows
@@ -537,10 +618,11 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # K5: |d| <= 1e-6 (1 + |ref|) over the whole table (the kernel's
-        # compensated f32 run sums against the plain version's float64
+        # fixed-order f32 run sums against the plain version's float64
         # index_add_); a bf16 table adds one bf16 ulp (each side rounds
-        # once, at the store)
-        N5, D5 = kaggle_dlrm_config().table_sizes[2], 36
+        # once, at the store).  Beside the event time, the kernel's device
+        # time (its two kernels, profiler) and the wrapper's host time
+        N5, D5 = kcfg.table_sizes[2], 36
         bound5 = float(np.sqrt(1.0 / N5))
         base = (torch.rand(N5, D5, generator=gen, device=dev) * 2 - 1) \
             * bound5
@@ -551,20 +633,32 @@ def main() -> int:
             zipf_alpha=1.05)))[1][:, 0]
         zipf[nrng.random(zipf.size) < 0.05] = PAD_ROW
 
-        def k5_case(dt, ids, label):
+        def k5_check(dt, ids, label):
+            """The kernel on two copies of one table (bitwise equal: the
+            sum order is fixed) against the plain version."""
             tdt = getattr(torch, dt)
             rows = torch.from_numpy(np.sort(ids).astype(np.int32)).to(dev)
-            K = rows.numel()
-            vals = torch.randn(K, D5, generator=gen, device=dev) * 1e-2
+            vals = torch.randn(rows.numel(), D5, generator=gen,
+                               device=dev) * 1e-2
             tab = base.to(tdt, copy=True)
-            tab_ref = tab.clone()
+            tab2, tab_ref = tab.clone(), tab.clone()
             scatter_sub_sorted(tab, rows, vals)
+            scatter_sub_sorted(tab2, rows, vals)
             scatter_sub_sorted_ref(tab_ref, rows, vals)
             torch.cuda.synchronize()
             ok, err = within(tab, tab_ref, 1e-6, dt == "bfloat16")
             if not ok:
                 raise AssertionError(f"scatter_sub_sorted disagrees at "
                                      f"{label}: max|d| {err}")
+            if not torch.equal(tab, tab2):
+                raise AssertionError(f"scatter_sub_sorted is not "
+                                     f"deterministic at {label}")
+            return rows, vals, tab, tab_ref, err
+
+        def k5_case(dt, ids, label):
+            rows, vals, tab, tab_ref, err = k5_check(dt, ids, label)
+            tdt = tab.dtype
+            K = rows.numel()
             keep = (rows >= 0) & (rows < N5)
             uniq, counts = torch.unique(rows[keep], return_counts=True)
             es = tab.element_size()
@@ -573,28 +667,102 @@ def main() -> int:
                                "float32")
             lib_rows = rows[keep].long()
             lib_vals = (-vals[keep]).to(tdt)
-            k_ms = time_ms(torch, lambda: scatter_sub_sorted(tab, rows, vals))
+            call = lambda: scatter_sub_sorted(tab, rows, vals)  # noqa: E731
+            k_ms = time_ms(torch, call)
+            dev_us, host_us = device_host_us(torch, call)
             p_ms = time_ms(torch,
                            lambda: scatter_sub_sorted_ref(tab_ref, rows, vals))
-            l_ms = time_ms(torch,
-                           lambda: tab_ref.index_add_(0, lib_rows, lib_vals))
+            lib = lambda: tab_ref.index_add_(0, lib_rows,  # noqa: E731
+                                             lib_vals)
+            l_ms = time_ms(torch, lib)
+            l_dev, l_host = device_host_us(torch, lib)
             print(f"scatter_sub_sorted {label}: {uniq.numel()} rows, longest "
-                  f"run {int(counts.max())}, max|d| {err:.3e} kernel_ms "
-                  f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} "
-                  f"({by}) library_ms {l_ms:.4f} (index_add_ of the valid "
-                  f"entries{', values in bf16' if dt == 'bfloat16' else ''})"
+                  f"run {int(counts.max())}, max|d| {err:.3e}, two launches "
+                  f"bitwise equal; kernel_ms {k_ms:.4f} device_us "
+                  f"{dev_us:.2f} host_us {host_us:.2f} plain_ms {p_ms:.4f} "
+                  f"bound_us {bms * 1e3:.2f} ({by}) library_ms {l_ms:.4f} "
+                  f"device_us {l_dev:.2f} host_us {l_host:.2f} "
+                  f"(index_add_ of the valid entries"
+                  f"{', values in bf16' if dt == 'bfloat16' else ''})"
                   f" [{card}]", flush=True)
-            return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
-                        bound_by=by, library_ms=l_ms)
+            return dict(max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3,
+                        plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                        library_ms=l_ms)
 
-        report["scatter_sub_sorted"] = k5_case(
-            "float32", nrng.integers(0, N5, 128),
-            f"table {N5}x{D5} f32, K=128 (one recipe step)")
+        k5_case("float32", nrng.integers(0, N5, 128),
+                f"table {N5}x{D5} f32, K=128 (one table of a recipe step)")
         k5_case("float32", zipf,
                 f"table {N5}x{D5} f32, K=65536 zipf(1.05), 5% PAD_ROW")
         k5_case("bfloat16", zipf,
                 f"table {N5}x{D5} bf16, K=65536 zipf(1.05), 5% PAD_ROW")
+        # the cases that break a chunked design (CHUNK sorted entries a
+        # block), checked and not timed
+        E = CHUNK
+        adversarial = {
+            "one run of all 65536 entries": np.full(65536, 12345),
+            f"runs of {E} starting at every chunk boundary":
+                np.repeat(nrng.choice(N5, 64, replace=False), E),
+            f"runs of {E // 2}, {E} and {3 * E} from chunk boundaries":
+                np.concatenate([np.repeat(np.arange(8), E // 2),
+                                np.repeat(np.arange(8, 12), E),
+                                np.repeat(np.arange(12, 15), 3 * E)]),
+            "K=1": np.asarray([7]),
+            f"K={5 * E + 1} (E*5+1)": nrng.integers(0, 40, 5 * E + 1),
+            f"K={5 * E - 1} (E*5-1)": nrng.integers(0, 40, 5 * E - 1),
+            "all PAD_ROW": np.full(1000, PAD_ROW),
+        }
+        for dt in ("float32", "bfloat16"):
+            for label, ids in adversarial.items():
+                _, _, _, _, err = k5_check(dt, ids, label)
+                print(f"scatter_sub_sorted {dt} {label}: max|d| {err:.3e}, "
+                      f"two launches bitwise equal", flush=True)
         del base
+        torch.cuda.empty_cache()
+
+        # the grouped K5 at the training step's shape: the 26 Kaggle
+        # tables, K = 128 x 26 = 3,328 global ids of the training stream's
+        # first batch (each table's ids offset by its base), values as a
+        # rwsadagrad step scales them
+        kbase = np.concatenate([[0], np.cumsum(kcfg.table_sizes)])[:-1]
+        grows = torch.from_numpy(np.sort(
+            (kidx + kbase).reshape(-1)).astype(np.int32)).to(dev)
+        K = grows.numel()
+        gvals = torch.randn(K, D5, generator=gen, device=dev) * 1e-3
+        ref_tabs = [t.clone() for t in ktabs]
+        twice = [t.clone() for t in ktabs]
+        scatter_sub_sorted(ktabs, grows, gvals)
+        scatter_sub_sorted(twice, grows, gvals)
+        scatter_sub_sorted_grouped_ref(ref_tabs, grows, gvals)
+        torch.cuda.synchronize()
+        err = 0.0
+        for t, (a_, b_, c_) in enumerate(zip(ktabs, ref_tabs, twice)):
+            ok, e_ = within(a_, b_, 1e-6)
+            err = max(err, e_)
+            if not ok or not torch.equal(a_, c_):
+                raise AssertionError(f"grouped scatter_sub_sorted differs or "
+                                     f"is not deterministic at table {t}: "
+                                     f"max|d| {e_}")
+        del ref_tabs, twice
+        uniq = int(torch.unique(grows).numel())
+        bms, by = bound_ms(K * 4 + K * D5 * 4 + 2 * uniq * D5 * 4,
+                           float(K * D5 + uniq * D5), "float32")
+        call = lambda: scatter_sub_sorted(ktabs, grows, gvals)  # noqa: E731
+        k_ms = time_ms(torch, call)
+        dev_us, host_us = device_host_us(torch, call)
+        ref_tabs = [t.clone() for t in ktabs]
+        p_ms = time_ms(torch, lambda: scatter_sub_sorted_grouped_ref(
+            ref_tabs, grows, gvals))
+        print(f"scatter_sub_sorted grouped, 26 Kaggle tables (33,762,577 x 36"
+              f" f32), K=3328 (one training step): {uniq} rows, max|d| "
+              f"{err:.3e}, two launches bitwise equal; kernel_ms {k_ms:.4f} "
+              f"device_us {dev_us:.2f} host_us {host_us:.2f} plain_ms "
+              f"{p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) library_ms none "
+              f"(no single PyTorch call updates 26 tables) [{card}]",
+              flush=True)
+        report["scatter_sub_sorted"] = dict(
+            max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3, plain_ms=p_ms,
+            bound_ms=bms, bound_by=by, library_ms=None)
+        del ktabs, ref_tabs
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 3 main path
@@ -1298,14 +1466,15 @@ def main() -> int:
                 n, t = on_card.get(e.name, (0, 0.0))
                 on_card[e.name] = (n + 1, t + e.device_time_total / 1e3)
         busy_ms = sum(t for _, t in on_card.values())
+        per_step = sum(n for n, _ in on_card.values()) / 5
         if busy_ms > 0:
             top = sorted(on_card.items(), key=lambda kv: -kv[1][1])[:5]
             print(f"profile of 5 rwsadagrad steps [{card}]: wall "
                   f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
                   f"({100 * busy_ms / wall_ms:.1f}% of the profiled wall "
                   f"time, which includes the profiler's own cost) in "
-                  f"{sum(n for n, _ in on_card.values())} kernels and copies;"
-                  f" host ms per step: " + ", ".join(
+                  f"{sum(n for n, _ in on_card.values())} kernels and copies "
+                  f"({per_step:.1f} a step); host ms per step: " + ", ".join(
                       f"{k} {v:.3f}" for k, v in spans.items())
                   + "; top on the card: " + "; ".join(
                       f"{k[:40]} {t:.3f} ms x{n}" for k, (n, t) in top))
@@ -1326,6 +1495,9 @@ def main() -> int:
                   f"samples/s (median of 3 windows of 20 steps; windows "
                   f"{', '.join(f'{r:.2f}' for r in runs)} steps/s)",
                   flush=True)
+        print(f"rwsadagrad / sgd steps/s in this run: "
+              f"{rates['rwsadagrad'] / rates['sgd']:.3f} (rwsadagrad's row "
+              f"update is one grouped call, sgd's one per table)")
         if busy_ms > 0:
             step_ms = 1e3 / rates["rwsadagrad"]
             print(f"device busy per rwsadagrad step: {busy_ms / 5:.3f} ms, "
@@ -1335,11 +1507,24 @@ def main() -> int:
                   f"({step_ms:.2f} ms, 1 / median steps/s)")
         metrics = evaluate(model, cfg, take(2))
         train_launches = {k: v for k, v in read_counts().items()
-                          if k not in ("gather_rows_dequant_int8",
-                                       "interaction_gram")}
+                          if k in ("interaction_fwd", "interaction_bwd",
+                                   "gather_rows_grouped",
+                                   "scatter_sub_sorted")}
         if min(train_launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{train_launches}")
+        # one grouped gather per train or eval step, one row update per
+        # rwsadagrad step with the kernels on: 5 + 5 checked, 5 profiled,
+        # 3 + 3 x 20 through train(); sgd the same through train(); 2 eval
+        rws_steps = 5 + 5 + 5 + (3 + 3 * 20)
+        want = {"gather_rows_grouped": rws_steps + (3 + 3 * 20) + 2,
+                "scatter_sub_sorted": rws_steps}
+        got = {k: train_launches[k] for k in want}
+        if got != want or read_counts()["gather_rows"] != 0:
+            raise AssertionError(f"train path launches {read_counts()}, "
+                                 f"expected {want} and no flat gather")
+        print(f"train path launches: {json.dumps(got)} (one grouped gather "
+              f"per train or eval step, one row update per rwsadagrad step)")
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"evaluate gave {metrics}")
         print(f"evaluate over 2 batches: auc {metrics['auc']:.4f}, accuracy "
@@ -1357,6 +1542,8 @@ def main() -> int:
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
             "gather_rows": ("evstore_tpu_torch/csrc/gather_rows.cu",
                             "evstore_tpu/ops/pallas_gather.py:34"),
+            "gather_rows_grouped": ("evstore_tpu_torch/csrc/gather_rows.cu",
+                                    "evstore_tpu/ops/pallas_gather.py:34"),
             "gather_rows_dequant_int8": (
                 "evstore_tpu_torch/csrc/gather_rows_dequant_int8.cu",
                 "evstore_tpu/ops/pallas_gather.py:88"),
@@ -1380,7 +1567,8 @@ def main() -> int:
         line = {"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": sum(by_path[name].values()),
-             "launches_by_path": by_path[name], **report[name]}
+             "launches_by_path": by_path[name], "device_ms": None,
+             **report[name]}
             for name, (src, rep) in sources.items()]}
         print(f"total: {time.perf_counter() - t_all:.2f} s")
         print(json.dumps(line))

@@ -52,11 +52,14 @@ SIGNATURES = {
     "interaction_gram": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P),
     # primary, C, secondary, M, idx, out, R, row_bytes, device, stream
     "gather_rows": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _I, _P),
+    # desc, T, idx, out, R, row_bytes, src_align, device, stream
+    "gather_rows_grouped": (_P, _I, _P, _P, _I64, _I64, _I64, _I, _P),
     # primary, C, secondary, M, idx, out, R, D, device, stream
     "gather_rows_dequant_int8": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _I,
                                  _P),
-    # table, N, D, rows, vals, K, is_bf16, device, stream
-    "scatter_sub_sorted": (_P, _I64, _I, _P, _P, _I64, _I, _I, _P),
+    # desc, T, D, rows, vals, K, scratch, scratch_chunks, is_bf16, device,
+    # stream
+    "scatter_sub_sorted": (_P, _I, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
 }
 
 
@@ -133,6 +136,15 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def stream(index: int) -> int:
+    """The raw handle of the current CUDA stream of device `index`, through
+    PyTorch's C accessor: `torch.cuda.current_stream(dev).cuda_stream`
+    builds a Stream object on every call, which costs the small kernels'
+    wrappers several microseconds of host time."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(rc: int, name: str) -> None:

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from evstore_tpu_torch.config import DLRMConfig
-from evstore_tpu_torch.train.optim import OptState
+from evstore_tpu_torch.train.optim import OptState, row_state_views
 from evstore_tpu_torch.utils.device import resolve_device
 
 
@@ -82,14 +82,22 @@ def params_to_numpy(model) -> Tuple[Dict, Dict]:
 
 def opt_state_from_jax(step, dense: Dict, sparse: Dict, cfg: DLRMConfig,
                        device=None) -> OptState:
-    """The JAX package's OptState fields, as numpy -> the port's OptState."""
+    """The JAX package's OptState fields, as numpy -> the port's OptState.
+    rwsadagrad's [N] accumulators become views of one flat buffer
+    (`optim.row_state_views`), as `init_opt_state` builds them."""
     dev = resolve_device(device)
+    arrays = [np.asarray(sparse[f"table_{t}"], dtype=np.float32)
+              for t in range(cfg.num_tables)] if sparse else []
+    if arrays and all(a.ndim == 1 for a in arrays):
+        rows = row_state_views(torch.from_numpy(np.concatenate(arrays)).to(
+            dev), [a.shape[0] for a in arrays])
+    else:
+        rows = {f"tables.{t}": torch.from_numpy(np.array(a)).to(dev)
+                for t, a in enumerate(arrays)}
     return OptState(
         step=int(step),
         dense=_mlps_from_jax(dense["mlp"], cfg, dev) if dense else {},
-        sparse={f"tables.{t}": torch.from_numpy(
-            np.array(sparse[f"table_{t}"], dtype=np.float32)).to(dev)
-            for t in range(cfg.num_tables)} if sparse else {})
+        sparse=rows)
 
 
 def opt_state_to_numpy(opt: OptState, cfg: DLRMConfig

@@ -1,73 +1,128 @@
-// Embedding-row gather for Hopper (sm_90a).
+// Embedding-row gathers for Hopper (sm_90a).
 //
 // Replaces the TPU kernel evstore_tpu/ops/pallas_gather.py::_gather_kernel
-// (a ring of 16 row DMAs, reached through gather_rows).  Over a flat [R]
-// int32 index:
+// (a ring of 16 row DMAs, reached through gather_rows).  Two entry points
+// share one inner loop:
 //
-//   out[r] = primary[idx[r]]              if idx[r] <  C
-//          = secondary[idx[r] - C]        if C <= idx[r] < C + M
+//   gather_rows, over a flat [R] int32 index:
+//     out[r] = primary[idx[r]]            if idx[r] <  C
+//            = secondary[idx[r] - C]      if C <= idx[r] < C + M
+//   With no secondary (M == 0) this is exactly the TPU kernel's table[idx].
+//   The two-source form serves the device C1 cache: indices below C read a
+//   cache slot, the others a row of this segment's shipped miss buffer, so
+//   concat(cache, buffer) is never materialised.
 //
-// With no secondary (M == 0) this is exactly the TPU kernel's table[idx].
-// The two-source form serves the device C1 cache: indices below C read a
-// cache slot, the others a row of this segment's shipped miss buffer, so
-// concat(cache, buffer) is never materialised.  Rows are moved as bytes, so
-// any 4-byte-multiple row (f32, or bf16 with an even width) is bit-exact.
-// An index outside [0, C + M) writes a zero row instead of reading out of
-// bounds; callers validate indices on the host before upload.
+//   gather_rows_grouped, over idx [B, T] and T tables of one width:
+//     out[b, t] = table_t[idx[b, t]]
+//   The training step's lookup of all 26 tables in one launch, written
+//   straight into the [B, T, D] rows.  The tables come as a descriptor,
+//   int64 [2T + 1]: their base addresses, then the cumulative row offsets.
 //
-// Bound on this card: bytes.  At 65536 x 26 rows of 144 B, reading and
-// writing the rows is ~490 MB (~146 us at 3.35 TB/s); at the serving batch
-// of 2048 x 26 rows it is ~4.6 us, where launch cost dominates.  One warp
-// moves one row with 16-byte vector loads and stores when the row and the
-// base pointers allow it (144 B = 9 vectors), else with 4-byte words; row
-// offsets are 64-bit (Terabyte tables reach 227M rows).  Several rows per
-// warp for narrow rows, and fusing this gather into the interaction's
-// staging, are later work.
+// Rows are moved as bytes, so any 4-byte-multiple row (f32, or bf16 with an
+// even width) is bit-exact.  An index outside its source writes a zero row
+// instead of reading out of bounds; callers validate ids on the host.
+//
+// Bound on this card: bytes (each index read once, each distinct row read
+// once, each output row written once).  At 65,536 x 26 rows of 144 B that
+// is ~490 MB, ~146 us at 3.35 TB/s; at the serving batch of 2048 x 26 rows
+// ~4.6 us, and the 64,000-row cache (9.2 MB) sits in the 50 MB L2.  What
+// approaches the bound is bytes in flight.  So the work is cut into (row,
+// vector) units of 16 bytes (8 or 4 where the row or the pointers allow no
+// more): a 144-byte row is 9 units, a warp moves 32 units, about 3.5 rows,
+// and no lane idles on a row narrower than a warp.  Each thread takes 4
+// units a block's width apart (consecutive threads, consecutive bytes),
+// issues all their index loads, then all their row loads, then the
+// stores.  TMA and wgmma have nothing to do here: a gather of scattered
+// 144-byte rows has no tile for a tensor map, and no arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int THREADS = 256;
+constexpr int UNITS = 4;  // units in flight per thread
+
 template <typename V>
-__global__ void gather_rows_kernel(const V* __restrict__ primary, int64_t C,
-                                   const V* __restrict__ secondary, int64_t M,
-                                   const int32_t* __restrict__ idx,
-                                   V* __restrict__ out, int64_t R,
-                                   int64_t nvec) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  for (int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       r < R; r += warps) {
-    const int64_t k = __ldg(idx + r);
-    const V* src = nullptr;
-    if (k >= 0 && k < C) {
-      src = primary + k * nvec;
-    } else if (k >= C && k < C + M) {
-      src = secondary + (k - C) * nvec;
+struct TwoSources {
+  const V* primary;
+  int64_t C;
+  const V* secondary;
+  int64_t M;
+  __device__ __forceinline__ const V* row(int64_t /*r*/, int64_t k,
+                                          int64_t nvec) const {
+    if (k >= 0 && k < C) return primary + k * nvec;
+    if (k >= C && k < C + M) return secondary + (k - C) * nvec;
+    return nullptr;
+  }
+};
+
+template <typename V>
+struct Grouped {
+  const int64_t* desc;
+  int nt;
+  __device__ __forceinline__ const V* row(int64_t r, int64_t k,
+                                          int64_t nvec) const {
+    const int t = (int)(r % nt);
+    const int64_t n = __ldg(desc + nt + t + 1) - __ldg(desc + nt + t);
+    if (k < 0 || k >= n) return nullptr;
+    return (const V*)(uintptr_t)__ldg(desc + t) + k * nvec;
+  }
+};
+
+// I: the unit index type, 32-bit where R * nvec allows it (cheaper
+// division).
+template <typename V, typename I, typename Src>
+__global__ void __launch_bounds__(THREADS)
+gather_kernel(Src src, const int32_t* __restrict__ idx, V* __restrict__ out,
+              I total, I nvec) {
+  const I step = (I)gridDim.x * THREADS * UNITS;
+  for (I u0 = (I)blockIdx.x * THREADS * UNITS + threadIdx.x; u0 < total;
+       u0 += step) {
+    I r[UNITS];
+    int32_t k[UNITS];
+#pragma unroll
+    for (int j = 0; j < UNITS; ++j) {
+      const I u = u0 + (I)j * THREADS;
+      r[j] = u / nvec;
+      k[j] = u < total ? __ldg(idx + r[j]) : -1;
     }
-    V* dst = out + r * nvec;
-    for (int64_t v = lane; v < nvec; v += 32) {
-      V val{};
-      if (src != nullptr) val = __ldg(src + v);
-      dst[v] = val;
+    V val[UNITS];
+#pragma unroll
+    for (int j = 0; j < UNITS; ++j) {
+      const I u = u0 + (I)j * THREADS;
+      const V* p = u < total ? src.row((int64_t)r[j], k[j], nvec) : nullptr;
+      val[j] = p != nullptr ? __ldg(p + (u - r[j] * nvec)) : V{};
+    }
+#pragma unroll
+    for (int j = 0; j < UNITS; ++j) {
+      const I u = u0 + (I)j * THREADS;
+      if (u < total) out[u] = val[j];
     }
   }
 }
 
-template <typename V>
-void launch(const void* primary, int64_t C, const void* secondary, int64_t M,
-            const void* idx, void* out, int64_t R, int64_t nvec,
+template <typename V, typename Src>
+void launch(Src src, const void* idx, void* out, int64_t R, int64_t nvec,
             cudaStream_t st) {
-  const int threads = 256;  // 8 warps, 8 rows in flight per block
-  int64_t blocks = (R + 7) / 8;
+  const int64_t total = R * nvec;
+  int64_t blocks = (total + THREADS * UNITS - 1) / (THREADS * UNITS);
   if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
-  gather_rows_kernel<V><<<(unsigned)blocks, threads, 0, st>>>(
-      (const V*)primary, C, (const V*)secondary, M, (const int32_t*)idx,
-      (V*)out, R, nvec);
+  if (total + THREADS * UNITS * blocks < ((int64_t)1 << 32)) {
+    gather_kernel<V, uint32_t, Src><<<(unsigned)blocks, THREADS, 0, st>>>(
+        src, (const int32_t*)idx, (V*)out, (uint32_t)total, (uint32_t)nvec);
+  } else {
+    gather_kernel<V, uint64_t, Src><<<(unsigned)blocks, THREADS, 0, st>>>(
+        src, (const int32_t*)idx, (V*)out, (uint64_t)total, (uint64_t)nvec);
+  }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+// The widest vector (16, 8 or 4 bytes) that divides the row and `align`.
+int vector_bytes(int64_t row_bytes, uintptr_t align) {
+  for (int v = 16; v > 4; v >>= 1)
+    if (row_bytes % v == 0 && align % v == 0) return v;
+  return 4;
+}
 
 }  // namespace
 
@@ -80,13 +135,48 @@ extern "C" int gather_rows(const void* primary, int64_t C,
   if (R <= 0 || row_bytes <= 0 || row_bytes % 4 != 0 || C < 0 || M < 0 ||
       (M > 0 && secondary == nullptr))
     return (int)cudaErrorInvalidValue;
+  const uintptr_t align = (uintptr_t)primary | (uintptr_t)out |
+                          (M > 0 ? (uintptr_t)secondary : 0);
+  // the lowest set bit of the pointers is their common alignment
+  const int vb = vector_bytes(row_bytes, align & (~align + 1));
   cudaStream_t st = (cudaStream_t)stream;
-  const bool vec16 = row_bytes % 16 == 0 && aligned16(primary) &&
-                     aligned16(out) && (M == 0 || aligned16(secondary));
-  if (vec16) {
-    launch<uint4>(primary, C, secondary, M, idx, out, R, row_bytes / 16, st);
+  if (vb == 16) {
+    launch<uint4>(TwoSources<uint4>{(const uint4*)primary, C,
+                                    (const uint4*)secondary, M},
+                  idx, out, R, row_bytes / 16, st);
+  } else if (vb == 8) {
+    launch<uint2>(TwoSources<uint2>{(const uint2*)primary, C,
+                                    (const uint2*)secondary, M},
+                  idx, out, R, row_bytes / 8, st);
   } else {
-    launch<uint32_t>(primary, C, secondary, M, idx, out, R, row_bytes / 4,
+    launch<uint32_t>(TwoSources<uint32_t>{(const uint32_t*)primary, C,
+                                          (const uint32_t*)secondary, M},
+                     idx, out, R, row_bytes / 4, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// src_align: the common alignment of the tables' base addresses, which
+// live on the card in `desc` (the wrapper knows them).
+extern "C" int gather_rows_grouped(const void* desc, int nt, const void* idx,
+                                   void* out, int64_t R, int64_t row_bytes,
+                                   int64_t src_align, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (R <= 0 || nt < 1 || R % nt != 0 || row_bytes <= 0 ||
+      row_bytes % 4 != 0 || src_align <= 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t a = (uintptr_t)src_align | (uintptr_t)out;
+  const int vb = vector_bytes(row_bytes, a & (~a + 1));
+  const int64_t* d = (const int64_t*)desc;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vb == 16) {
+    launch<uint4>(Grouped<uint4>{d, nt}, idx, out, R, row_bytes / 16, st);
+  } else if (vb == 8) {
+    launch<uint2>(Grouped<uint2>{d, nt}, idx, out, R, row_bytes / 8, st);
+  } else {
+    launch<uint32_t>(Grouped<uint32_t>{d, nt}, idx, out, R, row_bytes / 4,
                      st);
   }
   return (int)cudaGetLastError();

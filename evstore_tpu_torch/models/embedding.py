@@ -2,8 +2,9 @@
 
 Port of the plain-table parts of `evstore_tpu/models/embedding.py`.  Each
 table is initialised U(-sqrt(1/n), sqrt(1/n)) (dlrm_s_pytorch.py:278-283).
-On the card a lookup goes through the row-gather kernel
-(`ops/cuda_gather.py`).  qr, md and multi-hot bags are not ported yet.
+On the card a lookup of all tables goes through one launch of the
+grouped row-gather kernel (`ops/cuda_gather.py`).  qr, md and multi-hot
+bags are not ported yet.
 
 Ids outside [0, N) are a deliberate departure from the JAX package, which
 is not consistent with itself there (its `take_rows` clips them, its
@@ -22,7 +23,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from evstore_tpu_torch.ops.cuda_gather import gather_rows
+from evstore_tpu_torch.ops.cuda_gather import gather_rows_grouped
 
 
 def init_embedding_tables(table_sizes: Sequence[int], dim: int,
@@ -55,20 +56,16 @@ def check_ids(idx: np.ndarray, table_sizes: Sequence[int]) -> None:
                          f"outside [0, {int(sizes.flat[pos[1]])})")
 
 
-def take_rows(table: torch.Tensor, ids: torch.Tensor,
-              use_kernel: bool = True) -> torch.Tensor:
-    """table [N, D], ids of any shape -> ids.shape + [D]."""
-    if use_kernel:
-        return gather_rows(table, ids.to(torch.int32).contiguous())
-    return torch.index_select(table, 0, ids.reshape(-1).long()).reshape(
-        *ids.shape, table.shape[1])
-
-
 def sparse_arch_lookup(tables: Sequence[torch.Tensor], idx: torch.Tensor,
                        cfg) -> torch.Tensor:
-    """One-hot idx [B, T] -> [B, T, D] rows, one lookup per table."""
+    """One-hot idx [B, T] -> [B, T, D] rows: one launch of the grouped
+    gather kernel for all tables, or with `use_gather_kernel` off an
+    `index_select` per table."""
     if idx.dim() != 2:
         raise NotImplementedError(
             "multi-hot [B, T, L] bags are not ported yet; idx must be [B, T]")
-    return torch.stack([take_rows(tables[t], idx[:, t], cfg.use_gather_kernel)
-                        for t in range(idx.shape[1])], dim=1)
+    if cfg.use_gather_kernel:
+        return gather_rows_grouped(list(tables),
+                                   idx.to(torch.int32).contiguous())
+    return torch.stack([torch.index_select(tab, 0, idx[:, t].long())
+                        for t, tab in enumerate(tables)], dim=1)

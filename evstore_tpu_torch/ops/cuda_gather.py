@@ -2,7 +2,9 @@
 `csrc/gather_rows_dequant_int8.cu`.
 
 `gather_rows` ports the TPU kernel
-`evstore_tpu/ops/pallas_gather.py::_gather_kernel`, and
+`evstore_tpu/ops/pallas_gather.py::_gather_kernel`; `gather_rows_grouped`
+is the same kernel's grouped form, the lookup of every table of a one-hot
+batch in one launch (`out[b, t] = tables[t][idx[b, t]]`); and
 `gather_rows_dequant_int8` ports `gather_rows_dequant_int8` of the same
 file: the gather of uint8 rows of the 8-bit codec, dequantised to float32
 as (v / 254) * 2 - 1 (`ops/quant.py`).  Both have a two-source form for the
@@ -18,12 +20,13 @@ from the host check them there (`models/embedding.py::check_ids`).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from evstore_tpu_torch import _build
 from evstore_tpu_torch.ops.quant import dequantize_int8
+from evstore_tpu_torch.ops.table_desc import table_group
 
 
 def _take_or_zero(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -45,6 +48,13 @@ def gather_rows_ref(primary: torch.Tensor, idx: torch.Tensor,
                     secondary: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: `index_select` on the concatenated sources."""
     return _take_or_zero(_sources(primary, secondary), idx)
+
+
+def gather_rows_grouped_ref(tables: Sequence[torch.Tensor],
+                            idx: torch.Tensor) -> torch.Tensor:
+    """The plain version: `index_select` on each table, then a stack."""
+    return torch.stack([_take_or_zero(tab, idx[:, t])
+                        for t, tab in enumerate(tables)], dim=1)
 
 
 def gather_rows_dequant_int8_ref(primary: torch.Tensor, idx: torch.Tensor,
@@ -107,13 +117,51 @@ def gather_rows(primary: torch.Tensor, idx: torch.Tensor,
         0 if secondary is None else secondary.shape[0],
         idx.data_ptr(), out.data_ptr(), idx.numel(),
         D * primary.element_size(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev.index))
     _build.check(rc, "gather_rows")
     gather_rows.launches += 1
     return out
 
 
 gather_rows.launches = 0
+
+
+def gather_rows_grouped(tables: Sequence[torch.Tensor],
+                        idx: torch.Tensor) -> torch.Tensor:
+    """T tables [N_t, D] of one type and width, idx [B, T] int32 -> rows
+    [B, T, D] with out[b, t] = tables[t][idx[b, t]], bit-exact; an id outside
+    [0, N_t) gives a zero row."""
+    if idx.device.type == "cpu" and all(t.device.type == "cpu"
+                                        for t in tables):
+        return gather_rows_grouped_ref(tables, idx)
+    group = table_group("gather_rows_grouped", tables)
+    dev = idx.device
+    if dev.type != "cuda" or tables[0].device != dev:
+        raise ValueError("gather_rows_grouped: all tensors must be on one "
+                         f"CUDA device (or all on the CPU), got idx on {dev} "
+                         f"and tables on {tables[0].device}")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or \
+            idx.shape[1] != len(tables) or not idx.is_contiguous():
+        raise ValueError(f"gather_rows_grouped takes contiguous int32 idx "
+                         f"[B, {len(tables)}], got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    row_bytes = group.dim * tables[0].element_size()
+    if row_bytes % 4:
+        raise ValueError(f"gather_rows_grouped takes rows of a multiple of 4 "
+                         f"bytes, got {group.dim} x {group.dtype}")
+    out = torch.empty((*idx.shape, group.dim), dtype=group.dtype, device=dev)
+    if idx.numel() == 0:
+        return out
+    rc = _build.library().gather_rows_grouped(
+        group.desc.data_ptr(), len(tables), idx.data_ptr(), out.data_ptr(),
+        idx.numel(), row_bytes, group.align, dev.index,
+        _build.stream(dev.index))
+    _build.check(rc, "gather_rows_grouped")
+    gather_rows_grouped.launches += 1
+    return out
+
+
+gather_rows_grouped.launches = 0
 
 
 def gather_rows_dequant_int8(primary: torch.Tensor, idx: torch.Tensor,

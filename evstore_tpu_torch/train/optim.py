@@ -14,14 +14,16 @@ Unlike the JAX package, which returns new arrays, every update here works in
 place on the parameters and the optimizer state.  The JAX package's three
 lowerings of `row_update` (dense-grad, rep-trick, sort path) are TPU
 scheduling choices; here `rwsadagrad` takes the sorted path through the
-CUDA row-update kernel (`ops/cuda_update.py`), and `sgd`, `adagrad` and
-rwsadagrad with the kernel switched off take `dedup_rows` and plain torch.
+CUDA row-update kernel (`ops/cuda_update.py`), in a train step for all
+tables at once over one flat accumulator buffer (`flat_row_state`), and
+`sgd`, `adagrad` and rwsadagrad with the kernel switched off take
+`dedup_rows` and plain torch, table by table.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,9 +69,46 @@ class OptState:
     # per dense parameter (model.named_parameters() names): adagrad sums,
     # {} for sgd
     dense: Dict[str, torch.Tensor]
-    # per table ("tables.<t>"): [N, D] for adagrad, [N] for rwsadagrad,
-    # {} for sgd
+    # per table ("tables.<t>"): [N, D] for adagrad, [N] for rwsadagrad
+    # (views of one flat buffer, `flat_row_state`), {} for sgd
     sparse: Dict[str, torch.Tensor]
+
+
+def row_state_views(flat: torch.Tensor, sizes: Sequence[int]
+                    ) -> Dict[str, torch.Tensor]:
+    """rwsadagrad's accumulators as views of one flat [sum N_t] buffer, in
+    table order, keyed "tables.<t>": the grouped row update
+    (`ops/cuda_update.py::rwsadagrad_row_update`) takes the flat buffer."""
+    out, off = {}, 0
+    for t, n in enumerate(sizes):
+        out[f"tables.{t}"] = flat[off:off + n]
+        off += n
+    return out
+
+
+def flat_row_state(sparse: Dict[str, torch.Tensor],
+                   tables: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The flat [sum N_t] buffer under rwsadagrad's per-table views.  Raises
+    ValueError unless the views still lie in one buffer, in table order
+    (same storage, offsets the sums of the sizes before them): a state
+    whose views were replaced cannot take the grouped update."""
+    views = [sparse.get(f"tables.{t}") for t in range(len(tables))]
+    v0 = views[0]
+    start = off = 0 if v0 is None else v0.storage_offset()
+    for t, (v, tab) in enumerate(zip(views, tables)):
+        if v is None or v.dtype != torch.float32 or \
+                tuple(v.shape) != (tab.shape[0],) or v.stride() != (1,) or \
+                v.device != v0.device or \
+                v.untyped_storage().data_ptr() != \
+                v0.untyped_storage().data_ptr() or \
+                v.storage_offset() != off:
+            raise ValueError(f"rwsadagrad state tables.{t} is not the view of "
+                             f"the one flat accumulator buffer it should be "
+                             f"(its {tab.shape[0]} rows at offset "
+                             f"{off - start}); build the state with "
+                             f"init_opt_state or opt_state_from_jax")
+        off += tab.shape[0]
+    return v0.as_strided((off - start,), (1,), start)
 
 
 def dense_parameters(model) -> Dict[str, torch.nn.Parameter]:
@@ -97,11 +136,16 @@ def make_optimizer(name: str, eps: float = 1e-10):
             return OptState(0, {}, {})
         dense = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in dense_parameters(model).items()}
-        sparse = {}
-        for t, tab in enumerate(model.tables):
-            shape = tab.shape if name == "adagrad" else tab.shape[:1]
-            sparse[f"tables.{t}"] = torch.zeros(shape, dtype=torch.float32,
-                                                device=tab.device)
+        if name == "rwsadagrad":
+            sizes = [tab.shape[0] for tab in model.tables]
+            sparse = row_state_views(torch.zeros(
+                sum(sizes), dtype=torch.float32,
+                device=model.tables[0].device), sizes) if sizes else {}
+        else:
+            sparse = {f"tables.{t}": torch.zeros(tab.shape,
+                                                 dtype=torch.float32,
+                                                 device=tab.device)
+                      for t, tab in enumerate(model.tables)}
         return OptState(0, dense, sparse)
 
     @torch.no_grad()

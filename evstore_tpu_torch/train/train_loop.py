@@ -7,9 +7,11 @@ batches.  Reference: the epoch loop of dlrm_s_pytorch.py:1574-1854
 As in the JAX package, the step gathers the batch's embedding rows outside
 autograd (the row-gather kernel), differentiates the loss with respect to
 those rows and the MLP parameters (the interaction's forward and backward
-kernels), and applies a sparse row update per table (the row-update kernel
-for rwsadagrad).  The embedding gradient never exists as a dense [N, D]
-array.  The step updates the model and the optimizer state in place; the
+kernels), and applies the sparse row updates: rwsadagrad with its kernel on
+updates every table in one grouped call (one sort, one row-update kernel
+launch, the accumulators as one flat buffer); sgd, adagrad and the plain
+rwsadagrad update table by table.  The embedding gradient never exists as
+a dense [N, D] array.  The step updates the model and the optimizer state in place; the
 gathered rows are a copy, so the in-place table update is invisible to
 autograd.  Not ported yet: qr/md tables, multi-hot bags, weighted pooling,
 the packed table layout and checkpoints.
@@ -27,10 +29,11 @@ from evstore_tpu_torch.config import DLRMConfig, TrainConfig
 from evstore_tpu_torch.models.dlrm import DLRM, dlrm_loss
 from evstore_tpu_torch.models.embedding import (check_ids,
                                                 sparse_arch_lookup)
+from evstore_tpu_torch.ops.cuda_update import rwsadagrad_row_update
 from evstore_tpu_torch.train.metrics import binary_metrics
 from evstore_tpu_torch.train.optim import (OptState, dense_parameters,
-                                           lr_schedule, make_optimizer,
-                                           row_update)
+                                           flat_row_state, lr_schedule,
+                                           make_optimizer, row_update)
 
 span = torch.profiler.record_function
 
@@ -83,8 +86,14 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     The inputs are numpy arrays or tensors.  The step updates the model's
     parameters and `opt_state` in place and returns the loss as a 0-d tensor
     on the model's device (reading it waits for the device).  Its four
-    stages are `torch.profiler` spans named `train_step.<stage>`."""
+    stages are `torch.profiler` spans named `train_step.<stage>`.  With the
+    kernels on, the gather is one launch for every table, and so is
+    rwsadagrad's row update, which needs `opt_state`'s accumulators to be
+    the views of one flat buffer that `init_opt_state` and
+    `opt_state_from_jax` build (ValueError otherwise)."""
     _, dense_update, _ = make_optimizer(tcfg.optimizer)
+    grouped = (tcfg.optimizer.lower() == "rwsadagrad"
+               and tcfg.use_update_kernel)
     lr_fn = lr_schedule(tcfg.learning_rate, tcfg.lr_num_warmup_steps,
                         tcfg.lr_decay_start_step, tcfg.lr_num_decay_steps)
 
@@ -95,6 +104,8 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
         idx = _ids(idx, cfg, dev)
         labels = _tensor(labels, dev, torch.float32)
         tables = list(model.tables)
+        # checked before anything is updated
+        flat = flat_row_state(opt_state.sparse, tables) if grouped else None
         with span("train_step.gather"), torch.no_grad():
             emb = sparse_arch_lookup(tables, idx, cfg)
         emb.requires_grad_(True)
@@ -109,11 +120,15 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
         with span("train_step.dense_update"):
             dense_update(opt_state.dense, params, lr)
         with span("train_step.row_update"):
-            for t, tab in enumerate(tables):
-                row_update(tcfg.optimizer,
-                           opt_state.sparse.get(f"tables.{t}"), tab,
-                           idx[:, t], emb.grad[:, t], lr,
-                           use_kernel=tcfg.use_update_kernel)
+            if grouped:      # one sort and one kernel launch for all tables
+                with torch.no_grad():
+                    rwsadagrad_row_update(flat, tables, idx, emb.grad, lr)
+            else:
+                for t, tab in enumerate(tables):
+                    row_update(tcfg.optimizer,
+                               opt_state.sparse.get(f"tables.{t}"), tab,
+                               idx[:, t], emb.grad[:, t], lr,
+                               use_kernel=tcfg.use_update_kernel)
         opt_state.step += 1
         return loss.detach()
 

@@ -41,6 +41,8 @@ from evstore_tpu_torch.models import embedding as port_emb
 from evstore_tpu_torch.ops.cuda_gather import (gather_rows,
                                                gather_rows_dequant_int8,
                                                gather_rows_dequant_int8_ref,
+                                               gather_rows_grouped,
+                                               gather_rows_grouped_ref,
                                                gather_rows_ref)
 from evstore_tpu_torch.ops.quant import dequantize_int8, np_quantize_int8
 
@@ -116,6 +118,55 @@ def test_sparse_arch_lookup_matches_jax(use_kernel):
     got = port_emb.sparse_arch_lookup([torch.from_numpy(t) for t in tables],
                                       torch.from_numpy(idx), cfg_p)
     np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 36])
+def test_grouped_gather_matches_per_table_and_jax(dtype, D):
+    """The grouped gather's plain version (the wrapper on CPU tensors) is
+    the per-table plain gather, stacked, bit for bit; for in-range ids it
+    is JAX's `take_rows` of each table.  An id of table t that is valid in
+    table t+1 but not in t gives a zero row."""
+    rng = np.random.default_rng(D)
+    sizes = (50, 3000, 7, 1200, 64, 2048)
+    tables = [rng.normal(size=(n, D)).astype(np.float32) for n in sizes]
+    idx = np.stack([rng.integers(0, n, 40) for n in sizes],
+                   axis=1).astype(np.int32)
+    idx[3] = idx[4]                                    # a repeated sample
+    idx[5, 0] = 1000                                   # valid in table 1
+    idx[6, 2] = 60                                     # valid in table 3
+    idx[7, 4] = -1
+    ok = (idx >= 0) & (idx < np.asarray(sizes))
+    tt = [torch.from_numpy(t).to(TORCH_DT[dtype]) for t in tables]
+    got = gather_rows_grouped(tt, torch.from_numpy(idx))
+    assert got.shape == (40, len(sizes), D) and got.dtype == TORCH_DT[dtype]
+    per_table = torch.stack([gather_rows_ref(tab, torch.from_numpy(
+        np.ascontiguousarray(idx[:, t]))) for t, tab in enumerate(tt)], 1)
+    np.testing.assert_array_equal(_bits(got), _bits(per_table))
+    np.testing.assert_array_equal(_bits(got), _bits(gather_rows_grouped_ref(
+        tt, torch.from_numpy(idx))))
+    assert not got.float().numpy()[~ok].any()
+    for t, tab in enumerate(tables):
+        rows = np.flatnonzero(ok[:, t])
+        ref = jax_emb.take_rows(jnp.asarray(tab, JAX_DT[dtype]),
+                                jnp.asarray(idx[rows, t]))
+        np.testing.assert_array_equal(_bits(got[rows, t]), _bits(ref))
+
+
+def test_grouped_gather_wrapper_refuses_what_it_cannot_take():
+    meta = dict(device="meta")
+    idx = torch.zeros(3, 2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_rows_grouped([torch.zeros(4, 8, **meta)] * 2, idx)
+    with pytest.raises(ValueError, match="one width"):
+        gather_rows_grouped([torch.zeros(4, 8, **meta),
+                             torch.zeros(4, 6, **meta)], idx)
+    with pytest.raises(TypeError, match="one type"):
+        gather_rows_grouped([torch.zeros(4, 8, **meta),
+                             torch.zeros(4, 8, dtype=torch.bfloat16, **meta)],
+                            idx)
+    with pytest.raises(ValueError, match="at least one table"):
+        gather_rows_grouped([], idx)
 
 
 def test_init_embedding_tables_law():
@@ -267,7 +318,8 @@ def test_library_name_follows_the_sources():
     assert os.path.basename(path).startswith("libevstore_kernels-")
     assert set(_build.SIGNATURES) == {
         "interaction_fwd", "interaction_bwd", "interaction_gram",
-        "gather_rows", "gather_rows_dequant_int8", "scatter_sub_sorted"}
+        "gather_rows", "gather_rows_grouped", "gather_rows_dequant_int8",
+        "scatter_sub_sorted"}
     # x, ly, pair table, out: four pointers, then B as a 64-bit int
     assert _build.SIGNATURES["interaction_gram"][:5] == (
         (ctypes.c_void_p,) * 4 + (ctypes.c_int64,))

@@ -191,6 +191,64 @@ def test_opt_state_round_trip_exact(opt):
         np.testing.assert_array_equal(a, b)
 
 
+def _shares_one_buffer(sparse, sizes):
+    views = [sparse[f"tables.{t}"] for t in range(len(sizes))]
+    ptr = views[0].untyped_storage().data_ptr()
+    offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    return all(v.untyped_storage().data_ptr() == ptr
+               and v.storage_offset() == views[0].storage_offset() + o
+               and tuple(v.shape) == (n,)
+               for v, o, n in zip(views, offsets, sizes))
+
+
+def test_rwsadagrad_accumulators_are_views_of_one_buffer():
+    """`init_opt_state` and `opt_state_from_jax` build rwsadagrad's
+    accumulators as views of one flat buffer, in table order, which the
+    grouped update takes whole; adagrad's stay per table."""
+    cj, cp, params, model = _models()
+    sizes = cp.table_sizes
+    st = init_opt_state(model, pcfg.TrainConfig(optimizer="rwsadagrad"))
+    assert _shares_one_buffer(st.sparse, sizes)
+    flat = popt.flat_row_state(st.sparse, list(model.tables))
+    assert flat.shape == (sum(sizes),)
+    flat[sizes[0]] = 5.0                     # row 0 of table 1
+    assert float(st.sparse["tables.1"][0]) == 5.0
+    tj = jcfg.TrainConfig(optimizer="rwsadagrad")
+    jst = jax.tree_util.tree_map(np.asarray, jloop.init_opt_state(params, tj))
+    pst = opt_state_from_jax(jst.step, jst.dense, jst.sparse, cp,
+                             device="cpu")
+    assert _shares_one_buffer(pst.sparse, sizes)
+    ada = init_opt_state(model, pcfg.TrainConfig(optimizer="adagrad"))
+    assert not _shares_one_buffer(
+        {k: v[:, 0] for k, v in ada.sparse.items()}, sizes)
+
+
+def test_replaced_accumulator_views_raise():
+    """The grouped update never falls back to the per-table loop: a state
+    whose views no longer lie in the one buffer raises ValueError, in
+    `flat_row_state` and in the train step, and changes nothing."""
+    _, cp, _, model = _models()
+    tcfg = pcfg.TrainConfig(optimizer="rwsadagrad", learning_rate=0.1)
+    dense, idx, y = _batches(cp, n=1)[0]
+    for t in (0, 2):
+        st = init_opt_state(model, tcfg)
+        st.sparse[f"tables.{t}"] = st.sparse[f"tables.{t}"].clone()
+        with pytest.raises(ValueError, match="one flat accumulator buffer"):
+            popt.flat_row_state(st.sparse, list(model.tables))
+        before = jax.tree_util.tree_leaves(params_to_numpy(model))
+        with pytest.raises(ValueError, match="flat accumulator"):
+            make_train_step(cp, tcfg)(model, st, dense, idx, y)
+        after = jax.tree_util.tree_leaves(params_to_numpy(model))
+        assert st.step == 0 and len(after) == len(before)
+        for a, b in zip(after, before):
+            np.testing.assert_array_equal(a, b)
+    # the per-table path (the kernel off) takes any state
+    off = dataclasses.replace(tcfg, use_update_kernel=False)
+    st = init_opt_state(model, off)
+    st.sparse["tables.1"] = st.sparse["tables.1"].clone()
+    make_train_step(cp, off)(model, st, dense, idx, y)
+
+
 @pytest.mark.parametrize("warm,start,ndecay", [(10, 20, 10), (0, 0, 0),
                                                (5, 5, 30), (3, 0, 8)])
 def test_lr_schedule_matches_jax(warm, start, ndecay):

@@ -225,3 +225,138 @@ def test_ids_outside_the_table_are_inert(opt, use_kernel):
         np.testing.assert_allclose(s.numpy()[:N - 1],
                                    np.asarray(ref_s)[:N - 1], rtol=1e-5,
                                    atol=1e-7)
+
+
+# ---- the grouped update: every table of a one-hot batch in one call ----
+
+GROUP_SIZES = (50, 3000, 700, 1200, 64)
+
+
+def _group_setup(D=36, B=512, seed=6, dtype="float32"):
+    """T tables, per-table accumulators and ids [B, T] with a Zipf-like
+    head, PAD_ROW, and ids of table t that are valid in table t+1 but not
+    in t (`cross`, a mask).  Returns numpy arrays."""
+    rng = np.random.default_rng(seed)
+    tables, states, cols, cross = [], [], [], []
+    for t, n in enumerate(GROUP_SIZES):
+        tab = rng.uniform(-0.1, 0.1, (n, D)).astype(np.float32)
+        if dtype == "bfloat16":
+            tab = np.asarray(jnp.asarray(tab, jnp.bfloat16), np.float32)
+        tables.append(tab)
+        states.append(rng.uniform(0, 0.01, n).astype(np.float32))
+        ids = rng.integers(0, n, B).astype(np.int64)
+        ids[rng.random(B) < 0.3] = n // 2             # a heavy run
+        ids[rng.random(B) < 0.05] = jopt.PAD_ROW
+        bad = np.zeros(B, bool)
+        if t + 1 < len(GROUP_SIZES) and GROUP_SIZES[t + 1] > n:
+            bad = rng.random(B) < 0.05                # valid in t+1 only
+            ids[bad] = rng.integers(n, GROUP_SIZES[t + 1], int(bad.sum()))
+        cols.append(ids.astype(np.int32))
+        cross.append(bad)
+    g = rng.normal(0, 1e-2, (B, len(GROUP_SIZES), D)).astype(np.float32)
+    return tables, states, np.stack(cols, 1), np.stack(cross, 1), g
+
+
+def _group_port(tables, states, ids, g, dtype):
+    tdt = getattr(torch, dtype)
+    tabs = [torch.from_numpy(t.copy()).to(tdt) for t in tables]
+    flat = torch.from_numpy(np.concatenate(states))
+    return tabs, flat, torch.from_numpy(ids), torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("ref", ["pallas", "row_update"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_rwsadagrad_matches_jax_per_table(ref, dtype):
+    """One grouped call over all tables (the plain path on the CPU) against
+    the JAX update of each table on its own column of ids: the Pallas
+    sweep in interpret mode, or `optim.row_update`.  Ids of table t that
+    are valid in table t+1 stay inert: the JAX side gets PAD_ROW there."""
+    tables, states, ids, cross, g = _group_setup(dtype=dtype)
+    assert cross.any()
+    tabs, flat, i, gr = _group_port(tables, states, ids, g, dtype)
+    new_s, new_t = rwsadagrad_row_update(flat, tabs, i, gr, 0.1)
+    assert new_s is flat and new_t is tabs
+    jdt = getattr(jnp, dtype)
+    off = 0
+    for t, (tab, st) in enumerate(zip(tables, states)):
+        jid = np.where(cross[:, t], jopt.PAD_ROW, ids[:, t]).astype(np.int32)
+        args = (jnp.asarray(st), jnp.asarray(tab, jdt), jnp.asarray(jid),
+                jnp.asarray(g[:, t]), 0.1)
+        if ref == "pallas":
+            ref_s, ref_t = rwsadagrad_row_update_pallas(
+                *args, tile_rows=512, interpret=True)
+        else:
+            ref_s, ref_t = jopt.row_update("rwsadagrad", *args)
+        n = tab.shape[0]
+        np.testing.assert_allclose(flat[off:off + n].numpy(),
+                                   np.asarray(ref_s), rtol=1e-5, atol=1e-7,
+                                   err_msg=f"state of table {t}")
+        _assert_table(tabs[t], ref_t, dtype)
+        off += n
+
+
+def test_grouped_rwsadagrad_cross_table_ids_are_inert():
+    """An id of table t that is too large for t would land in table t+1's
+    rows if it were offset unchecked; it is inert: the result equals the
+    one with PAD_ROW in its place, bit for bit."""
+    tables, states, ids, cross, g = _group_setup(seed=7)
+    out = []
+    for each in (ids, np.where(cross, jopt.PAD_ROW, ids).astype(np.int32)):
+        tabs, flat, i, gr = _group_port(tables, states, each, g, "float32")
+        rwsadagrad_row_update(flat, tabs, i, gr, 0.1)
+        out.append((flat, tabs))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_grouped_scatter_sub_sorted_matches_numpy():
+    """The grouped plain version: global ids, sorted, over three tables;
+    negative ids, ids past the last table and PAD_ROW are inert."""
+    rng = np.random.default_rng(8)
+    sizes, D = (20, 5, 30), 4
+    bases = np.concatenate([[0], np.cumsum(sizes)])
+    tables = [rng.normal(size=(n, D)).astype(np.float32) for n in sizes]
+    gids = np.sort(np.concatenate([
+        rng.integers(0, bases[-1], 60), [0, 19, 20, 24, 25, 54, 54, -3,
+                                         bases[-1], jopt.PAD_ROW]]
+    )).astype(np.int32)
+    vals = rng.normal(size=(gids.size, D)).astype(np.float32)
+    ref = [t.astype(np.float64) for t in tables]
+    for r, v in zip(gids, vals):
+        if 0 <= r < bases[-1]:
+            t = int(np.searchsorted(bases, r, side="right") - 1)
+            ref[t][r - bases[t]] -= v
+    tabs = [torch.from_numpy(t.copy()) for t in tables]
+    assert scatter_sub_sorted(tabs, torch.from_numpy(gids),
+                              torch.from_numpy(vals)) is tabs
+    for got, want in zip(tabs, ref):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # the one-table call is the group of one
+    single = torch.from_numpy(tables[2].copy())
+    local = np.sort(gids - bases[2]).astype(np.int32)
+    keep = (gids >= bases[2]) & (gids < bases[3])
+    scatter_sub_sorted(single, torch.from_numpy(local[keep]),
+                       torch.from_numpy(vals[keep]))
+    assert torch.equal(single, tabs[2])
+
+
+def test_too_many_rows_for_int32_global_ids_raise():
+    """sum N_t > INT32_MAX - 1 leaves no room for PAD_ROW above every
+    global id: ValueError, from the sizes alone (meta tensors: nothing is
+    allocated)."""
+    tabs = [torch.empty((2 ** 30, 4), device="meta"),
+            torch.empty((2 ** 30, 4), device="meta")]
+    ids = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="PAD_ROW"):
+        rwsadagrad_row_update(torch.empty(2 ** 31, device="meta"), tabs, ids,
+                              torch.zeros((2, 2, 4), device="meta"), 0.1)
+    with pytest.raises(ValueError, match="PAD_ROW"):
+        scatter_sub_sorted(tabs, ids.reshape(-1),
+                           torch.zeros((4, 4), device="meta"))
+    # one row fewer fits
+    ok = [torch.empty((2 ** 30, 4), device="meta"),
+          torch.empty((2 ** 30 - 2, 4), device="meta")]
+    with pytest.raises(ValueError, match="CUDA device"):
+        scatter_sub_sorted(ok, ids.reshape(-1),
+                           torch.zeros((4, 4), device="meta"))
