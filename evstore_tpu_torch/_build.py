@@ -40,13 +40,14 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # x, ly, out, B, T, D, self_interaction, is_bf16, samples/block, device,
-    # stream
-    "interaction_fwd": (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P),
-    # x, ly, g, dx, dly, B, T, D, self_interaction, is_bf16, samples/block,
-    # device, stream
-    "interaction_bwd": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+    # x, ly, out, B, T, D, self_interaction, is_bf16, samples/group, blocks,
+    # stage_out, device, stream
+    "interaction_fwd": (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P),
+    # x, ly, g, dx, dly, B, T, D, self_interaction, is_bf16, samples/group,
+    # blocks, device, stream
+    "interaction_bwd": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                        _I, _P),
     # x, ly, pair table, out, B, T, D, P, is_bf16, samples/block, device,
     # stream
     "interaction_gram": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P),

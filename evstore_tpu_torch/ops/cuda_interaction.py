@@ -26,6 +26,8 @@ lowering's `tile_b` and `interpret` have no counterpart).
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +42,22 @@ dot_interaction_ref = dot_interaction
 dot_interaction_bwd_ref = dot_interaction_bwd
 
 MAX_DIM = 128
-# shared memory a block stages (static launch limit, no opt-in needed)
+# shared memory a block of the Gram kernel stages (static launch limit, no
+# opt-in needed), and the shapes K1 and K4 take (below)
 _SMEM_BYTES = 48 * 1024
 _MAX_SAMPLES_PER_BLOCK = 8
+
+# K1 and K4 (`csrc/interaction_fwd.cu`, `csrc/interaction_bwd.cu`): a block
+# of THREADS walks groups of consecutive samples; its dynamic shared memory
+# holds a two-stage ring of the groups' input spans, then K1's output span
+# or K4's S (`smem_bytes`).
+THREADS = 256
+MAX_SAMPLES_PER_GROUP = 8
+SMEM_TARGET = 76800          # a group's size stays below this: 3 blocks/SM
+SMEM_MAX = 232448            # the most one block can have (227 KB)
+SMEM_PER_SM = 233472         # 228 KB, of which each block reserves 1 KB
+TILE = 4                     # K1: a thread owns a TILE x TILE pair tile
+ROWS_PER_THREAD = 6          # K4: a thread owns 6 rows f x 4 columns d
 
 
 def _odd(n: int) -> int:
@@ -51,17 +66,120 @@ def _odd(n: int) -> int:
 
 
 def _sample_bytes(num_features: int, dim: int, backward: bool) -> int:
-    """Shared memory one sample takes: the forward stages the F x D
-    features, the backward also the F x F cotangent (f32, odd strides)."""
+    """The rule for the shapes K1 and K4 take, kept from their first design:
+    a sample's F x D features (and, backward, its F x F cotangent) at odd
+    f32 strides within 48 KB.  Every such shape fits the current kernels
+    with one sample a group (`interaction_geometry`)."""
     row = _odd(dim) + (_odd(num_features) if backward else 0)
     return num_features * row * 4
 
 
-def samples_per_block(num_features: int, dim: int,
-                      backward: bool = False) -> int:
-    """Samples one block stages: as many as fit, at most 8."""
-    return max(1, min(_MAX_SAMPLES_PER_BLOCK, _SMEM_BYTES // _sample_bytes(
-        num_features, dim, backward)))
+def _span(nbytes: int) -> int:
+    """Shared memory of one staged span: 16-byte units plus room for its
+    phase (`common.cuh::span_bytes`)."""
+    return (nbytes + 15) // 16 * 16 + 16
+
+
+def smem_bytes(spg: int, num_features: int, dim: int, itemsize: int,
+               self_interaction: bool, backward: bool,
+               stage_out: bool = True) -> int:
+    """Dynamic shared memory of a block for groups of `spg` samples, as the
+    C launchers compute it.  Forward: two stages of the x span and of each
+    sample's ly region (`_sample_stride`), then the output span
+    ([x, pairs]) when `stage_out`.  Backward: two stages of the x, ly and
+    cotangent spans, then each sample's f32 [F, F] S at a row stride of F
+    rounded up to 4."""
+    T = num_features - 1
+    W = dim + num_pairs(num_features, self_interaction)
+    x = _span(spg * dim * itemsize)
+    out = _span(spg * W * itemsize)
+    if backward:
+        ly = _span(spg * T * dim * itemsize)
+        return 2 * (x + ly + out) + spg * num_features * _s_stride(
+            num_features) * 4
+    ly = spg * _sample_stride(T * dim * itemsize)
+    return 2 * (x + ly) + (out if stage_out else 0)
+
+
+def _sample_stride(nbytes: int) -> int:
+    """K1's region of one sample's ly rows: an odd number of 16-byte
+    units (`interaction_fwd.cu::sample_stride`)."""
+    s = _span(nbytes)
+    return s if s // 16 % 2 else s + 16
+
+
+def _s_stride(num_features: int) -> int:
+    """K4's row stride of S: F rounded up to a multiple of 4."""
+    return (num_features + 3) // 4 * 4
+
+
+class Geometry(NamedTuple):
+    samples_per_group: int
+    groups: int
+    blocks: int
+    smem_bytes: int
+    stage_out: bool
+
+
+@functools.lru_cache(maxsize=4096)
+def interaction_geometry(batch: int, num_features: int, dim: int,
+                         itemsize: int = 4, self_interaction: bool = False,
+                         backward: bool = False,
+                         num_sms: int = 132) -> Geometry:
+    """The launch of K1 (or K4 with `backward`) for a batch: samples per
+    group, groups, blocks of the persistent grid (of THREADS each), shared
+    memory, and whether the forward stages its output rows.
+
+    A group takes up to 8 samples, but no more than batch // num_sms, so
+    that at the train (128) and serve (2048) batches every SM gets a group
+    where the batch has enough samples, and no more than keep its shared
+    memory within SMEM_TARGET (three blocks an SM), one at the least.  The
+    grid is as many blocks as there are groups, at most as many as the SMs
+    hold at once.  The forward stores its pairs straight to global memory
+    when one sample's output row does not fit beside the ring."""
+    F, D = num_features, dim
+    stage_out = backward or smem_bytes(1, F, D, itemsize, self_interaction,
+                                       False) <= SMEM_MAX
+    fill = max(1, min(MAX_SAMPLES_PER_GROUP, batch // num_sms))
+    spg = next((s for s in range(fill, 0, -1)
+                if smem_bytes(s, F, D, itemsize, self_interaction, backward,
+                              stage_out) <= SMEM_TARGET), 1)
+    smem = smem_bytes(spg, F, D, itemsize, self_interaction, backward,
+                      stage_out)
+    groups = -(-batch // spg)
+    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024)))
+    return Geometry(spg, groups, max(1, min(groups, num_sms * per_sm)),
+                    smem, stage_out)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The kernels' index arithmetic, which the CPU tests pin.
+
+def tile_of(t: int) -> Tuple[int, int]:
+    """Tile t of the lower triangle of K1's tile grid, row-major:
+    t = ti (ti + 1) / 2 + tj, tj <= ti (`pair_of(t, 1)` in the kernel)."""
+    ti = (math.isqrt(8 * t + 1) - 1) // 2
+    return ti, t - ti * (ti + 1) // 2
+
+
+def pair_column(i: int, j: int, self_interaction: bool) -> int:
+    """The column after x of pair (i, j), j < i (j <= i with
+    self_interaction), in np.tril_indices order."""
+    return (i * (i + 1) // 2 if self_interaction else i * (i - 1) // 2) + j
+
+
+def cotangent_index(f: int, j: int, self_interaction: bool):
+    """(p, scale): K4 builds S[f, j] as scale * g_pair[p]; p is -1 (scale
+    0) on the diagonal without self_interaction."""
+    i, k = max(f, j), min(f, j)
+    if i == k:
+        return (pair_column(i, i, True), 2.0) if self_interaction \
+            else (-1, 0.0)
+    return pair_column(i, k, self_interaction), 1.0
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -89,8 +207,8 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
         raise ValueError(f"{name} takes 1 <= D <= {MAX_DIM} and T >= 1, got "
                          f"D={D}, T={T}")
     if _sample_bytes(T + 1, D, len(tensors) > 2) > _SMEM_BYTES:
-        raise ValueError(f"{T + 1} features of width {D} exceed one block's "
-                         "shared memory")
+        raise ValueError(f"{T + 1} features of width {D} exceed what the "
+                         "interaction kernels take")
     return True
 
 
@@ -105,11 +223,14 @@ def dot_interaction_kernel(x: torch.Tensor, ly: torch.Tensor,
                       dtype=x.dtype, device=x.device)
     if B == 0:
         return out
+    dev = x.device.index
+    geo = interaction_geometry(B, T + 1, D, x.element_size(),
+                               bool(self_interaction), False, _num_sms(dev))
     rc = _build.library().interaction_fwd(
         x.data_ptr(), ly.data_ptr(), out.data_ptr(), B, T, D,
         int(bool(self_interaction)), int(x.dtype == torch.bfloat16),
-        samples_per_block(T + 1, D), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        geo.samples_per_group, geo.blocks, int(geo.stage_out), dev,
+        _build.stream(dev))
     _build.check(rc, "interaction_fwd")
     dot_interaction_kernel.launches += 1
     return out
@@ -135,12 +256,14 @@ def dot_interaction_bwd_kernel(x: torch.Tensor, ly: torch.Tensor,
     dly = torch.empty_like(ly)
     if B == 0:
         return dx, dly
+    dev = x.device.index
+    geo = interaction_geometry(B, T + 1, D, x.element_size(),
+                               bool(self_interaction), True, _num_sms(dev))
     rc = _build.library().interaction_bwd(
         x.data_ptr(), ly.data_ptr(), g.data_ptr(), dx.data_ptr(),
         dly.data_ptr(), B, T, D, int(bool(self_interaction)),
-        int(x.dtype == torch.bfloat16),
-        samples_per_block(T + 1, D, backward=True), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), geo.samples_per_group, geo.blocks,
+        dev, _build.stream(dev))
     _build.check(rc, "interaction_bwd")
     dot_interaction_bwd_kernel.launches += 1
     return dx, dly
@@ -227,7 +350,7 @@ def dot_interaction_gram_kernel(x: torch.Tensor, ly: torch.Tensor,
     rc = _build.library().interaction_gram(
         x.data_ptr(), ly.data_ptr(), tab.data_ptr(), out.data_ptr(), B, T,
         D, P, int(x.dtype == torch.bfloat16), spb, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream(x.device.index))
     _build.check(rc, "interaction_gram")
     dot_interaction_gram_kernel.launches += 1
     return out

@@ -45,11 +45,12 @@ from evstore_tpu.ops.pallas_interaction import (_blocked_bwd_impl,
                                                 dot_interaction_blocked,
                                                 dot_interaction_pallas)
 from evstore_tpu_torch.ops import interaction as port_inter
+from evstore_tpu_torch.ops import cuda_interaction as ci
 from evstore_tpu_torch.ops.cuda_interaction import (
     DotInteraction, DotInteractionGram, dot_interaction_bwd_kernel,
     dot_interaction_bwd_ref, dot_interaction_gram_kernel,
     dot_interaction_kernel, dot_interaction_ref, gram_pair_table,
-    gram_samples_per_block, samples_per_block)
+    gram_samples_per_block, interaction_geometry)
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -127,23 +128,211 @@ def test_plain_version_is_the_reference():
     assert dot_interaction_bwd_ref is port_inter.dot_interaction_bwd
 
 
-@pytest.mark.parametrize("F,D,expected", [(27, 36, 8), (27, 64, 7),
-                                          (27, 128, 3), (4, 4, 8)])
+@pytest.mark.parametrize("F,D,expected", [(27, 36, 8), (27, 64, 4),
+                                          (27, 128, 2), (4, 4, 8)])
 def test_samples_per_block_fits_shared_memory(F, D, expected):
-    spb = samples_per_block(F, D)
-    assert spb == expected
-    padded = D + 1 if D % 2 == 0 else D
-    assert spb * F * padded * 4 <= 48 * 1024
+    """K1 at a large batch: groups of up to 8 samples whose two-stage ring
+    of the x span and the samples' ly regions, and output span, fit
+    SMEM_TARGET (three blocks an SM); one more sample would not."""
+    geo = interaction_geometry(65536, F, D)
+    assert geo.samples_per_group == expected and geo.stage_out
+    assert geo.smem_bytes <= ci.SMEM_TARGET
+    span = (lambda n: (n + 15) // 16 * 16 + 16)
+    W = D + port_inter.num_pairs(F, False)
+    sample = span((F - 1) * D * 4)
+    sample += 0 if sample // 16 % 2 else 16     # an odd number of units
+    assert geo.smem_bytes == 2 * (span(expected * D * 4) + expected * sample) \
+        + span(expected * W * 4)
+    if expected < ci.MAX_SAMPLES_PER_GROUP:
+        assert ci.smem_bytes(expected + 1, F, D, 4, False, False) \
+            > ci.SMEM_TARGET
+    assert geo.blocks == 132 * min(2048 // ci.THREADS, ci.SMEM_PER_SM
+                                   // (geo.smem_bytes + 1024))
 
 
-@pytest.mark.parametrize("F,D,expected", [(27, 36, 7), (27, 64, 4),
+@pytest.mark.parametrize("F,D,expected", [(27, 36, 5), (27, 64, 3),
                                           (27, 128, 2), (4, 4, 8)])
 def test_backward_samples_per_block_fits_shared_memory(F, D, expected):
-    """The backward stages the F x D features and the F x F cotangent."""
-    spb = samples_per_block(F, D, backward=True)
-    assert spb == expected
-    odd = (lambda n: n + 1 if n % 2 == 0 else n)
-    assert spb * F * (odd(D) + odd(F)) * 4 <= 48 * 1024
+    """K4 at a large batch stages the x, ly and cotangent spans twice, and
+    each sample's f32 S at a row stride of F rounded up to 4 once."""
+    geo = interaction_geometry(65536, F, D, backward=True)
+    assert geo.samples_per_group == expected
+    assert geo.smem_bytes <= ci.SMEM_TARGET
+    span = (lambda n: (n + 15) // 16 * 16 + 16)
+    W = D + port_inter.num_pairs(F, False)
+    x, ly = span(expected * D * 4), span(expected * (F - 1) * D * 4)
+    Fp = (F + 3) // 4 * 4
+    assert geo.smem_bytes == 2 * (x + ly + span(expected * W * 4)) \
+        + expected * F * Fp * 4
+    if expected < ci.MAX_SAMPLES_PER_GROUP:
+        assert ci.smem_bytes(expected + 1, F, D, 4, False, True) \
+            > ci.SMEM_TARGET
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B,spg,blocks", [(1, 1, 1), (3, 1, 3),
+                                          (127, 1, 127), (128, 1, 128),
+                                          (129, 1, 129), (2048, None, None),
+                                          (2049, None, None),
+                                          (65536, None, 396)])
+def test_geometry_gives_every_sm_work(B, spg, blocks, backward):
+    """At the train batch (128) a group is one sample and every sample has
+    a block; at the serve batch (2048) the groups still outnumber the SMs;
+    at 65,536 the grid is three blocks on each of the 132 SMs.  The groups
+    cover the batch exactly, the last one ragged where B asks for it."""
+    geo = interaction_geometry(B, 27, 36, 4, False, backward)
+    s = geo.samples_per_group
+    if spg is not None:
+        assert s == spg
+    if blocks is not None:
+        assert geo.blocks == blocks
+    assert geo.groups == -(-B // s) and (geo.groups - 1) * s < B
+    assert geo.blocks <= geo.groups
+    assert geo.blocks >= min(geo.groups, 132)
+    if B >= 2048:
+        assert geo.groups >= 132
+
+
+@pytest.mark.parametrize("D", [1, 4, 7, 36, 128])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("backward", [False, True])
+def test_every_accepted_shape_fits_one_block(D, itemsize, backward):
+    """The widest F the wrappers take at each D (the rule they keep from
+    the first design) fits one block, at B=1 and at B=65,536; the forward
+    stores pairs straight to global memory when its output row would not
+    fit."""
+    F = 2
+    while ci._sample_bytes(F + 1, D, backward) <= ci._SMEM_BYTES:
+        F += 1
+    for si in (False, True):
+        for B in (1, 65536):
+            geo = interaction_geometry(B, F, D, itemsize, si, backward)
+            assert geo.smem_bytes <= ci.SMEM_MAX
+            assert geo.samples_per_group >= 1
+            if backward:
+                assert geo.stage_out
+
+
+@pytest.mark.parametrize("F", [2, 3, 4, 5, 27, 28, 33])
+@pytest.mark.parametrize("self_interaction", [False, True])
+def test_forward_tiles_cover_each_pair_once(F, self_interaction):
+    """K1's tile plan: tiles t = 0.. of the lower triangle of the
+    ceil(F/4)-square tile grid; a tile's pair (i, j) is stored when i < F
+    and j < i (j <= i with self_interaction), at its tril column.  Every
+    pair of np.tril_indices is stored exactly once, at its own column."""
+    nti = -(-F // ci.TILE)
+    li, lj = port_inter._tril_indices(F, self_interaction)
+    seen = np.zeros(len(li), np.int64)
+    for t in range(nti * (nti + 1) // 2):
+        ti, tj = ci.tile_of(t)
+        assert 0 <= tj <= ti < nti
+        assert t == ti * (ti + 1) // 2 + tj
+        for a in range(ci.TILE):
+            for c in range(ci.TILE):
+                i, j = ti * ci.TILE + a, tj * ci.TILE + c
+                if i < F and (j < i or (self_interaction and j == i)):
+                    col = ci.pair_column(i, j, self_interaction)
+                    assert (li[col], lj[col]) == (i, j)
+                    seen[col] += 1
+    assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("F", [2, 4, 27])
+@pytest.mark.parametrize("self_interaction", [False, True])
+def test_backward_cotangent_lookup_is_sym_select(F, self_interaction):
+    """K4's S[f, j] lookup is the Pallas backward's symmetric selector
+    `_sym_select`, with the diagonal doubled (the true VJP)."""
+    from evstore_tpu.ops.pallas_interaction import _sym_select
+    sel = _sym_select(F, self_interaction)            # [P, F*F]
+    for f in range(F):
+        for j in range(F):
+            p, scale = ci.cotangent_index(f, j, self_interaction)
+            col = sel[:, f * F + j]
+            if scale == 0.0:
+                assert p == -1 and not col.any()
+                continue
+            assert np.flatnonzero(col).tolist() == [p]
+            assert scale == (2.0 if f == j else 1.0)
+
+
+def _emulate_fwd(x, ly, self_interaction):
+    """K1's work split in numpy: groups of the geometry's samples, items
+    w = tile * samples + sample, clamped tile rows, pairs stored at their
+    column; each pair one f32 sum in d order."""
+    B, D = x.shape
+    T = ly.shape[1]
+    F = T + 1
+    P = port_inter.num_pairs(F, self_interaction)
+    geo = interaction_geometry(B, F, D, 4, self_interaction, False)
+    feats = np.concatenate([x[:, None], ly], axis=1).astype(np.float32)
+    out = np.full((B, D + P), np.nan, np.float32)
+    nti = -(-F // ci.TILE)
+    for g in range(geo.groups):
+        b0 = g * geo.samples_per_group
+        ns = min(B, b0 + geo.samples_per_group) - b0
+        out[b0:b0 + ns, :D] = x[b0:b0 + ns]
+        for w in range(ns * nti * (nti + 1) // 2):
+            t, b = divmod(w, ns)
+            b += b0
+            ti, tj = ci.tile_of(t)
+            rows = [min(ti * ci.TILE + a, F - 1) for a in range(4)]
+            cols = [min(tj * ci.TILE + c, F - 1) for c in range(4)]
+            acc = np.zeros((4, 4), np.float32)
+            for d in range(D):
+                acc += np.outer(feats[b, rows, d], feats[b, cols, d])
+            for a in range(4):
+                for c in range(4):
+                    i, j = ti * 4 + a, tj * 4 + c
+                    if i < F and (j < i or (self_interaction
+                                            and j == i)):
+                        out[b, D + ci.pair_column(
+                            i, j, self_interaction)] = acc[a, c]
+    return out
+
+
+def _emulate_bwd(x, ly, g, self_interaction):
+    """K4's work split in numpy: S built through `cotangent_index`, then
+    (sample, 6 rows f, 4 columns d) items with clamped rows, one sum over
+    j = 0..F-1 each."""
+    B, D = x.shape
+    F = ly.shape[1] + 1
+    feats = np.concatenate([x[:, None], ly], axis=1).astype(np.float32)
+    dF = np.full((B, F, D), np.nan, np.float32)
+    R = ci.ROWS_PER_THREAD
+    for b in range(B):
+        gp = g[b, D:]
+        for ft in range(-(-F // R)):
+            fs = [min(ft * R + a, F - 1) for a in range(R)]
+            acc = np.zeros((R, D), np.float32)
+            for j in range(F):
+                s = np.zeros(R, np.float32)
+                for a, f in enumerate(fs):
+                    p, scale = ci.cotangent_index(f, j, self_interaction)
+                    s[a] = scale * gp[p] if p >= 0 else 0.0
+                acc += s[:, None] * feats[b, j][None, :]
+            for a in range(R):
+                if ft * R + a < F:
+                    dF[b, ft * R + a] = acc[a]
+    return g[:, :D] + dF[:, 0], dF[:, 1:]
+
+
+@pytest.mark.parametrize("B,T,D", [(3, 26, 36), (2, 5, 4), (5, 4, 7)])
+@pytest.mark.parametrize("self_interaction", [False, True])
+def test_kernel_work_split_matches_plain(B, T, D, self_interaction):
+    """The emulated K1 and K4 (their index arithmetic, not their bits)
+    against the plain forward and VJP, with the forward's tolerance."""
+    _, _, jg, tx, tly, tg = _bwd_inputs(B, T, D, "float32",
+                                        self_interaction, seed=B + D)
+    del jg
+    x, ly, g = tx.numpy(), tly.numpy(), tg.numpy()
+    np.testing.assert_allclose(
+        _emulate_fwd(x, ly, self_interaction),
+        dot_interaction_ref(tx, tly, self_interaction).numpy(),
+        rtol=1e-5, atol=1e-5)
+    for got, ref in zip(_emulate_bwd(x, ly, g, self_interaction),
+                        dot_interaction_bwd_ref(tx, tly, tg,
+                                                self_interaction)):
+        np.testing.assert_allclose(got, ref.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take():
