@@ -15,12 +15,18 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes and larger ones, with times (CUDA events, median
    of 20 after warm-up) beside the least time the card could take; K1 bit
-   for bit against the two-stage Gram forward (K6) on the same inputs, at
-   the cases that break its design too (B = 1, 3, 127, 129, 2049; D = 4,
-   7 and 128; self_interaction; inputs 4 bytes off a 16-byte boundary);
-   K4 at the same kind of cases, each launched twice (bitwise equal);
-   beside K1's, K4's and K6's f32 times at B = 128, 2048 and 65,536 their
-   device and host µs; a K1 case whose output row is too wide to stage;
+   for bit against the two-stage Gram forward (K6) on the same inputs, and
+   both against the plain version, at the cases that break their grouped
+   designs too (B = 1, 3, 127, 128, 129, 2049, 65,536; D = 4, 7, 64 and
+   128; self_interaction; inputs 4 bytes off a 16-byte boundary); K4 at
+   the same kind of cases, each launched twice (bitwise equal); beside
+   K1's, K4's and K6's f32 times at B = 128, 2048 and 65,536, and K6's
+   bf16 time at 65,536, their device and host µs; K3 at R = 2048·26 and
+   65,536·26 with its device and host µs, and at the cases that break a
+   unit design (R = 1, 3, 1025; D = 4, 7, 8, 36, 64; indices at the two
+   sources' edges and out of range; no secondary; sources 1 and 4 bytes
+   off a 16-byte boundary), each launched twice, bit for bit; a K1 case
+   whose output row is too wide to stage;
    K6's op `DotInteractionGram`, forward and backward,
    against `DotInteraction` and the plain forward and VJP; the grouped
    gather (K2 over the 26 Kaggle tables at idx [128, 26]) bit for bit; K5
@@ -255,7 +261,7 @@ def main() -> int:
     from evstore_tpu_torch.ops.cuda_interaction import (
         DotInteraction, DotInteractionGram, dot_interaction_bwd_kernel,
         dot_interaction_bwd_ref, dot_interaction_gram_kernel,
-        dot_interaction_kernel, dot_interaction_ref, gram_samples_per_block,
+        dot_interaction_kernel, dot_interaction_ref, gram_geometry,
         interaction_geometry)
     from evstore_tpu_torch.ops.cuda_update import (
         CHUNK, scatter_sub_sorted, scatter_sub_sorted_grouped_ref,
@@ -387,7 +393,8 @@ def main() -> int:
             got = dot_interaction_kernel(x, ly, si)
             ref = dot_interaction_ref(x, ly, si)
             k6 = (dot_interaction_gram_kernel(x, ly, si)
-                  if gram_samples_per_block(T + 1, D, si) else got)
+                  if gram_geometry(B, T + 1, D, x.element_size(), si)
+                  else got)
             torch.cuda.synchronize()
             ok, err = within(got, ref, 1e-5, dt == "bfloat16")
             label = (f"B={B} T={T} D={D} {dt} self={si}"
@@ -395,9 +402,10 @@ def main() -> int:
             if got.shape != ref.shape or not ok:
                 raise AssertionError(f"interaction_fwd disagrees at {label}:"
                                      f" max|d| {err}")
-            if not torch.equal(got, k6):
+            ok6, err6 = within(k6, ref, 1e-5, dt == "bfloat16")
+            if not torch.equal(got, k6) or not ok6:
                 raise AssertionError(f"interaction_fwd differs from K6 at "
-                                     f"{label}")
+                                     f"{label} (K6 max|d| {err6} vs plain)")
             P = num_pairs(T + 1, si)
             es = x.element_size()
             bms, by = bound_ms((B * (T + 1) * D + B * (D + P)) * es,
@@ -528,9 +536,11 @@ def main() -> int:
             k1_ms = time_ms(torch, lambda: dot_interaction_kernel(x, ly, si))
             p_ms = time_ms(torch, lambda: dot_interaction_ref(x, ly, si))
             split = ""
-            if dt == "float32" and not si:
+            if not si:
                 dev_us, host_us = device_host_us(torch, call)
-                split = f" device_us {dev_us:.2f} host_us {host_us:.2f}"
+                split = (f" device_us {dev_us:.2f} host_us {host_us:.2f} "
+                         f"({100 * bms * 1e3 / dev_us:.0f}% of the bound on "
+                         f"the device)")
             print(f"interaction_gram B={B} T={T} D={D} {dt} self={si}: "
                   f"max|d| {err:.3e} vs plain, bit for bit equal to K1; "
                   f"kernel_ms {k_ms:.4f}{split} K1_ms {k1_ms:.4f} plain_ms "
@@ -668,8 +678,23 @@ def main() -> int:
             bound_ms=bms, bound_by=by, library_ms=None)
         del got, ref
 
-        # K3: bit for bit (IEEE division in both); the int8 C1 cache of the
-        # three-tier configuration holds 36,204 rows
+        # K3: bit for bit (IEEE division in both), every case launched
+        # twice (bitwise equal); the int8 C1 cache of the three-tier
+        # configuration holds 36,204 rows
+        def k3_check(cache, idx, buf, label):
+            got = gather_rows_dequant_int8(cache, idx, buf)
+            again = gather_rows_dequant_int8(cache, idx, buf)
+            ref = gather_rows_dequant_int8_ref(cache, idx, buf)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.equal(
+                    got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"gather_rows_dequant_int8 differs at "
+                                     f"{label}")
+            if not torch.equal(got.view(torch.int32),
+                               again.view(torch.int32)):
+                raise AssertionError(f"gather_rows_dequant_int8 is not "
+                                     f"deterministic at {label}")
+
         def k3_case(C, M, R, D, label):
             cache = torch.randint(0, 256, (C, D), generator=gen, device=dev,
                                   dtype=torch.uint8)
@@ -681,26 +706,26 @@ def main() -> int:
             idx[:q] = idx[q:2 * q]
             idx[R // 2: R // 2 + M] = torch.arange(C, C + M, device=dev,
                                                    dtype=torch.int32)
-            got = gather_rows_dequant_int8(cache, idx, buf)
-            ref = gather_rows_dequant_int8_ref(cache, idx, buf)
-            torch.cuda.synchronize()
-            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-                raise AssertionError(f"gather_rows_dequant_int8 differs at "
-                                     f"{label}")
-            err = float((got - ref).abs().max())
+            k3_check(cache, idx, buf, label)
             uniq = int(torch.unique(idx).numel())
             bms, by = bound_ms(uniq * D + R * 4 + R * D * 4, 3.0 * R * D,
                                "float32")
-            k_ms = time_ms(torch,
-                           lambda: gather_rows_dequant_int8(cache, idx, buf))
+            call = lambda: gather_rows_dequant_int8(  # noqa: E731
+                cache, idx, buf)
+            k_ms = time_ms(torch, call)
+            dev_us, host_us = device_host_us(torch, call)
             p_ms = time_ms(torch, lambda: gather_rows_dequant_int8_ref(
                 cache, idx, buf))
-            print(f"gather_rows_dequant_int8 {label}: bit-exact, kernel_ms "
-                  f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} "
-                  f"({by}) library_ms none (no single PyTorch call computes "
-                  f"it) [{card}]", flush=True)
-            return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
-                        bound_by=by, library_ms=None)
+            print(f"gather_rows_dequant_int8 {label}: bit-exact, two launches "
+                  f"bitwise equal; kernel_ms {k_ms:.4f} device_us "
+                  f"{dev_us:.2f} host_us {host_us:.2f} plain_ms {p_ms:.4f} "
+                  f"bound_us {bms * 1e3:.2f} ({by}, "
+                  f"{100 * bms * 1e3 / dev_us:.0f}% of it on the device) "
+                  f"library_ms none (no single PyTorch call computes it) "
+                  f"[{card}]", flush=True)
+            return dict(max_abs_err=0.0, ms=k_ms, device_ms=dev_us / 1e3,
+                        plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                        library_ms=None)
 
         report["gather_rows_dequant_int8"] = k3_case(
             36204, 4096, 2048 * 26, 36,
@@ -709,6 +734,53 @@ def main() -> int:
                 "cache 36204x36 u8 + buffer 4096, R=65536*26")
         k3_case(36204, 4096, 2048 * 26, 7,
                 "cache 36204x7 u8 + buffer 4096, R=2048*26 (byte path)")
+
+        # the cases that break a unit design, checked and not timed: R=1,
+        # R that no thread's 4 x 256 units divide, the two sources' edges
+        # (C-1, C, C+M-1, C+M), indices out of range, no secondary, sources
+        # one element (a byte: the byte path) or a word (the word path, not
+        # 16-byte aligned) off a 16-byte boundary.  The wrapper allocates
+        # the output itself, always 16-byte aligned
+        def codes(n, D):
+            return torch.randint(0, 256, (n, D), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+
+        def offset_codes(n, D, by):
+            buf8 = codes(n * D + by, 1).reshape(-1)
+            return buf8[by:].view(n, D)
+
+        C3, M3 = 1000, 96
+        edges = torch.tensor([C3 - 1, C3, C3 + M3 - 1, C3 + M3, -1, 0,
+                              2 ** 31 - 1], device=dev, dtype=torch.int32)
+        n3 = 0
+        for D3 in (4, 7, 8, 36, 64):
+            cache, buf = codes(C3, D3), codes(M3, D3)
+            for R3 in (1, 3, 1025, 2048 * 26 + 3):
+                idx = torch.randint(-4, C3 + M3 + 4, (R3,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                idx[:min(R3, 7)] = edges[:min(R3, 7)]
+                k3_check(cache, idx, buf, f"D={D3} R={R3}")
+                k3_check(cache, idx.clamp(-1, C3), None,
+                         f"D={D3} R={R3}, no secondary")
+                n3 += 2
+            bad = torch.randint(C3 + M3, 2 ** 31 - 1, (4097,),
+                                generator=gen, device=dev, dtype=torch.int32)
+            bad[::2] = -bad[::2]
+            k3_check(cache, bad, buf, f"D={D3} every index out of range")
+            n3 += 1
+            for by in (1, 4):
+                idx = torch.randint(0, C3 + M3, (1025,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                k3_check(offset_codes(C3, D3, by), idx,
+                         offset_codes(M3, D3, by),
+                         f"D={D3} sources {by} byte(s) off a 16-byte "
+                         f"boundary")
+                n3 += 1
+        print(f"gather_rows_dequant_int8: {n3} edge cases (R = 1, 3, 1025, "
+              f"53251; D = 4, 7, 8, 36, 64; indices C-1, C, C+M-1, C+M, -1 "
+              f"and all out of range; no secondary; sources 1 and 4 bytes "
+              f"off a 16-byte boundary) bit for bit against the plain "
+              f"version, two launches bitwise equal", flush=True)
         torch.cuda.empty_cache()
 
         # K5: |d| <= 1e-6 (1 + |ref|) over the whole table (the kernel's

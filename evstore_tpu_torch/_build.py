@@ -48,9 +48,10 @@ SIGNATURES = {
     # blocks, device, stream
     "interaction_bwd": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
                         _I, _P),
-    # x, ly, pair table, out, B, T, D, P, is_bf16, samples/block, device,
-    # stream
-    "interaction_gram": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P),
+    # x, ly, pair table, out, B, T, D, P, is_bf16, samples/group, blocks,
+    # device, stream
+    "interaction_gram": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
     # primary, C, secondary, M, idx, out, R, row_bytes, device, stream
     "gather_rows": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _I, _P),
     # desc, T, idx, out, R, row_bytes, src_align, device, stream

@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels: f32 <-> storage-type conversions,
-// the tril pair index of the dot interaction, and 16-byte staging of
-// contiguous spans through shared memory.
+// the tril pair index of the dot interaction, 16-byte staging of contiguous
+// spans through shared memory, and 16-byte stores of computed spans.
 
 #pragma once
 
@@ -167,5 +167,33 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, const float* v) {
 
 // The most dynamic shared memory one block can have on Hopper (227 KB).
 constexpr int kMaxDynamicSmem = 232448;
+
+// Write dst[0, n) from fill(e0, v, cnt), which gives the f32 values of the
+// cnt elements from e0 on: whole 16-byte units where dst is aligned for
+// them (4 f32 or 8 bf16 values, one 16-byte or two 8-byte stores), element
+// by element in the head and the tail.  bf16 rounds once, here.
+template <typename T, typename Fill>
+__device__ __forceinline__ void store_span_of(T* dst, int n, int tid,
+                                              int nthreads, Fill fill) {
+  constexpr int U = 16 / (int)sizeof(T);
+  const SpanSplit s = split_span<T>(dst, n);
+  for (int u = tid; u < s.units; u += nthreads) {
+    const int e0 = s.head + u * U;
+    float v[U];
+    fill(e0, v, U);
+#pragma unroll
+    for (int k = 0; k < U; k += 4) store_f32<4>(dst + e0 + k, v + k);
+  }
+  for (int e = tid; e < s.head; e += nthreads) {
+    float v[1];
+    fill(e, v, 1);
+    dst[e] = from_f32<T>(v[0]);
+  }
+  for (int e = s.tail0 + tid; e < n; e += nthreads) {
+    float v[1];
+    fill(e, v, 1);
+    dst[e] = from_f32<T>(v[0]);
+  }
+}
 
 }  // namespace evstore

@@ -20,7 +20,7 @@ from the host check them there (`models/embedding.py::check_ids`).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -65,6 +65,32 @@ def gather_rows_dequant_int8_ref(primary: torch.Tensor, idx: torch.Tensor,
     src = _sources(primary, secondary)
     ok = ((idx >= 0) & (idx < src.shape[0]))[..., None]
     return torch.where(ok, dequantize_int8(_take_or_zero(src, idx)), 0.0)
+
+
+# K3's work split (`csrc/gather_rows_dequant_int8.cu`), which the CPU
+# tests pin: a block of DEQUANT_THREADS threads walks (row, word) units, or
+# (row, code) units on the byte path, DEQUANT_UNITS a thread a block's
+# width apart, over a persistent grid; a unit finds its row by a magic
+# divisor.
+DEQUANT_THREADS = 256
+DEQUANT_UNITS = 4
+
+
+def dequant_units_per_row(dim: int, words: bool) -> int:
+    """Units of one row: words of 4 codes, or codes on the byte path."""
+    return dim // 4 if words else dim
+
+
+def magic_divider(d: int) -> Tuple[int, int]:
+    """(magic, shift) with n // d == (umulhi(n, magic) + n) >> shift for
+    every n < 2^32 (`make_div32` in the kernel)."""
+    shift = max(0, (d - 1).bit_length())
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def magic_div(n, magic: int, shift: int):
+    """The kernel's `Div32` on a uint64 numpy array (or an int) of n < 2^32."""
+    return ((n * magic >> 32) + n) >> shift
 
 
 def _check_sources(name, primary, idx, secondary, dtypes):
@@ -186,7 +212,7 @@ def gather_rows_dequant_int8(primary: torch.Tensor, idx: torch.Tensor,
         None if secondary is None else secondary.data_ptr(),
         0 if secondary is None else secondary.shape[0],
         idx.data_ptr(), out.data_ptr(), idx.numel(), D, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev.index))
     _build.check(rc, "gather_rows_dequant_int8")
     gather_rows_dequant_int8.launches += 1
     return out

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,21 +42,24 @@ dot_interaction_ref = dot_interaction
 dot_interaction_bwd_ref = dot_interaction_bwd
 
 MAX_DIM = 128
-# shared memory a block of the Gram kernel stages (static launch limit, no
-# opt-in needed), and the shapes K1 and K4 take (below)
+# the shapes the interaction kernels take (`_sample_bytes`, below)
 _SMEM_BYTES = 48 * 1024
-_MAX_SAMPLES_PER_BLOCK = 8
 
-# K1 and K4 (`csrc/interaction_fwd.cu`, `csrc/interaction_bwd.cu`): a block
-# of THREADS walks groups of consecutive samples; its dynamic shared memory
-# holds a two-stage ring of the groups' input spans, then K1's output span
-# or K4's S (`smem_bytes`).
+# K1, K4 and K6 (`csrc/interaction_fwd.cu`, `csrc/interaction_bwd.cu`,
+# `csrc/interaction_gram.cu`): a block of THREADS walks groups of
+# consecutive samples; its dynamic shared memory holds a two-stage ring of
+# the groups' input spans, then K1's output span, K4's S or K6's packed
+# Gram triangles (`smem_bytes`, `gram_smem_bytes`).
 THREADS = 256
 MAX_SAMPLES_PER_GROUP = 8
 SMEM_TARGET = 76800          # a group's size stays below this: 3 blocks/SM
 SMEM_MAX = 232448            # the most one block can have (227 KB)
 SMEM_PER_SM = 233472         # 228 KB, of which each block reserves 1 KB
-TILE = 4                     # K1: a thread owns a TILE x TILE pair tile
+TILE = 4                     # K1, K6: a thread owns a TILE x TILE tile
+# K6's __launch_bounds__(THREADS, 3): its registers hold three blocks an SM,
+# so a persistent grid of more (bf16's smaller ring would allow five) would
+# run its last blocks in a second wave
+GRAM_BLOCKS_PER_SM = 3
 ROWS_PER_THREAD = 6          # K4: a thread owns 6 rows f x 4 columns d
 
 
@@ -126,30 +129,34 @@ def interaction_geometry(batch: int, num_features: int, dim: int,
                          itemsize: int = 4, self_interaction: bool = False,
                          backward: bool = False,
                          num_sms: int = 132) -> Geometry:
-    """The launch of K1 (or K4 with `backward`) for a batch: samples per
-    group, groups, blocks of the persistent grid (of THREADS each), shared
-    memory, and whether the forward stages its output rows.
-
-    A group takes up to 8 samples, but no more than batch // num_sms, so
-    that at the train (128) and serve (2048) batches every SM gets a group
-    where the batch has enough samples, and no more than keep its shared
-    memory within SMEM_TARGET (three blocks an SM), one at the least.  The
-    grid is as many blocks as there are groups, at most as many as the SMs
-    hold at once.  The forward stores its pairs straight to global memory
-    when one sample's output row does not fit beside the ring."""
+    """The launch of K1 (or K4 with `backward`) for a batch (`_fit`):
+    samples per group, groups, blocks of the persistent grid (of THREADS
+    each), shared memory, and whether the forward stages its output rows.
+    The forward stores its pairs straight to global memory when one
+    sample's output row does not fit beside the ring."""
     F, D = num_features, dim
     stage_out = backward or smem_bytes(1, F, D, itemsize, self_interaction,
                                        False) <= SMEM_MAX
+    return Geometry(*_fit(batch, num_sms, lambda s: smem_bytes(
+        s, F, D, itemsize, self_interaction, backward, stage_out)),
+        stage_out)
+
+
+def _fit(batch: int, num_sms: int, size, max_per_sm: int = 2048 // THREADS):
+    """(samples a group, groups, blocks, shared memory) for groups whose
+    block needs size(samples) bytes of shared memory.  A group takes up to
+    8 samples, but no more than batch // num_sms, so that at the train
+    (128) and serve (2048) batches every SM gets a group where the batch
+    has enough samples, and no more than keep its shared memory within
+    SMEM_TARGET (three blocks an SM), one at the least.  The grid is as
+    many blocks as there are groups, at most as many as the SMs hold at
+    once by shared memory and `max_per_sm`."""
     fill = max(1, min(MAX_SAMPLES_PER_GROUP, batch // num_sms))
-    spg = next((s for s in range(fill, 0, -1)
-                if smem_bytes(s, F, D, itemsize, self_interaction, backward,
-                              stage_out) <= SMEM_TARGET), 1)
-    smem = smem_bytes(spg, F, D, itemsize, self_interaction, backward,
-                      stage_out)
+    spg = next((s for s in range(fill, 0, -1) if size(s) <= SMEM_TARGET), 1)
+    smem = size(spg)
     groups = -(-batch // spg)
-    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024)))
-    return Geometry(spg, groups, max(1, min(groups, num_sms * per_sm)),
-                    smem, stage_out)
+    per_sm = max(1, min(max_per_sm, SMEM_PER_SM // (smem + 1024)))
+    return spg, groups, max(1, min(groups, num_sms * per_sm)), smem
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,24 +308,39 @@ def gram_pair_table(num_features: int, self_interaction: bool) -> np.ndarray:
     return (li * (li + 1) // 2 + lj).astype(np.int32)
 
 
-def _gram_bytes(num_features: int, dim: int, self_interaction: bool,
-                spb: int) -> int:
-    """Shared memory of one block: the pair table, then per sample the
-    F x D features (odd stride) and the packed lower triangle."""
-    F = num_features
-    return 4 * (num_pairs(F, self_interaction)
-                + spb * (F * _odd(dim) + F * (F + 1) // 2))
+def gram_stride(num_features: int) -> int:
+    """f32 entries of one sample's packed lower triangle in K6's shared
+    memory: F (F + 1) / 2, rounded up to an odd number against bank
+    conflicts."""
+    return (num_features * (num_features + 1) // 2) | 1
 
 
-def gram_samples_per_block(num_features: int, dim: int,
-                           self_interaction: bool = False) -> int:
-    """Samples one block of the Gram kernel stages: as many as fit, at
-    most 8; 0 when not even one does."""
-    for spb in range(_MAX_SAMPLES_PER_BLOCK, 0, -1):
-        if _gram_bytes(num_features, dim, self_interaction, spb) \
-                <= _SMEM_BYTES:
-            return spb
-    return 0
+def gram_smem_bytes(spg: int, num_features: int, dim: int, itemsize: int,
+                    self_interaction: bool) -> int:
+    """K6's dynamic shared memory for groups of `spg` samples, as its C
+    launcher computes it: two stages of the x span and of each sample's ly
+    region (`_sample_stride`, as K1), then each sample's f32 triangle and
+    the int32 pair table.  The output is not staged."""
+    x = _span(spg * dim * itemsize)
+    ly = spg * _sample_stride((num_features - 1) * dim * itemsize)
+    return 2 * (x + ly) + 4 * (spg * gram_stride(num_features)
+                               + num_pairs(num_features, self_interaction))
+
+
+@functools.lru_cache(maxsize=4096)
+def gram_geometry(batch: int, num_features: int, dim: int,
+                  itemsize: int = 4, self_interaction: bool = False,
+                  num_sms: int = 132) -> Optional[Geometry]:
+    """The launch of K6 for a batch, by K1's rule (`_fit`): groups of up to
+    8 samples, no more than batch // num_sms, within SMEM_TARGET; a
+    persistent grid.  None when not even one sample's ring, triangle and
+    pair table fit a block (SMEM_MAX): no design of the two-stage kernel
+    stages that shape."""
+    F, D, si = num_features, dim, self_interaction
+    if gram_smem_bytes(1, F, D, itemsize, si) > SMEM_MAX:
+        return None
+    return Geometry(*_fit(batch, num_sms, lambda s: gram_smem_bytes(
+        s, F, D, itemsize, si), GRAM_BLOCKS_PER_SM), False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -339,8 +361,10 @@ def dot_interaction_gram_kernel(x: torch.Tensor, ly: torch.Tensor,
     T = ly.shape[1]
     F = T + 1
     P = num_pairs(F, self_interaction)
-    spb = gram_samples_per_block(F, D, bool(self_interaction))
-    if spb < 1:
+    dev = x.device.index
+    geo = gram_geometry(B, F, D, x.element_size(), bool(self_interaction),
+                        _num_sms(dev))
+    if geo is None:
         raise ValueError(f"{F} features of width {D} exceed one block's "
                          "shared memory in the Gram kernel")
     out = torch.empty((B, D + P), dtype=x.dtype, device=x.device)
@@ -349,8 +373,8 @@ def dot_interaction_gram_kernel(x: torch.Tensor, ly: torch.Tensor,
     tab = _pair_table_on(F, bool(self_interaction), x.device)
     rc = _build.library().interaction_gram(
         x.data_ptr(), ly.data_ptr(), tab.data_ptr(), out.data_ptr(), B, T,
-        D, P, int(x.dtype == torch.bfloat16), spb, x.device.index,
-        _build.stream(x.device.index))
+        D, P, int(x.dtype == torch.bfloat16), geo.samples_per_group,
+        geo.blocks, dev, _build.stream(dev))
     _build.check(rc, "interaction_gram")
     dot_interaction_gram_kernel.launches += 1
     return out

@@ -38,6 +38,7 @@ from evstore_tpu.ops.quant import np_quantize_int8 as jax_np_quantize_int8
 from evstore_tpu_torch import _build
 from evstore_tpu_torch.config import tiny_dlrm_config
 from evstore_tpu_torch.models import embedding as port_emb
+from evstore_tpu_torch.ops import cuda_gather as cg
 from evstore_tpu_torch.ops.cuda_gather import (gather_rows,
                                                gather_rows_dequant_int8,
                                                gather_rows_dequant_int8_ref,
@@ -269,6 +270,132 @@ def test_two_source_gather_dequant_matches_take_over_concat(shape, D):
             torch.from_numpy(buf)).numpy())
 
 
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 9, 16, 36, 1000003, 2 ** 31 - 1,
+                               2 ** 31, 2 ** 31 + 1, 2 ** 32 - 1])
+def test_dequant_magic_divider_is_division(d):
+    """K3's unit -> row map: a multiply-high, an add and a shift equal
+    n // d for n < 2^32, at the edges (0, 2^32 - 1, multiples of d and one
+    below them) and at random n; the multiplier fits 32 bits."""
+    magic, shift = cg.magic_divider(d)
+    assert 0 < magic < 2 ** 32 and 0 <= shift <= 32
+    rng = np.random.default_rng(d % 1000)
+    k = np.arange(1, 2000, dtype=np.uint64)
+    n = np.concatenate([
+        rng.integers(0, 2 ** 32, 50000, dtype=np.uint64),
+        np.arange(4000, dtype=np.uint64),
+        np.uint64(2 ** 32 - 1) - np.arange(4000, dtype=np.uint64),
+        (k * np.uint64(d)) % np.uint64(2 ** 32),
+        (k * np.uint64(d) - np.uint64(1)) % np.uint64(2 ** 32)])
+    np.testing.assert_array_equal(
+        cg.magic_div(n, np.uint64(magic), np.uint64(shift)),
+        n // np.uint64(d))
+
+
+def _dequant_units(R, D, words, grid):
+    """The units K3's grid visits, as its loops walk them: block b, thread
+    t, unit j and pass k give u = b T U + t + j T + k (grid T U), kept
+    while u0 = b T U + t + k (grid T U) and u stay below the total."""
+    T, U = cg.DEQUANT_THREADS, cg.DEQUANT_UNITS
+    total = R * cg.dequant_units_per_row(D, words)
+    step = grid * T * U
+    base = (np.arange(grid)[:, None] * T * U + np.arange(T)[None, :]).ravel()
+    units = []
+    for k in range(-(-total // step)):
+        u0 = base + k * step
+        u0 = u0[u0 < total]
+        for j in range(U):
+            u = u0 + j * T
+            units.append(u[u < total])
+    return np.concatenate(units).astype(np.uint64), total
+
+
+@pytest.mark.parametrize("R", [1, 3, 255, 1025, 4097])
+@pytest.mark.parametrize("D,words", [(4, True), (8, True), (36, True),
+                                     (64, True), (7, False), (36, False),
+                                     (4, False)])
+@pytest.mark.parametrize("grid", [1, 3, 1056])
+def test_dequant_unit_plan_writes_each_unit_once(R, D, words, grid):
+    """K3's plan writes each (row, word), or (row, code) on the byte path,
+    exactly once, for R that no thread's units divide, at any grid; the
+    magic divisor gives each unit its row."""
+    u, total = _dequant_units(R, D, words, grid)
+    assert np.array_equal(np.sort(u), np.arange(total, dtype=np.uint64))
+    nu = cg.dequant_units_per_row(D, words)
+    magic, shift = cg.magic_divider(nu)
+    r = cg.magic_div(u, np.uint64(magic), np.uint64(shift))
+    w = u - r * np.uint64(nu)
+    assert r.max() < R and w.max() < nu
+    seen = np.zeros((R, nu), np.int64)
+    np.add.at(seen, (r.astype(np.int64), w.astype(np.int64)), 1)
+    assert np.all(seen == 1)
+
+
+def _emulate_dequant(primary, idx, secondary, words, grid):
+    """K3's work split in numpy: a 256-entry table of the codec's formula;
+    each unit reads idx of its row, then its word (4 codes, little-endian)
+    or code of that row's source, and writes table entries, or zeros for an
+    index outside [0, C + M)."""
+    C, D = primary.shape
+    M = 0 if secondary is None else len(secondary)
+    src = primary if secondary is None else np.concatenate([primary,
+                                                            secondary])
+    lut = (np.arange(256, dtype=np.float32) / np.float32(254)) \
+        * np.float32(2) - np.float32(1)
+    R = idx.size
+    nu = cg.dequant_units_per_row(D, words)
+    per = D // nu
+    u, _ = _dequant_units(R, D, words, grid)
+    magic, shift = cg.magic_divider(nu)
+    r = cg.magic_div(u, np.uint64(magic), np.uint64(shift)).astype(np.int64)
+    w = u.astype(np.int64) - r * nu
+    k = idx.reshape(-1)[r].astype(np.int64)
+    hit = (k >= 0) & (k < C + M)
+    out = np.full((R, D), np.nan, np.float32)
+    for e in range(per):
+        codes = src[np.where(hit, k, 0), w * per + e]
+        out[r, w * per + e] = np.where(hit, lut[codes], np.float32(0))
+    return out.reshape(*idx.shape, D)
+
+
+@pytest.mark.parametrize("R", [1, 3, 1025])
+@pytest.mark.parametrize("D,words", [(4, True), (8, True), (36, True),
+                                     (64, True), (7, False), (36, False)])
+@pytest.mark.parametrize("two_sources", [True, False])
+def test_dequant_work_split_matches_plain(R, D, words, two_sources):
+    """The emulated K3 against the plain version, bit for bit: cache and
+    buffer rows, indices at C - 1, C, C + M - 1 and C + M, negative ones,
+    and no secondary."""
+    rng = np.random.default_rng(R * D)
+    C, M = 37, (5 if two_sources else 0)
+    cache = _codes(rng, (C, D))
+    buf = _codes(rng, (M, D)) if two_sources else None
+    idx = rng.integers(-3, C + M + 3, R).astype(np.int32)
+    edges = np.asarray([C - 1, C, C + M - 1, C + M, -1, 2 ** 31 - 1],
+                       np.int32)
+    idx[:min(R, len(edges))] = edges[:min(R, len(edges))]
+    ref = gather_rows_dequant_int8_ref(
+        torch.from_numpy(cache), torch.from_numpy(idx),
+        None if buf is None else torch.from_numpy(buf)).numpy()
+    for grid in (1, 5):
+        got = _emulate_dequant(cache, idx, buf, words, grid)
+        np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def test_dequant_every_index_out_of_range_gives_zeros():
+    """All indices outside [0, C + M): the emulated K3, the plain version
+    and the wrapper on CPU tensors give zero rows (not code 0's -1.0)."""
+    rng = np.random.default_rng(9)
+    cache, buf = _codes(rng, (10, 36)), _codes(rng, (4, 36))
+    idx = np.asarray([-2 ** 31, -1, 14, 15, 2 ** 31 - 1] * 7, np.int32)
+    got = _emulate_dequant(cache, idx, buf, True, 2)
+    assert got.shape == (35, 36) and not got.any()
+    wrapped = gather_rows_dequant_int8(torch.from_numpy(cache),
+                                       torch.from_numpy(idx),
+                                       torch.from_numpy(buf)).numpy()
+    np.testing.assert_array_equal(wrapped.view(np.int32),
+                                  got.view(np.int32))
+
+
 def test_quantizer_matches_jax():
     """numpy's round (half to even) on the host, as the JAX package has it,
     including the values that fall exactly between two codes."""
@@ -320,9 +447,12 @@ def test_library_name_follows_the_sources():
         "interaction_fwd", "interaction_bwd", "interaction_gram",
         "gather_rows", "gather_rows_grouped", "gather_rows_dequant_int8",
         "scatter_sub_sorted"}
-    # x, ly, pair table, out: four pointers, then B as a 64-bit int
-    assert _build.SIGNATURES["interaction_gram"][:5] == (
-        (ctypes.c_void_p,) * 4 + (ctypes.c_int64,))
+    # x, ly, pair table, out: four pointers, then B as a 64-bit int; then
+    # T, D, P, is_bf16, samples a group, blocks, device as ints and the
+    # stream
+    assert _build.SIGNATURES["interaction_gram"] == (
+        (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) + (ctypes.c_int,) * 7
+        + (ctypes.c_void_p,))
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 

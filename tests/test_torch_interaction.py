@@ -49,8 +49,8 @@ from evstore_tpu_torch.ops import cuda_interaction as ci
 from evstore_tpu_torch.ops.cuda_interaction import (
     DotInteraction, DotInteractionGram, dot_interaction_bwd_kernel,
     dot_interaction_bwd_ref, dot_interaction_gram_kernel,
-    dot_interaction_kernel, dot_interaction_ref, gram_pair_table,
-    gram_samples_per_block, interaction_geometry)
+    dot_interaction_kernel, dot_interaction_ref, gram_geometry,
+    gram_pair_table, interaction_geometry)
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -495,17 +495,192 @@ def test_gram_pair_table_is_the_selectors(F, self_interaction):
     assert tab.max() < F * (F + 1) // 2
 
 
+def _gram_smem(spg, F, D, itemsize, si):
+    """K6's shared memory, from its C launcher's rule: two stages of the x
+    span and of each sample's ly region (an odd number of 16-byte units),
+    then each sample's packed f32 triangle at an odd stride and the int32
+    pair table."""
+    span = (lambda n: (n + 15) // 16 * 16 + 16)
+    sample = span((F - 1) * D * itemsize)
+    sample += 0 if sample // 16 % 2 else 16
+    tri = F * (F + 1) // 2
+    tri += 0 if tri % 2 else 1
+    return 2 * (span(spg * D * itemsize) + spg * sample) + spg * tri * 4 \
+        + 4 * port_inter.num_pairs(F, si)
+
+
 @pytest.mark.parametrize("F,D,si,expected", [(27, 36, False, 8),
                                              (27, 36, True, 8),
-                                             (27, 64, False, 5),
-                                             (27, 128, False, 3),
+                                             (27, 64, False, 4),
+                                             (27, 128, False, 2),
                                              (4, 4, False, 8)])
 def test_gram_samples_per_block_fits_shared_memory(F, D, si, expected):
-    spb = gram_samples_per_block(F, D, si)
-    assert spb == expected
-    P = port_inter.num_pairs(F, si)
+    """K6 at a large batch: groups of up to 8 samples whose ring, packed
+    triangles and pair table fit SMEM_TARGET (three blocks an SM), one more
+    would not; self_interaction only lengthens the pair table."""
+    geo = gram_geometry(65536, F, D, 4, si)
+    assert geo.samples_per_group == expected and not geo.stage_out
+    assert geo.smem_bytes == _gram_smem(expected, F, D, 4, si) \
+        == ci.gram_smem_bytes(expected, F, D, 4, si) <= ci.SMEM_TARGET
+    if expected < ci.MAX_SAMPLES_PER_GROUP:
+        assert _gram_smem(expected + 1, F, D, 4, si) > ci.SMEM_TARGET
+    assert geo.blocks == 132 * min(ci.GRAM_BLOCKS_PER_SM, ci.SMEM_PER_SM
+                                   // (geo.smem_bytes + 1024))
+    assert gram_pair_table(F, si).max() < ci.gram_stride(F)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("B,spg,blocks", [(1, 1, 1), (3, 1, 3),
+                                          (127, 1, 127), (128, 1, 128),
+                                          (129, 1, 129), (2048, 8, 256),
+                                          (2049, 8, 257),
+                                          (65536, 8, 396)])
+def test_gram_geometry_gives_every_sm_work(B, spg, blocks, itemsize):
+    """K6 at the train batch has a block a sample (the first design had 16
+    blocks of 8 at B=128); at the serve batch its groups outnumber the 132
+    SMs; at 65,536 the grid is three blocks on each SM, at bf16 too (its
+    registers hold no more).  The groups cover the batch exactly and the
+    block stays within its shared memory."""
+    geo = gram_geometry(B, 27, 36, itemsize)
+    assert (geo.samples_per_group, geo.blocks) == (spg, blocks)
+    assert geo.groups == -(-B // spg) and (geo.groups - 1) * spg < B
+    assert geo.smem_bytes == _gram_smem(spg, 27, 36, itemsize, False) \
+        <= ci.SMEM_TARGET
+    assert geo.blocks >= min(geo.groups, 132)
+
+
+def _first_gram_takes(F, D, si):
+    """The shapes the first design of K6 took: one sample's features (odd
+    stride), its packed triangle and the pair table within 48 KB."""
     dp = D + 1 if D % 2 == 0 else D
-    assert 4 * (P + spb * (F * dp + F * (F + 1) // 2)) <= 48 * 1024
+    P = port_inter.num_pairs(F, si)
+    return 4 * (P + F * dp + F * (F + 1) // 2) <= 48 * 1024
+
+
+@pytest.mark.parametrize("D", [1, 4, 7, 36, 128])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_gram_takes_every_shape_it_took(D, itemsize):
+    """Every shape the first design took still fits one block, at B=1 and
+    at B=65,536; the wrapper refuses only a shape whose one sample's ring
+    and triangle exceed SMEM_MAX (K1's unstaged case, F=600 at D=4)."""
+    for si in (False, True):
+        widest = max(F for F in range(2, 400) if _first_gram_takes(F, D, si))
+        for F in (2, 3, 27, widest):
+            for B in (1, 65536):
+                geo = gram_geometry(B, F, D, itemsize, si)
+                assert geo is not None and geo.samples_per_group >= 1
+                assert geo.smem_bytes <= ci.SMEM_MAX
+        assert gram_geometry(130, 600, 4, itemsize, si) is None
+        assert ci.gram_smem_bytes(1, 600, 4, itemsize, si) > ci.SMEM_MAX
+
+
+@pytest.mark.parametrize("F", [2, 3, 4, 5, 27, 28, 33])
+def test_gram_tiles_cover_the_triangle_once(F):
+    """K6's stage 1: the tiles of the ceil(F/4)-square tile grid's lower
+    triangle store their entries (i, j) with i < F and j <= i at
+    i (i + 1) / 2 + j; every entry of the packed triangle is stored exactly
+    once, and the pair table reads only stored entries."""
+    nti = -(-F // ci.TILE)
+    seen = np.zeros(F * (F + 1) // 2, np.int64)
+    for t in range(nti * (nti + 1) // 2):
+        ti, tj = ci.tile_of(t)
+        for a in range(ci.TILE):
+            for c in range(ci.TILE):
+                i, j = ti * ci.TILE + a, tj * ci.TILE + c
+                if i < F and j <= i:
+                    seen[i * (i + 1) // 2 + j] += 1
+    assert np.all(seen == 1)
+    for si in (False, True):
+        assert np.all(seen[gram_pair_table(F, si)] == 1)
+
+
+def _split_span(phase, n, itemsize):
+    """common.cuh's split_span: (head, units, first tail element) of n
+    elements whose first lies `phase` bytes past a 16-byte boundary."""
+    head = min(n, ((16 - phase) % 16) // itemsize)
+    units = (n - head) * itemsize // 16
+    return head, units, head + units * 16 // itemsize
+
+
+def _emulate_gram(x, ly, self_interaction, itemsize=4):
+    """K6's work split in numpy: groups of `gram_geometry`'s samples; stage
+    1 fills each sample's packed triangle (stride `gram_stride`) tile by
+    tile, items w = tile * samples + sample, rows clamped; stage 2 writes
+    the group's output span as 16-byte units (one division a unit finds the
+    sample) after an element-wise head, and an element-wise tail, each value
+    from x or from the triangle through the pair table.  The output starts
+    16-byte aligned, so group g's span starts at g spg W itemsize."""
+    B, D = x.shape
+    F = ly.shape[1] + 1
+    P = port_inter.num_pairs(F, self_interaction)
+    W = D + P
+    geo = gram_geometry(B, F, D, itemsize, self_interaction)
+    spg, gs = geo.samples_per_group, ci.gram_stride(F)
+    tab = gram_pair_table(F, self_interaction)
+    feats = np.concatenate([x[:, None], ly], axis=1).astype(np.float32)
+    out = np.full(B * W, np.nan, np.float32)
+    written = np.zeros(B * W, np.int64)
+    nti = -(-F // ci.TILE)
+    for g in range(geo.groups):
+        b0 = g * spg
+        ns = min(B, b0 + spg) - b0
+        gram = np.full(spg * gs, np.nan, np.float32)
+        for w in range(ns * nti * (nti + 1) // 2):
+            t, q = divmod(w, ns)
+            ti, tj = ci.tile_of(t)
+            rows = [min(ti * ci.TILE + a, F - 1) for a in range(4)]
+            cols = [min(tj * ci.TILE + c, F - 1) for c in range(4)]
+            acc = np.zeros((4, 4), np.float32)
+            for d in range(D):
+                acc += np.outer(feats[b0 + q, rows, d],
+                                feats[b0 + q, cols, d])
+            for a in range(4):
+                for c in range(4):
+                    i, j = ti * 4 + a, tj * 4 + c
+                    if i < F and j <= i:
+                        gram[q * gs + i * (i + 1) // 2 + j] = acc[a, c]
+
+        def fill(e0, cnt):
+            q, c = divmod(e0, W)
+            vals = []
+            for _ in range(cnt):
+                vals.append(x[b0 + q, c] if c < D
+                            else gram[q * gs + tab[c - D]])
+                c += 1
+                if c == W:
+                    q, c = q + 1, 0
+            return vals
+
+        n, U = ns * W, 16 // itemsize
+        head, units, tail0 = _split_span(b0 * W * itemsize % 16, n, itemsize)
+        pieces = [(e, 1) for e in range(head)]
+        pieces += [(head + u * U, U) for u in range(units)]
+        pieces += [(e, 1) for e in range(tail0, n)]
+        for e0, cnt in pieces:
+            out[b0 * W + e0: b0 * W + e0 + cnt] = fill(e0, cnt)
+            written[b0 * W + e0: b0 * W + e0 + cnt] += 1
+    assert np.all(written == 1)
+    return out.reshape(B, W)
+
+
+@pytest.mark.parametrize("B,T,D", [(3, 26, 36), (2, 5, 4), (5, 4, 7),
+                                   (17, 3, 4)])
+@pytest.mark.parametrize("self_interaction", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_gram_work_split_matches_plain_and_k1(B, T, D, self_interaction,
+                                              itemsize):
+    """The emulated K6 writes every output element once, equals the plain
+    forward within its tolerance and the emulated K1 bit for bit (the same
+    sums in the same order).  itemsize 2 moves the 16-byte units and the
+    spans' phases as bf16 does."""
+    _, _, tx, tly = _inputs(B, T, D, "float32", seed=B + T)
+    x, ly = tx.numpy(), tly.numpy()
+    got = _emulate_gram(x, ly, self_interaction, itemsize)
+    np.testing.assert_allclose(
+        got, dot_interaction_ref(tx, tly, self_interaction).numpy(),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got, _emulate_fwd(x, ly,
+                                                    self_interaction))
 
 
 def test_gram_wrapper_refuses_what_it_cannot_take():
