@@ -35,6 +35,12 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    and bf16), each launched twice on copies of one table (bitwise equal),
    and grouped over the 26 tables at K = 3,328; beside each K2 and K5 time,
    the kernel's device time (profiler) and the wrapper's host time;
+2b. K2 grouped bit for bit and K5 grouped against their plain versions at
+   the widths phase 3e adds (1: pooling weights; 18: qr concat's q and r;
+   md_solver's widths below 36), f32 and bf16 (a bf16 row of odd width
+   is K2's 2-byte path), over the Kaggle tables' row counts and one bagged
+   batch's index [1280, S], each K5 case launched twice (bitwise equal),
+   with event times beside the plain versions';
 3. the serving path: the full-width Criteo Kaggle DLRM (26 tables, 33.8M
    rows, dim 36) served by `run_inference` through the tier engine's
    device C1 cache (`NativeDeviceC1Cache`, EvLFU, 64,000 fp32 entries),
@@ -77,10 +83,26 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    the four kernels' launch counts over this phase
    must be above 0, with one grouped gather per train or eval step and one
    grouped row update per rwsadagrad step; kernels and copies per step and
-   the rwsadagrad / sgd rate;
+   the rwsadagrad / sgd rate (both row updates grouped through K5), sgd's
+   rate beside its rate when it updated table by table, and the kernels
+   and copies of an sgd step;
+3e. factored training at the same widths with bags of up to 10 ids
+   (grouped_zipf, B=128, lr 0.1): (a) learned pooling weights under sgd,
+   adagrad and rwsadagrad, (b) qr tables (threshold 200, 4 collisions,
+   mult, q and r drawn at their own scale) under sgd, (c) md tables
+   (threshold 200, temperature -0.3, 17 projections) under rwsadagrad; per
+   optimizer one step with every kernel on against one with every kernel
+   off from the fresh state (printed), 3 warm-up steps, three such steps
+   each from one state held to phase 3b's rule (elementwise for the MLPs
+   and md projections) and, for each row-updated parameter, its step
+   change held to the plain copy's within 1e-2 of the latter's norm, two 10-step windows (steps/s), one profiled step (kernels and
+   copies, device busy share), two steps with every synchronising CUDA
+   call an error and torch.unique counted (must be 0); `evaluate` over 2
+   bagged batches; exactly one K2 launch per width group and one K5 launch
+   per update group a step, K1 and K4 at least once;
 4. the kernels' launch counts by path (serve, serve_int8, serve_host,
-   gram_ab, train) and one JSON line describing every kernel, each of
-   which must have launched on some path;
+   gram_ab, train, train_factored) and one JSON line describing every
+   kernel, each of which must have launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
@@ -105,9 +127,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
-                  "2 kernels vs plain": 150, "3 main path": 200,
-                  "3c three tiers int8": 200, "3d host tiers": 240,
-                  "3b train": 240, "4 kernels line": 30}
+                  "2 kernels vs plain": 150, "2b grouped widths": 90,
+                  "3 main path": 200, "3c three tiers int8": 200,
+                  "3d host tiers": 240, "3b train": 240,
+                  "3e train factored": 240, "4 kernels line": 30}
 
 
 class Phase:
@@ -225,6 +248,48 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
                                        else "operations")
 
 
+def profile_steps(torch, run, n: int):
+    """`run()` n times under torch.profiler: (wall ms, {kernel or copy name:
+    (count, device ms)}).  Busy time counts kernels and copies only, not
+    the spans' device-side annotations."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    on_card = {}
+    for e in prof.events():
+        if e.device_type == cuda and not e.name.startswith("train_step."):
+            c, t = on_card.get(e.name, (0, 0.0))
+            on_card[e.name] = (c + 1, t + e.device_time_total / 1e3)
+    return wall_ms, on_card
+
+
+# each kernel of the train path by its function's name (K5 is two)
+TRAIN_KERNELS = {"K1 interaction_fwd": ("interaction_fwd_kernel",),
+                 "K2 gather_rows_grouped": ("Grouped<",),
+                 "K4 interaction_bwd": ("interaction_bwd_kernel",),
+                 "K5 scatter_sub_sorted": ("chunk_sums_kernel",
+                                           "cross_chunk_kernel")}
+
+
+def by_kernel(on_card, n: int) -> str:
+    """Device µs and device kernels a step (K5's launch is two kernels),
+    by kernel of the train path, as the trace saw them."""
+    return ", ".join(
+        f"{label} " + "{:.2f} us ({:g} kernels)".format(
+            sum(t for k, (_, t) in on_card.items()
+                if any(f in k for f in funcs)) * 1e3 / n,
+            sum(c for k, (c, _) in on_card.items()
+                if any(f in k for f in funcs)) / n)
+        for label, funcs in TRAIN_KERNELS.items())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -253,7 +318,11 @@ def main() -> int:
                                                   random_batches)
     from evstore_tpu_torch.drivers.infer import build_cache, run_inference
     from evstore_tpu_torch.models.dlrm import DLRM
-    from evstore_tpu_torch.models.embedding import init_embedding_tables
+    from evstore_tpu_torch.models.embedding import (flat_ids, gather_groups,
+                                                    group_ids,
+                                                    init_embedding_tables,
+                                                    init_qr_tables,
+                                                    row_sources, table_kinds)
     from evstore_tpu_torch.native import build as engine_build
     from evstore_tpu_torch.ops.cuda_gather import (
         gather_rows, gather_rows_dequant_int8, gather_rows_dequant_int8_ref,
@@ -269,9 +338,11 @@ def main() -> int:
     from evstore_tpu_torch.ops.interaction import num_pairs
     from evstore_tpu_torch.ops.quant import (dequantize, dequantize_int8,
                                              np_quantize_int8)
-    from evstore_tpu_torch.train.optim import PAD_ROW, dense_parameters
+    from evstore_tpu_torch.train.optim import (PAD_ROW, dense_parameters,
+                                               update_groups)
     from evstore_tpu_torch.train.train_loop import (evaluate, init_opt_state,
-                                                    make_train_step, train)
+                                                    make_train_step, train,
+                                                    unpack_batch)
     from evstore_tpu_torch.utils.device import exact_float32
 
     if not torch.cuda.is_available():
@@ -348,6 +419,430 @@ def main() -> int:
 
     def read_counts():
         return {name: w.launches for name, w in wrappers.items()}
+
+    # -------------------------------------- 2b grouped kernels, new widths
+    BAG_B, BAG_L = 128, 10      # the recipe's batch; the reference's bags
+
+    def bag_stream(fcfg, seed: int, n: int):
+        """The factored phases' requests: grouped_zipf ids (alpha 1.05,
+        group noise 0.1) in bags of up to BAG_L, sizes U[1, BAG_L] (the
+        reference's random-data default), with their 0/1 bag weights."""
+        return list(random_batches(RandomDataConfig(
+            num_dense=fcfg.num_dense_features, table_sizes=fcfg.table_sizes,
+            batch_size=BAG_B, num_batches=n, seed=seed,
+            distribution="grouped_zipf", zipf_alpha=1.05, group_noise=0.1,
+            num_indices_per_lookup=BAG_L)))
+
+    def phase_2b():
+        """K2 grouped bit for bit and K5 grouped against their plain
+        versions at the widths phase 3e adds: 1 (pool_w), 18 (qr concat's
+        q and r) and md_solver's widths below 36, f32 and bf16, over the
+        Kaggle tables' row counts and the index [B·L, S] of one bagged
+        batch."""
+        with Phase("2b grouped widths"):
+            base = kaggle_dlrm_config()
+            bag = bag_stream(base, args.seed + 7, 1)[0]
+            flat = flat_ids(torch.from_numpy(bag[1])).to(dev)
+            for dt, (label, kw) in ((dt, v) for dt in ("float32",
+                                                        "bfloat16") for v in (
+                    ("pool_w", dict(weighted_pooling="learned")),
+                    ("qr concat", dict(qr_flag=True, qr_operation="concat")),
+                    ("md (temperature -0.3)", dict(md_flag=True,
+                                                   md_temperature=-0.3)))):
+                tdt = getattr(torch, dt)
+                bits = torch.int32 if dt == "float32" else torch.int16
+                fcfg = kaggle_dlrm_config(**kw)
+                sources = row_sources(fcfg)
+                for members in gather_groups(sources):
+                    srcs = [sources[i] for i in members]
+                    w = srcs[0].width
+                    if w == fcfg.embedding_dim:      # phase 2's width
+                        continue
+                    tabs = [torch.empty(s.rows, w, device=dev).uniform_(
+                        -float(np.sqrt(1.0 / s.rows)),
+                        float(np.sqrt(1.0 / s.rows)), generator=gen).to(tdt)
+                        for s in srcs]
+                    ids = group_ids(sources, members, flat)
+                    R, S = ids.shape
+                    got = gather_rows_grouped(tabs, ids)
+                    ref = gather_rows_grouped_ref(tabs, ids)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.view(bits), ref.view(bits)):
+                        raise AssertionError(f"gather_rows_grouped differs "
+                                             f"at {label} width {w} {dt}")
+                    bases = torch.tensor(
+                        np.concatenate([[0], np.cumsum(
+                            [s.rows for s in srcs])]), device=dev)
+                    rows = torch.sort((ids.long() + bases[:-1]).reshape(-1)
+                                      )[0].to(torch.int32)
+                    K = rows.numel()
+                    uniq = int(torch.unique(rows).numel())
+                    rb = w * tabs[0].element_size()
+                    g_bms, g_by = bound_ms(uniq * rb + R * S * 4 + R * S * rb,
+                                           0.0, "float32")
+                    g_ms = time_ms(torch, lambda: gather_rows_grouped(
+                        tabs, ids))
+                    g_pms = time_ms(torch, lambda: gather_rows_grouped_ref(
+                        tabs, ids))
+                    vals = torch.randn(K, w, generator=gen, device=dev) * 1e-3
+                    twice = [t.clone() for t in tabs]
+                    ref_tabs = [t.clone() for t in tabs]
+                    scatter_sub_sorted(tabs, rows, vals)
+                    scatter_sub_sorted(twice, rows, vals)
+                    scatter_sub_sorted_grouped_ref(ref_tabs, rows, vals)
+                    torch.cuda.synchronize()
+                    err = 0.0
+                    for t, (a_, b_, c_) in enumerate(zip(tabs, ref_tabs,
+                                                         twice)):
+                        ok, e_ = within(a_, b_, 1e-6, dt == "bfloat16")
+                        err = max(err, e_)
+                        if not ok or not torch.equal(a_, c_):
+                            raise AssertionError(
+                                f"grouped scatter_sub_sorted differs or is "
+                                f"not deterministic at {label} width {w}, "
+                                f"table {t}: max|d| {e_}")
+                    s_bms, s_by = bound_ms(K * 4 + K * w * 4 + 2 * uniq * rb,
+                                           float(K * w + uniq * w),
+                                           "float32")
+                    s_ms = time_ms(torch, lambda: scatter_sub_sorted(
+                        tabs, rows, vals))
+                    s_pms = time_ms(torch, lambda: scatter_sub_sorted_grouped_ref(
+                        ref_tabs, rows, vals))
+                    print(f"{label} width {w} {dt}, {S} tables "
+                          f"({sum(s.rows for s in srcs)} rows), idx [{R}, "
+                          f"{S}] of one bagged batch: gather_rows_grouped "
+                          f"bit-exact, kernel_ms {g_ms:.4f} plain_ms "
+                          f"{g_pms:.4f} bound_us {g_bms * 1e3:.2f} ({g_by}); "
+                          f"scatter_sub_sorted K={K}, {uniq} rows, max|d| "
+                          f"{err:.3e}, two launches bitwise equal, kernel_ms "
+                          f"{s_ms:.4f} plain_ms {s_pms:.4f} bound_us "
+                          f"{s_bms * 1e3:.2f} ({s_by}) [{card}]", flush=True)
+                    del tabs, twice, ref_tabs, got, ref
+                torch.cuda.empty_cache()
+
+    # ------------------------------------------ 3e train factored tables
+    def phase_3e(tables):
+        """Training at the Kaggle model's full width beyond one-hot plain
+        tables: (a) bags with learned pooling weights (sgd, adagrad,
+        rwsadagrad), (b) qr tables (sgd), (c) md tables with projections
+        (rwsadagrad).  Returns the launch counts of the path."""
+        with Phase("3e train factored"):
+            reset_counts()
+            prng = np.random.default_rng(args.seed + 8)
+
+            def entries_for(fcfg):
+                """Per table: phase 3's host table where the shapes allow
+                (a plain table; an md table's first columns), q and r
+                drawn at their own scale (`init_qr_tables`) and a
+                projection, both from --seed; copied to the card once."""
+                out = []
+                for t, (kind, dim) in enumerate(table_kinds(fcfg)):
+                    host = tables[t]
+                    if kind == "qr":
+                        e = {"kind_qr": init_qr_tables(
+                            host.shape[0], fcfg.embedding_dim,
+                            fcfg.qr_collisions, fcfg.qr_operation, prng)}
+                    elif kind == "md":
+                        e = {"kind_md": {"table": host[:, :dim]}}
+                        if dim != fcfg.embedding_dim:
+                            b = float(np.sqrt(2.0 / (dim + 36)))
+                            e["kind_md"]["proj"] = prng.uniform(
+                                -b, b, (dim, 36)).astype(np.float32)
+                    else:
+                        e = {"kind_plain": host}
+                    out.append({k: ({kk: torch.from_numpy(vv).to(dev)
+                                     for kk, vv in v.items()}
+                                    if isinstance(v, dict) else
+                                    torch.from_numpy(v).to(dev))
+                                for k, v in e.items()})
+                return out
+
+            def call(step, m, st, b):
+                d, i, y, w = unpack_batch(b)
+                return step(m, st, d, i, y, w)
+
+            def no_wait(step, m, st, bs):
+                """Steps on device-resident inputs with every
+                synchronising CUDA call an error
+                (`torch.cuda.set_sync_debug_mode`) and torch.unique
+                counted: returns the number of torch.unique calls."""
+                dev_bs = [tuple(torch.from_numpy(x).to(dev) for x in b)
+                          for b in bs]
+                torch.cuda.synchronize()
+                real, calls = torch.unique, [0]
+
+                def counted(*a, **k):
+                    calls[0] += 1
+                    return real(*a, **k)
+
+                torch.unique = counted
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for b in dev_bs:
+                        call(step, m, st, b)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    torch.unique = real
+                torch.cuda.synchronize()
+                return calls[0]
+
+            rates = {}
+            want = {"gather_rows_grouped": 0, "scatter_sub_sorted": 0}
+            cases = (
+                ("a", "bags, learned pooling", dict(
+                    weighted_pooling="learned"),
+                 ("sgd", "adagrad", "rwsadagrad")),
+                ("b", "bags, qr (threshold 200, 4 collisions, mult)",
+                 dict(qr_flag=True), ("sgd",)),
+                ("c", "bags, md (threshold 200, temperature -0.3)",
+                 dict(md_flag=True, md_temperature=-0.3), ("rwsadagrad",)))
+            print("md_temperature -0.3 in (c): the reference's md_solver "
+                  "is given alpha = -md_temperature (the JAX package's "
+                  "init_sparse_arch, copied by the port), so the CLI's 0.3 "
+                  "gives every Kaggle md table width 36 and no projection; "
+                  "-0.3 gives widths 1-36 and 17 projections")
+            for key, label, kw, opts in cases:
+                fcfg = kaggle_dlrm_config(**kw)
+                off_cfg = dataclasses.replace(
+                    fcfg, use_interaction_kernel=False,
+                    use_gather_kernel=False)
+                t0 = time.perf_counter()
+                dev_entries = entries_for(fcfg)
+                model = DLRM(fcfg, device=dev, seed=args.seed,
+                             tables=dev_entries)
+                plain = DLRM(off_cfg, device=dev, seed=args.seed,
+                             tables=dev_entries)
+                del dev_entries
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                sources = model.row_sources()
+                kinds = [k for k, _ in table_kinds(fcfg)]
+                sparse_gb = sum(p.numel() * 4 for n, p in
+                                model.named_parameters()
+                                if not n.startswith(("bot.", "top."))) / 1e9
+                n_gather = len(gather_groups(sources))
+                print(f"3e({key}) {label}: {kinds.count('plain')} plain, "
+                      f"{kinds.count('qr')} qr, {kinds.count('md')} md "
+                      f"tables, {sparse_gb:.2f} GB of sparse parameters a "
+                      f"copy, {n_gather} width group(s) to gather; two "
+                      f"copies on the card in {time.perf_counter() - t0:.2f}"
+                      f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+                      f"allocated", flush=True)
+                stream = iter(bag_stream(fcfg, args.seed + 9,
+                                         30 * len(opts) + 2))
+
+                def take(n):
+                    return [next(stream) for _ in range(n)]
+
+                for opt in opts:
+                    tcfg = TrainConfig(learning_rate=0.1, optimizer=opt)
+                    off_t = dataclasses.replace(tcfg,
+                                                use_update_kernel=False)
+                    step_k = make_train_step(fcfg, tcfg)
+                    step_p = make_train_step(off_cfg, off_t)
+                    st_k = init_opt_state(model, tcfg)
+                    st_p = init_opt_state(plain, off_t)
+                    updates = [u for u in update_groups(sources, opt)
+                               if fcfg.weighted_pooling == "learned"
+                               or sources[u.members[0]].part != "pool_w"]
+                    n_upd = len(updates)
+                    updated = [sources[i].name for u in updates
+                               for i in u.members]
+                    steps = 0
+
+                    def on_vs_off(b, worst, hold):
+                        """One step on each copy from the kernel copy's
+                        state; with `hold`, raises past phase 3b's rule
+                        (the loss, the accumulators, and elementwise the
+                        parameters that no row update touches), or where
+                        a row-updated parameter's step change (after -
+                        before) differs from the plain copy's by more
+                        than 1e-2 of the latter's norm.  Elementwise, a
+                        row first touched under adagrad whose gradient G
+                        cancels moves by up to about lr·ε/|G| between
+                        two correct sums (1.1e-4 on the card).  A dropped,
+                        doubled or misrouted update differs by 1 or more;
+                        rounding differs by more the more a row's sum of
+                        up to B·L entries cancels (an r row of 4 collects
+                        a quarter of a table's 1280), and the plain copy's
+                        `index_add_` sums in an order that changes from
+                        run to run (1.3e-5 to 4.0e-4 across calls on the
+                        card at --seed 0)."""
+                        with torch.no_grad():
+                            plain.load_state_dict(model.state_dict())
+                            for part in ("dense", "sparse"):
+                                for k, v in getattr(st_k, part).items():
+                                    getattr(st_p, part)[k].copy_(v)
+                            before = {s.name: s.param.clone()
+                                      for s in sources if s.name in updated}
+                        lk = float(call(step_k, model, st_k, b))
+                        lp = float(call(step_p, plain, st_p, b))
+                        bad = []
+                        plain_of = {s.name: s.param
+                                    for s in plain.row_sources()}
+                        for s in sources:
+                            if s.name not in updated:
+                                continue
+                            k, p0 = s.name, before.pop(s.name)
+                            dk = s.param - p0
+                            dp = plain_of[k] - p0
+                            size = float(dp.norm())
+                            rel = (float((dk - dp).norm()) / size if size
+                                   else np.inf if bool(dk.any()) else 0.0)
+                            worst["step"] = min(worst["step"],
+                                                float(dp.abs().max()))
+                            if rel >= worst["step_rel"]:
+                                worst["step_rel"], worst["step_at"] = rel, k
+                            if not rel <= 1e-2:
+                                bad.append(f"{k}: step change |d_on - "
+                                           f"d_off| / |d_off| {rel} "
+                                           f"(|d_off| {size})")
+                            del dk, dp
+                        worst["loss"] = max(worst["loss"],
+                                            abs(lk - lp) / abs(lp))
+                        if not abs(lk - lp) <= 1e-5 * abs(lp):
+                            bad.append(f"loss {lk} with the kernels, {lp} "
+                                       f"without")
+                        ref_sd = plain.state_dict()
+                        for k, a in model.state_dict().items():
+                            v = ref_sd[k]
+                            rel = float(((a - v).abs() / (1 + v.abs()))
+                                        .max())
+                            part = "rows" if k in updated else "param"
+                            if rel > worst[part]:
+                                worst[part], worst[part + "_at"] = rel, k
+                            if part == "param" and not rel <= 1e-4:
+                                bad.append(f"{k}: max|d|/(1+|ref|) {rel}")
+                        for part in ("dense", "sparse"):
+                            for k, v in getattr(st_p, part).items():
+                                ok, rel = within_own(getattr(st_k, part)[k],
+                                                     v, 1e-4)
+                                worst["acc"] = max(worst["acc"], rel)
+                                if not ok:
+                                    bad.append(f"accumulator {k}: {rel}")
+                        if hold and bad:
+                            raise AssertionError(
+                                f"3e({key}) {opt}, kernels on vs off: "
+                                + "; ".join(bad))
+
+                    def worst_line(w):
+                        return (f"max rel loss diff {w['loss']:.3e} (limit "
+                                f"1e-5); MLPs and md projections max|d|/"
+                                f"(1+|ref|) {w['param']:.3e} "
+                                f"({w['param_at']}; limit 1e-4); row-updated "
+                                f"parameters' step change, |d_on - d_off| / "
+                                f"|d_off| (2-norms a parameter) "
+                                f"{w['step_rel']:.3e} ({w['step_at']}; limit "
+                                f"1e-2), the smallest max|d_off| of a "
+                                f"parameter {w['step']:.3e}, their "
+                                f"max|d|/(1+|ref|) {w['rows']:.3e} "
+                                f"({w['rows_at']}; not held: a row first "
+                                f"touched whose adagrad gradient cancels "
+                                f"moves by up to about lr * eps / |G| between "
+                                f"correct sums); accumulators max|d|/(|ref| + "
+                                f"mean nonzero |ref|) {w['acc']:.3e} (limit "
+                                f"1e-4)")
+
+                    def new_worst():
+                        return dict(loss=0.0, param=0.0, param_at="-",
+                                    rows=0.0, rows_at="-", acc=0.0,
+                                    step=np.inf, step_rel=0.0, step_at="-")
+
+                    fresh = new_worst()
+                    on_vs_off(take(1)[0], fresh, hold=False)
+                    steps += 1
+                    for b in take(3):                       # warm-up
+                        call(step_k, model, st_k, b)
+                    steps += 3
+                    worst = new_worst()
+                    for b in take(3):
+                        on_vs_off(b, worst, hold=True)
+                    steps += 3
+                    del st_p
+                    torch.cuda.empty_cache()
+                    print(f"3e({key}) {opt}: kernels on vs off, one step "
+                          f"from the fresh state, measured and not held "
+                          f"(elementwise adagrad's update is about lr * "
+                          f"sign(G) where the state is still 0, so "
+                          f"gradients that cancel to rounding noise move "
+                          f"it): {worst_line(fresh)}; then, after 3 "
+                          f"warm-up steps, 3 steps each from one state, "
+                          f"held: {worst_line(worst)}", flush=True)
+                    windows = []
+                    for _ in range(2):
+                        bs = take(10)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        for b in bs:
+                            call(step_k, model, st_k, b)
+                        torch.cuda.synchronize()
+                        windows.append(10 / (time.perf_counter() - t0))
+                    steps += 20
+                    rate = float(np.mean(windows))
+                    rates[f"{key} {opt}"] = rate
+                    pb = take(1)[0]
+                    wall_ms, on_card = profile_steps(
+                        torch, lambda: call(step_k, model, st_k, pb), 1)
+                    steps += 1
+                    busy = sum(t for _, t in on_card.values())
+                    n_ops = sum(c for c, _ in on_card.values())
+                    print(f"3e({key}) {opt} B={BAG_B} bags of up to "
+                          f"{BAG_L} lr 0.1 [{card}]: {rate:.2f} steps/s "
+                          f"(mean of two 10-step windows: "
+                          f"{', '.join(f'{r:.2f}' for r in windows)}; 3 "
+                          f"warm-up steps), {rate * BAG_B:.1f} samples/s; "
+                          f"one profiled step: {n_ops} kernels and copies, "
+                          f"device busy {busy:.3f} ms, "
+                          + (f"{100 * busy / wall_ms:.1f}% of its "
+                             f"{wall_ms:.2f} ms under the profiler, "
+                             f"{100 * busy * rate / 1e3:.1f}% of an "
+                             f"unprofiled step ({1e3 / rate:.2f} ms)"
+                             if busy > 0 else "busy share not measured "
+                             "(no device time in the trace)")
+                          + f"; by kernel: {by_kernel(on_card, 1)}",
+                          flush=True)
+                    uniq_calls = no_wait(step_k, model, st_k, take(2))
+                    steps += 2
+                    if uniq_calls:
+                        raise AssertionError(f"3e({key}) {opt}: the step "
+                                             f"called torch.unique "
+                                             f"{uniq_calls} times")
+                    print(f"3e({key}) {opt}: no device wait: 2 steps on "
+                          f"device-resident inputs under torch.cuda."
+                          f"set_sync_debug_mode('error') (any synchronising "
+                          f"call raises) with torch.unique counted: 0 "
+                          f"calls", flush=True)
+                    want["gather_rows_grouped"] += steps * n_gather
+                    want["scatter_sub_sorted"] += steps * n_upd
+                    del st_k
+                metrics = evaluate(model, fcfg, take(2))
+                want["gather_rows_grouped"] += 2 * n_gather
+                if not all(np.isfinite(v) for v in metrics.values()):
+                    raise AssertionError(f"3e({key}): evaluate gave "
+                                         f"{metrics}")
+                print(f"3e({key}) evaluate over 2 bagged batches: auc "
+                      f"{metrics['auc']:.4f}, accuracy "
+                      f"{metrics['accuracy']:.4f} (random weights and "
+                      f"labels)", flush=True)
+                del model, plain
+                torch.cuda.empty_cache()
+            launches = {k: v for k, v in read_counts().items()
+                        if k in ("interaction_fwd", "interaction_bwd",
+                                 "gather_rows_grouped",
+                                 "scatter_sub_sorted")}
+            got = {k: launches[k] for k in want}
+            if min(launches.values()) < 1 or got != want or \
+                    read_counts()["gather_rows"] != 0:
+                raise AssertionError(f"train_factored launches "
+                                     f"{read_counts()}, expected {want} "
+                                     f"(one grouped gather per width group"
+                                     f" and one grouped row update per "
+                                     f"update group a step), K1 and K4 at "
+                                     f"least once and no flat gather")
+            print(f"train_factored launches: {json.dumps(launches)} (one "
+                  f"grouped gather per width group and one grouped row "
+                  f"update per update group a step, as expected)")
+            return launches
 
     with Phase("2 kernels vs plain"):
         # K1: f32 |d| <= 1e-5 (1 + |ref|) (summation order); bf16: one
@@ -930,6 +1425,8 @@ def main() -> int:
             bound_ms=bms, bound_by=by, library_ms=None)
         del ktabs, ref_tabs
         torch.cuda.empty_cache()
+
+    phase_2b()
 
     # ------------------------------------------------------- 3 main path
     N_SCORED = 64           # scored batches of 2048 per serving run
@@ -1535,7 +2032,7 @@ def main() -> int:
         off_tcfg = dataclasses.replace(tcfg, use_update_kernel=False)
         stream = iter(list(random_batches(RandomDataConfig(
             num_dense=cfg.num_dense_features, table_sizes=cfg.table_sizes,
-            batch_size=B, num_batches=5 + 5 + 5 + 2 * (3 + 3 * 20) + 2,
+            batch_size=B, num_batches=5 + 5 + 5 + 2 * (3 + 3 * 20) + 5 + 2,
             seed=args.seed + 3, distribution="grouped_zipf",
             zipf_alpha=1.05, group_noise=0.1))))
 
@@ -1684,9 +2181,23 @@ def main() -> int:
                   f"samples/s (median of 3 windows of 20 steps; windows "
                   f"{', '.join(f'{r:.2f}' for r in runs)} steps/s)",
                   flush=True)
-        print(f"rwsadagrad / sgd steps/s in this run: "
-              f"{rates['rwsadagrad'] / rates['sgd']:.3f} (rwsadagrad's row "
-              f"update is one grouped call, sgd's one per table)")
+        print(f"sgd: {rates['sgd']:.2f} steps/s in this run; 42.68 on an "
+              f"NVIDIA H100 80GB HBM3 at 700.00 W when sgd updated its "
+              f"tables one by one (a torch.unique each); "
+              f"rwsadagrad / sgd steps/s in this run: "
+              f"{rates['rwsadagrad'] / rates['sgd']:.3f} (both row updates "
+              f"are one grouped call now)")
+        # what an sgd step launches: 5 steps under the profiler
+        step_s, st_s = make_train_step(cfg, sgd), init_opt_state(model, sgd)
+        sgd_batches = iter(take(5))
+        s_wall, s_card = profile_steps(
+            torch, lambda: step_s(model, st_s, *next(sgd_batches)), 5)
+        s_busy = sum(t for _, t in s_card.values())
+        print(f"profile of 5 sgd steps [{card}]: "
+              f"{sum(c for c, _ in s_card.values()) / 5:.1f} kernels and "
+              f"copies a step, device busy {s_busy / 5:.3f} ms a step "
+              f"({100 * s_busy / s_wall:.1f}% of the profiled wall time); "
+              f"by kernel, a step: {by_kernel(s_card, 5)}", flush=True)
         if busy_ms > 0:
             step_ms = 1e3 / rates["rwsadagrad"]
             print(f"device busy per rwsadagrad step: {busy_ms / 5:.3f} ms, "
@@ -1703,21 +2214,28 @@ def main() -> int:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{train_launches}")
         # one grouped gather per train or eval step, one row update per
-        # rwsadagrad step with the kernels on: 5 + 5 checked, 5 profiled,
-        # 3 + 3 x 20 through train(); sgd the same through train(); 2 eval
+        # train step with the kernels on: rwsadagrad 5 + 5 checked, 5
+        # profiled, 3 + 3 x 20 through train(); sgd 3 + 3 x 20 through
+        # train(), 5 profiled; 2 eval
         rws_steps = 5 + 5 + 5 + (3 + 3 * 20)
-        want = {"gather_rows_grouped": rws_steps + (3 + 3 * 20) + 2,
-                "scatter_sub_sorted": rws_steps}
+        sgd_steps = 3 + 3 * 20 + 5
+        want = {"gather_rows_grouped": rws_steps + sgd_steps + 2,
+                "scatter_sub_sorted": rws_steps + sgd_steps}
         got = {k: train_launches[k] for k in want}
         if got != want or read_counts()["gather_rows"] != 0:
             raise AssertionError(f"train path launches {read_counts()}, "
                                  f"expected {want} and no flat gather")
         print(f"train path launches: {json.dumps(got)} (one grouped gather "
-              f"per train or eval step, one row update per rwsadagrad step)")
+              f"per train or eval step, one grouped row update per train "
+              f"step, sgd's included)")
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"evaluate gave {metrics}")
         print(f"evaluate over 2 batches: auc {metrics['auc']:.4f}, accuracy "
               f"{metrics['accuracy']:.4f} (random weights and labels)")
+
+    del model, st_k, step_k, st_s, step_s
+    torch.cuda.empty_cache()
+    factored_launches = phase_3e(tables)
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -1725,7 +2243,8 @@ def main() -> int:
               f"{json.dumps(int8_launches)}; serve_host "
               f"{json.dumps(host_launches)}; gram_ab "
               f"{json.dumps(gram_launches)}; train "
-              f"{json.dumps(train_launches)}")
+              f"{json.dumps(train_launches)}; train_factored "
+              f"{json.dumps(factored_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -1746,7 +2265,8 @@ def main() -> int:
         }
         paths = {"serve": serve_launches, "serve_int8": int8_launches,
                  "serve_host": host_launches, "gram_ab": gram_launches,
-                 "train": train_launches}
+                 "train": train_launches,
+                 "train_factored": factored_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

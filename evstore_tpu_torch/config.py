@@ -2,20 +2,21 @@
 
 The port keeps its own copy of the JAX package's configuration
 (`evstore_tpu/config.py`) so that it imports nothing of that package.
-Field names and defaults are the same for what the port reads (qr/md
-tables and weighted pooling come with their slice), with one rename: the
+Field names and defaults are the same for what the port reads, with one
+rename: the
 JAX package's `use_pallas_interaction` / `use_pallas_gather` select Pallas
 kernels that do not exist here; their counterparts `use_interaction_kernel` /
 `use_gather_kernel` select the port's hand-written CUDA kernels
 (`ops/cuda_interaction.py`, `ops/cuda_gather.py`) and default to on.
 `TrainConfig.use_update_kernel` is the counterpart of the JAX package's
-`ESV_PALLAS_SWEEP` switch (the rwsadagrad row update, `ops/cuda_update.py`).
+`ESV_PALLAS_SWEEP` switch; here it sends the row updates of every
+optimizer through the grouped kernel path (`ops/cuda_update.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 def _tuple(xs) -> Tuple[int, ...]:
@@ -32,12 +33,24 @@ class DLRMConfig:
     mlp_top: Tuple[int, ...] = (8, 4, 2, 1)  # output dim last
     interaction_op: str = "dot"              # dot | cat
     interaction_itself: bool = False
+    # md/qr compressed-table tricks (tricks/{md,qr}_embedding_bag.py)
+    qr_flag: bool = False
+    qr_operation: str = "mult"               # mult | add | concat
+    qr_collisions: int = 4
+    qr_threshold: int = 200
+    md_flag: bool = False
+    md_threshold: int = 200
+    md_temperature: float = 0.3
+    md_round_dims: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     # the dot interaction through the CUDA kernel (csrc/interaction_fwd.cu)
     use_interaction_kernel: bool = True
     # plain-table row lookups through the CUDA kernel (csrc/gather_rows.cu)
     use_gather_kernel: bool = True
+    # per-row pooling weights v_W (dlrm_s_pytorch.py:284-293):
+    # None | "learned" | "fixed"
+    weighted_pooling: Optional[str] = None
     loss_threshold: float = 0.0
 
     @property
@@ -60,7 +73,7 @@ class DLRMConfig:
         raise ValueError(f"unsupported interaction op {self.interaction_op}")
 
     def validate(self) -> None:
-        if self.mlp_bot[-1] != self.embedding_dim:
+        if self.mlp_bot[-1] != self.embedding_dim and not self.md_flag:
             raise ValueError(
                 f"bottom MLP output dim {self.mlp_bot[-1]} must equal "
                 f"embedding dim {self.embedding_dim} for "
@@ -121,14 +134,16 @@ class TrainConfig:
 
     learning_rate: float = 0.1
     optimizer: str = "sgd"                 # sgd | adagrad | rwsadagrad
-    loss_function: str = "bce"             # bce | mse | wbce
+    # mse | wbce; any other name is BCE, as in the JAX package
+    loss_function: str = "bce"
     loss_weights: Tuple[float, float] = (1.0, 1.0)
     # LR policy (LRPolicyScheduler, dlrm_s_pytorch.py:168-202)
     lr_num_warmup_steps: int = 0
     lr_decay_start_step: int = 0
     lr_num_decay_steps: int = 0
     print_freq: int = 1024
-    # the rwsadagrad row update through the CUDA kernel (csrc/row_update.cu)
+    # the grouped row updates of every optimizer through the CUDA kernel
+    # (csrc/row_update.cu)
     use_update_kernel: bool = True
 
 

@@ -2,16 +2,25 @@
 
 The JAX package keeps `DLRMParams(dense, sparse)`:
 `dense = {"bot"|"top": {"layer_i": {"w": [in, out], "b": [out]}}}` and
-`sparse = {"table_t": {"kind_plain": [n, D]}}`.  These functions take and
-give that pytree as numpy arrays (`jax.tree_util.tree_map(np.asarray, p)` on
-the JAX side), so the port never imports JAX.  Only plain tables are ported.
+`sparse = {"table_t": entry}`, an entry being `{"kind_plain": [n, D]}` (with
+`"pool_w": [n, 1]` under weighted pooling), `{"kind_qr": {"q", "r"}}` or
+`{"kind_md": {"table"[, "proj"]}}`.  These functions take and give that
+pytree as numpy arrays (`jax.tree_util.tree_map(np.asarray, p)` on the JAX
+side), so the port never imports JAX.  The port's parameter names are
+`DLRM`'s: `tables.<i>` (the i-th plain table), `qr.<t>.q|r`,
+`md.<t>.table|proj` and `pool_w.<t>`.
 
 The optimizer state converts the same way.  The JAX package's
 `OptState(step, dense, sparse)` holds `dense = {"mlp": <the dense pytree>,
-"fact": {}}` (adagrad/rwsadagrad sums, shaped like the weights) and
-`sparse = {"table_t": [N, D] (adagrad) | [N] (rwsadagrad)}`; sgd has
+"fact": <the qr/md entries' pytree>}` (adagrad and rwsadagrad sums, shaped
+like the weights) and `sparse = {"table_t": [N, D] (adagrad) | [N]
+(rwsadagrad), "table_t__pool_w": [N, 1] | [N]}`; sgd has
 `dense = sparse = {}`.  The port's `OptState` keys the same arrays by the
-model's parameter names, with `W` sums transposed like the weights.
+model's parameter names: the sums of the parameters that take row updates
+(plain, q, r and md tables, pool_w) in `sparse`, as views of one flat
+buffer per update group (`train/optim.py::state_groups`), and those of
+the MLPs and md projections in `dense`, with `W` sums transposed like the
+weights.
 """
 
 from __future__ import annotations
@@ -22,7 +31,9 @@ import numpy as np
 import torch
 
 from evstore_tpu_torch.config import DLRMConfig
-from evstore_tpu_torch.train.optim import OptState, row_state_views
+from evstore_tpu_torch.models.embedding import row_sources, table_kinds
+from evstore_tpu_torch.train.optim import (OptState, row_state_views,
+                                           state_groups)
 from evstore_tpu_torch.utils.device import resolve_device
 
 
@@ -52,59 +63,126 @@ def _mlps_to_numpy(state: Dict[str, torch.Tensor], cfg: DLRMConfig) -> Dict:
     return out
 
 
+def _names(cfg: DLRMConfig) -> List[Dict[str, str]]:
+    """Per table: {JAX path "kind/leaf" -> the port's parameter name}."""
+    out: List[Dict[str, str]] = [{} for _ in range(cfg.num_tables)]
+    jax_path = {"plain": "kind_plain", "q": "kind_qr/q", "r": "kind_qr/r",
+                "md": "kind_md/table", "pool_w": "pool_w"}
+    for s in row_sources(cfg):
+        out[s.table][jax_path[s.part]] = s.name
+    for t, (kind, dim) in enumerate(table_kinds(cfg)):
+        if kind == "md" and dim != cfg.embedding_dim:
+            out[t]["kind_md/proj"] = f"md.{t}.proj"
+    return out
+
+
+def _get(tree: Dict, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _put(tree: Dict, path: str, value) -> None:
+    *head, last = path.split("/")
+    for k in head:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
+
+
 def params_from_jax(dense: Dict, sparse: Dict, cfg: DLRMConfig,
                     device=None) -> Tuple[Dict[str, torch.Tensor],
                                           List[np.ndarray]]:
-    """-> (state dict for `DLRM(cfg, tables=True)`, the plain tables as
-    float32 numpy arrays for the port's store)."""
+    """-> (state dict for `DLRM(cfg)`, the plain tables as float32 numpy
+    arrays for the port's store).  Raises ValueError for a table whose
+    kind or parameters are not the ones `cfg` gives."""
     dev = resolve_device(device)
     state = _mlps_from_jax(dense, cfg, dev)
     tables = []
-    for t in range(cfg.num_tables):
+    for t, names in enumerate(_names(cfg)):
         entry = sparse[f"table_{t}"]
-        if set(entry) != {"kind_plain"}:
-            raise NotImplementedError(
-                f"table_{t} has {sorted(entry)}: only plain tables are "
-                "ported")
-        tab = np.array(entry["kind_plain"], dtype=np.float32, order="C")
-        tables.append(tab)
-        state[f"tables.{t}"] = torch.from_numpy(tab).to(dev)
+        got = {f"{k}/{leaf}" if isinstance(v, dict) else k
+               for k, v in entry.items()
+               for leaf in (v if isinstance(v, dict) else [None])}
+        if got != set(names):
+            raise ValueError(f"table_{t} holds {sorted(got)}; the config "
+                             f"gives {sorted(names)}")
+        for path, name in names.items():
+            arr = np.array(_get(entry, path), dtype=np.float32, order="C")
+            if path == "kind_plain":
+                tables.append(arr)
+            state[name] = torch.from_numpy(arr).to(dev)
     return state, tables
 
 
 def params_to_numpy(model) -> Tuple[Dict, Dict]:
     """The port's DLRM -> (dense, sparse) numpy pytree in the JAX layout."""
-    dense = _mlps_to_numpy(dict(model.named_parameters()), model.cfg)
-    sparse = {f"table_{t}": {"kind_plain": tab.detach().cpu().numpy().copy()}
-              for t, tab in enumerate(model.tables)}
+    params = dict(model.named_parameters())
+    dense = _mlps_to_numpy(params, model.cfg)
+    sparse: Dict = {}
+    for t, names in enumerate(_names(model.cfg)):
+        entry = sparse[f"table_{t}"] = {}
+        for path, name in names.items():
+            _put(entry, path, params[name].detach().cpu().numpy().copy())
     return dense, sparse
+
+
+def _row_state_paths(cfg: DLRMConfig) -> Dict[str, Tuple[str, str]]:
+    """The port's name of each row-updated parameter -> (the JAX OptState
+    field, its path there)."""
+    out = {}
+    for t, names in enumerate(_names(cfg)):
+        for path, name in names.items():
+            if path == "kind_plain":
+                out[name] = ("sparse", f"table_{t}")
+            elif path == "pool_w":
+                out[name] = ("sparse", f"table_{t}__pool_w")
+            elif path != "kind_md/proj":
+                out[name] = ("fact", f"table_{t}/{path}")
+    return out
 
 
 def opt_state_from_jax(step, dense: Dict, sparse: Dict, cfg: DLRMConfig,
                        device=None) -> OptState:
     """The JAX package's OptState fields, as numpy -> the port's OptState.
-    rwsadagrad's [N] accumulators become views of one flat buffer
-    (`optim.row_state_views`), as `init_opt_state` builds them."""
+    The row-updated parameters' sums become views of one flat buffer per
+    update group, as `init_opt_state` builds them; the optimizer is
+    rwsadagrad where a plain table's or pool_w's sum is one per row."""
     dev = resolve_device(device)
-    arrays = [np.asarray(sparse[f"table_{t}"], dtype=np.float32)
-              for t in range(cfg.num_tables)] if sparse else []
-    if arrays and all(a.ndim == 1 for a in arrays):
-        rows = row_state_views(torch.from_numpy(np.concatenate(arrays)).to(
-            dev), [a.shape[0] for a in arrays])
-    else:
-        rows = {f"tables.{t}": torch.from_numpy(np.array(a)).to(dev)
-                for t, a in enumerate(arrays)}
-    return OptState(
-        step=int(step),
-        dense=_mlps_from_jax(dense["mlp"], cfg, dev) if dense else {},
-        sparse=rows)
+    if not dense and not sparse:
+        return OptState(int(step), {}, {})
+    paths = _row_state_paths(cfg)
+    fields = {"sparse": sparse, "fact": dense.get("fact", {})}
+    arrays = {name: np.asarray(_get(fields[f], p), dtype=np.float32)
+              for name, (f, p) in paths.items()}
+    rowwise = any(arrays[n].ndim == 1 for n, (f, _) in paths.items()
+                  if f == "sparse")
+    rows: Dict[str, torch.Tensor] = {}
+    for rule, members in state_groups(
+            row_sources(cfg), "rwsadagrad" if rowwise else "adagrad"):
+        parts = [arrays[s.name] for s in members]
+        flat = torch.from_numpy(np.concatenate(parts)).to(dev)
+        rows.update(row_state_views(flat, [p.shape[0] for p in parts],
+                                    [s.name for s in members]))
+    mlp = _mlps_from_jax(dense["mlp"], cfg, dev)
+    for t, names in enumerate(_names(cfg)):
+        if "kind_md/proj" in names:
+            mlp[names["kind_md/proj"]] = torch.from_numpy(np.array(
+                _get(fields["fact"], f"table_{t}/kind_md/proj"),
+                dtype=np.float32)).to(dev)
+    return OptState(step=int(step), dense=mlp, sparse=rows)
 
 
 def opt_state_to_numpy(opt: OptState, cfg: DLRMConfig
                        ) -> Tuple[int, Dict, Dict]:
     """The port's OptState -> (step, dense, sparse) in the JAX layout."""
-    dense = ({"mlp": _mlps_to_numpy(opt.dense, cfg), "fact": {}}
-             if opt.dense else {})
-    sparse = {f"table_{t}": opt.sparse[f"tables.{t}"].cpu().numpy().copy()
-              for t in range(cfg.num_tables)} if opt.sparse else {}
-    return opt.step, dense, sparse
+    if not opt.dense and not opt.sparse:
+        return opt.step, {}, {}
+    fields: Dict[str, Dict] = {"sparse": {}, "fact": {}}
+    for name, (f, path) in _row_state_paths(cfg).items():
+        _put(fields[f], path, opt.sparse[name].cpu().numpy().copy())
+    for t, names in enumerate(_names(cfg)):
+        if "kind_md/proj" in names:
+            _put(fields["fact"], f"table_{t}/kind_md/proj",
+                 opt.dense[names["kind_md/proj"]].cpu().numpy().copy())
+    return (opt.step, {"mlp": _mlps_to_numpy(opt.dense, cfg),
+                       "fact": fields["fact"]}, fields["sparse"])

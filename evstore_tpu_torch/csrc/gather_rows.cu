@@ -18,9 +18,11 @@
 //   straight into the [B, T, D] rows.  The tables come as a descriptor,
 //   int64 [2T + 1]: their base addresses, then the cumulative row offsets.
 //
-// Rows are moved as bytes, so any 4-byte-multiple row (f32, or bf16 with an
-// even width) is bit-exact.  An index outside its source writes a zero row
-// instead of reading out of bounds; callers validate ids on the host.
+// Rows are moved as bytes, so every row is bit-exact: any 4-byte-multiple
+// row (f32, or bf16 with an even width), and in the grouped form also a
+// bf16 row of odd width, such as a table's pooling weights [N, 1], in
+// 2-byte units.  An index outside its source writes a zero row instead of
+// reading out of bounds; callers validate ids on the host.
 //
 // Bound on this card: bytes (each index read once, each distinct row read
 // once, each output row written once).  At 65,536 x 26 rows of 144 B that
@@ -117,11 +119,12 @@ void launch(Src src, const void* idx, void* out, int64_t R, int64_t nvec,
   }
 }
 
-// The widest vector (16, 8 or 4 bytes) that divides the row and `align`.
+// The widest vector (16, 8, 4 or 2 bytes) that divides the row and
+// `align`.
 int vector_bytes(int64_t row_bytes, uintptr_t align) {
-  for (int v = 16; v > 4; v >>= 1)
+  for (int v = 16; v > 2; v >>= 1)
     if (row_bytes % v == 0 && align % v == 0) return v;
-  return 4;
+  return 2;
 }
 
 }  // namespace
@@ -165,7 +168,7 @@ extern "C" int gather_rows_grouped(const void* desc, int nt, const void* idx,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || nt < 1 || R % nt != 0 || row_bytes <= 0 ||
-      row_bytes % 4 != 0 || src_align <= 0)
+      row_bytes % 2 != 0 || src_align <= 0)
     return (int)cudaErrorInvalidValue;
   const uintptr_t a = (uintptr_t)src_align | (uintptr_t)out;
   const int vb = vector_bytes(row_bytes, a & (~a + 1));
@@ -175,8 +178,11 @@ extern "C" int gather_rows_grouped(const void* desc, int nt, const void* idx,
     launch<uint4>(Grouped<uint4>{d, nt}, idx, out, R, row_bytes / 16, st);
   } else if (vb == 8) {
     launch<uint2>(Grouped<uint2>{d, nt}, idx, out, R, row_bytes / 8, st);
-  } else {
+  } else if (vb == 4) {
     launch<uint32_t>(Grouped<uint32_t>{d, nt}, idx, out, R, row_bytes / 4,
+                     st);
+  } else {
+    launch<uint16_t>(Grouped<uint16_t>{d, nt}, idx, out, R, row_bytes / 2,
                      st);
   }
   return (int)cudaGetLastError();

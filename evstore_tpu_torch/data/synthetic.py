@@ -1,13 +1,14 @@
-"""Random request streams for serving and training (one-hot).
+"""Random request streams for serving and training.
 
 A copy of `RandomDataConfig`, `random_batches` and `learnable_batches` from
-`evstore_tpu/data/synthetic.py`, for bag size 1 and uniform dense features.
-The same config and seed give the same batches as the JAX package: the
-calls on the numpy generator are the same, in the same order.  The
-`zipf` and `grouped_zipf` streams carry the skew EVStore's cache exploits;
-`grouped_zipf` draws one popularity rank per request and shares it across
-all tables (cache_algo/EvLFU_C1.py:97-161).  Multi-hot bags and the
-gaussian stream are not ported yet.
+`evstore_tpu/data/synthetic.py`: one-hot or multi-hot bags
+(`num_indices_per_lookup`, with bag sizes U[1, L] or exactly L), uniform or
+gaussian dense features.  The same config and seed give the same batches
+as the JAX package: the calls on the numpy generator are the same, in the
+same order.  The `zipf` and `grouped_zipf` streams carry the skew EVStore's
+cache exploits; `grouped_zipf` draws one popularity rank per request (and
+bag slot) and shares it across all tables (cache_algo/EvLFU_C1.py:97-161).
+The gaussian index stream is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 
-Batch = Tuple[np.ndarray, np.ndarray, np.ndarray]
+# (dense, idx [B, T], labels), or with bags (dense, idx [B, T, L],
+# bag_weights [B, T, L], labels)
+Batch = Tuple[np.ndarray, ...]
 
 
 @dataclasses.dataclass
@@ -31,6 +34,15 @@ class RandomDataConfig:
     zipf_alpha: float = 1.05
     # grouped_zipf: resample a table's id independently with this probability
     group_noise: float = 0.1
+    rand_data_mu: float = -1.0        # reference --rand-data-* flags
+    rand_data_sigma: float = 1.0
+    dense_dist: str = "uniform"       # uniform | gaussian (|N(mu, sigma)|)
+    # multi-hot bags (reference --num-indices-per-lookup[-fixed],
+    # dlrm_data_pytorch.py:1062-1120): L > 1 yields (dense, idx [B, T, L],
+    # bag_weights [B, T, L], labels), bag sizes U[1, L] (exactly L when
+    # fixed), padded with weight 0
+    num_indices_per_lookup: int = 1
+    num_indices_per_lookup_fixed: bool = False
 
 
 def _sample_indices(rng: np.random.Generator, n: int, size: int,
@@ -48,10 +60,14 @@ def _sample_indices(rng: np.random.Generator, n: int, size: int,
 
 
 def random_batches(cfg: RandomDataConfig) -> Iterator[Batch]:
-    """Yields (dense [B, num_dense] f32, idx [B, T] int32, labels [B] f32)."""
+    """Yields (dense [B, num_dense] f32, idx [B, T] int32, labels [B] f32),
+    or with bags (dense, idx [B, T, L] int32, bag_weights [B, T, L] f32,
+    labels)."""
     if cfg.distribution not in ("uniform", "zipf", "grouped_zipf"):
         raise NotImplementedError(
             f"the {cfg.distribution!r} stream is not ported yet")
+    if cfg.dense_dist not in ("uniform", "gaussian"):
+        raise ValueError(f"unsupported dense_dist {cfg.dense_dist!r}")
     rng = np.random.default_rng(cfg.seed)
     sizes = list(cfg.table_sizes)
     # per-table rank -> id scattering for the zipf modes: a permutation for
@@ -67,13 +83,19 @@ def random_batches(cfg: RandomDataConfig) -> Iterator[Batch]:
                 while np.gcd(p, s) != 1:
                     p += 2
                 perms.append(("mul", p))
+    L = max(int(cfg.num_indices_per_lookup), 1)
     for _ in range(cfg.num_batches):
-        dense = rng.random((cfg.batch_size, cfg.num_dense))
-        idx = np.empty((cfg.batch_size, len(sizes)), dtype=np.int32)
+        if cfg.dense_dist == "gaussian":
+            dense = np.abs(rng.normal(cfg.rand_data_mu, cfg.rand_data_sigma,
+                                      (cfg.batch_size, cfg.num_dense)))
+        else:
+            dense = rng.random((cfg.batch_size, cfg.num_dense))
+        idx = np.empty((cfg.batch_size, len(sizes), L), dtype=np.int32)
         shared_rank = None
         if cfg.distribution == "grouped_zipf":
-            shared_rank = _sample_indices(rng, cfg.batch_size, max(sizes),
-                                          cfg)
+            # one popularity rank per (sample, bag slot), shared by tables
+            shared_rank = _sample_indices(rng, cfg.batch_size * L,
+                                          max(sizes), cfg)
         for t, s in enumerate(sizes):
             if shared_rank is not None:
                 raw = shared_rank % s
@@ -83,16 +105,25 @@ def random_batches(cfg: RandomDataConfig) -> Iterator[Batch]:
                                    _sample_indices(rng, raw.shape[0], s, cfg),
                                    raw)
             else:
-                raw = _sample_indices(rng, cfg.batch_size, s, cfg)
+                raw = _sample_indices(rng, cfg.batch_size * L, s, cfg)
             if perms is not None:
                 kind, p = perms[t]
                 if kind == "perm":
                     raw = p[np.minimum(raw, s - 1)]
                 else:
                     raw = (raw * p) % s
-            idx[:, t] = raw.astype(np.int32)
+            idx[:, t, :] = raw.astype(np.int32).reshape(cfg.batch_size, L)
         labels = rng.integers(0, 2, cfg.batch_size).astype(np.float32)
-        yield dense.astype(np.float32), idx, labels
+        if L == 1:
+            yield dense.astype(np.float32), idx[:, :, 0], labels
+            continue
+        if cfg.num_indices_per_lookup_fixed:
+            bag_w = np.ones((cfg.batch_size, len(sizes), L), np.float32)
+        else:
+            sz = rng.integers(1, L + 1, (cfg.batch_size, len(sizes)))
+            bag_w = (np.arange(L)[None, None, :] < sz[..., None]
+                     ).astype(np.float32)
+        yield dense.astype(np.float32), idx, bag_w, labels
 
 
 def learnable_batches(cfg: RandomDataConfig, hidden_seed: int = 42

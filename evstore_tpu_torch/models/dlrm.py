@@ -11,7 +11,7 @@ stores [in, out] (see `convert.py`).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -19,8 +19,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from evstore_tpu_torch.config import DLRMConfig
-from evstore_tpu_torch.models.embedding import (init_embedding_tables,
-                                                sparse_arch_lookup)
+from evstore_tpu_torch.models.embedding import (MDTable, QRTable, RowSource,
+                                                init_sparse_arch, row_sources,
+                                                sparse_arch_lookup,
+                                                table_kinds)
 from evstore_tpu_torch.ops.cuda_interaction import DotInteraction
 from evstore_tpu_torch.ops.interaction import cat_interaction, dot_interaction
 from evstore_tpu_torch.utils.device import resolve_device
@@ -43,15 +45,52 @@ def _mlp(dims, rng: np.random.Generator, dtype) -> nn.ModuleList:
     return layers
 
 
+def _flat_entry(entry: Dict) -> Dict[str, np.ndarray]:
+    """A table's entry in the JAX layout, one level deep: {"kind_plain",
+    "pool_w", "q", "r", "table", "proj"} -> array."""
+    out = {}
+    for k, v in entry.items():
+        if isinstance(v, dict):
+            out.update(v)
+        else:
+            out[k] = v
+    return out
+
+
+def _expected(cfg: DLRMConfig) -> List[Dict[str, tuple]]:
+    """The shapes of each table's entry, by `_flat_entry`'s keys."""
+    out = [{} for _ in range(cfg.num_tables)]
+    for s in row_sources(cfg):
+        key = {"plain": "kind_plain", "md": "table"}.get(s.part, s.part)
+        out[s.table][key] = (s.rows, s.width)
+    for t, (kind, dim) in enumerate(table_kinds(cfg)):
+        if kind == "md" and dim != cfg.embedding_dim:
+            out[t]["proj"] = (dim, cfg.embedding_dim)
+    return out
+
+
 class DLRM(nn.Module):
-    """Dense arch, interaction and the plain embedding tables.  `tables` is
-    True to draw the tables from `seed`, a sequence of [n, D] float32 numpy
-    arrays to copy onto the device (the caller's arrays are not changed by
-    training), or False when the rows live elsewhere (the EVStore store
-    behind the device cache); `forward` then needs `emb_rows`."""
+    """Dense arch, interaction and the sparse arch.
+
+    The sparse arch's parameters are laid out as the JAX package's
+    `table_t` entries: `tables` holds the plain tables (`kind_plain`) in
+    table order, and `plain_ids` their table numbers (every table, for a
+    model without qr or md tables); `qr` and `md` hold a `QRTable` or an
+    `MDTable` under the table's number, and `pool_w` the pooling weights
+    [n, 1] of each plain table under weighted pooling.
+
+    `tables` is True to draw the sparse arch from `seed`
+    (`init_sparse_arch`), False when the rows live elsewhere (the EVStore
+    store behind the device cache; `forward` then needs `emb_rows`), or a
+    sequence of one entry per table to copy onto the device (the caller's
+    arrays are not changed by training): an [n, D] float32 array (numpy,
+    or a tensor) for a plain table (with `pool_w` at ones under weighted
+    pooling), or the table's entry in the JAX layout
+    (`{"kind_plain": ..., "pool_w": ...}`, `{"kind_qr": {"q", "r"}}`,
+    `{"kind_md": {"table", "proj"}}`)."""
 
     def __init__(self, cfg: DLRMConfig, *, device=None, seed: int = 0,
-                 tables: Union[bool, Sequence[np.ndarray]] = True):
+                 tables: Union[bool, Sequence] = True):
         super().__init__()
         cfg.validate()
         if cfg.interaction_op not in ("dot", "cat"):
@@ -65,19 +104,71 @@ class DLRM(nn.Module):
         self.bot = _mlp(cfg.mlp_bot, rng, dtype)
         self.top = _mlp(cfg.mlp_top, rng, dtype)
         self.tables = nn.ParameterList()
+        self.qr = nn.ModuleDict()
+        self.md = nn.ModuleDict()
+        self.pool_w = nn.ParameterDict()
         if tables is True:
-            tables = init_embedding_tables(cfg.table_sizes,
-                                           cfg.embedding_dim, rng)
+            tables = init_sparse_arch(cfg, rng)
         elif tables is False:
             tables = []
-        elif [np.shape(t) for t in tables] != [
-                (n, cfg.embedding_dim) for n in cfg.table_sizes]:
-            raise ValueError("the tables' shapes do not match the config")
-        for t in tables:
-            self.tables.append(nn.Parameter(
-                torch.from_numpy(t).to(device=dev, dtype=dtype, copy=True),
-                requires_grad=False))
+        if len(tables) not in (0, cfg.num_tables):
+            raise ValueError(f"{len(tables)} table entries for "
+                             f"{cfg.num_tables} tables")
+
+        def param(a, grad=False):
+            t = a if isinstance(a, torch.Tensor) else \
+                torch.from_numpy(np.asarray(a))
+            return nn.Parameter(t.to(device=dev, dtype=dtype, copy=True
+                                     ).contiguous(), requires_grad=grad)
+
+        plain_ids = []
+        for t, (e, src) in enumerate(zip(tables, _expected(cfg))):
+            if not isinstance(e, dict):
+                e = {"kind_plain": e}
+            got = {k: tuple(v.shape) if isinstance(v, torch.Tensor)
+                   else np.shape(v) for k, v in _flat_entry(e).items()}
+            if cfg.weighted_pooling and "kind_plain" in e:
+                got.setdefault("pool_w", src["pool_w"])
+            if got != src:
+                raise ValueError(f"the tables' shapes do not match the "
+                                 f"config: table {t} has {got}, the config "
+                                 f"gives {src}")
+            if "kind_qr" in e:
+                self.qr[str(t)] = QRTable(param(e["kind_qr"]["q"]),
+                                          param(e["kind_qr"]["r"]))
+            elif "kind_md" in e:
+                proj = e["kind_md"].get("proj")
+                self.md[str(t)] = MDTable(
+                    param(e["kind_md"]["table"]),
+                    None if proj is None else param(proj, grad=True))
+            else:
+                plain_ids.append(t)
+                self.tables.append(param(e["kind_plain"]))
+                if cfg.weighted_pooling:
+                    self.pool_w[str(t)] = param(
+                        e.get("pool_w", np.ones((cfg.table_sizes[t], 1),
+                                                np.float32)))
+        self.plain_ids = tuple(plain_ids)
         self.to(dev)
+
+    def has_sparse(self) -> bool:
+        """Whether the model holds its sparse arch (not `tables=False`)."""
+        return len(self.tables) + len(self.qr) + len(self.md) > 0
+
+    def entries(self) -> List:
+        """Per table: its plain tensor, `QRTable` or `MDTable`."""
+        plain = dict(zip(self.plain_ids, self.tables))
+        return [plain[t] if t in plain else
+                self.qr[str(t)] if str(t) in self.qr else self.md[str(t)]
+                for t in range(self.cfg.num_tables)]
+
+    def pool_weights(self) -> Dict[int, torch.Tensor]:
+        return {int(t): w for t, w in self.pool_w.items()}
+
+    def row_sources(self) -> List[RowSource]:
+        """The sparse arch's row sources (`models/embedding.py`), each with
+        its parameter and its name in `named_parameters()`."""
+        return row_sources(self.cfg, self.entries(), self.pool_weights())
 
     def _apply_mlp(self, layers: nn.ModuleList, x: torch.Tensor,
                    last_linear: bool) -> torch.Tensor:
@@ -114,20 +205,24 @@ class DLRM(nn.Module):
 
     def forward(self, dense_x: torch.Tensor,
                 idx: Optional[torch.Tensor] = None,
-                emb_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """dense_x [B, num_dense], idx [B, T] int, optional emb_rows
-        [B, T, D] -> logits [B]."""
+                emb_rows: Optional[torch.Tensor] = None,
+                bag_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """dense_x [B, num_dense], idx [B, T] int or [B, T, L] bags with
+        optional bag_weights [B, T, L], or emb_rows [B, T, D] in place of
+        the lookup -> logits [B]."""
         x = self.bottom_mlp(dense_x)
         if emb_rows is None:
-            if len(self.tables) == 0:
+            if not self.has_sparse():
                 raise ValueError("this DLRM holds no tables; pass emb_rows")
-            emb_rows = sparse_arch_lookup(list(self.tables), idx, self.cfg)
+            emb_rows = sparse_arch_lookup(self.entries(), idx, self.cfg,
+                                          bag_weights, self.pool_weights())
         return self.top_mlp(self.interact(x, emb_rows.to(x.dtype)))
 
-    def predict(self, dense_x, idx=None, emb_rows=None) -> torch.Tensor:
+    def predict(self, dense_x, idx=None, emb_rows=None,
+                bag_weights=None) -> torch.Tensor:
         """Click probability with the reference's loss_threshold clamp
         (dlrm_s_pytorch.py:605-611)."""
-        p = torch.sigmoid(self(dense_x, idx, emb_rows))
+        p = torch.sigmoid(self(dense_x, idx, emb_rows, bag_weights))
         if self.cfg.loss_threshold > 0.0:
             p = p.clamp(self.cfg.loss_threshold,
                         1.0 - self.cfg.loss_threshold)
@@ -138,12 +233,12 @@ def dlrm_loss(logits: torch.Tensor, targets: torch.Tensor,
               loss_function: str = "bce",
               loss_weights=(1.0, 1.0)) -> torch.Tensor:
     """BCE (with logits, the same math as the reference's sigmoid +
-    nn.BCELoss), MSE, or weighted BCE (dlrm_s_pytorch.py:297-312,150-167)."""
+    nn.BCELoss), MSE, or weighted BCE (dlrm_s_pytorch.py:297-312,150-167).
+    Any other name is BCE, as in the JAX package, whose CLI passes
+    `--loss-function` through unchecked."""
     t = targets.float()
     if loss_function == "mse":
         return torch.mean((torch.sigmoid(logits) - t) ** 2)
-    if loss_function not in ("bce", "wbce"):
-        raise ValueError(f"unsupported loss function {loss_function}")
     # log-sigmoid BCE
     per = -(t * F.logsigmoid(logits) + (1.0 - t) * F.logsigmoid(-logits))
     if loss_function == "wbce":

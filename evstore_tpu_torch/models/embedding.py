@@ -1,10 +1,25 @@
-"""Plain embedding tables: initialization and one-hot lookup.
+"""Embedding tables: initialization, lookup, bags, and the qr/md tricks.
 
-Port of the plain-table parts of `evstore_tpu/models/embedding.py`.  Each
-table is initialised U(-sqrt(1/n), sqrt(1/n)) (dlrm_s_pytorch.py:278-283).
-On the card a lookup of all tables goes through one launch of the
-grouped row-gather kernel (`ops/cuda_gather.py`).  qr, md and multi-hot
-bags are not ported yet.
+Port of `evstore_tpu/models/embedding.py`.  Each plain table is
+initialised U(-sqrt(1/n), sqrt(1/n)) (dlrm_s_pytorch.py:278-283); the qr
+tables (tricks/qr_embedding_bag.py) and md tables with their projection
+(tricks/md_embedding_bag.py) follow the JAX package's laws, drawn from a
+numpy generator.  A table is one of three kinds, as in the JAX package's
+`table_t` entries: `kind_plain` (a tensor [n, D]), `kind_qr` (`QRTable`,
+q and r) and `kind_md` (`MDTable`, table and an optional proj); a plain
+table may carry per-row pooling weights `pool_w` [n, 1].
+
+A lookup reads ids [B, T] (one-hot) or [B, T, L] (multi-hot bags, padded
+with id 0 and weight 0, sum-pooled with optional bag weights [B, T, L]).
+Every row it reads comes from a table through the grouped row-gather
+kernel (`ops/cuda_gather.py`): the ids of the bags of every table become
+one [B·L, S] index over the S row sources (a plain table, q, r, an md
+table, pool_w), and the sources of one width go through one launch.  The
+combination (pool_w, the qr op, the md projection as a `torch.matmul`,
+the pooling) is plain PyTorch, as it is XLA in the JAX package.  The
+gathered rows are not differentiable in the tables: the train step
+(`train/train_loop.py`) differentiates with respect to them and applies
+row updates.
 
 Ids outside [0, N) are a deliberate departure from the JAX package, which
 is not consistent with itself there (its `take_rows` clips them, its
@@ -18,26 +33,32 @@ versions alike) and a row update leaves the table alone.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from evstore_tpu_torch.ops.cuda_gather import gather_rows_grouped
+
+# the parts of a factorised (qr or md) table, which the JAX package
+# updates with its dense branch
+FACT_PARTS = ("q", "r", "md")
+
+
+def _uniform(rng: np.random.Generator, shape, bound: float) -> np.ndarray:
+    """U(-bound, bound) float32, built in place (no float64 temporary)."""
+    t = rng.random(shape, dtype=np.float32)
+    t *= np.float32(2 * bound)
+    t -= np.float32(bound)
+    return t
 
 
 def init_embedding_tables(table_sizes: Sequence[int], dim: int,
                           rng: np.random.Generator) -> List[np.ndarray]:
     """Float32 [n, dim] tables drawn from `rng`, U(-sqrt(1/n), sqrt(1/n)).
     Built in place, so a multi-GB table needs no float64 temporary."""
-    tables = []
-    for n in table_sizes:
-        bound = np.float32(np.sqrt(1.0 / n))
-        t = rng.random((n, dim), dtype=np.float32)
-        t *= 2 * bound
-        t -= bound
-        tables.append(t)
-    return tables
+    return [_uniform(rng, (n, dim), np.sqrt(1.0 / n)) for n in table_sizes]
 
 
 def check_ids(idx: np.ndarray, table_sizes: Sequence[int]) -> None:
@@ -56,16 +77,344 @@ def check_ids(idx: np.ndarray, table_sizes: Sequence[int]) -> None:
                          f"outside [0, {int(sizes.flat[pos[1]])})")
 
 
-def sparse_arch_lookup(tables: Sequence[torch.Tensor], idx: torch.Tensor,
-                       cfg) -> torch.Tensor:
-    """One-hot idx [B, T] -> [B, T, D] rows: one launch of the grouped
-    gather kernel for all tables, or with `use_gather_kernel` off an
-    `index_select` per table."""
-    if idx.dim() != 2:
-        raise NotImplementedError(
-            "multi-hot [B, T, L] bags are not ported yet; idx must be [B, T]")
-    if cfg.use_gather_kernel:
-        return gather_rows_grouped(list(tables),
-                                   idx.to(torch.int32).contiguous())
-    return torch.stack([torch.index_select(tab, 0, idx[:, t].long())
-                        for t, tab in enumerate(tables)], dim=1)
+def pool_bags(rows: torch.Tensor, weights: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """Sum-pool multi-hot bags: rows [B, L, D] (+ optional weights
+    [B, L]) -> [B, D], `EmbeddingBag(mode="sum", per_sample_weights=w)`
+    with a static bag size L (dlrm_s_pytorch.py:407-459); or every table
+    at once, rows [B, L, T, D] and weights [B, L, T] -> [B, T, D]."""
+    if weights is not None:
+        rows = rows * weights[..., None].to(rows.dtype)
+    return rows.sum(dim=1)
+
+
+# ------------------------------------------------------------ QR trick
+
+def init_qr_tables(num_rows: int, dim: int, collisions: int,
+                   operation: str, rng: np.random.Generator
+                   ) -> Dict[str, np.ndarray]:
+    """Quotient-remainder tables (tricks/qr_embedding_bag.py:25-185): q
+    has ceil(n/c) rows, r has c rows; concat splits the width."""
+    num_q = -(-num_rows // collisions)
+    dq = dim // 2 if operation == "concat" else dim
+    dr = dim - dq if operation == "concat" else dim
+    return {"q": _uniform(rng, (num_q, dq), np.sqrt(1.0 / num_q)),
+            "r": _uniform(rng, (collisions, dr), np.sqrt(1.0 / collisions))}
+
+
+def qr_combine(q: torch.Tensor, r: torch.Tensor, operation: str
+               ) -> torch.Tensor:
+    if operation == "mult":
+        return q * r
+    if operation == "add":
+        return q + r
+    if operation == "concat":
+        return torch.cat([q, r], dim=-1)
+    raise ValueError(f"unsupported qr operation {operation}")
+
+
+def qr_lookup(qr, idx: torch.Tensor, collisions: int,
+              operation: str = "mult") -> torch.Tensor:
+    """idx [K] -> [K, D] (tricks/qr_embedding_bag.py:156-174); `qr` is a
+    `QRTable` or a mapping with "q" and "r"."""
+    q, r = (qr.q, qr.r) if isinstance(qr, nn.Module) else (qr["q"], qr["r"])
+    idx = idx.long()
+    return qr_combine(torch.index_select(q, 0, idx // collisions),
+                      torch.index_select(r, 0, idx % collisions), operation)
+
+
+# ------------------------------------------------------------ MD trick
+
+def md_solver(sizes: np.ndarray, alpha: float, d0: Optional[int] = None,
+              round_dim: bool = False) -> np.ndarray:
+    """Mixed-dimension alpha-power rule (tricks/md_embedding_bag.py:20-61):
+    d_i = d0 * (n_i / n_max)^alpha capped at d0 and at least 1, n sorted
+    descending.  A copy of the JAX package's function, sign convention
+    included: `init_sparse_arch` passes alpha = -md_temperature, so the
+    default temperature 0.3 gives every table d0."""
+    sizes = np.asarray(sizes, dtype=np.float64)
+    order = np.argsort(-sizes)
+    n_sorted = sizes[order]
+    if d0 is None:
+        raise ValueError("d0 (base dim) required")
+    p = n_sorted / n_sorted[0]
+    d = d0 * np.power(p, alpha)
+    d = np.maximum(d, 1)
+    if round_dim:
+        d = np.power(2, np.round(np.log2(d))).astype(np.int64)
+    d = np.minimum(d, d0).astype(np.int64)
+    out = np.empty_like(d)
+    out[order] = d
+    return out
+
+
+def init_md_table(num_rows: int, base_dim: int, md_dim: int,
+                  rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """PrEmbeddingBag (tricks/md_embedding_bag.py:63-81): [n, md_dim] and,
+    below the base width, a [md_dim, base_dim] projection (no bias)."""
+    tab = _uniform(rng, (num_rows, md_dim), np.sqrt(1.0 / num_rows))
+    if md_dim == base_dim:
+        return {"table": tab}
+    return {"table": tab, "proj": _uniform(
+        rng, (md_dim, base_dim), np.sqrt(2.0 / (md_dim + base_dim)))}
+
+
+def md_lookup(md, idx: torch.Tensor) -> torch.Tensor:
+    """idx [K] -> [K, D]: the md row, times proj where there is one."""
+    table, proj = ((md.table, md.proj) if isinstance(md, nn.Module)
+                   else (md["table"], md.get("proj")))
+    rows = torch.index_select(table, 0, idx.long())
+    return rows if proj is None else torch.matmul(rows, proj)
+
+
+# ------------------------------------------------ the sparse arch's kinds
+
+def table_kinds(cfg) -> List[Tuple[str, int]]:
+    """Per table: ("plain" | "qr" | "md", its row width), by the JAX
+    package's rule (`init_sparse_arch`): qr above qr_threshold rows, else md
+    above md_threshold, else plain.  An md table's width comes from
+    `md_solver(sizes, -md_temperature)`; a qr table's is q's."""
+    md_dims = (md_solver(np.asarray(cfg.table_sizes), -cfg.md_temperature,
+                         d0=cfg.embedding_dim, round_dim=cfg.md_round_dims)
+               if cfg.md_flag else None)
+    out = []
+    for t, n in enumerate(cfg.table_sizes):
+        if cfg.qr_flag and n > cfg.qr_threshold:
+            out.append(("qr", cfg.embedding_dim // 2
+                        if cfg.qr_operation == "concat"
+                        else cfg.embedding_dim))
+        elif cfg.md_flag and n > cfg.md_threshold:
+            out.append(("md", int(md_dims[t])))
+        else:
+            out.append(("plain", cfg.embedding_dim))
+    return out
+
+
+def init_sparse_arch(cfg, rng: np.random.Generator) -> List[Dict]:
+    """The sparse side as numpy arrays in the JAX package's per-table layout
+    ({"kind_plain": [n, D][, "pool_w": [n, 1]]}, {"kind_qr": {"q", "r"}},
+    {"kind_md": {"table"[, "proj"]}}), drawn from `rng` table by table.
+    `pool_w` starts at ones (dlrm_s_pytorch.py:284-293)."""
+    out = []
+    for n, (kind, dim) in zip(cfg.table_sizes, table_kinds(cfg)):
+        if kind == "qr":
+            out.append({"kind_qr": init_qr_tables(
+                n, cfg.embedding_dim, cfg.qr_collisions, cfg.qr_operation,
+                rng)})
+        elif kind == "md":
+            out.append({"kind_md": init_md_table(n, cfg.embedding_dim, dim,
+                                                 rng)})
+        else:
+            entry = {"kind_plain": _uniform(rng, (n, cfg.embedding_dim),
+                                            np.sqrt(1.0 / n))}
+            if cfg.weighted_pooling:
+                entry["pool_w"] = np.ones((n, 1), np.float32)
+            out.append(entry)
+    return out
+
+
+class QRTable(nn.Module):
+    """JAX `kind_qr`: q [ceil(n/c), dq] and r [c, dr], updated by rows."""
+
+    def __init__(self, q: torch.Tensor, r: torch.Tensor):
+        super().__init__()
+        self.q = nn.Parameter(q, requires_grad=False)
+        self.r = nn.Parameter(r, requires_grad=False)
+
+
+class MDTable(nn.Module):
+    """JAX `kind_md`: table [n, md_dim], updated by rows, and, below the
+    base width, proj [md_dim, D], trained by autograd with the MLPs."""
+
+    def __init__(self, table: torch.Tensor, proj: Optional[torch.Tensor]):
+        super().__init__()
+        self.table = nn.Parameter(table, requires_grad=False)
+        self.proj = None if proj is None else nn.Parameter(proj)
+
+
+# ------------------------------------------------------ the row sources
+
+class RowSource(NamedTuple):
+    """One table the lookup gathers rows from.  `name` is its parameter's
+    name in the `DLRM` (and its optimizer state's key); a row of table
+    `table`'s id k is row (k // div) % mod of `param` (mod 0: none)."""
+    name: str
+    table: int
+    part: str                   # plain | q | r | md | pool_w
+    rows: int
+    width: int
+    div: int = 1
+    mod: int = 0
+    param: Optional[torch.Tensor] = None
+
+
+def row_sources(cfg, entries: Optional[Sequence] = None,
+                pool_w: Optional[Dict[int, torch.Tensor]] = None
+                ) -> List[RowSource]:
+    """The row sources of the sparse arch, table by table (plain; q, r;
+    md), then the pooling weights.  `entries` holds per table a tensor
+    (plain), a `QRTable` or an `MDTable`, with `pool_w` {t: [n, 1]}; with
+    no entries, the shapes come from `cfg` and `param` is None."""
+    out: List[RowSource] = []
+    n_plain = 0
+    kinds = table_kinds(cfg)
+    for t, (n, (kind, dim)) in enumerate(zip(cfg.table_sizes, kinds)):
+        e = None if entries is None else entries[t]
+        if isinstance(e, QRTable) or (e is None and kind == "qr"):
+            c = cfg.qr_collisions
+            for part, p, rows, w, div, mod in (
+                    ("q", None if e is None else e.q, -(-n // c), dim, c, 0),
+                    ("r", None if e is None else e.r, c,
+                     cfg.embedding_dim - dim if cfg.qr_operation == "concat"
+                     else dim, 1, c)):
+                if p is not None:
+                    rows, w = p.shape
+                out.append(RowSource(f"qr.{t}.{part}", t, part, rows, w, div,
+                                     mod, p))
+        elif isinstance(e, MDTable) or (e is None and kind == "md"):
+            p = None if e is None else e.table
+            rows, w = (n, dim) if p is None else p.shape
+            out.append(RowSource(f"md.{t}.table", t, "md", rows, w, param=p))
+        else:
+            rows, w = (n, cfg.embedding_dim) if e is None else e.shape
+            out.append(RowSource(f"tables.{n_plain}", t, "plain", rows, w,
+                                 param=e))
+            n_plain += 1
+    if entries is None:
+        pool = ({t: None for t, (k, _) in enumerate(kinds) if k == "plain"}
+                if cfg.weighted_pooling else {})
+    else:
+        pool = pool_w or {}
+    for t, p in sorted(pool.items()):
+        out.append(RowSource(f"pool_w.{t}", t, "pool_w",
+                             cfg.table_sizes[t] if p is None else p.shape[0],
+                             1, param=p))
+    return out
+
+
+def gather_groups(sources: Sequence[RowSource]) -> List[List[int]]:
+    """The sources gathered together: one group for each width (the
+    pooling weights in a group of their own), in order of first
+    appearance; within a group, the plain tables' rows before the
+    factorised ones', each in table order."""
+    groups: Dict[Tuple[int, bool], List[int]] = {}
+    for i, s in enumerate(sources):
+        groups.setdefault((s.width, s.part == "pool_w"), []).append(i)
+    return [sorted(m, key=lambda i: sources[i].part in FACT_PARTS)
+            for m in groups.values()]
+
+
+def flat_ids(idx: torch.Tensor) -> torch.Tensor:
+    """[B, T] ids as they are, or [B, T, L] bags as [B·L, T] (row b·L + l
+    holds slot l of sample b), int32 and contiguous."""
+    if idx.dim() == 3:
+        idx = idx.transpose(1, 2).reshape(-1, idx.shape[1])
+    return idx.to(torch.int32).contiguous()
+
+
+def group_ids(sources: Sequence[RowSource], members: Sequence[int],
+              flat: torch.Tensor) -> torch.Tensor:
+    """The int32 index [R, S] of one gather group.  Each run of members
+    that read consecutive columns of `flat` alike (one div and mod) is one
+    slice of it, so a group of every table's plain rows is `flat` itself."""
+    runs: List[List[RowSource]] = []
+    for s in (sources[i] for i in members):
+        p = runs[-1][-1] if runs else None
+        if p is not None and (s.table, s.div, s.mod) == (p.table + 1, p.div,
+                                                         p.mod):
+            runs[-1].append(s)
+        else:
+            runs.append([s])
+    blocks = []
+    for run in runs:
+        s = run[0]
+        ids = flat[:, s.table:s.table + len(run)]
+        if s.div != 1:
+            ids = torch.div(ids, s.div, rounding_mode="floor")
+        if s.mod:
+            ids = torch.remainder(ids, s.mod)
+        blocks.append(ids)
+    return (blocks[0] if len(blocks) == 1
+            else torch.cat(blocks, dim=1)).contiguous()
+
+
+def gather_rows_of(sources: Sequence[RowSource],
+                   groups: Sequence[Sequence[int]],
+                   ids_of: Sequence[torch.Tensor],
+                   use_kernel: bool) -> List[torch.Tensor]:
+    """One tensor [R, S, width] per gather group, from its index
+    (`group_ids`): one launch of the grouped row-gather kernel each, or
+    with `use_kernel` off an `index_select` per source."""
+    out = []
+    for members, ids in zip(groups, ids_of):
+        params = [sources[i].param for i in members]
+        if use_kernel:
+            out.append(gather_rows_grouped(params, ids))
+        else:
+            out.append(torch.stack([
+                torch.index_select(p, 0, ids[:, j].long())
+                for j, p in enumerate(params)], dim=1))
+    return out
+
+
+def combine_rows(cfg, sources: Sequence[RowSource],
+                 groups: Sequence[Sequence[int]],
+                 gathered: Sequence[torch.Tensor], entries: Sequence,
+                 shape: Tuple[int, ...],
+                 bag_weights: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The gathered rows -> [B, T, D] (`shape` is idx's): pool_w, the qr
+    op and the md projection per table, then the bags' weighted sums, as
+    the JAX package's `sparse_arch_lookup` computes them.
+    Differentiable in `gathered` and the md projections."""
+    T = cfg.num_tables
+    col = {}
+    for members, got in zip(groups, gathered):
+        for i, c in zip(members, got.unbind(1)):
+            col[(sources[i].table, sources[i].part)] = c
+    weighted = [t for t in range(T) if (t, "pool_w") in col]
+    if weighted:        # the pooling weights of all tables in one product
+        prod = (torch.stack([col[(t, "plain")] for t in weighted], dim=1)
+                * torch.stack([col[(t, "pool_w")] for t in weighted], dim=1))
+        for t, c in zip(weighted, prod.unbind(1)):
+            col[(t, "plain")] = c
+    per_table = []
+    for t in range(T):
+        e = entries[t]
+        if isinstance(e, QRTable):
+            r = qr_combine(col[(t, "q")], col[(t, "r")], cfg.qr_operation)
+        elif isinstance(e, MDTable):
+            r = col[(t, "md")]
+            if e.proj is not None:
+                r = torch.matmul(r, e.proj)
+        else:
+            r = col[(t, "plain")]
+        per_table.append(r)
+    rows = torch.stack(per_table, dim=1)
+    if len(shape) == 2:
+        return rows
+    B, _, L = shape
+    return pool_bags(rows.reshape(B, L, T, -1), None if bag_weights is None
+                     else bag_weights.transpose(1, 2))
+
+
+def sparse_arch_lookup(tables: Sequence, idx: torch.Tensor, cfg,
+                       bag_weights: Optional[torch.Tensor] = None,
+                       pool_w: Optional[Dict[int, torch.Tensor]] = None
+                       ) -> torch.Tensor:
+    """idx [B, T] (or [B, T, L] bags with optional bag_weights [B, T, L])
+    -> [B, T, D].  `tables` holds per table a tensor [n, D] (plain), a
+    `QRTable` or an `MDTable`; `pool_w` {t: [n, 1]} weighs plain tables'
+    rows.  With `use_gather_kernel` on, one launch of the grouped gather
+    kernel per width; off, an `index_select` per source."""
+    if idx.dim() not in (2, 3):
+        raise ValueError(f"idx must be [B, T] or [B, T, L], got "
+                         f"{tuple(idx.shape)}")
+    sources = row_sources(cfg, tables, pool_w)
+    groups = gather_groups(sources)
+    flat = flat_ids(idx)
+    gathered = gather_rows_of(sources, groups,
+                              [group_ids(sources, m, flat) for m in groups],
+                              cfg.use_gather_kernel)
+    return combine_rows(cfg, sources, groups, gathered, tables,
+                        tuple(idx.shape), bag_weights)

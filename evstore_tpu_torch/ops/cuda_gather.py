@@ -154,9 +154,9 @@ gather_rows.launches = 0
 
 def gather_rows_grouped(tables: Sequence[torch.Tensor],
                         idx: torch.Tensor) -> torch.Tensor:
-    """T tables [N_t, D] of one type and width, idx [B, T] int32 -> rows
-    [B, T, D] with out[b, t] = tables[t][idx[b, t]], bit-exact; an id outside
-    [0, N_t) gives a zero row."""
+    """T tables [N_t, D] of one type (f32 or bf16, any width) and width,
+    idx [B, T] int32 -> rows [B, T, D] with out[b, t] = tables[t][idx[b, t]],
+    bit-exact; an id outside [0, N_t) gives a zero row."""
     if idx.device.type == "cpu" and all(t.device.type == "cpu"
                                         for t in tables):
         return gather_rows_grouped_ref(tables, idx)
@@ -172,9 +172,6 @@ def gather_rows_grouped(tables: Sequence[torch.Tensor],
                          f"[B, {len(tables)}], got {idx.dtype} "
                          f"{tuple(idx.shape)}")
     row_bytes = group.dim * tables[0].element_size()
-    if row_bytes % 4:
-        raise ValueError(f"gather_rows_grouped takes rows of a multiple of 4 "
-                         f"bytes, got {group.dim} x {group.dtype}")
     out = torch.empty((*idx.shape, group.dim), dtype=group.dtype, device=dev)
     if idx.numel() == 0:
         return out

@@ -1,4 +1,5 @@
-"""The rwsadagrad row update through the CUDA kernel `csrc/row_update.cu`.
+"""The row updates of sgd, adagrad and rwsadagrad through the CUDA kernel
+`csrc/row_update.cu`.
 
 Port of `evstore_tpu/ops/pallas_update.py`.  `scatter_sub_sorted` is the
 port of the TPU kernel `_sub_sweep_kernel`: over a group of tables that
@@ -11,23 +12,28 @@ CUDA tensors and takes the plain version (`scatter_sub_sorted_grouped_ref`)
 only for CPU tensors.  Unlike the TPU kernel, which rewrites the whole
 table, the kernel touches only the rows in the batch.
 
-`rwsadagrad_row_update` mirrors `rwsadagrad_row_update_pallas` for every
-table of a one-hot batch at once: map each table's ids to global ids (an id
-outside [0, N_t) becomes PAD_ROW first, so that it cannot land in the next
-table's rows), sort them, sum each sorted segment, update the row
-accumulators (one flat [sum N_t] buffer), pre-scale each entry by
-lr / (sqrt(state_row) + eps) and apply with the kernel.  The tables' global
-row ranges are disjoint, so this is the per-table math, run once.  It never
-waits for the device: every buffer is sized by the batch, not by the number
-of distinct ids.  The tables and the state are updated in place.  The kernel
-sums each run in a fixed order; the segment sums that feed the accumulators
-come from `index_add_`, whose atomics on the card add in any order, so the
-accumulators and the per-row scale agree between runs only to rounding.
+`rwsadagrad_row_update` mirrors `rwsadagrad_row_update_pallas` for a group
+of tables of one width at once (every table of a train step's batch, or
+the rows of its bags): map each table's ids to global ids (an id outside
+[0, N_t) becomes PAD_ROW first, so that it cannot land in the next table's
+rows), sort them, sum each sorted segment, update the row accumulators (one
+flat [sum N_t] buffer), pre-scale each entry by lr / (sqrt(state_row) +
+eps) and apply with the kernel.  `adagrad_row_update` is the same with an
+elementwise state (one flat [sum N_t, D] buffer), and hands the kernel each
+run's update on the run's first entry (see there why); `sgd_row_update`
+pre-scales each entry by lr and needs no segment sum.  The
+tables' global row ranges are disjoint, so this is the per-table math, run
+once.  None of them waits for the device: every buffer is sized by the
+batch, not by the number of distinct ids.  The tables and the state are
+updated in place.  The kernel sums each run in a fixed order; the segment
+sums that feed the accumulators come from `index_add_`, whose atomics on
+the card add in any order, so the accumulators and the per-row scale agree
+between runs only to rounding.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -142,6 +148,105 @@ def scatter_sub_sorted(tables: Tables, rows_sorted: torch.Tensor,
 scatter_sub_sorted.launches = 0
 
 
+def _sorted_entries(name: str, state: Optional[torch.Tensor],
+                    tables: Tables, ids: torch.Tensor, grads: torch.Tensor,
+                    state_shape):
+    """The shared start of the grouped updates: check the shapes, map each
+    table's ids to global ids (an id outside [0, N_t) becomes PAD_ROW
+    first, so that it cannot land in the next table's rows) and sort them
+    once.  Either one table [N, D] with ids [K] and grads [K, D], or T
+    tables with ids [R, T] and grads [R, T, D]; `state_shape(n, D)` is the
+    flat state's shape (None: no state).  Returns (group, global ids
+    sorted int32 [K], the grads in that order, f32 [K, D])."""
+    group = _as_list(tables)
+    g = table_group(name, group, global_ids=True)
+    n, D = g.total_rows, g.dim
+    if isinstance(tables, torch.Tensor):
+        ids, grads = ids.reshape(-1, 1), grads.reshape(-1, 1, D)
+    want = None if state_shape is None else state_shape(n, D)
+    if ids.dim() != 2 or ids.shape[1] != len(group) or \
+            tuple(grads.shape) != (*ids.shape, D) or \
+            (want is not None and tuple(state.shape) != want):
+        raise ValueError(f"{name}: ids {tuple(ids.shape)}, grads "
+                         f"{tuple(grads.shape)}"
+                         + ("" if want is None else
+                            f", state {tuple(state.shape)}")
+                         + f" for {len(group)} tables of {n} rows in all, "
+                         f"width {D}")
+    bases = g.bases.to(ids.device)
+    ids = ids.long()
+    ok = (ids >= 0) & (ids < bases[1:] - bases[:-1])
+    gid = torch.where(ok, ids + bases[:-1], INT32_MAX).reshape(-1)
+    K = gid.shape[0]
+    rows_sorted, order = torch.sort(gid.to(torch.int32), stable=True)
+    return g, rows_sorted, grads.reshape(K, D).float()[order]
+
+
+def _segment_sums(rows_sorted: torch.Tensor, g_sorted: torch.Tensor,
+                  n: int):
+    """Sum each run of equal sorted ids, with buffers sized by K (no
+    wait for the number of runs): (first [K], the entry begins its run;
+    seg [K], the entry's run; Gc [K, D], the run sums by run; valid [K],
+    the run is a row of the group; seg_at [K], its row, 0 for the
+    others)."""
+    K, D = g_sorted.shape
+    dev = g_sorted.device
+    first = torch.ones(K, dtype=torch.bool, device=dev)
+    first[1:] = rows_sorted[1:] != rows_sorted[:-1]
+    seg = torch.cumsum(first, 0) - 1                          # [K] int64
+    Gc = torch.zeros((K, D), dtype=torch.float32,
+                     device=dev).index_add_(0, seg, g_sorted)
+    seg_row = torch.full((K,), INT32_MAX, dtype=torch.int64, device=dev)
+    seg_row[seg] = rows_sorted.long()       # one value per run
+    valid = seg_row < n                     # PAD_ROW and unused runs
+    return first, seg, Gc, valid, torch.where(valid, seg_row, 0)
+
+
+def sgd_row_update(tables: Tables, ids: torch.Tensor, grads: torch.Tensor,
+                   lr) -> Tables:
+    """SGD on the rows in `ids`, in place: table[row] -= lr * G_row, with
+    G_row the sum of the row's entries, through one sort and one launch of
+    the kernel (each entry pre-scaled by lr).  One table [N, D] with ids
+    [K] and grads [K, D], or a list of T tables with ids [R, T] and grads
+    [R, T, D].  Ids may repeat and may lie outside their table (PAD_ROW):
+    those are inert.  Returns `tables`."""
+    _, rows_sorted, g_sorted = _sorted_entries("sgd_row_update", None,
+                                               tables, ids, grads, None)
+    return scatter_sub_sorted(tables, rows_sorted, g_sorted * lr)
+
+
+def adagrad_row_update(state: torch.Tensor, tables: Tables,
+                       ids: torch.Tensor, grads: torch.Tensor, lr,
+                       eps: float = EPS):
+    """Adagrad on the rows in `ids`, elementwise, in place: state[row] +=
+    G_row^2 and table[row] -= lr * G_row / (sqrt(state[row]) + eps), with
+    G_row the sum of the row's entries (one sort, one segment sum, one
+    launch of the kernel).  One table [N, D] with ids [K],
+    grads [K, D] and state [N, D], or a list of T tables with ids [R, T],
+    grads [R, T, D] and `state` the flat [sum N_t, D] buffer, table t's
+    rows at [bases[t], bases[t+1]).  Ids may repeat and may lie outside
+    their table (PAD_ROW): those are inert.  Returns (state, tables)."""
+    g, rows_sorted, g_sorted = _sorted_entries(
+        "adagrad_row_update", state, tables, ids, grads,
+        lambda n, D: (n, D))
+    first, seg, Gc, valid, seg_at = _segment_sums(rows_sorted, g_sorted,
+                                                  g.total_rows)
+    inc = torch.where(valid[:, None], Gc * Gc, 0.0)
+    st_rows = state[seg_at] + inc
+    state.index_add_(0, seg_at, inc)
+    # The update of each run, on its first entry and 0 on the others, so
+    # that the kernel's run sum is that update exactly.  Pre-scaling every
+    # entry instead (as rwsadagrad does) is ill-conditioned here: an
+    # element's update is about lr * sign(G) whatever |G| is, so where a
+    # run's entries nearly cancel, the kernel's sum and `Gc` (two sums of
+    # the same entries, rounded apart) give updates 1e-4 apart.
+    upd = torch.where(valid[:, None], lr * Gc / (torch.sqrt(st_rows) + eps),
+                      0.0)
+    scatter_sub_sorted(tables, rows_sorted,
+                       torch.where(first[:, None], upd[seg], 0.0))
+    return state, tables
+
+
 def rwsadagrad_row_update(state: torch.Tensor, tables: Tables,
                           ids: torch.Tensor, grads: torch.Tensor, lr,
                           eps: float = EPS):
@@ -149,43 +254,19 @@ def rwsadagrad_row_update(state: torch.Tensor, tables: Tables,
     109-113), in place: state[row] += mean(G_row^2) and table[row] -=
     lr * G_row / (sqrt(state[row]) + eps), with G_row the sum of the row's
     entries.  Either one table [N, D] with ids [K] and grads [K, D], or a
-    list of T tables with ids [B, T] and grads [B, T, D]; `state` is the
+    list of T tables with ids [R, T] and grads [R, T, D]; `state` is the
     flat [sum N_t] accumulator, table t's rows at [bases[t], bases[t+1]).
     Ids may repeat and may lie outside their table (PAD_ROW): those are
     inert.  Returns (state, tables)."""
-    group = _as_list(tables)
-    g = table_group("rwsadagrad_row_update", group, global_ids=True)
-    n, D = g.total_rows, g.dim
-    if isinstance(tables, torch.Tensor):
-        ids, grads = ids.reshape(-1, 1), grads.reshape(-1, 1, D)
-    if ids.dim() != 2 or ids.shape[1] != len(group) or \
-            tuple(grads.shape) != (*ids.shape, D) or \
-            tuple(state.shape) != (n,):
-        raise ValueError(f"rwsadagrad_row_update: ids {tuple(ids.shape)}, "
-                         f"grads {tuple(grads.shape)}, state "
-                         f"{tuple(state.shape)} for {len(group)} tables of "
-                         f"{n} rows in all, width {D}")
-    dev = ids.device
-    bases = g.bases.to(dev)
-    ids = ids.long()
-    ok = (ids >= 0) & (ids < bases[1:] - bases[:-1])
-    gid = torch.where(ok, ids + bases[:-1], INT32_MAX).reshape(-1)
-    K = gid.shape[0]
-    rows_sorted, order = torch.sort(gid.to(torch.int32), stable=True)
-    g_sorted = grads.reshape(K, D).float()[order]
-    first = torch.ones(K, dtype=torch.bool, device=dev)
-    first[1:] = rows_sorted[1:] != rows_sorted[:-1]
-    seg = torch.cumsum(first, 0) - 1                          # [K] int64
-    Gc = torch.zeros((K, D), dtype=torch.float32,
-                     device=dev).index_add_(0, seg, g_sorted)
-    seg_row = torch.full((K,), INT32_MAX, dtype=torch.int64, device=dev)
-    seg_row[seg] = rows_sorted.long()       # one value per segment
-    valid = seg_row < n                     # PAD_ROW and unused segments
+    g, rows_sorted, g_sorted = _sorted_entries(
+        "rwsadagrad_row_update", state, tables, ids, grads,
+        lambda n, D: (n,))
+    _, seg, Gc, valid, seg_at = _segment_sums(rows_sorted, g_sorted,
+                                              g.total_rows)
     inc = torch.where(valid, (Gc * Gc).mean(dim=1), 0.0)
-    seg_at = torch.where(valid, seg_row, 0)                   # adds 0 there
     st_rows = state[seg_at] + inc
     state.index_add_(0, seg_at, inc)
-    # per segment; 0 for inert ids, whose entries the kernel skips anyway
+    # per run; 0 for inert ids, whose entries the kernel skips anyway
     scale = torch.where(valid, lr / (torch.sqrt(st_rows) + eps), 0.0)
     scatter_sub_sorted(tables, rows_sorted, g_sorted * scale[seg][:, None])
     return state, tables

@@ -25,7 +25,9 @@ import torch
 INT32_MAX = 2 ** 31 - 1
 # global int32 row ids leave PAD_ROW = INT32_MAX above every row
 MAX_GLOBAL_ROWS = INT32_MAX - 1
-_CACHE_SIZE = 16
+# a train step of md tables looks up 13 width groups and updates 14 update
+# groups; with a second model beside it, 16 entries would evict each step
+_CACHE_SIZE = 64
 
 
 class TableGroup(NamedTuple):
@@ -74,7 +76,7 @@ def _build(name: str, tables: Sequence[torch.Tensor]) -> TableGroup:
         bases.append(bases[-1] + t.shape[0])
     desc = torch.tensor(list(ptrs) + bases, dtype=torch.int64).to(t0.device)
     align = 16
-    while align > 4 and any(p % align for p in ptrs):
+    while align > 2 and any(p % align for p in ptrs):
         align //= 2
     return TableGroup(desc, desc[len(tables):], bases[-1], align, t0.dtype,
                       t0.shape[1], tuple(weakref.ref(t) for t in tables),

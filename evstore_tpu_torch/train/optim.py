@@ -13,22 +13,34 @@ the batch gathered, coalesces duplicate ids and touches only those rows.
 Unlike the JAX package, which returns new arrays, every update here works in
 place on the parameters and the optimizer state.  The JAX package's three
 lowerings of `row_update` (dense-grad, rep-trick, sort path) are TPU
-scheduling choices; here `rwsadagrad` takes the sorted path through the
-CUDA row-update kernel (`ops/cuda_update.py`), in a train step for all
-tables at once over one flat accumulator buffer (`flat_row_state`), and
-`sgd`, `adagrad` and rwsadagrad with the kernel switched off take
-`dedup_rows` and plain torch, table by table.
+scheduling choices; here every optimizer takes the sorted path through the
+CUDA row-update kernel (`ops/cuda_update.py`), in a train step for a group
+of tables at once (`update_groups`) over one flat state buffer a group
+(`flat_row_state`); with the kernel switched off each table takes
+`dedup_rows` and plain torch (the plain version).
+
+The row rule of a table follows the JAX package: sgd's and adagrad's for
+every table; under rwsadagrad, the row-wise rule for plain tables and
+pooling weights, and elementwise adagrad (the JAX package's dense branch)
+for the q, r and md tables of the qr and md tricks.  On the rows a batch
+touches that dense branch is this row update, and on the others it
+changes nothing (their gradient is 0).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
-from evstore_tpu_torch.ops.cuda_update import INT32_MAX, rwsadagrad_row_update
+from evstore_tpu_torch.models.embedding import FACT_PARTS, gather_groups
+from evstore_tpu_torch.ops.cuda_update import (INT32_MAX,
+                                               adagrad_row_update,
+                                               rwsadagrad_row_update,
+                                               sgd_row_update)
 
 # Padding sentinel for row ids: out of range for every table, so updates
 # drop it.
@@ -69,51 +81,110 @@ class OptState:
     # per dense parameter (model.named_parameters() names): adagrad sums,
     # {} for sgd
     dense: Dict[str, torch.Tensor]
-    # per table ("tables.<t>"): [N, D] for adagrad, [N] for rwsadagrad
-    # (views of one flat buffer, `flat_row_state`), {} for sgd
+    # per row-updated parameter (the DLRM's names: "tables.<i>",
+    # "qr.<t>.q", "md.<t>.table", "pool_w.<t>", ...): [N, D] elementwise
+    # sums, or [N] under rwsadagrad's row rule; the views of one flat
+    # buffer per update group (`flat_row_state`); {} for sgd
     sparse: Dict[str, torch.Tensor]
 
 
-def row_state_views(flat: torch.Tensor, sizes: Sequence[int]
+def row_rule(name: str, part: str) -> str:
+    """The row update a source takes under optimizer `name` (a
+    `RowSource.part`): see the module's docstring."""
+    if name == "rwsadagrad" and part in FACT_PARTS:
+        return "adagrad"
+    return name
+
+
+class UpdateGroup(NamedTuple):
+    """Sources updated by one call: columns [lo, hi) of gather group
+    `gather`, under one row rule."""
+    gather: int
+    lo: int
+    hi: int
+    rule: str
+    members: Tuple[int, ...]     # indices into the sources
+
+
+def update_groups(sources: Sequence, name: str) -> List[UpdateGroup]:
+    """Each gather group (`models/embedding.py::gather_groups`, one width)
+    split into its runs of one row rule: one group under sgd and adagrad;
+    under rwsadagrad, the plain tables' (row-wise) and the factorised
+    tables' (elementwise), which `gather_groups` puts in that order."""
+    out = []
+    for g, members in enumerate(gather_groups(sources)):
+        lo = 0
+        for j in range(1, len(members) + 1):
+            if j == len(members) or row_rule(name, sources[members[j]].part) \
+                    != row_rule(name, sources[members[lo]].part):
+                out.append(UpdateGroup(
+                    g, lo, j, row_rule(name, sources[members[lo]].part),
+                    tuple(members[lo:j])))
+                lo = j
+    return out
+
+
+def state_groups(sources: Sequence, name: str):
+    """[(rule, [RowSource])]: the sources whose state shares one flat
+    buffer, in buffer order (the update groups; none under sgd)."""
+    name = name.lower()
+    if name == "sgd":
+        return []
+    return [(u.rule, [sources[i] for i in u.members])
+            for u in update_groups(sources, name)]
+
+
+def row_state_views(flat: torch.Tensor, sizes: Sequence[int],
+                    names: Optional[Sequence[str]] = None
                     ) -> Dict[str, torch.Tensor]:
-    """rwsadagrad's accumulators as views of one flat [sum N_t] buffer, in
-    table order, keyed "tables.<t>": the grouped row update
-    (`ops/cuda_update.py::rwsadagrad_row_update`) takes the flat buffer."""
+    """Per-table states as views of one flat buffer, [sum N_t] (row-wise)
+    or [sum N_t, D] (elementwise), in order, keyed by `names`
+    ("tables.<t>" by default): the grouped row updates
+    (`ops/cuda_update.py`) take the flat buffer."""
+    names = names or [f"tables.{t}" for t in range(len(sizes))]
     out, off = {}, 0
-    for t, n in enumerate(sizes):
-        out[f"tables.{t}"] = flat[off:off + n]
+    for name, n in zip(names, sizes):
+        out[name] = flat[off:off + n]
         off += n
     return out
 
 
 def flat_row_state(sparse: Dict[str, torch.Tensor],
-                   tables: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The flat [sum N_t] buffer under rwsadagrad's per-table views.  Raises
-    ValueError unless the views still lie in one buffer, in table order
-    (same storage, offsets the sums of the sizes before them): a state
-    whose views were replaced cannot take the grouped update."""
-    views = [sparse.get(f"tables.{t}") for t in range(len(tables))]
+                   tables: Sequence[torch.Tensor],
+                   names: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """The flat buffer under the per-table state views `names` of
+    `tables` ("tables.<t>" by default): [sum N_t] or [sum N_t, D].  Raises
+    ValueError unless the views still lie in one buffer, in order (same
+    storage, offsets the sums of the sizes before them): a state whose
+    views were replaced cannot take the grouped update."""
+    names = names or [f"tables.{t}" for t in range(len(tables))]
+    views = [sparse.get(n) for n in names]
     v0 = views[0]
+    width = () if v0 is None or v0.dim() == 1 else (v0.shape[1],)
+    row = width[0] if width else 1
     start = off = 0 if v0 is None else v0.storage_offset()
-    for t, (v, tab) in enumerate(zip(views, tables)):
+    for name, v, tab in zip(names, views, tables):
+        shape = (tab.shape[0], *width)
         if v is None or v.dtype != torch.float32 or \
-                tuple(v.shape) != (tab.shape[0],) or v.stride() != (1,) or \
+                tuple(v.shape) != shape or \
+                v.stride() != ((row, 1) if width else (1,)) or \
                 v.device != v0.device or \
                 v.untyped_storage().data_ptr() != \
                 v0.untyped_storage().data_ptr() or \
                 v.storage_offset() != off:
-            raise ValueError(f"rwsadagrad state tables.{t} is not the view of "
+            raise ValueError(f"optimizer state {name} is not the view of "
                              f"the one flat accumulator buffer it should be "
                              f"(its {tab.shape[0]} rows at offset "
-                             f"{off - start}); build the state with "
+                             f"{(off - start) // row}); build the state with "
                              f"init_opt_state or opt_state_from_jax")
-        off += tab.shape[0]
-    return v0.as_strided((off - start,), (1,), start)
+        off += tab.shape[0] * row
+    n = (off - start) // row
+    return v0.as_strided((n, *width), (row, 1) if width else (1,), start)
 
 
 def dense_parameters(model) -> Dict[str, torch.nn.Parameter]:
-    """The parameters autograd trains: the MLPs (the tables take row
-    updates)."""
+    """The parameters autograd trains: the MLPs and the md projections
+    (the tables take row updates)."""
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
@@ -132,20 +203,20 @@ def make_optimizer(name: str, eps: float = 1e-10):
         raise ValueError(f"unsupported optimizer {name}")
 
     def init(model) -> OptState:
+        """Zero sums: per dense parameter, and one flat buffer per state
+        group of the row-updated ones, each parameter's a view of it."""
         if name == "sgd":
             return OptState(0, {}, {})
         dense = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in dense_parameters(model).items()}
-        if name == "rwsadagrad":
-            sizes = [tab.shape[0] for tab in model.tables]
-            sparse = row_state_views(torch.zeros(
-                sum(sizes), dtype=torch.float32,
-                device=model.tables[0].device), sizes) if sizes else {}
-        else:
-            sparse = {f"tables.{t}": torch.zeros(tab.shape,
-                                                 dtype=torch.float32,
-                                                 device=tab.device)
-                      for t, tab in enumerate(model.tables)}
+        sparse: Dict[str, torch.Tensor] = {}
+        for rule, members in state_groups(model.row_sources(), name):
+            rows = sum(s.rows for s in members)
+            flat = torch.zeros(
+                (rows,) if rule == "rwsadagrad" else (rows, members[0].width),
+                dtype=torch.float32, device=members[0].param.device)
+            sparse.update(row_state_views(flat, [s.rows for s in members],
+                                          [s.name for s in members]))
         return OptState(0, dense, sparse)
 
     @torch.no_grad()
@@ -200,11 +271,19 @@ def row_update(name: str, state, table: torch.Tensor, ids: torch.Tensor,
     """One table's sparse update, in place: coalesce duplicate ids and apply
     the optimizer to the rows in `ids` (PAD_ROW and other ids outside
     [0, N) are inert).  state: None (sgd) | [N, D] (adagrad) | [N]
-    (rwsadagrad).  rwsadagrad goes through the row-update kernel when
-    `use_kernel` is on.  Returns (state, table)."""
+    (rwsadagrad).  With `use_kernel` on, the sorted path through the
+    row-update kernel, which also takes a list of tables with ids [R, T],
+    grads [R, T, D] and their flat state (the grouped update); off,
+    `dedup_rows` and plain torch.  Returns (state, table)."""
     name = name.lower()
-    if name == "rwsadagrad" and use_kernel:
-        return rwsadagrad_row_update(state, table, ids, grads, lr, eps)
+    if use_kernel:
+        if name == "sgd":
+            sgd_row_update(table, ids, grads, lr)
+            return state, table
+        if name == "adagrad":
+            return adagrad_row_update(state, table, ids, grads, lr, eps)
+        if name == "rwsadagrad":
+            return rwsadagrad_row_update(state, table, ids, grads, lr, eps)
     rows, summed = dedup_rows(ids, grads, table.shape[0])
     make_optimizer(name, eps)[2](state, table, rows, summed, lr)
     return state, table

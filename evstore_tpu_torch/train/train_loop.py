@@ -1,20 +1,28 @@
 """Training and evaluation steps and the training loop.
 
-Port of `evstore_tpu/train/train_loop.py` for plain tables and one-hot
-batches.  Reference: the epoch loop of dlrm_s_pytorch.py:1574-1854
-(forward, BCE loss, backward, optimizer step, LR policy, eval).
+Port of `evstore_tpu/train/train_loop.py`.  Reference: the epoch loop of
+dlrm_s_pytorch.py:1574-1854 (forward, BCE loss, backward, optimizer step,
+LR policy, eval).
 
 As in the JAX package, the step gathers the batch's embedding rows outside
-autograd (the row-gather kernel), differentiates the loss with respect to
-those rows and the MLP parameters (the interaction's forward and backward
-kernels), and applies the sparse row updates: rwsadagrad with its kernel on
-updates every table in one grouped call (one sort, one row-update kernel
-launch, the accumulators as one flat buffer); sgd, adagrad and the plain
-rwsadagrad update table by table.  The embedding gradient never exists as
-a dense [N, D] array.  The step updates the model and the optimizer state in place; the
-gathered rows are a copy, so the in-place table update is invisible to
-autograd.  Not ported yet: qr/md tables, multi-hot bags, weighted pooling,
-the packed table layout and checkpoints.
+autograd, differentiates the loss with respect to those rows, the MLPs and
+the md projections (the interaction's forward and backward kernels), and
+applies row updates to what it gathered.  Every row comes through the
+grouped row-gather kernel, one launch per width (`models/embedding.py`:
+plain tables, q and r, md tables, pooling weights; a multi-hot batch
+[B, T, L] is B·L lookups per table), and every row update through the
+row-update kernel, one sort and one launch per update group (the sources
+of one width under one row rule, `train/optim.py::update_groups`), with
+the optimizer state as one flat buffer a group.  The q, r and md tables
+take the JAX package's dense branch (elementwise adagrad under adagrad
+and rwsadagrad) on the rows the batch touched, which equals the dense
+update: the other rows have a zero gradient.  No update waits for the
+device.  With `use_update_kernel` off each table takes the plain
+coalescing update (`dedup_rows`).  The embedding gradient never exists as
+a dense [N, D] array.  The step updates the model and the optimizer state
+in place; the gathered rows are a copy, so the in-place table update is
+invisible to autograd.  Not ported yet: the packed table layout (a TPU
+lowering) and checkpoints.
 """
 
 from __future__ import annotations
@@ -27,13 +35,14 @@ import torch
 
 from evstore_tpu_torch.config import DLRMConfig, TrainConfig
 from evstore_tpu_torch.models.dlrm import DLRM, dlrm_loss
-from evstore_tpu_torch.models.embedding import (check_ids,
-                                                sparse_arch_lookup)
-from evstore_tpu_torch.ops.cuda_update import rwsadagrad_row_update
+from evstore_tpu_torch.models.embedding import (check_ids, combine_rows,
+                                                flat_ids, gather_groups,
+                                                gather_rows_of, group_ids)
 from evstore_tpu_torch.train.metrics import binary_metrics
 from evstore_tpu_torch.train.optim import (OptState, dense_parameters,
                                            flat_row_state, lr_schedule,
-                                           make_optimizer, row_update)
+                                           make_optimizer, row_update,
+                                           update_groups)
 
 span = torch.profiler.record_function
 
@@ -43,20 +52,22 @@ def init_opt_state(model: DLRM, tcfg: TrainConfig) -> OptState:
 
 
 def unpack_batch(batch):
-    """(dense, idx, labels) of a one-hot batch.  A 4-tuple is a multi-hot
-    batch with bag weights, which is not ported yet."""
+    """A batch as (dense, idx, labels, bag_weights): 3-tuples are one-hot
+    (dense, idx [B, T], y) with no bag weights; 4-tuples are multi-hot
+    (dense, idx [B, T, L], bag_weights [B, T, L], y)."""
     if len(batch) == 4:
-        raise NotImplementedError(
-            "multi-hot batches with bag weights are not ported yet")
-    return batch
+        d, i, w, y = batch
+        return d, i, y, w
+    d, i, y = batch
+    return d, i, y, None
 
 
 def _check(model: DLRM, cfg: DLRMConfig) -> torch.device:
     if model.cfg != cfg:
         raise ValueError("the model was built from another DLRMConfig")
-    if len(model.tables) != cfg.num_tables:
+    if not model.has_sparse():
         raise ValueError("the model holds no tables; training needs them")
-    return model.tables[0].device
+    return next(model.parameters()).device
 
 
 def _tensor(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -66,69 +77,99 @@ def _tensor(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _ids(idx, cfg: DLRMConfig, dev: torch.device) -> torch.Tensor:
-    """One-hot ids [B, T] as an int32 tensor.  Ids still on the host are
-    checked there (`check_ids`: ValueError outside [0, N)); a tensor is
-    taken as it is."""
+    """Ids [B, T] or bags [B, T, L] as an int32 tensor.  Ids still on the
+    host are checked there (`check_ids`: ValueError outside [0, N)); a
+    tensor is taken as it is."""
     if not isinstance(idx, torch.Tensor):
         idx = np.asarray(idx)
-    if idx.ndim != 2:
-        raise NotImplementedError(
-            "multi-hot [B, T, L] bags are not ported yet; idx must be [B, T]")
+    if idx.ndim not in (2, 3):
+        raise ValueError(f"idx must be [B, T] or [B, T, L], got "
+                         f"{tuple(idx.shape)}")
     if isinstance(idx, np.ndarray):
         check_ids(idx, cfg.table_sizes)
     return _tensor(idx, dev, torch.int32)
 
 
+def _bag_weights(w, idx: torch.Tensor, dev: torch.device):
+    if w is None:
+        return None
+    w = _tensor(w, dev, torch.float32)
+    if idx.dim() != 3 or tuple(w.shape) != tuple(idx.shape):
+        raise ValueError(f"bag weights {tuple(w.shape)} need bags idx of "
+                         f"the same shape, got {tuple(idx.shape)}")
+    return w
+
+
 def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
-    """Builds the train step:
-    (model, opt_state, dense_x [B, nd], idx [B, T], labels [B]) -> loss.
+    """Builds the train step: (model, opt_state, dense_x [B, nd], idx [B, T]
+    or [B, T, L], labels [B], bag_weights [B, T, L] or None) -> loss.
 
     The inputs are numpy arrays or tensors.  The step updates the model's
     parameters and `opt_state` in place and returns the loss as a 0-d tensor
     on the model's device (reading it waits for the device).  Its four
     stages are `torch.profiler` spans named `train_step.<stage>`.  With the
-    kernels on, the gather is one launch for every table, and so is
-    rwsadagrad's row update, which needs `opt_state`'s accumulators to be
-    the views of one flat buffer that `init_opt_state` and
-    `opt_state_from_jax` build (ValueError otherwise)."""
-    _, dense_update, _ = make_optimizer(tcfg.optimizer)
-    grouped = (tcfg.optimizer.lower() == "rwsadagrad"
-               and tcfg.use_update_kernel)
+    kernels on, the gather is one launch per width and the row update one
+    per update group (for a one-hot batch over plain tables, one each for
+    all tables); the grouped updates need `opt_state`'s sums to be the
+    views of one flat buffer a group that `init_opt_state` and
+    `opt_state_from_jax` build (ValueError otherwise).  Under
+    `weighted_pooling="learned"` the pooling weights take the optimizer's
+    row update; "fixed" leaves them alone."""
+    name = tcfg.optimizer.lower()
+    _, dense_update, _ = make_optimizer(name)
+    learned = cfg.weighted_pooling == "learned"
     lr_fn = lr_schedule(tcfg.learning_rate, tcfg.lr_num_warmup_steps,
                         tcfg.lr_decay_start_step, tcfg.lr_num_decay_steps)
 
     def train_step(model: DLRM, opt_state: OptState, dense_x, idx,
-                   labels) -> torch.Tensor:
+                   labels, bag_weights=None) -> torch.Tensor:
         dev = _check(model, cfg)
         dense_x = _tensor(dense_x, dev, torch.float32)
         idx = _ids(idx, cfg, dev)
         labels = _tensor(labels, dev, torch.float32)
-        tables = list(model.tables)
+        bw = _bag_weights(bag_weights, idx, dev)
+        sources = model.row_sources()
+        groups = gather_groups(sources)
+        updates = [u for u in update_groups(sources, name)
+                   if learned or sources[u.members[0]].part != "pool_w"]
         # checked before anything is updated
-        flat = flat_row_state(opt_state.sparse, tables) if grouped else None
+        flats = [flat_row_state(opt_state.sparse,
+                                [sources[i].param for i in u.members],
+                                [sources[i].name for i in u.members])
+                 if tcfg.use_update_kernel and u.rule != "sgd" else None
+                 for u in updates]
+        flat = flat_ids(idx)
         with span("train_step.gather"), torch.no_grad():
-            emb = sparse_arch_lookup(tables, idx, cfg)
-        emb.requires_grad_(True)
+            ids_of = [group_ids(sources, m, flat) for m in groups]
+            gathered = gather_rows_of(sources, groups, ids_of,
+                                      cfg.use_gather_kernel)
+        for g in {u.gather for u in updates}:
+            gathered[g].requires_grad_(True)
         params = dense_parameters(model)
         with span("train_step.forward_backward"):
             for p in params.values():
                 p.grad = None
+            emb = combine_rows(cfg, sources, groups, gathered,
+                               model.entries(), tuple(idx.shape), bw)
             loss = dlrm_loss(model(dense_x, None, emb_rows=emb), labels,
                              tcfg.loss_function, tcfg.loss_weights)
             loss.backward()
         lr = lr_fn(opt_state.step)
         with span("train_step.dense_update"):
             dense_update(opt_state.dense, params, lr)
-        with span("train_step.row_update"):
-            if grouped:      # one sort and one kernel launch for all tables
-                with torch.no_grad():
-                    rwsadagrad_row_update(flat, tables, idx, emb.grad, lr)
-            else:
-                for t, tab in enumerate(tables):
-                    row_update(tcfg.optimizer,
-                               opt_state.sparse.get(f"tables.{t}"), tab,
-                               idx[:, t], emb.grad[:, t], lr,
-                               use_kernel=tcfg.use_update_kernel)
+        with span("train_step.row_update"), torch.no_grad():
+            for u, st in zip(updates, flats):
+                ids, grads = ids_of[u.gather], gathered[u.gather].grad
+                if (u.lo, u.hi) != (0, ids.shape[1]):
+                    ids, grads = ids[:, u.lo:u.hi], grads[:, u.lo:u.hi]
+                tabs = [sources[i].param for i in u.members]
+                if tcfg.use_update_kernel:
+                    row_update(u.rule, st, tabs, ids, grads, lr)
+                    continue
+                for j, i in enumerate(u.members):
+                    row_update(u.rule, opt_state.sparse.get(sources[i].name),
+                               tabs[j], ids[:, j], grads[:, j], lr,
+                               use_kernel=False)
         opt_state.step += 1
         return loss.detach()
 
@@ -136,24 +177,27 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
 
 
 def make_eval_step(cfg: DLRMConfig):
-    def eval_step(model: DLRM, dense_x, idx) -> torch.Tensor:
+    def eval_step(model: DLRM, dense_x, idx, bag_weights=None
+                  ) -> torch.Tensor:
         dev = _check(model, cfg)
+        idx = _ids(idx, cfg, dev)
         with torch.inference_mode():
             return torch.sigmoid(model(
-                _tensor(dense_x, dev, torch.float32),
-                _ids(idx, cfg, dev)))
+                _tensor(dense_x, dev, torch.float32), idx,
+                bag_weights=_bag_weights(bag_weights, idx, dev)))
     return eval_step
 
 
 def evaluate(model: DLRM, cfg: DLRMConfig, batches: Iterable
              ) -> Dict[str, float]:
-    """Run inference over batches and compute the reference's metric block
+    """Run inference over batches (one-hot 3-tuples or multi-hot 4-tuples
+    with bag weights) and compute the reference's metric block
     (dlrm_s_pytorch.py:760-866)."""
     eval_step = make_eval_step(cfg)
     scores, labels = [], []
     for batch in batches:
-        dense_x, idx, y = unpack_batch(batch)
-        scores.append(eval_step(model, dense_x, idx))
+        dense_x, idx, y, bw = unpack_batch(batch)
+        scores.append(eval_step(model, dense_x, idx, bw))
         labels.append(np.asarray(y))
     return binary_metrics(torch.cat(scores).cpu().numpy(),
                           np.concatenate(labels))
@@ -163,9 +207,10 @@ def train(model: DLRM, cfg: DLRMConfig, tcfg: TrainConfig,
           train_batches: Iterable, test_batches=None,
           log_fn=print) -> Tuple[DLRM, OptState, Dict]:
     """A simple epoch loop (the big loop of dlrm_s_pytorch.py:1574-1854).
-    train_batches: iterable of (dense, idx, labels) numpy batches.  Returns
-    the trained model (the same object), the optimizer state and a history
-    with the loss every `print_freq` steps and the steps per second."""
+    train_batches: iterable of one-hot (dense, idx, labels) or multi-hot
+    (dense, idx, bag_weights, labels) numpy batches.  Returns the trained
+    model (the same object), the optimizer state and a history with the
+    loss every `print_freq` steps and the steps per second."""
     step_fn = make_train_step(cfg, tcfg)
     opt_state = init_opt_state(model, tcfg)
     dev = _check(model, cfg)
@@ -173,8 +218,8 @@ def train(model: DLRM, cfg: DLRMConfig, tcfg: TrainConfig,
     t0 = time.perf_counter()
     n = 0
     for batch in train_batches:
-        dense_x, idx, y = unpack_batch(batch)
-        loss = step_fn(model, opt_state, dense_x, idx, y)
+        dense_x, idx, y, bw = unpack_batch(batch)
+        loss = step_fn(model, opt_state, dense_x, idx, y, bw)
         n += 1
         if n % max(tcfg.print_freq, 1) == 0:
             lv = float(loss)

@@ -204,7 +204,7 @@ def _shares_one_buffer(sparse, sizes):
 def test_rwsadagrad_accumulators_are_views_of_one_buffer():
     """`init_opt_state` and `opt_state_from_jax` build rwsadagrad's
     accumulators as views of one flat buffer, in table order, which the
-    grouped update takes whole; adagrad's stay per table."""
+    grouped update takes whole; adagrad's too, as one [sum N, D] buffer."""
     cj, cp, params, model = _models()
     sizes = cp.table_sizes
     st = init_opt_state(model, pcfg.TrainConfig(optimizer="rwsadagrad"))
@@ -219,8 +219,10 @@ def test_rwsadagrad_accumulators_are_views_of_one_buffer():
                              device="cpu")
     assert _shares_one_buffer(pst.sparse, sizes)
     ada = init_opt_state(model, pcfg.TrainConfig(optimizer="adagrad"))
-    assert not _shares_one_buffer(
-        {k: v[:, 0] for k, v in ada.sparse.items()}, sizes)
+    flat2 = popt.flat_row_state(ada.sparse, list(model.tables))
+    assert flat2.shape == (sum(sizes), cp.embedding_dim)
+    flat2[sizes[0] + 2, 3] = 7.0             # row 2 of table 1
+    assert float(ada.sparse["tables.1"][2, 3]) == 7.0
 
 
 def test_replaced_accumulator_views_raise():
@@ -258,8 +260,9 @@ def test_lr_schedule_matches_jax(warm, start, ndecay):
         assert plr(step) == float(jlr(step)), step
 
 
-@pytest.mark.parametrize("loss", ["bce", "mse", "wbce"])
+@pytest.mark.parametrize("loss", ["bce", "mse", "wbce", "hinge", "mae"])
 def test_dlrm_loss_matches_jax(loss):
+    """Every name: an unknown one ("hinge", "mae") is BCE on both sides."""
     rng = np.random.default_rng(5)
     logits = rng.normal(0, 3, 64).astype(np.float32)
     y = rng.integers(0, 2, 64).astype(np.float32)
@@ -268,6 +271,21 @@ def test_dlrm_loss_matches_jax(loss):
     got = dlrm_loss(torch.from_numpy(logits), torch.from_numpy(y), loss,
                     (0.3, 2.0))
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+
+
+def test_unknown_loss_function_is_bce():
+    """The input that showed the port raising where JAX computes BCE: 8
+    logits and labels from numpy default_rng(0), "hinge" (JAX: 0.745699)."""
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=8).astype(np.float32)
+    y = (rng.random(8) > 0.5).astype(np.float32)
+    ref = float(jax_dlrm_loss(jnp.asarray(logits), jnp.asarray(y), "hinge"))
+    assert abs(ref - 0.745699) < 1e-6
+    got = float(dlrm_loss(torch.from_numpy(logits), torch.from_numpy(y),
+                          "hinge"))
+    bce = float(dlrm_loss(torch.from_numpy(logits), torch.from_numpy(y)))
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    assert got == bce
 
 
 def test_learnable_batches_match_jax():
@@ -322,10 +340,6 @@ def test_unported_training_inputs_raise():
     step = make_train_step(cp, pcfg.TrainConfig())
     st = init_opt_state(model, pcfg.TrainConfig())
     dense, idx, y = _batches(cp, n=1)[0]
-    with pytest.raises(NotImplementedError, match="multi-hot"):
-        step(model, st, dense, idx[:, :, None], y)
-    with pytest.raises(NotImplementedError, match="multi-hot"):
-        evaluate(model, cp, [(dense, idx, np.ones(idx.shape), y)])
     other = dataclasses.replace(cp, use_gather_kernel=False)
     with pytest.raises(ValueError, match="another DLRMConfig"):
         make_train_step(other, pcfg.TrainConfig())(model, st, dense, idx, y)

@@ -2,8 +2,10 @@
 `rwsadagrad_row_update` (the sorted path through the row-update kernel's
 wrapper, which takes its plain version on the CPU) against the Pallas
 `rwsadagrad_row_update_pallas` in interpret mode and against
-`optim.row_update`; the plain `row_update` of every optimizer; the kernel's
-plain version against numpy; and `dedup_rows`.
+`optim.row_update`; the grouped `sgd_row_update` and `adagrad_row_update`
+against JAX's `row_update` and the port's plain per-table path; the plain
+`row_update` of every optimizer; the kernel's plain version against numpy;
+and `dedup_rows`.
 
 Inputs are made with numpy from a seed and handed to both packages.  They
 hold duplicate ids (a Zipf-like head), PAD_ROW entries and bf16 tables.
@@ -24,9 +26,11 @@ import torch
 
 from evstore_tpu.ops.pallas_update import rwsadagrad_row_update_pallas
 from evstore_tpu.train import optim as jopt
-from evstore_tpu_torch.ops.cuda_update import (rwsadagrad_row_update,
+from evstore_tpu_torch.ops.cuda_update import (adagrad_row_update,
+                                               rwsadagrad_row_update,
                                                scatter_sub_sorted,
-                                               scatter_sub_sorted_ref)
+                                               scatter_sub_sorted_ref,
+                                               sgd_row_update)
 from evstore_tpu_torch.train import optim as popt
 
 
@@ -108,7 +112,7 @@ def test_plain_row_update_matches_jax(opt, dtype):
         jnp.asarray(table, jdt), jnp.asarray(ids), jnp.asarray(g), 0.1)
     t, _, i, gr = _port(table, state, ids, g, dtype)
     s = None if st is None else torch.from_numpy(st.copy())
-    popt.row_update(opt, s, t, i, gr, 0.1)
+    popt.row_update(opt, s, t, i, gr, 0.1, use_kernel=False)
     if s is not None:
         np.testing.assert_allclose(s.numpy(), np.asarray(ref_s), rtol=1e-5,
                                    atol=1e-7)
@@ -360,3 +364,121 @@ def test_too_many_rows_for_int32_global_ids_raise():
     with pytest.raises(ValueError, match="CUDA device"):
         scatter_sub_sorted(ok, ids.reshape(-1),
                            torch.zeros((4, 4), device="meta"))
+
+
+# ---- the grouped sgd and adagrad updates ----
+
+@pytest.mark.parametrize("opt", ["sgd", "adagrad"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_table_kernel_row_update_matches_jax(opt, dtype):
+    """`row_update` with the kernel on (the grouped path with one table)
+    against JAX's `row_update`: duplicates and PAD_ROW."""
+    table, state, ids, g = _setup(N=2000, B=1024, seed=2, n_pad=7,
+                                  dtype=dtype)
+    jdt = getattr(jnp, dtype)
+    st = None if opt == "sgd" else np.zeros_like(table) + 0.01
+    ref_s, ref_t = jopt.row_update(
+        opt, None if st is None else jnp.asarray(st),
+        jnp.asarray(table, jdt), jnp.asarray(ids), jnp.asarray(g), 0.1)
+    t, _, i, gr = _port(table, state, ids, g, dtype)
+    s = None if st is None else torch.from_numpy(st.copy())
+    popt.row_update(opt, s, t, i, gr, 0.1, use_kernel=True)
+    if s is not None:
+        np.testing.assert_allclose(s.numpy(), np.asarray(ref_s), rtol=1e-5,
+                                   atol=1e-7)
+    _assert_table(t, ref_t, dtype)
+
+
+def _grouped(opt, tabs, flat2d, ids, g):
+    if opt == "sgd":
+        assert sgd_row_update(tabs, ids, g, 0.1) is tabs
+        return
+    new_s, new_t = adagrad_row_update(flat2d, tabs, ids, g, 0.1)
+    assert new_s is flat2d and new_t is tabs
+
+
+@pytest.mark.parametrize("ref", ["jax", "plain"])
+@pytest.mark.parametrize("opt", ["sgd", "adagrad"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_sgd_adagrad_match_per_table(opt, dtype, ref):
+    """One grouped call over all tables (ids [B, T] with a heavy run,
+    PAD_ROW, and ids of table t that are valid only in table t+1) against
+    each table updated on its own column: JAX's `row_update`, or the port's
+    plain `row_update` (`dedup_rows`).  The state is one flat [sum N_t, D]
+    buffer; the cross-table ids stay inert (PAD_ROW on the reference
+    side)."""
+    tables, _, ids, cross, g = _group_setup(dtype=dtype, seed=9)
+    assert cross.any()
+    D = tables[0].shape[1]
+    states = [np.random.default_rng(t).uniform(0, 0.01, tab.shape
+                                               ).astype(np.float32)
+              for t, tab in enumerate(tables)]
+    tdt = getattr(torch, dtype)
+    tabs = [torch.from_numpy(t.copy()).to(tdt) for t in tables]
+    flat = torch.from_numpy(np.concatenate(states))
+    assert flat.shape == (sum(GROUP_SIZES), D)
+    _grouped(opt, tabs, flat, torch.from_numpy(ids), torch.from_numpy(g))
+    jdt = getattr(jnp, dtype)
+    off = 0
+    for t, (tab, st) in enumerate(zip(tables, states)):
+        jid = np.where(cross[:, t], jopt.PAD_ROW, ids[:, t]).astype(np.int32)
+        n = tab.shape[0]
+        if ref == "jax":
+            ref_s, ref_t = jopt.row_update(
+                opt, None if opt == "sgd" else jnp.asarray(st),
+                jnp.asarray(tab, jdt), jnp.asarray(jid), jnp.asarray(g[:, t]),
+                0.1)
+        else:
+            ref_t = torch.from_numpy(tab.copy()).to(tdt)
+            ref_s = None if opt == "sgd" else torch.from_numpy(st.copy())
+            popt.row_update(opt, ref_s, ref_t, torch.from_numpy(jid),
+                            torch.from_numpy(g[:, t]), 0.1, use_kernel=False)
+            ref_t = ref_t.float().numpy()
+        if opt != "sgd":
+            np.testing.assert_allclose(flat[off:off + n].numpy(),
+                                       np.asarray(ref_s), rtol=1e-5,
+                                       atol=1e-7,
+                                       err_msg=f"state of table {t}")
+        _assert_table(tabs[t], ref_t, dtype)
+        off += n
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adagrad"])
+def test_grouped_sgd_adagrad_cross_table_ids_are_inert(opt):
+    """Ids too large for their table, negative ids and PAD_ROW: the result
+    equals the one with PAD_ROW in their place, bit for bit, and rows no
+    valid id names are unchanged."""
+    tables, _, ids, cross, g = _group_setup(seed=10)
+    ids = ids.copy()
+    ids[3, 0], ids[4, 2] = -1, -7
+    cross = cross.copy()
+    cross[3, 0] = cross[4, 2] = True
+    out = []
+    for each in (ids, np.where(cross, jopt.PAD_ROW, ids).astype(np.int32)):
+        tabs = [torch.from_numpy(t.copy()) for t in tables]
+        flat = torch.full((sum(GROUP_SIZES), tables[0].shape[1]), 0.01)
+        _grouped(opt, tabs, flat, torch.from_numpy(each),
+                 torch.from_numpy(g))
+        out.append((flat, tabs))
+    assert torch.equal(out[0][0], out[1][0])
+    for t, (a, b) in enumerate(zip(out[0][1], out[1][1])):
+        assert torch.equal(a, b)
+        valid = ids[:, t][(ids[:, t] >= 0) & (ids[:, t] < GROUP_SIZES[t])
+                          & ~cross[:, t]]
+        untouched = np.setdiff1d(np.arange(GROUP_SIZES[t]), valid)
+        np.testing.assert_array_equal(a.numpy()[untouched],
+                                      tables[t][untouched])
+
+
+def test_grouped_updates_check_shapes():
+    tabs = [torch.zeros(5, 4), torch.zeros(7, 4)]
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    g = torch.zeros((3, 2, 4))
+    with pytest.raises(ValueError, match="state"):
+        adagrad_row_update(torch.zeros(12), tabs, ids, g, 0.1)
+    with pytest.raises(ValueError, match="grads"):
+        sgd_row_update(tabs, ids, g[:, :1], 0.1)
+    with pytest.raises(ValueError, match="PAD_ROW"):
+        sgd_row_update([torch.empty((2 ** 30, 4), device="meta")] * 2,
+                       torch.zeros((2, 2), dtype=torch.int32, device="meta"),
+                       torch.zeros((2, 2, 4), device="meta"), 0.1)
