@@ -69,10 +69,15 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    and in the engine (64); (d) 256 requests of batch size 1 through (b)'s
    engine, each timed alone; (e) the A/B of the two interaction forwards
    on (b)'s rows: the bottom MLP, `DotInteractionGram` (K6) and the top
-   MLP must give (b)'s scores bit for bit, and K6's interaction K1's; (g) the engine's host path at phase 3's C1
-   with the tables in RAM; (f) the TCP service in batched mode over a
-   fresh fp32 C1 of the engine, its rows equal to the store's; each run
-   prints requests/s, p50/p99, stats and its host split;
+   MLP must give (b)'s scores bit for bit, and K6's interaction K1's; (g)
+   the engine's host path at phase 3's C1 with the tables in RAM, and
+   beside it the table-partitioned engine (`NativeShardedCache`) over the
+   same tables at 1, 2, 4 and 8 workers on the same batches: scores equal
+   to the serial engine's bit for bit, rows to the store's, at 1 worker
+   the serial engine's stats, at more C1's hit rate within 0.05 of it;
+   (f) the TCP service in batched mode over a fresh fp32 C1 of the
+   engine, its rows equal to the store's; each run prints requests/s,
+   p50/p99, stats and its host split;
 3b. the training path: the same model with phase 3's tables on the card,
    trained at the reference recipe's batch of 128 and lr 0.1 by
    `make_train_step` and `train` (rwsadagrad, then sgd), with steps/s and a
@@ -100,8 +105,23 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    call an error and torch.unique counted (must be 0); `evaluate` over 2
    bagged batches; exactly one K2 launch per width group and one K5 launch
    per update group a step, K1 and K4 at least once;
+3f. the CLI end to end at the full Kaggle width, in this process through
+   `evstore_tpu_torch.cli.main`: a synthetic train.txt (100,000 lines,
+   categories capped by each table's rows) preprocessed and trained with
+   bench/dlrm_s_criteo_kaggle.sh's flags (sgd, lr 0.1, B=128) and
+   `--test-freq -1`, so that the final eval writes one checkpoint and one
+   EV export; a resume from `--load-model`, which must skip every step and
+   save the restored state again bit for bit; the exported tables held to
+   the checkpoint's bit for bit; then the exported tables served with the
+   flags of bench/dlrm_s_criteo_kaggle_C1.sh (Python EvLFU over mmap),
+   bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh (the engine over the files) and
+   the C1 script's with `--use-device-cache True`, beside the plain eval
+   of the same checkpoint: the fp32 paths' metrics equal to it (atol 1e-6,
+   AUC within one tied pair), C2 live in the three-tier run; it prints
+   the preprocess rate, steps/s, and the seconds and GB/s of the
+   checkpoint save, the restore and the EV export;
 4. the kernels' launch counts by path (serve, serve_int8, serve_host,
-   gram_ab, train, train_factored) and one JSON line describing every
+   gram_ab, train, train_factored, cli) and one JSON line describing every
    kernel, each of which must have launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
@@ -117,6 +137,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -130,7 +151,8 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "2 kernels vs plain": 150, "2b grouped widths": 90,
                   "3 main path": 200, "3c three tiers int8": 200,
                   "3d host tiers": 240, "3b train": 240,
-                  "3e train factored": 240, "4 kernels line": 30}
+                  "3e train factored": 240, "3f cli": 420,
+                  "4 kernels line": 30}
 
 
 class Phase:
@@ -311,7 +333,7 @@ def main() -> int:
     from evstore_tpu_torch.cache.tiers import (AltKeyResolver, altkey_encode,
                                                write_altkeys_binary)
     from evstore_tpu_torch.drivers.infer import TRUE_PER_REQUEST
-    from evstore_tpu_torch.native import NativeTieredCache
+    from evstore_tpu_torch.native import NativeShardedCache, NativeTieredCache
     from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
                                           kaggle_dlrm_config)
     from evstore_tpu_torch.data.synthetic import (RandomDataConfig,
@@ -519,6 +541,267 @@ def main() -> int:
                           f"{s_bms * 1e3:.2f} ({s_by}) [{card}]", flush=True)
                     del tabs, twice, ref_tabs, got, ref
                 torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 3f the CLI
+    CLI_LINES = 100_000     # lines of the synthetic train.txt
+    CLI_VOCAB = 1_000_000   # categorical values a column, capped by the table
+
+    class Tee:
+        """stdout for the CLI's runs: every line is kept, and printed
+        unless it is an MLPerf record."""
+
+        def __init__(self, out):
+            self.out, self.buf, self.text = out, "", []
+
+        def write(self, s):
+            self.buf += s
+            while "\n" in self.buf:
+                line, self.buf = self.buf.split("\n", 1)
+                self.text.append(line)
+                if not line.startswith(":::MLLOG"):
+                    self.out.write(line + "\n")
+            return len(s)
+
+        def flush(self):
+            self.out.flush()
+
+    def bench_flags(script):
+        """The flags a bench/ script passes to the CLI."""
+        with open(os.path.join("bench", script)) as f:
+            lines = f.read().splitlines()
+        at = next(i for i, x in enumerate(lines) if "python -m" in x)
+        flags = []
+        for x in lines[at + 1:]:
+            if "$dlrm_extra_option" in x:
+                break
+            flags += x.replace("\\", " ").split()
+        return flags
+
+    def metrics_of(text):
+        """A printed metrics dict -> {name: float} (nan for nan)."""
+        return {k: float(v) for k, v in re.findall(
+            r"'(\w+)': (nan|[-\d.e]+)", text)}
+
+    def phase_3f():
+        """The CLI end to end at the full Kaggle width through
+        `cli.main`: preprocess a synthetic train.txt and train with
+        bench/dlrm_s_criteo_kaggle.sh's flags (one final eval writes one
+        checkpoint and one EV export), resume from the checkpoint (every
+        step skipped; the state it restores and saves again must be the
+        saved one bit for bit), hold the exported tables to the
+        checkpoint's bit for bit, then serve the exported tables with the
+        C1 script's flags, the C1+C2+C3 script's and C1 on the device
+        cache, beside the plain eval of the same checkpoint.  Each CLI run
+        is counted on the `cli` path, its counts set to 0 just before."""
+        import contextlib
+        import hashlib
+
+        from evstore_tpu_torch import cli
+        from evstore_tpu_torch.data.criteo import (CriteoDataset,
+                                                   make_synthetic_criteo_txt)
+        from evstore_tpu_torch.utils.checkpoint import (
+            checkpoint_path, latest_step, load_ev_tables_into_params,
+            restore_checkpoint)
+        launches = dict.fromkeys(wrappers, 0)
+
+        def run(argv):
+            """cli.main(argv) in this process: -> its stdout."""
+            reset_counts()
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                rc = cli.main(argv)
+            for k, v in read_counts().items():
+                launches[k] += v
+            torch.cuda.empty_cache()
+            if rc != 0:
+                raise AssertionError(f"cli.main returned {rc}")
+            return "\n".join(tee.text)
+
+        def grab(pattern, text, what):
+            m = re.search(pattern, text)
+            if m is None:
+                raise AssertionError(f"no {what} in the CLI's output")
+            return m.groups()
+
+        def digests(path):
+            """sha256 of every tensor of a checkpoint, by name, and its
+            optimizer step."""
+            state = torch.load(path, map_location="cpu", mmap=True,
+                               weights_only=True)
+            out = {k: hashlib.sha256(v.contiguous().view(torch.uint8)
+                                     .numpy()).hexdigest()
+                   for k, v in state["model"].items()}
+            out["opt.step"] = state["opt"]["step"]
+            return out
+
+        with Phase("3f cli"):
+            tmp = tempfile.TemporaryDirectory()
+            d = tmp.name
+            try:
+                train_flags = bench_flags("dlrm_s_criteo_kaggle.sh")
+                kcfg, _, _ = cli.configs_from_args(
+                    cli.build_parser().parse_args(train_flags))
+                sizes = kcfg.table_sizes
+                txt = os.path.join(d, "train.txt")
+                t0 = time.perf_counter()
+                make_synthetic_criteo_txt(
+                    txt, n=CLI_LINES, seed=args.seed + 11,
+                    vocab=[min(n, CLI_VOCAB) for n in sizes])
+                print(f"synthetic train.txt: {CLI_LINES} lines, categories "
+                      f"in [0, min(table rows, {CLI_VOCAB})), in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+                ck, ev = os.path.join(d, "ck"), os.path.join(d, "ev")
+                out_dir = os.path.join(d, "out")
+                train_argv = train_flags + [
+                    "--raw-data-file", txt, "--output-dir", out_dir,
+                    "--save-model", ck, "--ev-table-path", ev,
+                    "--test-freq", "-1"]
+                print("train: bench/dlrm_s_criteo_kaggle.sh's flags + "
+                      "--raw-data-file --output-dir --save-model "
+                      "--ev-table-path --test-freq -1", flush=True)
+                out = run(train_argv)
+                pre = grab(r"preprocessed \S+: (\d+) lines in ([\d.]+) s "
+                           r"\((\d+) lines/s\)", out, "preprocess line")
+                trained = grab(r"trained (\d+) steps in ([\d.]+) s "
+                               r"\(([\d.]+) steps/s\)", out, "step rate")
+                saved = grab(r"checkpoint step_(\d+): ([\d.]+) GB in "
+                             r"([\d.]+) s \(([\d.]+) GB/s\)", out,
+                             "checkpoint line")
+                exported = grab(r"EV tables exported: ([\d.]+) GB in "
+                                r"([\d.]+) s \(([\d.]+) GB/s\)", out,
+                                "export line")
+                step = latest_step(ck)
+                pf = os.path.join(out_dir, "processed",
+                                  "kaggle_processed.npz")
+                ds = CriteoDataset.load(pf)
+                n_train = ds.splits()[0][1] // 128
+                if int(trained[0]) != n_train or step != n_train or \
+                        int(saved[0]) != step:
+                    raise AssertionError(f"trained {trained[0]} steps of "
+                                         f"{n_train}, checkpoint at {step}")
+                first = digests(checkpoint_path(ck, step))
+                with open(os.path.join(ck, f"step_{step}.meta.json")) as f:
+                    meta = json.load(f)
+
+                # resume: --load-model beside the same --save-model
+                out = run(train_argv + ["--load-model", ck])
+                restored = grab(r"resumed from checkpoint step (\d+) "
+                                r"\(([\d.]+) GB in ([\d.]+) s, ([\d.]+) "
+                                r"GB/s\)", out, "resume line")
+                if int(restored[0]) != step or \
+                        "trained 0 steps" not in out:
+                    raise AssertionError("the resumed run did not skip "
+                                         "every step")
+                again = digests(checkpoint_path(ck, step))
+                with open(os.path.join(ck, f"step_{step}.meta.json")) as f:
+                    meta2 = json.load(f)
+                if again != first or meta2 != meta:
+                    bad = [k for k in first if first[k] != again.get(k)]
+                    raise AssertionError(f"the restored state saved again "
+                                         f"differs: {bad[:5]}, "
+                                         f"{meta} / {meta2}")
+                print(f"resume: restored step {step} and saved it again, "
+                      f"{len(first) - 1} tensors bit for bit; the final "
+                      f"eval's metrics the same ({meta['extra']})",
+                      flush=True)
+
+                # the exported tables against the checkpoint's
+                empty = [torch.empty((n, kcfg.embedding_dim), device=dev)
+                         for n in sizes]
+                m_ck = DLRM(kcfg, device=dev, tables=empty)
+                m_ev = DLRM(kcfg, device=dev, tables=empty)
+                del empty
+                restore_checkpoint(ck, step, m_ck,
+                                   init_opt_state(m_ck, TrainConfig()))
+                load_ev_tables_into_params(m_ev, ev)
+                for t in range(len(sizes)):
+                    if not torch.equal(m_ck.tables[t], m_ev.tables[t]):
+                        raise AssertionError(f"exported table {t} differs "
+                                             f"from the checkpoint's")
+                print(f"EV export: the {len(sizes)} .bin tables equal the "
+                      f"checkpoint's bit for bit (load_ev_tables_into_params "
+                      f"against restore_checkpoint)", flush=True)
+                del m_ck, m_ev
+                torch.cuda.empty_cache()
+
+                # serving the exported tables, beside the plain eval
+                pct = "1.0"
+                labels = np.concatenate([y for _, _, y in ds.batches(
+                    "test", 128, fraction=float(pct), drop_last=True)])
+                n_batches = len(labels) // 128
+                if n_batches < 16:
+                    raise AssertionError(f"{n_batches} test batches")
+                n_pos = int(labels.sum())
+                tie = 1.0 / max(n_pos * (len(labels) - n_pos), 1)
+                common = ["--processed-data-file", pf, "--load-model", ck,
+                          "--percent-data-for-inference", pct]
+                out = run(train_flags + ["--inference-only"] + common)
+                ref = metrics_of(grab(r"inference done: (\{.*\})", out,
+                                      "plain metrics")[0])
+                print(f"plain eval (--use-evstore False), {n_batches} test "
+                      f"batches of 128 ({n_pos} clicks): {ref}", flush=True)
+                c1 = bench_flags("dlrm_s_criteo_kaggle_C1.sh")
+                for label, flags, fp32 in (
+                        ("C1 (bench/dlrm_s_criteo_kaggle_C1.sh)", c1, True),
+                        ("C1+C2+C3 (bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh)",
+                         bench_flags("dlrm_s_criteo_kaggle_C1_C2_C3.sh"),
+                         False),
+                        ("C1 on the device cache (the C1 script's flags + "
+                         "--use-device-cache True)",
+                         c1 + ["--use-device-cache", "True"], True)):
+                    cdf = os.path.join(d, "cdf.csv")
+                    out = run(flags + common + [
+                        "--ev-table-path", ev, "--write-cdf-file", cdf])
+                    m = metrics_of(grab(r"inference done: metrics=(\{.*?\}) "
+                                        r"perfect_hits", out, "metrics")[0])
+                    stats = json.loads(grab(r"cache stats: (\{.*\})", out,
+                                            "cache stats")[0])
+                    rate = grab(r"inference: (\d+) requests in [\d.]+s "
+                                r"\((\d+) req/s\)", out, "request rate")
+                    if m.keys() != ref.keys() or not all(
+                            np.isfinite(v) for v in m.values()) or \
+                            not os.path.exists(cdf):
+                        raise AssertionError(f"{label}: {m}")
+                    if fp32:
+                        for k, v in ref.items():
+                            tol = tie + 1e-12 if k == "auc" else 1e-6
+                            if abs(m[k] - v) > tol:
+                                raise AssertionError(
+                                    f"{label}: {k} {m[k]} against the plain "
+                                    f"eval's {v}")
+                    else:
+                        c2 = stats.get("c2", {})
+                        if c2.get("size", 0) <= 0 or \
+                                c2.get("hit_rate", 0.0) <= 0.0:
+                            raise AssertionError(f"{label}: C2 is not live: "
+                                                 f"{stats}")
+                    print(f"3f serve {label} [{card}]: {rate[0]} requests "
+                          f"scored after a warm-up pass over the same, "
+                          f"{rate[1]} requests/s; metrics "
+                          f"{'equal the plain eval' if fp32 else 'int8/4-bit'}"
+                          f": auc {m['auc']:.6f}, accuracy "
+                          f"{m['accuracy']:.6f}; stats {json.dumps(stats)}",
+                          flush=True)
+                print(f"3f [{card}]: preprocess {pre[0]} lines in {pre[1]} "
+                      f"s = {pre[2]} lines/s; train {trained[0]} steps in "
+                      f"{trained[1]} s = {trained[2]} steps/s (B=128, sgd, "
+                      f"lr 0.1, bf16 compute); checkpoint save {saved[1]} GB "
+                      f"in {saved[2]} s = {saved[3]} GB/s; restore "
+                      f"{restored[1]} GB in {restored[2]} s = {restored[3]} "
+                      f"GB/s; EV export {exported[0]} GB in {exported[1]} s "
+                      f"= {exported[2]} GB/s", flush=True)
+            finally:
+                tmp.cleanup()
+            path = {k: launches[k] for k in (
+                "interaction_fwd", "interaction_bwd", "gather_rows",
+                "gather_rows_grouped", "scatter_sub_sorted")}
+            if min(path[k] for k in ("interaction_fwd", "interaction_bwd",
+                                     "gather_rows_grouped",
+                                     "scatter_sub_sorted")) < 1:
+                raise AssertionError(f"a kernel of the CLI's path never ran: "
+                                     f"{launches}")
+            print(f"cli path launches: {json.dumps(path)}", flush=True)
+            return path
 
     # ------------------------------------------ 3e train factored tables
     def phase_3e(tables):
@@ -1774,12 +2057,12 @@ def main() -> int:
 
         # (a) bench/dlrm_s_criteo_kaggle_C1.sh: the Python TieredCache,
         # EvLFU C1 of 64,000 fp32 entries, over the mmap store
-        ccfg_a = CacheConfig(policy="evlfu", n_caching_layers=1,
+        kcfga = CacheConfig(policy="evlfu", n_caching_layers=1,
                              total_size=64000, main_precision=32)
-        tc = build_cache(ccfg_a, cfg, mm)
+        tc = build_cache(kcfga, cfg, mm)
         warm_a, scored_a, extra_a = warm_up(
             tc, lambda s: s["c1"]["size"] >= 64000, n_scored=16)
-        res_a = serve_host(model, cfg, ccfg_a, scored_a, mm, cache=tc)
+        res_a = serve_host(model, cfg, kcfga, scored_a, mm, cache=tc)
         served(res_a, 16)
         err_a = check_plain(res_a, scored_a, "(a) TieredCache C1 fp32")
         rows = tc.request_batch(extra_a[1])
@@ -1797,7 +2080,7 @@ def main() -> int:
         # (b) bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh (--cache-algo native):
         # the engine's host path, int8 C1, 4-bit C2, alt-key C3, reading the
         # .bin files; the alt keys read back from alt-keys-<t>.bin
-        ccfg_b = CacheConfig(policy="evlfu", n_caching_layers=3,
+        kcfgb = CacheConfig(policy="evlfu", n_caching_layers=3,
                              total_size=75425, main_precision=8,
                              secondary_precision=4,
                              size_proportion=(48, 48, 4))
@@ -1805,10 +2088,10 @@ def main() -> int:
         if not all(np.array_equal(a, b) for a, b in
                    zip(resolver.tables, alts)):
             raise AssertionError("alt keys read back differ")
-        eng = NativeTieredCache(ccfg_b, cfg.num_tables, cfg.embedding_dim)
+        eng = NativeTieredCache(kcfgb, cfg.num_tables, cfg.embedding_dim)
         eng.open_table_files(bins, sizes)
         eng.load_altkeys(resolver.tables)
-        caps = ccfg_b.tier_capacities()
+        caps = kcfgb.tier_capacities()
         warm_b, scored_b, extra_b = warm_up(
             eng, lambda s: (s["c1"]["size"] >= caps[0]
                             and s["c2"]["size"] >= caps[1]
@@ -1830,7 +2113,7 @@ def main() -> int:
                 return self.inner.stats()
 
         rec = Recorder(eng)
-        res_b = serve_host(model, cfg, ccfg_b, scored_b, mm,
+        res_b = serve_host(model, cfg, kcfgb, scored_b, mm,
                            altkey_resolver=resolver, use_native=True,
                            cache=rec)
         served(res_b, N_SCORED)
@@ -1860,7 +2143,7 @@ def main() -> int:
         singles = [(dense_d[i:i + 1], idx_d[i:i + 1], y_d[i:i + 1])
                    for i in range(256)]
         cdf = os.path.join(bins, "cdf-bs1.csv")
-        res_d = serve_host(model, cfg, ccfg_b, singles, mm,
+        res_d = serve_host(model, cfg, kcfgb, singles, mm,
                            use_native=True, cache=eng, cdf_path=cdf)
         with open(cdf) as f:
             head = f.readline().strip()
@@ -1932,23 +2215,23 @@ def main() -> int:
         # (SimpleCacheFrontend over the mmap store, 4 scored batches) and
         # the engine (its file mode, 64 scored batches)
         for policy in ("lfu", "lru"):
-            ccfg_c = CacheConfig(policy=policy, n_caching_layers=1,
+            kcfgc = CacheConfig(policy=policy, n_caching_layers=1,
                                  total_size=64000, main_precision=32)
-            py = build_cache(ccfg_c, cfg, mm)
+            py = build_cache(kcfgc, cfg, mm)
             warm_c, scored_c, _ = warm_up(
                 py, lambda s: s["cache"]["size"] >= 64000, n_scored=4)
-            res_c = serve_host(model, cfg, ccfg_c, scored_c, mm, cache=py)
+            res_c = serve_host(model, cfg, kcfgc, scored_c, mm, cache=py)
             served(res_c, 4)
             err_c = check_plain(res_c, scored_c, f"(c) Python {policy}")
             host_line(f"3d(c) Python {policy.upper()} 64,000 fp32 over the "
                       f"mmap store, {len(warm_c)} warm-up batches", res_c, 4)
             del py
-            nat = NativeTieredCache(ccfg_c, cfg.num_tables,
+            nat = NativeTieredCache(kcfgc, cfg.num_tables,
                                     cfg.embedding_dim)
             nat.open_table_files(bins, sizes)
             warm_n, scored_n, _ = warm_up(
                 nat, lambda s: s["c1"]["size"] >= 64000)
-            res_n = serve_host(model, cfg, ccfg_c, scored_n, mm,
+            res_n = serve_host(model, cfg, kcfgc, scored_n, mm,
                                use_native=True, cache=nat)
             nat.close()
             served(res_n, N_SCORED)
@@ -1965,10 +2248,10 @@ def main() -> int:
         # with the tables in RAM, as build_cache makes it from the dummy
         # store: the host path against the device cache at the same C1,
         # and against the file-backed runs above
-        nat = build_cache(ccfg_a, cfg, storage, use_native=True)
+        nat = build_cache(kcfga, cfg, storage, use_native=True)
         warm_g, scored_g, _ = warm_up(
             nat, lambda s: s["c1"]["size"] >= 64000)
-        res_g = serve_host(model, cfg, ccfg_a, scored_g, storage,
+        res_g = serve_host(model, cfg, kcfga, scored_g, storage,
                            use_native=True, cache=nat)
         nat.close()
         served(res_g, N_SCORED)
@@ -1980,11 +2263,60 @@ def main() -> int:
               f"max|d| {err_g:.3e}; at the same C1 the device cache served "
               f"{res.requests / res.elapsed_s:.1f} requests/s in phase 3 "
               f"(depth 0)", flush=True)
+        serial = res_g.cache_stats
         del nat
+
+        # (g) beside it: the table-partitioned engine (NativeShardedCache)
+        # over the same tables, borrowed, at 1, 2, 4 and 8 workers, fed
+        # (g)'s warm-up and scored batches: its scores equal (g)'s bit for
+        # bit, one more batch's rows equal the store's, at 1 worker its
+        # stats equal the serial engine's, at more C1's hit rate is within
+        # 0.05 of it (tests/test_sharded_engine.py)
+        rate_g = res_g.requests / res_g.elapsed_s
+        for workers in (1, 2, 4, 8):
+            sh = NativeShardedCache(kcfga, cfg.num_tables,
+                                    cfg.embedding_dim, workers)
+            sh.borrow_tables(tables)
+            for _, idx, _ in warm_g:
+                sh.request_batch(idx)
+            res_s = serve_host(model, cfg, kcfga, scored_g, None, cache=sh)
+            idx_x = scored_g[-1][1][::-1].copy()
+            if not np.array_equal(sh.request_batch(idx_x).view(np.int32),
+                                  store_rows(idx_x).view(np.int32)):
+                raise AssertionError(f"(g) sharded W={workers}: rows differ "
+                                     f"from the store's")
+            st = res_s.cache_stats      # before the extra batch
+            sh.close()
+            if not np.array_equal(res_s.scores.view(np.int32),
+                                  res_g.scores.view(np.int32)):
+                raise AssertionError(f"(g) sharded W={workers}: scores "
+                                     f"differ from the serial engine's")
+            d_hr = st["c1"]["hit_rate"] - serial["c1"]["hit_rate"]
+            if workers == 1 and (st["perfect_hits"] !=
+                                 serial["perfect_hits"] or d_hr != 0.0):
+                raise AssertionError(f"(g) sharded W=1 {st} against the "
+                                     f"serial engine's {serial}")
+            if abs(d_hr) >= 0.05:
+                raise AssertionError(f"(g) sharded W={workers}: C1 hit rate "
+                                     f"{st['c1']['hit_rate']} against the "
+                                     f"serial engine's "
+                                     f"{serial['c1']['hit_rate']}")
+            host_line(f"3d(g) NativeShardedCache W={workers}, EvLFU 64,000 "
+                      f"fp32, tables borrowed in RAM, (g)'s batches", res_s,
+                      N_SCORED)
+            print(f"check (g) sharded W={workers}: scores equal the serial "
+                  f"engine's bit for bit, rows the store's; C1 hit rate "
+                  f"{st['c1']['hit_rate']:.6f} (serial "
+                  f"{serial['c1']['hit_rate']:.6f}, d {d_hr:+.6f}), perfect "
+                  f"hits {st['perfect_hits']} (serial "
+                  f"{serial['perfect_hits']}); "
+                  f"{res_s.requests / res_s.elapsed_s:.1f} requests/s "
+                  f"against the serial engine's {rate_g:.1f}", flush=True)
+            del res_s
 
         # (f) the TCP service in batched mode over a fresh fp32 C1 of the
         # engine, on 127.0.0.1: the rows equal the store's bit for bit
-        eng_f = NativeTieredCache(ccfg_a, cfg.num_tables, cfg.embedding_dim)
+        eng_f = NativeTieredCache(kcfga, cfg.num_tables, cfg.embedding_dim)
         eng_f.open_table_files(bins, sizes)
         srv = EmbeddingServer(eng_f, cfg.embedding_dim,
                               mode="batched").start()
@@ -2236,6 +2568,8 @@ def main() -> int:
     del model, st_k, step_k, st_s, step_s
     torch.cuda.empty_cache()
     factored_launches = phase_3e(tables)
+    del tables
+    cli_launches = phase_3f()
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -2244,7 +2578,8 @@ def main() -> int:
               f"{json.dumps(host_launches)}; gram_ab "
               f"{json.dumps(gram_launches)}; train "
               f"{json.dumps(train_launches)}; train_factored "
-              f"{json.dumps(factored_launches)}")
+              f"{json.dumps(factored_launches)}; cli "
+              f"{json.dumps(cli_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -2266,7 +2601,7 @@ def main() -> int:
         paths = {"serve": serve_launches, "serve_int8": int8_launches,
                  "serve_host": host_launches, "gram_ab": gram_launches,
                  "train": train_launches,
-                 "train_factored": factored_launches}
+                 "train_factored": factored_launches, "cli": cli_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

@@ -16,6 +16,7 @@ optimizer through the grouped kernel path (`ops/cuda_update.py`).
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Sequence, Tuple
 
 
@@ -117,6 +118,29 @@ def kaggle_small_dlrm_config(max_rows: int = 100_000, **kw) -> DLRMConfig:
     return make_dlrm_config(36, sizes, (512, 256, 64), (512, 256), **kw)
 
 
+# Criteo Terabyte's vocabularies (bench/dlrm_s_criteo_terabyte.sh), which
+# the MLPerf recipe shares
+TERABYTE_TABLE_SIZES = (227605432, 39060, 17295, 7424, 20265, 3, 7122, 1543,
+                        63, 130229467, 3067956, 405282, 10, 2209, 11938, 155,
+                        4, 976, 14, 292775614, 40790948, 187188510, 590152,
+                        12973, 108, 36)
+
+
+def terabyte_dlrm_config(max_ind_range: int = 10_000_000, **kw) -> DLRMConfig:
+    """emb dim 64, bot 13-512-256-64, top 512-512-256-1
+    (bench/dlrm_s_criteo_terabyte.sh:24), tables capped at max_ind_range."""
+    sizes = tuple(min(s, max_ind_range) for s in TERABYTE_TABLE_SIZES)
+    return make_dlrm_config(64, sizes, (512, 256), (512, 512, 256), **kw)
+
+
+def mlperf_dlrm_config(max_ind_range: int = 40_000_000, **kw) -> DLRMConfig:
+    """The MLPerf recipe: emb dim 128, top 1024-1024-512-256-1
+    (bench/run_and_time.sh:17), tables capped at max_ind_range."""
+    sizes = tuple(min(s, max_ind_range) for s in TERABYTE_TABLE_SIZES)
+    return make_dlrm_config(128, sizes, (512, 256), (1024, 1024, 512, 256),
+                            **kw)
+
+
 def tiny_dlrm_config(**kw) -> DLRMConfig:
     """CPU-sized fixture (the reference's tiny default model)."""
     return make_dlrm_config(4, (40, 30, 20), (8,), (8,), num_dense=4, **kw)
@@ -124,24 +148,36 @@ def tiny_dlrm_config(**kw) -> DLRMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters: the JAX package's fields that the port
-    reads (reference flags dlrm_s_pytorch.py:952-1018), with the same names
-    and defaults.  `pack_gather` is not ported: the packed [N/P, P*D] table
-    layout is a TPU lowering of the row gather, and the port's gather kernel
-    reads the logical [N, D] layout directly.  `batch_size` and
-    `test_batch_size` come with the training driver that makes batches;
-    `train` and `evaluate` take the size of the batches they are given."""
+    """Training hyperparameters: the JAX package's fields (reference flags
+    dlrm_s_pytorch.py:952-1018), with the same names and defaults.
+    `pack_gather` is not ported: the packed [N/P, P*D] table layout is a
+    TPU lowering of the row gather, and the port's gather kernel reads the
+    logical [N, D] layout directly.  `train` and `evaluate` take the size
+    of the batches they are given; `batch_size` and `test_batch_size` are
+    what the CLI makes them with."""
 
+    batch_size: int = 128
+    test_batch_size: int = 128
     learning_rate: float = 0.1
     optimizer: str = "sgd"                 # sgd | adagrad | rwsadagrad
     # mse | wbce; any other name is BCE, as in the JAX package
     loss_function: str = "bce"
     loss_weights: Tuple[float, float] = (1.0, 1.0)
+    nepochs: int = 1
+    numpy_rand_seed: int = 123
     # LR policy (LRPolicyScheduler, dlrm_s_pytorch.py:168-202)
     lr_num_warmup_steps: int = 0
     lr_decay_start_step: int = 0
     lr_num_decay_steps: int = 0
+    # eval cadence (steps; <= 0: only the final eval) and the MLPerf
+    # early-exit thresholds (0: off)
+    test_freq: int = -1
+    mlperf_acc_threshold: float = 0.0
+    mlperf_auc_threshold: float = 0.0
     print_freq: int = 1024
+    # checkpoint directories (the CLI's --save-model / --load-model)
+    save_model: str = ""
+    load_model: str = ""
     # the grouped row updates of every optimizer through the CUDA kernel
     # (csrc/row_update.cu)
     use_update_kernel: bool = True
@@ -153,9 +189,11 @@ class CacheConfig:
     the tier engine read, with the same names and defaults.  The reference
     splits them between runtime flags (dlrm_s_pytorch_C1.py:1248-1268) and
     the C++ engine's compile-time #defines
-    (mixed_precs_caching/cache_manager.cpp:13-20).  The JAX package's
-    `storage_backend`, `storage_path` and `n_warmup_requests` are set only
-    by its CLI and read nowhere, and are left out."""
+    (mixed_precs_caching/cache_manager.cpp:13-20).  `storage_backend` and
+    `storage_path` record the CLI's --emb-stor and --ev-table-path, and
+    `n_warmup_requests` is the JAX package's field, which nothing reads
+    there either.  The JAX package's `c3_n_batch`, which nothing reads, is
+    left out."""
 
     policy: str = "evlfu"                  # evlfu | lfu | lru
     n_caching_layers: int = 1              # 1 (C1), 2 (C1+C2), 3 (C1+C2+C3)
@@ -175,6 +213,11 @@ class CacheConfig:
     # 122-152): a request with at least this many C1 hits serves its misses
     # a stand-in row; -1 turns it off
     approx_emb_threshold: int = -1
+    # the store behind the cache: dummy | file | mmap | sqlite | logkv |
+    # native, and its .bin directory
+    storage_backend: str = "dummy"
+    storage_path: str = ""
+    n_warmup_requests: int = 0
 
     def tier_capacities(self) -> Tuple[int, int, int]:
         """Entry capacity per tier.  The reference scales entry counts by
@@ -193,3 +236,18 @@ class CacheConfig:
         return (int(self.total_size * p1 / tot),
                 int(self.total_size * p2 / tot * ratio),
                 int(self.total_size * p3 / tot * 36))
+
+
+def to_json(cfg) -> str:
+    """A config dataclass as JSON."""
+    return json.dumps(dataclasses.asdict(cfg))
+
+
+def from_json(cls, s: str):
+    """The inverse of `to_json` for the dataclass `cls` (JSON lists become
+    tuples)."""
+    d = json.loads(s)
+    for k, v in list(d.items()):
+        if isinstance(v, list):
+            d[k] = tuple(v)
+    return cls(**d)

@@ -8,7 +8,10 @@ as the JAX package: the calls on the numpy generator are the same, in the
 same order.  The `zipf` and `grouped_zipf` streams carry the skew EVStore's
 cache exploits; `grouped_zipf` draws one popularity rank per request (and
 bag slot) and shares it across all tables (cache_algo/EvLFU_C1.py:97-161).
-The gaussian index stream is not ported yet.
+The `gaussian` stream draws ids from N(mu, sigma) clipped to [min, max]
+(generate_dist_input_batch, dlrm_data_pytorch.py:1046-1051); in a bag, a
+slot that repeats an earlier slot's id gets weight 0, the static-shape form
+of the reference's `np.unique` of each bag.
 """
 
 from __future__ import annotations
@@ -30,12 +33,17 @@ class RandomDataConfig:
     batch_size: int = 128
     num_batches: int = 100
     seed: int = 123
-    distribution: str = "uniform"     # uniform | zipf | grouped_zipf
+    # uniform | zipf | grouped_zipf | gaussian
+    distribution: str = "uniform"
     zipf_alpha: float = 1.05
     # grouped_zipf: resample a table's id independently with this probability
     group_noise: float = 0.1
     rand_data_mu: float = -1.0        # reference --rand-data-* flags
     rand_data_sigma: float = 1.0
+    # the gaussian ids' bounds: mu == -1 means (min + max) / 2, max == -1
+    # means the table's last row
+    rand_data_min: float = 0.0
+    rand_data_max: float = -1.0
     dense_dist: str = "uniform"       # uniform | gaussian (|N(mu, sigma)|)
     # multi-hot bags (reference --num-indices-per-lookup[-fixed],
     # dlrm_data_pytorch.py:1062-1120): L > 1 yields (dense, idx [B, T, L],
@@ -49,6 +57,13 @@ def _sample_indices(rng: np.random.Generator, n: int, size: int,
                     cfg: RandomDataConfig) -> np.ndarray:
     if cfg.distribution == "uniform" or size <= 2:
         return rng.integers(0, size, n, dtype=np.int64)
+    if cfg.distribution == "gaussian":
+        lo = cfg.rand_data_min
+        hi = cfg.rand_data_max if cfg.rand_data_max >= 0 else float(size - 1)
+        hi = min(hi, float(size - 1))
+        mu = cfg.rand_data_mu if cfg.rand_data_mu != -1 else (lo + hi) / 2.0
+        r = rng.normal(mu, cfg.rand_data_sigma, n)
+        return np.clip(r, lo, hi).astype(np.int64)
     # bounded Zipf via the continuous inverse-CDF approximation
     a = cfg.zipf_alpha
     if abs(a - 1.0) < 1e-6:
@@ -63,9 +78,9 @@ def random_batches(cfg: RandomDataConfig) -> Iterator[Batch]:
     """Yields (dense [B, num_dense] f32, idx [B, T] int32, labels [B] f32),
     or with bags (dense, idx [B, T, L] int32, bag_weights [B, T, L] f32,
     labels)."""
-    if cfg.distribution not in ("uniform", "zipf", "grouped_zipf"):
-        raise NotImplementedError(
-            f"the {cfg.distribution!r} stream is not ported yet")
+    if cfg.distribution not in ("uniform", "zipf", "grouped_zipf",
+                                "gaussian"):
+        raise ValueError(f"unsupported distribution {cfg.distribution!r}")
     if cfg.dense_dist not in ("uniform", "gaussian"):
         raise ValueError(f"unsupported dense_dist {cfg.dense_dist!r}")
     rng = np.random.default_rng(cfg.seed)
@@ -123,6 +138,12 @@ def random_batches(cfg: RandomDataConfig) -> Iterator[Batch]:
             sz = rng.integers(1, L + 1, (cfg.batch_size, len(sizes)))
             bag_w = (np.arange(L)[None, None, :] < sz[..., None]
                      ).astype(np.float32)
+        if cfg.distribution == "gaussian":
+            # weight 0 for a slot that repeats an earlier slot's id
+            dup = ((idx[:, :, :, None] == idx[:, :, None, :])
+                   & (np.arange(L)[None, None, :, None]
+                      > np.arange(L)[None, None, None, :])).any(axis=3)
+            bag_w = bag_w * (~dup)
         yield dense.astype(np.float32), idx, bag_w, labels
 
 

@@ -17,12 +17,19 @@ batched: one call per batch of requests.
   (`cache/device_cache.py::NativeDeviceC1Cache`): per batch, one call runs
   the EvLFU policy over the cache's slots and returns the gather indices,
   the scatter list and the miss-row buffer.
+- `NativeShardedCache` is the table-partitioned engine (`ShardedEngine`
+  in the C++): the tables split round-robin over `n_workers` threads, each
+  with its own C1 (and C2) share, over borrowed RAM tables; C1 and C1+C2
+  only.
 - The log-structured key-value store (`esv_kv_*`) is bound here and used by
   `cache/storage.py::LogKVStore`.
+- The Criteo TSV parser (`parse_criteo_tsv_native`, `_range`, `_chunks`)
+  feeds `data/criteo.py`.  Its errors reach the caller: nothing here falls
+  back to the Python parser.
 
 Not bound yet: the training assigner (`esv_assign_batch_train`,
-`esv_fetch_rows`, `esv_assign_resident`), the TSV parser and the sharded
-engine.  Their C code is in the copy and waits for its slice.
+`esv_fetch_rows`, `esv_assign_resident`).  Its C code is in the copy and
+waits for its slice.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ _U64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _F64 = np.ctypeslib.ndpointer(np.float64)
 _P, _L, _I, _FL = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_float
+_S = ctypes.c_char_p
 
 # name -> (restype, argtypes)
 SIGNATURES = {
@@ -74,6 +82,21 @@ SIGNATURES = {
     "esv_kv_count": (_L, [_P]),
     "esv_kv_compact": (_L, [_P]),
     "esv_kv_close": (None, [_P]),
+    # the sharded engine: workers, n_tables, dim, n_layers, c1/c2
+    # capacities, main and secondary precision, flush rate, perfect cap,
+    # high-agg threshold, policy
+    "esv_shard_init": (_P, [_I, _I, _I, _I, _L, _L, _I, _I, _FL, _FL, _I,
+                            _I]),
+    "esv_shard_borrow_table": (_I, [_P, _I, _F32, _L]),
+    "esv_shard_lookup_batch": (_L, [_P, _I64, _L, _F32]),
+    "esv_shard_stats": (None, [_P, _F64]),
+    "esv_shard_close": (None, [_P]),
+    # the TSV parser: path, [start, end,] max rows, labels, dense, cats
+    "esv_count_lines": (_L, [_S]),
+    "esv_parse_criteo_tsv": (_L, [_S, _L, _I32, _I64, _I64]),
+    "esv_parse_criteo_tsv_chunk": (_L, [_S, _L, _L, _I32, _I64, _I64,
+                                        ctypes.POINTER(_L)]),
+    "esv_parse_criteo_tsv_range": (_L, [_S, _L, _L, _L, _I32, _I64, _I64]),
 }
 
 
@@ -263,3 +286,145 @@ class NativeAssigner:
         self._lib.esv_assign_stats(self._handle(), s)
         return {"requests": int(s[0]), "perfect_hits": int(s[1]),
                 "size": int(s[2]), "hit_rate": float(s[3])}
+
+
+class NativeShardedCache:
+    """The table-partitioned engine: table t belongs to worker t mod
+    `n_workers`, which runs its own C1 (and C2) share of the capacities;
+    per request the workers exchange the request's aggregate hit count
+    through atomics.  At one worker it is the serial engine's trajectory
+    exactly; at more, each shard's own capacity and eviction pool moves
+    hit rates slightly.  C1 and C1+C2 only (alt keys cross shards), over
+    borrowed in-RAM tables."""
+
+    def __init__(self, cfg: CacheConfig, n_tables: int, dim: int,
+                 n_workers: int = 2):
+        if cfg.n_caching_layers > 2:
+            raise ValueError("the sharded engine serves C1 and C1+C2 "
+                             "only; C3's alt keys cross shards")
+        self.cfg = cfg
+        self.n_tables = n_tables
+        self.dim = dim
+        self.n_workers = n_workers
+        self._lib = get_lib()
+        c1, c2, _ = cfg.tier_capacities()
+        self._h = self._lib.esv_shard_init(
+            n_workers, n_tables, dim, cfg.n_caching_layers, c1, c2,
+            cfg.main_precision, cfg.secondary_precision, cfg.flush_rate,
+            cfg.perfect_item_cap, cfg.high_agghit_threshold,
+            _POLICY[cfg.policy])
+        if not self._h:
+            raise ValueError(
+                f"esv_shard_init rejected config: n_workers={n_workers} "
+                f"(1 to n_tables), n_tables={n_tables} (max 64), dim={dim}")
+
+    def _handle(self):
+        if self._h is None:
+            raise RuntimeError("the sharded engine is closed")
+        return self._h
+
+    def borrow_tables(self, tables: Sequence[np.ndarray]):
+        """Zero-copy store over the caller's float32 [n, dim] tables, which
+        must stay alive."""
+        self._borrowed_refs = []
+        for t, tab in enumerate(tables):
+            tab = np.ascontiguousarray(tab, np.float32)
+            self._borrowed_refs.append(tab)
+            rc = self._lib.esv_shard_borrow_table(self._handle(), t, tab,
+                                                  tab.shape[0])
+            if rc != 0:
+                raise RuntimeError(f"esv_shard_borrow_table({t}) -> {rc}")
+        return self
+
+    def request_batch(self, idx: np.ndarray) -> np.ndarray:
+        """idx [B, T] -> rows [B, T, D] float32, as
+        `NativeTieredCache.request_batch`."""
+        idx = np.ascontiguousarray(idx, np.int64)
+        B = idx.shape[0]
+        out = np.empty((B, self.n_tables, self.dim), np.float32)
+        rc = self._lib.esv_shard_lookup_batch(self._handle(),
+                                              idx.reshape(-1), B,
+                                              out.reshape(-1))
+        if rc == -2:
+            raise ValueError("esv_shard_lookup_batch: row id out of "
+                             "[0, 2^40)")
+        return out
+
+    def stats(self) -> dict:
+        s = np.zeros(6, np.float64)
+        self._lib.esv_shard_stats(self._handle(), s)
+        out = {"requests": int(s[0]), "perfect_hits": int(s[1]),
+               "c1": {"size": int(s[2]), "hit_rate": float(s[3])}}
+        if self.cfg.n_caching_layers >= 2:
+            out["c2"] = {"size": int(s[4]), "hit_rate": float(s[5])}
+        return out
+
+    def close(self):
+        """Free the engine and join its workers."""
+        if self._h is not None:
+            self._lib.esv_shard_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self.close()
+
+
+# ------------------------------------------------------ Criteo TSV parser
+
+_ROW_ARRAYS = ((np.int32, ()), (np.int64, (13,)), (np.int64, (26,)))
+
+
+def _row_buffers(n: int):
+    """(labels int32 [n], dense int64 [n, 13], cats int64 [n, 26])."""
+    return tuple(np.empty((n, *shape), dt) for dt, shape in _ROW_ARRAYS)
+
+
+def parse_criteo_tsv_native(path: str):
+    """Parse a Criteo TSV (label, 13 ints, 26 hex categories a line; missing
+    and negative dense values 0, missing categories 0; malformed lines
+    skipped): -> (labels int32 [n], dense int64 [n, 13], cats int64
+    [n, 26])."""
+    lib = get_lib()
+    n_lines = lib.esv_count_lines(path.encode())
+    if n_lines < 0:
+        raise FileNotFoundError(path)
+    labels, dense, cats = _row_buffers(n_lines)
+    n = lib.esv_parse_criteo_tsv(path.encode(), n_lines, labels,
+                                 dense.reshape(-1), cats.reshape(-1))
+    if n < 0:
+        raise FileNotFoundError(path)
+    return labels[:n], dense[:n], cats[:n]
+
+
+def parse_criteo_tsv_range(path: str, start_offset: int, end_offset: int,
+                           max_rows: int):
+    """Parse the lines that start in the byte range [start_offset,
+    end_offset), both line boundaries, at most `max_rows`: the worker's
+    share of the parallel preprocessing.  -> (labels, dense, cats)."""
+    labels, dense, cats = _row_buffers(max_rows)
+    n = get_lib().esv_parse_criteo_tsv_range(
+        path.encode(), start_offset, end_offset, max_rows, labels,
+        dense.reshape(-1), cats.reshape(-1))
+    if n < 0:
+        raise FileNotFoundError(path)
+    return labels[:n], dense[:n], cats[:n]
+
+
+def parse_criteo_tsv_chunks(path: str, chunk_rows: int = 1_000_000):
+    """(labels, dense, cats) chunks of up to `chunk_rows` rows, with memory
+    bounded by the chunk."""
+    lib = get_lib()
+    offset = ctypes.c_long(0)
+    labels, dense, cats = _row_buffers(chunk_rows)
+    while True:
+        n = lib.esv_parse_criteo_tsv_chunk(
+            path.encode(), offset.value, chunk_rows, labels,
+            dense.reshape(-1), cats.reshape(-1), ctypes.byref(offset))
+        if n < 0:
+            raise FileNotFoundError(path)
+        if n == 0:
+            return
+        yield labels[:n].copy(), dense[:n].copy(), cats[:n].copy()
+        if n < chunk_rows:
+            return

@@ -25,10 +25,25 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "evstore_core.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+_SANITIZE = {"thread": ("-fsanitize=thread", "-O1", "-g"),
+             "address": ("-fsanitize=address", "-O1", "-g"),
+             "undefined": ("-fsanitize=undefined", "-O1", "-g")}
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def flags(sanitize=None) -> tuple:
+    """The g++ flags: FLAGS, or a sanitizer's build when `sanitize` (or
+    `ESV_SANITIZE`) names one."""
+    sanitize = sanitize or os.environ.get("ESV_SANITIZE") or None
+    if sanitize is None:
+        return FLAGS
+    if sanitize not in _SANITIZE:
+        raise ValueError(f"ESV_SANITIZE={sanitize!r}; one of "
+                         f"{sorted(_SANITIZE)}")
+    return (*_SANITIZE[sanitize], *FLAGS[1:])
+
+
+def library_path(sanitize=None) -> str:
+    h = hashlib.sha256(" ".join(flags(sanitize)).encode())
     with open(SRC, "rb") as f:
         h.update(f.read())
     return os.path.join(BUILD_DIR, f"libevstore_core-{h.hexdigest()[:16]}.so")
@@ -43,15 +58,15 @@ def find_gxx() -> str:
     return gxx
 
 
-def build() -> str:
+def build(sanitize=None) -> str:
     """Compile the engine unless the library for this source and these
     flags exists; returns its path."""
-    out = library_path()
+    out = library_path(sanitize)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [find_gxx(), *FLAGS, "-o", tmp, SRC]
+    cmd = [find_gxx(), *flags(sanitize), "-o", tmp, SRC]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n"

@@ -21,8 +21,9 @@ device.  With `use_update_kernel` off each table takes the plain
 coalescing update (`dedup_rows`).  The embedding gradient never exists as
 a dense [N, D] array.  The step updates the model and the optimizer state
 in place; the gathered rows are a copy, so the in-place table update is
-invisible to autograd.  Not ported yet: the packed table layout (a TPU
-lowering) and checkpoints.
+invisible to autograd.  Not ported: the packed table layout (a TPU
+lowering).  Checkpoints are `utils/checkpoint.py`'s, and the driver with
+periodic eval and resume is `drivers/train.py::run_training`.
 """
 
 from __future__ import annotations
@@ -188,12 +189,14 @@ def make_eval_step(cfg: DLRMConfig):
     return eval_step
 
 
-def evaluate(model: DLRM, cfg: DLRMConfig, batches: Iterable
-             ) -> Dict[str, float]:
+def evaluate(model: DLRM, cfg: DLRMConfig, batches: Iterable,
+             eval_step=None) -> Dict[str, float]:
     """Run inference over batches (one-hot 3-tuples or multi-hot 4-tuples
     with bag weights) and compute the reference's metric block
-    (dlrm_s_pytorch.py:760-866)."""
-    eval_step = make_eval_step(cfg)
+    (dlrm_s_pytorch.py:760-866).  `eval_step` is `make_eval_step(cfg)`'s
+    function unless the caller passes its own."""
+    if eval_step is None:
+        eval_step = make_eval_step(cfg)
     scores, labels = [], []
     for batch in batches:
         dense_x, idx, y, bw = unpack_batch(batch)

@@ -43,7 +43,14 @@ def test_every_port_module_imports_without_jax():
             "evstore_tpu_torch.cache.service",
             "evstore_tpu_torch.ops.cuda_interaction",
             "evstore_tpu_torch.utils.trace",
-            "evstore_tpu_torch.data.loader"} <= set(mods)
+            "evstore_tpu_torch.data.loader",
+            "evstore_tpu_torch.cli", "evstore_tpu_torch.data.criteo",
+            "evstore_tpu_torch.drivers.train",
+            "evstore_tpu_torch.utils.checkpoint",
+            "evstore_tpu_torch.utils.logging",
+            "evstore_tpu_torch.utils.config_io",
+            "evstore_tpu_torch.utils.memory",
+            "evstore_tpu_torch.utils.profiling"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -155,9 +155,20 @@ def test_one_hot_stream_with_dense_dist_matches_jax(dense_dist):
 
 
 def test_gaussian_index_stream_still_raises():
-    with pytest.raises(NotImplementedError, match="gaussian"):
+    """The gaussian index stream with bags, once unported, now matches
+    JAX's batch for batch (the in-bag dedup's weights included); a stream
+    of no known distribution still raises."""
+    kw = dict(num_dense=4, table_sizes=(40, 30), batch_size=8,
+              num_batches=2, seed=5, distribution="gaussian",
+              rand_data_sigma=3.0, num_indices_per_lookup=3)
+    for a, b in zip(psyn.random_batches(psyn.RandomDataConfig(**kw)),
+                    jsyn.random_batches(jsyn.RandomDataConfig(**kw))):
+        assert len(a) == len(b) == 4
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    with pytest.raises(ValueError, match="pareto"):
         next(psyn.random_batches(psyn.RandomDataConfig(
-            distribution="gaussian", num_indices_per_lookup=3)))
+            distribution="pareto", num_indices_per_lookup=3)))
 
 
 @pytest.mark.parametrize("variant", ["plain", "qr-concat", "md-proj"])

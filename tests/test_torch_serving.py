@@ -249,7 +249,9 @@ def test_unported_driver_options_raise():
     device cache runs its own engine and EvLFU), 16- and 4-bit rows in the
     device cache (as JAX's), a store that is not a loaded dummy one behind
     the device cache or the engine (as JAX's), the facade's `native`
-    backend (as JAX's), and the unported gaussian stream."""
+    backend (as JAX's), and a request stream of no known distribution
+    (the gaussian stream is ported and lives in
+    tests/test_torch_synthetic_dist.py)."""
     cj, cp, params, model, tables = _models("tiny")
     sm = StorageManager("dummy", dim=cp.embedding_dim).load(tables=tables)
     batches = psyn.random_batches(psyn.RandomDataConfig(**_stream(cp, 1)))
@@ -271,9 +273,9 @@ def test_unported_driver_options_raise():
                         StorageManager("dummy", dim=cp.embedding_dim), **kw)
     with pytest.raises(ValueError, match="native engine"):
         StorageManager("native").load(bin_dir=".", table_sizes=[1])
-    with pytest.raises(NotImplementedError, match="gaussian"):
+    with pytest.raises(ValueError, match="pareto"):
         next(psyn.random_batches(psyn.RandomDataConfig(
-            distribution="gaussian")))
+            distribution="pareto")))
 
 
 NATIVE = {
