@@ -86,8 +86,9 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    from the same state, and so must five more that compound from one
    state; then `evaluate`; the device µs a step of K1, K2, K4 and K5;
    the four kernels' launch counts over this phase
-   must be above 0, with one grouped gather per train or eval step and one
-   grouped row update per rwsadagrad step; kernels and copies per step and
+   must be above 0, with one grouped gather per train or eval step and
+   two K5 launches per rwsadagrad step (its run sums, then its update)
+   and one per sgd step; kernels and copies per step and
    the rwsadagrad / sgd rate (both row updates grouped through K5), sgd's
    rate beside its rate when it updated table by table, and the kernels
    and copies of an sgd step;
@@ -120,14 +121,46 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    AUC within one tied pair), C2 live in the three-tier run; it prints
    the preprocess rate, steps/s, and the seconds and GB/s of the
    checkpoint save, the restore and the EV export;
+3g. training through the device-memory-bounded cache
+   (`cache/trainable.py::TrainableDeviceCache`, C1 of 64,000 entries, the
+   26 tables' 4.86 GB of masters in host memory, B=128, rwsadagrad, lr
+   0.1): (1) `cli.main` with bench/dlrm_s_criteo_kaggle.sh's flags plus
+   `--use-evstore True --optimizer rwsadagrad --emb-cache-size 64000` on
+   3f's preprocessed data, pipelined and with `--train-window 16` (two
+   evals and a save each), the two runs' printed losses, saved tables and
+   dense files bit for bit or, where a sum taken in any order parts them,
+   within the step-change rule (printed); then in float32 compute, (7)
+   steps/s, samples/s and the host split (assign, fetch, land, step) of
+   the per-batch, pipelined and windowed (16) drivers at fp32 and (4) the
+   pipelined driver with bf16 and int8 cells over 200 batches (the loss
+   must fall, `hbm_bytes` is checked, and one int8 step must keep every
+   untouched cell's bytes with each touched code within one of the
+   deterministic encode), a profiled window (device busy share, kernels
+   by name); (6) the device memory runs 1, 4 and 7 add, at most 256 MiB;
+   (5) the masters mapped from 3f's exported .bin files, 100 steps, then
+   `flush_files`, the files equal to `host_tables`; (2) 20 batches with
+   every key cached against `make_train_step` on the full tables, both
+   from the full-table step's state after 20 steps (losses within
+   1e-4·(1+|ref|), the changed rows by the step-change rule), and from
+   zero row sums a witness: how far the cache, the full-table step with
+   every kernel off and the full-table step on the batches in reverse
+   sample order part from the full-table step; (3) the
+   kernels on against off with fp32, bf16 and int8 cells, 3 held steps
+   after 3 warm-up steps each (loss 1e-5, MLPs 1e-4·(1+|ref|), the cells'
+   and written-back rows' step change 1e-2, the sums 1e-4 of their own
+   size, int8 codes within one of each other's), and K3 at the path's
+   shape against its plain version.  Runs 1, 4, 5 and 7 are
+   the `train_cached` path: K1, K2, K3, K4 and K5 must each launch there;
 4. the kernels' launch counts by path (serve, serve_int8, serve_host,
-   gram_ab, train, train_factored, cli) and one JSON line describing every
-   kernel, each of which must have launched on some path;
+   gram_ab, train, train_factored, cli, train_cached) and one JSON line
+   describing every kernel, each of which must have launched on some
+   path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
 copy of the 4.86 GB of tables, or reads the files), its stores and its
-temporary files before the next one starts.
+temporary files before the next one starts; 3f leaves its preprocessed
+data and exported tables to 3g, which removes them.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -152,6 +185,7 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "3 main path": 200, "3c three tiers int8": 200,
                   "3d host tiers": 240, "3b train": 240,
                   "3e train factored": 240, "3f cli": 420,
+                  "3g cached training": 300,
                   "4 kernels line": 30}
 
 
@@ -300,7 +334,16 @@ TRAIN_KERNELS = {"K1 interaction_fwd": ("interaction_fwd_kernel",),
                                            "cross_chunk_kernel")}
 
 
-def by_kernel(on_card, n: int) -> str:
+# the cached train path's: K2's two-source gather, K3 for int8 cells
+CACHED_KERNELS = {"K1 interaction_fwd": ("interaction_fwd_kernel",),
+                  "K2 gather_rows": ("gather_kernel",),
+                  "K3 gather_rows_dequant_int8": ("gather_dequant_kernel",),
+                  "K4 interaction_bwd": ("interaction_bwd_kernel",),
+                  "K5 scatter_sub_sorted": ("chunk_sums_kernel",
+                                            "cross_chunk_kernel")}
+
+
+def by_kernel(on_card, n: int, kernels=TRAIN_KERNELS) -> str:
     """Device µs and device kernels a step (K5's launch is two kernels),
     by kernel of the train path, as the trace saw them."""
     return ", ".join(
@@ -309,7 +352,7 @@ def by_kernel(on_card, n: int) -> str:
                 if any(f in k for f in funcs)) * 1e3 / n,
             sum(c for k, (c, _) in on_card.items()
                 if any(f in k for f in funcs)) / n)
-        for label, funcs in TRAIN_KERNELS.items())
+        for label, funcs in kernels.items())
 
 
 def main() -> int:
@@ -582,7 +625,7 @@ def main() -> int:
         return {k: float(v) for k, v in re.findall(
             r"'(\w+)': (nan|[-\d.e]+)", text)}
 
-    def phase_3f():
+    def phase_3f(d):
         """The CLI end to end at the full Kaggle width through
         `cli.main`: preprocess a synthetic train.txt and train with
         bench/dlrm_s_criteo_kaggle.sh's flags (one final eval writes one
@@ -592,7 +635,9 @@ def main() -> int:
         checkpoint's bit for bit, then serve the exported tables with the
         C1 script's flags, the C1+C2+C3 script's and C1 on the device
         cache, beside the plain eval of the same checkpoint.  Each CLI run
-        is counted on the `cli` path, its counts set to 0 just before."""
+        is counted on the `cli` path, its counts set to 0 just before.  It
+        works in `d`, and leaves the preprocessed data and the exported
+        tables there for phase 3g."""
         import contextlib
         import hashlib
 
@@ -635,163 +680,159 @@ def main() -> int:
             return out
 
         with Phase("3f cli"):
-            tmp = tempfile.TemporaryDirectory()
-            d = tmp.name
-            try:
-                train_flags = bench_flags("dlrm_s_criteo_kaggle.sh")
-                kcfg, _, _ = cli.configs_from_args(
-                    cli.build_parser().parse_args(train_flags))
-                sizes = kcfg.table_sizes
-                txt = os.path.join(d, "train.txt")
-                t0 = time.perf_counter()
-                make_synthetic_criteo_txt(
-                    txt, n=CLI_LINES, seed=args.seed + 11,
-                    vocab=[min(n, CLI_VOCAB) for n in sizes])
-                print(f"synthetic train.txt: {CLI_LINES} lines, categories "
-                      f"in [0, min(table rows, {CLI_VOCAB})), in "
-                      f"{time.perf_counter() - t0:.2f} s", flush=True)
-                ck, ev = os.path.join(d, "ck"), os.path.join(d, "ev")
-                out_dir = os.path.join(d, "out")
-                train_argv = train_flags + [
-                    "--raw-data-file", txt, "--output-dir", out_dir,
-                    "--save-model", ck, "--ev-table-path", ev,
-                    "--test-freq", "-1"]
-                print("train: bench/dlrm_s_criteo_kaggle.sh's flags + "
-                      "--raw-data-file --output-dir --save-model "
-                      "--ev-table-path --test-freq -1", flush=True)
-                out = run(train_argv)
-                pre = grab(r"preprocessed \S+: (\d+) lines in ([\d.]+) s "
-                           r"\((\d+) lines/s\)", out, "preprocess line")
-                trained = grab(r"trained (\d+) steps in ([\d.]+) s "
-                               r"\(([\d.]+) steps/s\)", out, "step rate")
-                saved = grab(r"checkpoint step_(\d+): ([\d.]+) GB in "
-                             r"([\d.]+) s \(([\d.]+) GB/s\)", out,
-                             "checkpoint line")
-                exported = grab(r"EV tables exported: ([\d.]+) GB in "
-                                r"([\d.]+) s \(([\d.]+) GB/s\)", out,
-                                "export line")
-                step = latest_step(ck)
-                pf = os.path.join(out_dir, "processed",
-                                  "kaggle_processed.npz")
-                ds = CriteoDataset.load(pf)
-                n_train = ds.splits()[0][1] // 128
-                if int(trained[0]) != n_train or step != n_train or \
-                        int(saved[0]) != step:
-                    raise AssertionError(f"trained {trained[0]} steps of "
-                                         f"{n_train}, checkpoint at {step}")
-                first = digests(checkpoint_path(ck, step))
-                with open(os.path.join(ck, f"step_{step}.meta.json")) as f:
-                    meta = json.load(f)
+            train_flags = bench_flags("dlrm_s_criteo_kaggle.sh")
+            kcfg, _, _ = cli.configs_from_args(
+                cli.build_parser().parse_args(train_flags))
+            sizes = kcfg.table_sizes
+            txt = os.path.join(d, "train.txt")
+            t0 = time.perf_counter()
+            make_synthetic_criteo_txt(
+                txt, n=CLI_LINES, seed=args.seed + 11,
+                vocab=[min(n, CLI_VOCAB) for n in sizes])
+            print(f"synthetic train.txt: {CLI_LINES} lines, categories "
+                  f"in [0, min(table rows, {CLI_VOCAB})), in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            ck, ev = os.path.join(d, "ck"), os.path.join(d, "ev")
+            out_dir = os.path.join(d, "out")
+            train_argv = train_flags + [
+                "--raw-data-file", txt, "--output-dir", out_dir,
+                "--save-model", ck, "--ev-table-path", ev,
+                "--test-freq", "-1"]
+            print("train: bench/dlrm_s_criteo_kaggle.sh's flags + "
+                  "--raw-data-file --output-dir --save-model "
+                  "--ev-table-path --test-freq -1", flush=True)
+            out = run(train_argv)
+            pre = grab(r"preprocessed \S+: (\d+) lines in ([\d.]+) s "
+                       r"\((\d+) lines/s\)", out, "preprocess line")
+            trained = grab(r"trained (\d+) steps in ([\d.]+) s "
+                           r"\(([\d.]+) steps/s\)", out, "step rate")
+            saved = grab(r"checkpoint step_(\d+): ([\d.]+) GB in "
+                         r"([\d.]+) s \(([\d.]+) GB/s\)", out,
+                         "checkpoint line")
+            exported = grab(r"EV tables exported: ([\d.]+) GB in "
+                            r"([\d.]+) s \(([\d.]+) GB/s\)", out,
+                            "export line")
+            step = latest_step(ck)
+            pf = os.path.join(out_dir, "processed",
+                              "kaggle_processed.npz")
+            ds = CriteoDataset.load(pf)
+            n_train = ds.splits()[0][1] // 128
+            if int(trained[0]) != n_train or step != n_train or \
+                    int(saved[0]) != step:
+                raise AssertionError(f"trained {trained[0]} steps of "
+                                     f"{n_train}, checkpoint at {step}")
+            first = digests(checkpoint_path(ck, step))
+            with open(os.path.join(ck, f"step_{step}.meta.json")) as f:
+                meta = json.load(f)
 
-                # resume: --load-model beside the same --save-model
-                out = run(train_argv + ["--load-model", ck])
-                restored = grab(r"resumed from checkpoint step (\d+) "
-                                r"\(([\d.]+) GB in ([\d.]+) s, ([\d.]+) "
-                                r"GB/s\)", out, "resume line")
-                if int(restored[0]) != step or \
-                        "trained 0 steps" not in out:
-                    raise AssertionError("the resumed run did not skip "
-                                         "every step")
-                again = digests(checkpoint_path(ck, step))
-                with open(os.path.join(ck, f"step_{step}.meta.json")) as f:
-                    meta2 = json.load(f)
-                if again != first or meta2 != meta:
-                    bad = [k for k in first if first[k] != again.get(k)]
-                    raise AssertionError(f"the restored state saved again "
-                                         f"differs: {bad[:5]}, "
-                                         f"{meta} / {meta2}")
-                print(f"resume: restored step {step} and saved it again, "
-                      f"{len(first) - 1} tensors bit for bit; the final "
-                      f"eval's metrics the same ({meta['extra']})",
+            # resume: --load-model beside the same --save-model
+            out = run(train_argv + ["--load-model", ck])
+            restored = grab(r"resumed from checkpoint step (\d+) "
+                            r"\(([\d.]+) GB in ([\d.]+) s, ([\d.]+) "
+                            r"GB/s\)", out, "resume line")
+            if int(restored[0]) != step or \
+                    "trained 0 steps" not in out:
+                raise AssertionError("the resumed run did not skip "
+                                     "every step")
+            again = digests(checkpoint_path(ck, step))
+            with open(os.path.join(ck, f"step_{step}.meta.json")) as f:
+                meta2 = json.load(f)
+            if again != first or meta2 != meta:
+                bad = [k for k in first if first[k] != again.get(k)]
+                raise AssertionError(f"the restored state saved again "
+                                     f"differs: {bad[:5]}, "
+                                     f"{meta} / {meta2}")
+            print(f"resume: restored step {step} and saved it again, "
+                  f"{len(first) - 1} tensors bit for bit; the final "
+                  f"eval's metrics the same ({meta['extra']})",
+                  flush=True)
+
+            # the exported tables against the checkpoint's
+            empty = [torch.empty((n, kcfg.embedding_dim), device=dev)
+                     for n in sizes]
+            m_ck = DLRM(kcfg, device=dev, tables=empty)
+            m_ev = DLRM(kcfg, device=dev, tables=empty)
+            del empty
+            restore_checkpoint(ck, step, m_ck,
+                               init_opt_state(m_ck, TrainConfig()))
+            load_ev_tables_into_params(m_ev, ev)
+            for t in range(len(sizes)):
+                if not torch.equal(m_ck.tables[t], m_ev.tables[t]):
+                    raise AssertionError(f"exported table {t} differs "
+                                         f"from the checkpoint's")
+            print(f"EV export: the {len(sizes)} .bin tables equal the "
+                  f"checkpoint's bit for bit (load_ev_tables_into_params "
+                  f"against restore_checkpoint)", flush=True)
+            del m_ck, m_ev
+            torch.cuda.empty_cache()
+
+            # serving the exported tables, beside the plain eval
+            pct = "1.0"
+            labels = np.concatenate([y for _, _, y in ds.batches(
+                "test", 128, fraction=float(pct), drop_last=True)])
+            n_batches = len(labels) // 128
+            if n_batches < 16:
+                raise AssertionError(f"{n_batches} test batches")
+            n_pos = int(labels.sum())
+            tie = 1.0 / max(n_pos * (len(labels) - n_pos), 1)
+            common = ["--processed-data-file", pf, "--load-model", ck,
+                      "--percent-data-for-inference", pct]
+            out = run(train_flags + ["--inference-only"] + common)
+            ref = metrics_of(grab(r"inference done: (\{.*\})", out,
+                                  "plain metrics")[0])
+            print(f"plain eval (--use-evstore False), {n_batches} test "
+                  f"batches of 128 ({n_pos} clicks): {ref}", flush=True)
+            c1 = bench_flags("dlrm_s_criteo_kaggle_C1.sh")
+            for label, flags, fp32 in (
+                    ("C1 (bench/dlrm_s_criteo_kaggle_C1.sh)", c1, True),
+                    ("C1+C2+C3 (bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh)",
+                     bench_flags("dlrm_s_criteo_kaggle_C1_C2_C3.sh"),
+                     False),
+                    ("C1 on the device cache (the C1 script's flags + "
+                     "--use-device-cache True)",
+                     c1 + ["--use-device-cache", "True"], True)):
+                cdf = os.path.join(d, "cdf.csv")
+                out = run(flags + common + [
+                    "--ev-table-path", ev, "--write-cdf-file", cdf])
+                m = metrics_of(grab(r"inference done: metrics=(\{.*?\}) "
+                                    r"perfect_hits", out, "metrics")[0])
+                stats = json.loads(grab(r"cache stats: (\{.*\})", out,
+                                        "cache stats")[0])
+                rate = grab(r"inference: (\d+) requests in [\d.]+s "
+                            r"\((\d+) req/s\)", out, "request rate")
+                if m.keys() != ref.keys() or not all(
+                        np.isfinite(v) for v in m.values()) or \
+                        not os.path.exists(cdf):
+                    raise AssertionError(f"{label}: {m}")
+                if fp32:
+                    for k, v in ref.items():
+                        tol = tie + 1e-12 if k == "auc" else 1e-6
+                        if abs(m[k] - v) > tol:
+                            raise AssertionError(
+                                f"{label}: {k} {m[k]} against the plain "
+                                f"eval's {v}")
+                else:
+                    c2 = stats.get("c2", {})
+                    if c2.get("size", 0) <= 0 or \
+                            c2.get("hit_rate", 0.0) <= 0.0:
+                        raise AssertionError(f"{label}: C2 is not live: "
+                                             f"{stats}")
+                print(f"3f serve {label} [{card}]: {rate[0]} requests "
+                      f"scored after a warm-up pass over the same, "
+                      f"{rate[1]} requests/s; metrics "
+                      f"{'equal the plain eval' if fp32 else 'int8/4-bit'}"
+                      f": auc {m['auc']:.6f}, accuracy "
+                      f"{m['accuracy']:.6f}; stats {json.dumps(stats)}",
                       flush=True)
-
-                # the exported tables against the checkpoint's
-                empty = [torch.empty((n, kcfg.embedding_dim), device=dev)
-                         for n in sizes]
-                m_ck = DLRM(kcfg, device=dev, tables=empty)
-                m_ev = DLRM(kcfg, device=dev, tables=empty)
-                del empty
-                restore_checkpoint(ck, step, m_ck,
-                                   init_opt_state(m_ck, TrainConfig()))
-                load_ev_tables_into_params(m_ev, ev)
-                for t in range(len(sizes)):
-                    if not torch.equal(m_ck.tables[t], m_ev.tables[t]):
-                        raise AssertionError(f"exported table {t} differs "
-                                             f"from the checkpoint's")
-                print(f"EV export: the {len(sizes)} .bin tables equal the "
-                      f"checkpoint's bit for bit (load_ev_tables_into_params "
-                      f"against restore_checkpoint)", flush=True)
-                del m_ck, m_ev
-                torch.cuda.empty_cache()
-
-                # serving the exported tables, beside the plain eval
-                pct = "1.0"
-                labels = np.concatenate([y for _, _, y in ds.batches(
-                    "test", 128, fraction=float(pct), drop_last=True)])
-                n_batches = len(labels) // 128
-                if n_batches < 16:
-                    raise AssertionError(f"{n_batches} test batches")
-                n_pos = int(labels.sum())
-                tie = 1.0 / max(n_pos * (len(labels) - n_pos), 1)
-                common = ["--processed-data-file", pf, "--load-model", ck,
-                          "--percent-data-for-inference", pct]
-                out = run(train_flags + ["--inference-only"] + common)
-                ref = metrics_of(grab(r"inference done: (\{.*\})", out,
-                                      "plain metrics")[0])
-                print(f"plain eval (--use-evstore False), {n_batches} test "
-                      f"batches of 128 ({n_pos} clicks): {ref}", flush=True)
-                c1 = bench_flags("dlrm_s_criteo_kaggle_C1.sh")
-                for label, flags, fp32 in (
-                        ("C1 (bench/dlrm_s_criteo_kaggle_C1.sh)", c1, True),
-                        ("C1+C2+C3 (bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh)",
-                         bench_flags("dlrm_s_criteo_kaggle_C1_C2_C3.sh"),
-                         False),
-                        ("C1 on the device cache (the C1 script's flags + "
-                         "--use-device-cache True)",
-                         c1 + ["--use-device-cache", "True"], True)):
-                    cdf = os.path.join(d, "cdf.csv")
-                    out = run(flags + common + [
-                        "--ev-table-path", ev, "--write-cdf-file", cdf])
-                    m = metrics_of(grab(r"inference done: metrics=(\{.*?\}) "
-                                        r"perfect_hits", out, "metrics")[0])
-                    stats = json.loads(grab(r"cache stats: (\{.*\})", out,
-                                            "cache stats")[0])
-                    rate = grab(r"inference: (\d+) requests in [\d.]+s "
-                                r"\((\d+) req/s\)", out, "request rate")
-                    if m.keys() != ref.keys() or not all(
-                            np.isfinite(v) for v in m.values()) or \
-                            not os.path.exists(cdf):
-                        raise AssertionError(f"{label}: {m}")
-                    if fp32:
-                        for k, v in ref.items():
-                            tol = tie + 1e-12 if k == "auc" else 1e-6
-                            if abs(m[k] - v) > tol:
-                                raise AssertionError(
-                                    f"{label}: {k} {m[k]} against the plain "
-                                    f"eval's {v}")
-                    else:
-                        c2 = stats.get("c2", {})
-                        if c2.get("size", 0) <= 0 or \
-                                c2.get("hit_rate", 0.0) <= 0.0:
-                            raise AssertionError(f"{label}: C2 is not live: "
-                                                 f"{stats}")
-                    print(f"3f serve {label} [{card}]: {rate[0]} requests "
-                          f"scored after a warm-up pass over the same, "
-                          f"{rate[1]} requests/s; metrics "
-                          f"{'equal the plain eval' if fp32 else 'int8/4-bit'}"
-                          f": auc {m['auc']:.6f}, accuracy "
-                          f"{m['accuracy']:.6f}; stats {json.dumps(stats)}",
-                          flush=True)
-                print(f"3f [{card}]: preprocess {pre[0]} lines in {pre[1]} "
-                      f"s = {pre[2]} lines/s; train {trained[0]} steps in "
-                      f"{trained[1]} s = {trained[2]} steps/s (B=128, sgd, "
-                      f"lr 0.1, bf16 compute); checkpoint save {saved[1]} GB "
-                      f"in {saved[2]} s = {saved[3]} GB/s; restore "
-                      f"{restored[1]} GB in {restored[2]} s = {restored[3]} "
-                      f"GB/s; EV export {exported[0]} GB in {exported[1]} s "
-                      f"= {exported[2]} GB/s", flush=True)
-            finally:
-                tmp.cleanup()
+            print(f"3f [{card}]: preprocess {pre[0]} lines in {pre[1]} "
+                  f"s = {pre[2]} lines/s; train {trained[0]} steps in "
+                  f"{trained[1]} s = {trained[2]} steps/s (B=128, sgd, "
+                  f"lr 0.1, bf16 compute); checkpoint save {saved[1]} GB "
+                  f"in {saved[2]} s = {saved[3]} GB/s; restore "
+                  f"{restored[1]} GB in {restored[2]} s = {restored[3]} "
+                  f"GB/s; EV export {exported[0]} GB in {exported[1]} s "
+                  f"= {exported[2]} GB/s", flush=True)
+            shutil.rmtree(ck)       # 3g needs the data and the export
             path = {k: launches[k] for k in (
                 "interaction_fwd", "interaction_bwd", "gather_rows",
                 "gather_rows_grouped", "scatter_sub_sorted")}
@@ -801,6 +842,622 @@ def main() -> int:
                 raise AssertionError(f"a kernel of the CLI's path never ran: "
                                      f"{launches}")
             print(f"cli path launches: {json.dumps(path)}", flush=True)
+            return path
+
+    # ------------------------------------------- 3g cached training
+    CACHED_C1 = 64_000      # bench/dlrm_s_criteo_kaggle_C1.sh's cache size
+    CACHED_HBM = 256 << 20  # the device memory the phase may add, at most
+    CACHED_B = 128          # the recipe's batch
+    CACHED_N = 200          # batches of the bf16 and int8 runs
+    CACHED_FILES = 100      # batches over the mapped files
+
+    def phase_3g(d):
+        """Training through `TrainableDeviceCache` at the full Kaggle width,
+        the tables in host memory and C1 of 64,000 entries on the card:
+        (1) `cli.main` with bench/dlrm_s_criteo_kaggle.sh's flags plus
+        `--use-evstore True --optimizer rwsadagrad --emb-cache-size 64000`
+        on 3f's preprocessed data, pipelined and with `--train-window 16`,
+        the two runs' losses, saved tables and dense files held to each
+        other; (4) bf16 and int8 cells, 200 batches each (the loss falls,
+        `hbm_bytes`, int8's untouched cells keep their bytes); (5) the
+        masters mapped from 3f's exported .bin files, 100 batches, then
+        `flush_files`; (7) steps/s of the three drivers at fp32, the host
+        split and a profiled window; all of them counted on the
+        `train_cached` path, and the device memory they add held to 256
+        MiB (runs 1 and 4); then (2) the cache against the full-table step
+        where nothing is evicted, with a witness from zero row sums, and
+        (3) the kernels on against off at 32, 16 and 8 bits."""
+        import contextlib
+
+        from evstore_tpu_torch import cli
+        from evstore_tpu_torch.cache import trainable as trn
+        from evstore_tpu_torch.data.criteo import CriteoDataset
+        from evstore_tpu_torch.data.synthetic import learnable_batches
+        from evstore_tpu_torch.models.dlrm import init_host_tables
+        launches = dict.fromkeys(wrappers, 0)
+
+        def counted(fn):
+            """fn() with every count set to 0 just before; its launches go
+            to the path's."""
+            reset_counts()
+            out = fn()
+            for k, v in read_counts().items():
+                launches[k] += v
+            return out
+
+        def run_cli(argv):
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                rc = cli.main(argv)
+            if rc != 0:
+                raise AssertionError(f"cli.main returned {rc}")
+            return "\n".join(tee.text)
+
+        def grown():
+            return torch.cuda.max_memory_allocated() - mem0
+
+        def step_change(after_a, after_b, before_b):
+            """|d_a - d_b| / |d_b|, d = after - before (2-norms), the
+            changes of b taken as the plain reference."""
+            size = float(np.linalg.norm(np.asarray(after_b, np.float64)
+                                        - before_b))
+            diff = float(np.linalg.norm(np.asarray(after_a, np.float64)
+                                        - after_b))
+            return diff / size if size else (0.0 if diff == 0 else np.inf)
+
+        with Phase("3g cached training"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            train_flags = bench_flags("dlrm_s_criteo_kaggle.sh")
+            parsed = cli.build_parser().parse_args(train_flags)
+            kcfg, _, _ = cli.configs_from_args(parsed)
+            cli_seed = parsed.numpy_rand_seed
+            sizes = kcfg.table_sizes
+            D = kcfg.embedding_dim
+            gb = sum(sizes) * D * 4 / 1e9
+            pf = os.path.join(d, "out", "processed", "kaggle_processed.npz")
+            n_train = CriteoDataset.load(pf).splits()[0][1] // CACHED_B
+
+            # (1) the CLI, pipelined and windowed
+            cli_runs = {}
+            for w in (0, 16):
+                save = os.path.join(d, f"cached_w{w}")
+                argv = train_flags + [
+                    "--processed-data-file", pf, "--use-evstore", "True",
+                    "--optimizer", "rwsadagrad", "--emb-cache-size",
+                    str(CACHED_C1), "--train-window", str(w), "--test-freq",
+                    str(n_train), "--print-freq", "10", "--save-model", save]
+                t0 = time.perf_counter()
+                out = counted(lambda: run_cli(argv))
+                secs = time.perf_counter() - t0
+                trained = re.search(r"trained (\d+) steps in ([\d.]+) s "
+                                    r"\(([\d.]+) steps/s\)", out)
+                done = re.search(r"cached training done: steps=(\d+) "
+                                 r"cache=(\{.*\}) best=([-\d.na]+)", out)
+                if trained is None or done is None or \
+                        int(trained.group(1)) != n_train:
+                    raise AssertionError(f"the cached CLI run (window {w}) "
+                                         f"did not train {n_train} steps")
+                losses = [float(x) for x in re.findall(
+                    r"step \d+: loss ([-\d.]+)", out)]
+                evals = re.findall(r"eval @ (\d+): auc ([-\d.na]+)", out)
+                if len(evals) != 2 or not os.path.exists(
+                        os.path.join(save, "dense_params.npz")):
+                    raise AssertionError(f"window {w}: evals {evals}")
+                cli_runs[w] = (losses, evals, save)
+                print(f"3g(1) cli --train-window {w} [{card}]: "
+                      f"{n_train} steps at {trained.group(3)} steps/s "
+                      f"({float(trained.group(3)) * CACHED_B:.0f} samples/s;"
+                      f" the run took {secs:.2f} s with 2 evals and one save"
+                      f" of {gb:.3f} GB); best auc {done.group(3)}; cache "
+                      f"{done.group(2)}; device memory added so far "
+                      f"{grown() / 2**20:.1f} MiB", flush=True)
+            (la, ea, sa), (lb, eb, sb) = cli_runs[0], cli_runs[16]
+            names = [f"{k}_{t}.npy" for t in range(len(sizes))
+                     for k in ("table", "mom")]
+            za = np.load(os.path.join(sa, "dense_params.npz"))
+            zb = np.load(os.path.join(sb, "dense_params.npz"))
+            bitwise = la == lb and ea == eb and all(
+                np.array_equal(za[k], zb[k]) for k in za.files) and all(
+                np.array_equal(np.load(os.path.join(sa, n), mmap_mode="r"),
+                               np.load(os.path.join(sb, n), mmap_mode="r"))
+                for n in names)
+            if bitwise:
+                rule = "bit for bit"
+            else:
+                # the step-change rule against the seed's initial weights
+                t0_tabs = init_host_tables(kcfg, cli_seed)
+                init = DLRM(kcfg, device="cpu", seed=cli_seed, tables=False)
+                init_mlp = {f"p['{part}']['layer_{i}']['{leaf}']":
+                            (lin.weight.detach().numpy().T if leaf == "w"
+                             else lin.bias.detach().numpy())
+                            for part, layers in (("bot", init.bot),
+                                                 ("top", init.top))
+                            for i, lin in enumerate(layers)
+                            for leaf in ("w", "b")}
+                worst = 0.0
+                for t in range(len(sizes)):
+                    ta = np.load(os.path.join(sa, f"table_{t}.npy"),
+                                 mmap_mode="r")
+                    tb = np.load(os.path.join(sb, f"table_{t}.npy"),
+                                 mmap_mode="r")
+                    rows = np.flatnonzero((ta != t0_tabs[t]).any(1)
+                                          | (tb != t0_tabs[t]).any(1))
+                    worst = max(worst, step_change(ta[rows], tb[rows],
+                                                   t0_tabs[t][rows]))
+                for k, v in init_mlp.items():
+                    worst = max(worst, step_change(za[k], zb[k], v))
+                del t0_tabs
+                dl = max(abs(a - b) / (1 + abs(b)) for a, b in zip(la, lb))
+                if not worst <= 1e-2 or not dl <= 1e-3 or \
+                        len(la) != len(lb):
+                    raise AssertionError(
+                        f"the pipelined and windowed CLI runs part: step "
+                        f"change {worst} (limit 1e-2), losses {dl} (limit "
+                        f"1e-3)")
+                rule = (f"the step-change rule: |d_a - d_b| / |d_b| "
+                        f"{worst:.3e} over the changed rows of every table "
+                        f"and every MLP leaf (limit 1e-2), losses "
+                        f"{dl:.3e} (limit 1e-3 of 1 + |ref|)")
+            print(f"3g(1) window 0 against window 16: {len(la)} printed "
+                  f"losses, 2 evals, {len(names)} saved arrays and "
+                  f"{len(za.files)} dense leaves: {rule}", flush=True)
+            del za, zb
+            for w in cli_runs:
+                shutil.rmtree(cli_runs[w][2])
+
+            # runs 2-7 compute in float32, as phase 3b does (the CLI's
+            # default is bfloat16); their masters are the seed's tables and
+            # a copy to train, whose touched rows are reset after each run
+            kcfg = dataclasses.replace(kcfg, compute_dtype="float32")
+            t0 = time.perf_counter()
+            base = init_host_tables(kcfg, args.seed + 31)
+            work = [t.copy() for t in base]
+            stream = list(learnable_batches(RandomDataConfig(
+                num_dense=kcfg.num_dense_features, table_sizes=sizes,
+                batch_size=CACHED_B, num_batches=2 * CACHED_N,
+                seed=args.seed + 33, distribution="grouped_zipf",
+                zipf_alpha=1.05, group_noise=0.1)))
+            print(f"3g masters: {gb:.3f} GB of tables and "
+                  f"{sum(sizes) * 4 / 1e9:.3f} GB of row sums in host "
+                  f"memory a trainer, drawn and copied with "
+                  f"{len(stream)} learnable grouped_zipf batches in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+            def reset(batches):
+                for t in range(len(sizes)):
+                    rows = np.unique(np.concatenate(
+                        [np.asarray(b[1])[:, t] for b in batches]))
+                    work[t][rows] = base[t][rows]
+
+            def trainer(precision=32, capacity=CACHED_C1, cfg=kcfg,
+                        opt=TrainConfig(learning_rate=0.1,
+                                        optimizer="rwsadagrad")):
+                tc = trn.TrainableDeviceCache(
+                    cfg, opt, CacheConfig(total_size=capacity,
+                                          main_precision=precision), work,
+                    copy_tables=False, device=dev)
+                model = DLRM(cfg, device=dev, seed=args.seed, tables=False)
+                return tc, model, trn.init_dense_state(model)
+
+            def drive(tc, model, dst, batches, how, window=16):
+                if how == "batch":
+                    return [tc.train_batch(model, dst, k + 1, *b)[2]
+                            for k, b in enumerate(batches)]
+                if how == "pipelined":
+                    return [x[2] for x in tc.train_batches(model, dst,
+                                                           batches)]
+                return [x[2] for x in tc.train_batches_windowed(
+                    model, dst, batches, window=window)]
+
+            # (7) the three drivers at fp32, then (4) bf16 and int8
+            rates = {}
+            for how, precision, n in (("batch", 32, 100),
+                                      ("pipelined", 32, 100),
+                                      ("windowed", 32, 112),
+                                      ("pipelined", 16, CACHED_N),
+                                      ("pipelined", 8, CACHED_N)):
+                tc, model, dst = trainer(precision)
+                warm, timed = stream[:16], stream[16:n]
+                counted(lambda: drive(tc, model, dst, warm, how))
+                for k in tc.host_s:
+                    tc.host_s[k] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = counted(lambda: drive(tc, model, dst, timed, how))
+                losses = [float(x) for x in losses]
+                secs = time.perf_counter() - t0
+                st = tc.stats()
+                item = {32: 4, 16: 2, 8: 1}[precision]
+                if st["hbm_bytes"] != CACHED_C1 * (D * item + 4):
+                    raise AssertionError(f"hbm_bytes {st['hbm_bytes']}")
+                if not all(np.isfinite(losses)):
+                    raise AssertionError(f"{how} {precision}: a loss is "
+                                         f"not finite")
+                split = ", ".join(f"{k} {v / len(timed) * 1e3:.3f}"
+                                  for k, v in tc.host_s.items())
+                rates[(how, precision)] = len(timed) / secs
+                print(f"3g(7) {how} at {precision} bits [{card}]: "
+                      f"{len(timed)} steps after 16 in {secs:.3f} s = "
+                      f"{len(timed) / secs:.2f} steps/s "
+                      f"({len(timed) * CACHED_B / secs:.0f} samples/s); "
+                      f"host ms a step: {split}; C1 hit rate "
+                      f"{st['hit_rate']:.4f}, {st['hbm_bytes']} bytes of "
+                      f"cache; device memory added so far "
+                      f"{grown() / 2**20:.1f} MiB", flush=True)
+                if precision != 32:
+                    first = np.mean(losses[:20])
+                    last = np.mean(losses[-20:])
+                    if not last < first:
+                        raise AssertionError(f"{precision} bits: the loss "
+                                             f"did not fall: {first} -> "
+                                             f"{last}")
+                    print(f"3g(4) {precision}-bit cells: mean loss of the "
+                          f"first 20 steps {first:.5f}, of the last 20 "
+                          f"{last:.5f}", flush=True)
+                if precision == 8:
+                    # one more step with the stochastic encode watched
+                    before = tc.cache_values.clone()
+                    seen = {}
+                    encode = trn._q8_encode_sr
+                    assign = tc.assigner.assign_batch_train_raw
+
+                    def spy_encode(x, gen):
+                        seen["x"], seen["codes"] = x, encode(x, gen)
+                        return seen["codes"]
+
+                    def spy_assign(idx):
+                        out = assign(idx)
+                        seen["scat"] = out[1].copy()
+                        seen["target"] = np.where(out[6] == 2**31 - 1,
+                                                  out[0], out[6])
+                        return out
+
+                    trn._q8_encode_sr = spy_encode
+                    tc.assigner.assign_batch_train_raw = spy_assign
+                    try:
+                        counted(lambda: tc.train_batch(
+                            model, dst, n + 1, *stream[n]))
+                    finally:
+                        trn._q8_encode_sr = encode
+                        tc.assigner.assign_batch_train_raw = assign
+                    # touched: the cells the batch's positions update
+                    inserted = torch.zeros(CACHED_C1, dtype=torch.bool,
+                                           device=dev)
+                    inserted[torch.from_numpy(seen["scat"]).long()
+                             .to(dev)] = True
+                    target = seen["target"][seen["target"] < CACHED_C1]
+                    moved = torch.zeros_like(inserted)
+                    moved[torch.from_numpy(target).long().to(dev)] = True
+                    keep = ~moved & ~inserted
+                    det = trn._q8_encode_det(seen["x"]).int()
+                    off = int((seen["codes"].int() - det).abs().max())
+                    if not torch.equal(tc.cache_values[keep],
+                                       before[keep]) or not torch.equal(
+                            tc.cache_values[moved],
+                            seen["codes"][moved]) or off > 1:
+                        raise AssertionError("int8 cells: untouched bytes "
+                                             "moved or a code strayed")
+                    print(f"3g(4) int8: {int(keep.sum())} untouched cells "
+                          f"kept their bytes, {int(moved.sum())} touched "
+                          f"ones took their stochastic codes, each within "
+                          f"{off} code of the deterministic encode; "
+                          f"{int(inserted.sum())} inserted", flush=True)
+                    del before, seen, det
+                if how == "windowed":
+                    # a profiled window: device-busy share
+                    it = iter(stream[n:n + 16])
+                    wall, on_card = profile_steps(
+                        torch, lambda: counted(lambda: drive(
+                            tc, model, dst, list(it), how)), 1)
+                    busy = sum(t for _, t in on_card.values())
+                    print(f"3g(7) a profiled window of 16 steps: "
+                          f"{wall:.2f} ms wall, device busy {busy:.3f} ms "
+                          f"({busy / wall:.1%}), "
+                          f"{sum(c for c, _ in on_card.values())} kernels "
+                          f"and copies; "
+                          f"{by_kernel(on_card, 16, CACHED_KERNELS)}",
+                          flush=True)
+                tc.close()
+                del tc, model, dst
+                reset(stream[:n + 17])
+            grew = grown()
+            if grew > CACHED_HBM:
+                raise AssertionError(f"cached training added {grew} bytes of"
+                                     f" device memory (limit {CACHED_HBM})")
+            print(f"3g(6) device memory: at most {grew / 2**20:.1f} MiB "
+                  f"above the phase's start through runs 1, 4 and 7 "
+                  f"(limit {CACHED_HBM / 2**20:.0f} MiB) against {gb:.3f} "
+                  f"GB of master tables in host memory", flush=True)
+
+            # (5) the masters mapped from 3f's exported files
+            ev = os.path.join(d, "ev")
+            tc = trn.TrainableDeviceCache.from_files(
+                kcfg, TrainConfig(learning_rate=0.1, optimizer="rwsadagrad"),
+                CacheConfig(total_size=CACHED_C1), ev, sizes, device=dev)
+            model = DLRM(kcfg, device=dev, seed=args.seed, tables=False)
+            dst = trn.init_dense_state(model)
+            t0 = time.perf_counter()
+            counted(lambda: drive(tc, model, dst, stream[:CACHED_FILES],
+                                  "pipelined"))
+            tc.flush_files()
+            secs = time.perf_counter() - t0
+            same = True
+            for t, n in enumerate(sizes):
+                on_disk = np.memmap(os.path.join(ev, f"ev-table-{t + 1}.bin"),
+                                    np.float32, mode="r", shape=(n, D))
+                moms = np.memmap(os.path.join(ev, f"mom-{t + 1}.bin"),
+                                 np.float32, mode="r", shape=(n,))
+                same &= bool(np.array_equal(on_disk, tc.host_tables[t])
+                             and np.array_equal(moms, tc.host_mom[t]))
+                del on_disk, moms
+            touched = sum(int((m != 0).sum()) for m in tc.host_mom)
+            tc.close()
+            del tc, model, dst
+            if not same or touched == 0:
+                raise AssertionError("the mapped files differ from "
+                                     "host_tables after flush_files")
+            print(f"3g(5) from_files over 3f's {len(sizes)} exported .bin "
+                  f"files: {CACHED_FILES} pipelined steps and flush_files in"
+                  f" {secs:.2f} s; the files equal host_tables and host_mom "
+                  f"bit for bit, {touched} rows trained", flush=True)
+
+            # (2) no eviction: the cache against the full-table step.  From
+            # the seed's weights and zero sums the first steps move every
+            # weight by about lr (the loss reaches 1e4-1e5 at step 2), and
+            # a row whose gradient cancels to rounding takes a first update
+            # lr·G/|G| whose size and sign that rounding sets: the witness
+            # runs the cache, the full-table step with every kernel off
+            # (`index_add_`'s order changes from run to run) and the
+            # full-table step fed each batch in reverse sample order (its
+            # sums taken in another fixed order) from there and prints how
+            # far each parts from the full-table step.  The held comparison
+            # starts the cache from the full-table step's state after those
+            # steps
+            n2 = warm = 20
+            tcfg = TrainConfig(learning_rate=0.1, optimizer="rwsadagrad")
+            off_cfg = dataclasses.replace(kcfg, use_gather_kernel=False,
+                                          use_interaction_kernel=False)
+            off_t = TrainConfig(learning_rate=0.1, optimizer="rwsadagrad",
+                                use_update_kernel=False)
+            full = DLRM(kcfg, device=dev, seed=args.seed, tables=base)
+            st_f = init_opt_state(full, tcfg)
+            step_f = make_train_step(kcfg, tcfg)
+
+            def ids_of(batches, t):
+                return np.unique(np.concatenate(
+                    [np.asarray(b[1])[:, t] for b in batches]))
+
+            def gaps(a, ref):
+                d = [abs(x - r) / (1 + abs(r)) for x, r in zip(a, ref)]
+                big = [k + 1 for k, x in enumerate(d) if x > 1e-4]
+                return (f"max {max(d):.3e}, first above 1e-4 at step "
+                        f"{big[0] if big else None}")
+
+            tc, model, dst = trainer(capacity=n2 * CACHED_B * len(sizes))
+            from_zero = [float(x) for x in drive(tc, model, dst,
+                                                 stream[:warm], "batch")]
+            tc.close()
+            del tc, model, dst
+            ref0 = [float(step_f(full, st_f, *b)) for b in stream[:warm]]
+            plain = DLRM(off_cfg, device=dev, seed=args.seed, tables=base)
+            st_o = init_opt_state(plain, off_t)
+            step_o = make_train_step(off_cfg, off_t)
+            off0 = [float(step_o(plain, st_o, *b)) for b in stream[:warm]]
+            del plain, st_o, step_o
+            torch.cuda.empty_cache()
+            rev = DLRM(kcfg, device=dev, seed=args.seed, tables=base)
+            st_r = init_opt_state(rev, tcfg)
+            rev0 = [float(step_f(rev, st_r, *(np.asarray(x)[::-1].copy()
+                                              for x in b)))
+                    for b in stream[:warm]]
+            del rev, st_r
+            torch.cuda.empty_cache()
+            print(f"3g(2) witness, {warm} steps from the seed's weights and "
+                  f"zero sums, losses |a - b| / (1 + |b|) against the "
+                  f"full-table step's: the cache {gaps(from_zero, ref0)}; "
+                  f"the full-table step with every kernel off "
+                  f"{gaps(off0, ref0)}; the full-table step on the batches "
+                  f"in reverse sample order {gaps(rev0, ref0)}", flush=True)
+
+            tc, model, dst = trainer(capacity=n2 * CACHED_B * len(sizes))
+            for t in range(len(sizes)):
+                rows = ids_of(stream[:warm], t)
+                rows_d = torch.from_numpy(rows).to(dev)
+                work[t][rows] = full.tables[t][rows_d].cpu()
+                tc.host_mom[t][rows] = st_f.sparse[f"tables.{t}"][rows_d].cpu()
+            with torch.no_grad():
+                params_f = dict(full.named_parameters())
+                for n_, p_ in model.named_parameters():
+                    p_.copy_(params_f[n_])
+                    dst[n_].copy_(st_f.dense[n_])
+            batches = stream[warm:warm + n2]
+            before = [work[t][ids_of(batches, t)] for t in range(len(sizes))]
+            losses = [float(x) for x in drive(tc, model, dst, batches,
+                                              "batch")]
+            tc.flush_to_host()
+            ref = [float(step_f(full, st_f, *b)) for b in batches]
+            dl = max(abs(a - b) / (1 + abs(b)) for a, b in zip(losses, ref))
+            worst = 0.0
+            for t in range(len(sizes)):
+                rows = ids_of(batches, t)
+                got = full.tables[t][torch.from_numpy(rows).to(dev)]
+                worst = max(worst, step_change(work[t][rows],
+                                               got.cpu().numpy(), before[t]))
+            keys = sum(len(ids_of(batches, t)) for t in range(len(sizes)))
+            if tc.stats()["size"] != keys or not dl <= 1e-4 or \
+                    not worst <= 1e-2:
+                raise AssertionError(f"cached against full-table: losses "
+                                     f"{dl}, step change {worst}, "
+                                     f"{tc.stats()['size']} cached of "
+                                     f"{keys} keys")
+            print(f"3g(2) {n2} steps with every key cached "
+                  f"(capacity {tc.capacity}, {keys} keys, none evicted), "
+                  f"both from make_train_step's state after {warm} steps on "
+                  f"the full tables: losses within {dl:.3e} of 1 + |ref| "
+                  f"of its next {n2} (limit 1e-4), the changed rows' step "
+                  f"change |d_cached - d_full| / |d_full| {worst:.3e} "
+                  f"(limit 1e-2)", flush=True)
+            moms = tc.host_mom
+            tc.close()
+            del tc, full, st_f, step_f, params_f
+            torch.cuda.empty_cache()
+
+            # (3) the kernels on against off at 32, 16 and 8 bits, each from
+            # (2)'s state: 3 warm-up and 3 held steps.  At 8 bits both
+            # trainers seed the stochastic encode with the step index on
+            # one device, so they draw the same u: every code must lie
+            # within one of the other side's
+            held_b = stream[warm + n2:warm + n2 + 6]
+            rows3 = [ids_of(held_b, t) for t in range(len(sizes))]
+            start3 = [work[t][rows3[t]].copy() for t in range(len(sizes))]
+            sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+            dst0 = {k: v.clone() for k, v in dst.items()}
+            del model, dst
+            limits = {"loss": 1e-5, "mlp": 1e-4, "cells": 1e-2,
+                      "rows": 1e-2, "sums": 1e-4}
+
+            def as_f32(v):
+                return trn._q8_decode(v) if v.dtype == torch.uint8 \
+                    else v.float()
+
+            for precision in (32, 16, 8):
+                for t in range(len(sizes)):
+                    work[t][rows3[t]] = start3[t]
+                tk, mk, sk = trainer(precision)
+                tp, mp, sp = trainer(precision, cfg=off_cfg, opt=off_t)
+                with torch.no_grad():
+                    mk.load_state_dict(sd0)
+                    for n_ in sk:
+                        sk[n_].copy_(dst0[n_])
+                for t in range(len(sizes)):
+                    tk.host_mom[t][:] = moms[t]
+                held = dict.fromkeys(limits, 0.0)
+                codes = [0, 0]      # the largest code distance, codes apart
+                for k, b in enumerate(held_b):
+                    idx = np.asarray(b[1])
+                    with torch.no_grad():
+                        tp.cache_values.copy_(tk.cache_values)
+                        tp.cache_mom.copy_(tk.cache_mom)
+                        mp.load_state_dict(mk.state_dict())
+                        for n_ in sk:
+                            sp[n_].copy_(sk[n_])
+                        cells0 = tk.cache_values.clone()
+                    # the masters are shared and the row sums apart: the
+                    # plain trainer starts from the rows and sums the
+                    # kernel trainer started from, which then gets its own
+                    # back
+                    pre = [(work[t][idx[:, t]].copy(),
+                            tk.host_mom[t][idx[:, t]].copy())
+                           for t in range(len(sizes))]
+                    lk = float(tk.train_batch(mk, sk, k + 1, *b)[2])
+                    post_k = [(work[t][idx[:, t]].copy(),
+                               tk.host_mom[t][idx[:, t]].copy())
+                              for t in range(len(sizes))]
+                    for t, (rows, sums) in enumerate(pre):
+                        work[t][idx[:, t]] = rows
+                        tp.host_mom[t][idx[:, t]] = sums
+                    scat = {}
+                    assign = tp.assigner.assign_batch_train_raw
+
+                    def spy(ids):
+                        out = assign(ids)
+                        scat["slots"], scat["m"] = out[1], out[2]
+                        return out
+
+                    tp.assigner.assign_batch_train_raw = spy
+                    lp = float(tp.train_batch(mp, sp, k + 1, *b)[2])
+                    tp.assigner.assign_batch_train_raw = assign
+                    post_p = [(work[t][idx[:, t]].copy(),
+                               tp.host_mom[t][idx[:, t]].copy())
+                              for t in range(len(sizes))]
+                    for t, (rows, _) in enumerate(post_k):
+                        work[t][idx[:, t]] = rows
+                    if k < 3:
+                        continue
+                    # the cells' change, each inserted cell from the row it
+                    # took, as its cell's type holds it (the plain
+                    # trainer's buffer keeps the row)
+                    start = as_f32(cells0)
+                    slots = torch.from_numpy(scat["slots"]).long().to(dev)
+                    start[slots] = as_f32(tp._encode_det(tp._buf[
+                        torch.from_numpy(scat["m"]).long().to(dev)]))
+                    held["cells"] = max(held["cells"], step_change(
+                        as_f32(tk.cache_values).cpu().numpy(),
+                        as_f32(tp.cache_values).cpu().numpy(),
+                        start.cpu().numpy()))
+                    if precision == 8:
+                        gap = (tk.cache_values.int()
+                               - tp.cache_values.int()).abs()
+                        codes[0] = max(codes[0], int(gap.max()))
+                        codes[1] += int((gap > 0).sum())
+                        if codes[0] > 1:
+                            raise AssertionError(f"3g(3) int8, step {k + 1}"
+                                                 f": codes {codes[0]} apart")
+                    held["rows"] = max(held["rows"], step_change(
+                        np.concatenate([r for r, _ in post_k]),
+                        np.concatenate([r for r, _ in post_p]),
+                        np.concatenate([r for r, _ in pre])))
+                    held["loss"] = max(held["loss"], abs(lk - lp) / abs(lp))
+                    ref_sd = mp.state_dict()
+                    for n_, a in mk.state_dict().items():
+                        v = ref_sd[n_]
+                        held["mlp"] = max(held["mlp"], float(
+                            ((a - v).abs() / (1 + v.abs())).max()))
+                    for a, v in [(tk.cache_mom, tp.cache_mom)] + [
+                            (sk[n_], sp[n_]) for n_ in sk] + [
+                            (torch.from_numpy(mk_), torch.from_numpy(mp_))
+                            for (_, mk_), (_, mp_) in zip(post_k, post_p)]:
+                        held["sums"] = max(held["sums"], within_own(
+                            a, v, 1e-4)[1])
+                    if not all(held[k_] <= lim
+                               for k_, lim in limits.items()):
+                        raise AssertionError(f"3g(3) kernels on against "
+                                             f"off at {precision} bits, "
+                                             f"step {k + 1}: {held}")
+                k3 = ""
+                if precision == 8:
+                    # K3 at this path's shape: one source, 64,000 x 36
+                    # uint8 cells, idx [128, 26]
+                    gi = torch.randint(0, tk.capacity, (CACHED_B,
+                                                        len(sizes)),
+                                       dtype=torch.int32, device=dev)
+                    got = gather_rows_dequant_int8(tk.cache_values, gi)
+                    want_ = gather_rows_dequant_int8_ref(tk.cache_values,
+                                                         gi)
+                    if not torch.equal(got, want_):
+                        raise AssertionError("3g(3) K3 at [128, 26] over "
+                                             "the int8 cells differs from "
+                                             "its plain version")
+                    k3 = (f"; int8 codes at most {codes[0]} apart, "
+                          f"{codes[1]} codes apart in all; K3 at idx "
+                          f"[{CACHED_B}, {len(sizes)}] over the "
+                          f"{tk.capacity} x {D} uint8 cells equals its "
+                          f"plain version bit for bit")
+                print(f"3g(3) kernels on against off at {precision} bits, "
+                      f"3 held steps after 3 warm-up ones (per-batch, from "
+                      f"(2)'s state): max rel loss diff "
+                      f"{held['loss']:.3e} (limit 1e-5); MLPs "
+                      f"max|d|/(1+|ref|) {held['mlp']:.3e} (limit 1e-4); "
+                      f"step change |d_on - d_off| / |d_off| of the cells "
+                      f"{held['cells']:.3e} and of the rows written back "
+                      f"{held['rows']:.3e} (limit 1e-2); row and dense sums "
+                      f"max|d|/(|ref| + mean nonzero |ref|) "
+                      f"{held['sums']:.3e} (limit 1e-4){k3}", flush=True)
+                tk.close()
+                tp.close()
+                del tk, tp, mk, mp, sk, sp
+            del work, base, stream, moms
+            path = {k: launches[k] for k in (
+                "interaction_fwd", "interaction_bwd", "gather_rows",
+                "gather_rows_dequant_int8", "scatter_sub_sorted")}
+            if min(path.values()) < 1:
+                raise AssertionError(f"a kernel of the cached path never "
+                                     f"ran: {launches}")
+            print(f"train_cached path launches: {json.dumps(path)}",
+                  flush=True)
             return path
 
     # ------------------------------------------ 3e train factored tables
@@ -1096,7 +1753,10 @@ def main() -> int:
                           f"call raises) with torch.unique counted: 0 "
                           f"calls", flush=True)
                     want["gather_rows_grouped"] += steps * n_gather
-                    want["scatter_sub_sorted"] += steps * n_upd
+                    # sgd: one K5 launch per update group; adagrad and
+                    # rwsadagrad: two, the run sums and the update
+                    want["scatter_sub_sorted"] += \
+                        steps * n_upd * (1 if opt == "sgd" else 2)
                     del st_k
                 metrics = evaluate(model, fcfg, take(2))
                 want["gather_rows_grouped"] += 2 * n_gather
@@ -1120,11 +1780,14 @@ def main() -> int:
                                      f"{read_counts()}, expected {want} "
                                      f"(one grouped gather per width group"
                                      f" and one grouped row update per "
-                                     f"update group a step), K1 and K4 at "
-                                     f"least once and no flat gather")
+                                     f"update group a step: one K5 launch "
+                                     f"under sgd, two under adagrad and "
+                                     f"rwsadagrad), K1 and K4 at least "
+                                     f"once and no flat gather")
             print(f"train_factored launches: {json.dumps(launches)} (one "
                   f"grouped gather per width group and one grouped row "
-                  f"update per update group a step, as expected)")
+                  f"update per update group a step, one K5 launch under "
+                  f"sgd and two under adagrad and rwsadagrad, as expected)")
             return launches
 
     with Phase("2 kernels vs plain"):
@@ -2545,21 +3208,22 @@ def main() -> int:
         if min(train_launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{train_launches}")
-        # one grouped gather per train or eval step, one row update per
-        # train step with the kernels on: rwsadagrad 5 + 5 checked, 5
+        # one grouped gather per train or eval step; with the kernels on,
+        # two K5 launches per rwsadagrad step (the run sums, then the
+        # update) and one per sgd step: rwsadagrad 5 + 5 checked, 5
         # profiled, 3 + 3 x 20 through train(); sgd 3 + 3 x 20 through
         # train(), 5 profiled; 2 eval
         rws_steps = 5 + 5 + 5 + (3 + 3 * 20)
         sgd_steps = 3 + 3 * 20 + 5
         want = {"gather_rows_grouped": rws_steps + sgd_steps + 2,
-                "scatter_sub_sorted": rws_steps + sgd_steps}
+                "scatter_sub_sorted": 2 * rws_steps + sgd_steps}
         got = {k: train_launches[k] for k in want}
         if got != want or read_counts()["gather_rows"] != 0:
             raise AssertionError(f"train path launches {read_counts()}, "
                                  f"expected {want} and no flat gather")
         print(f"train path launches: {json.dumps(got)} (one grouped gather "
-              f"per train or eval step, one grouped row update per train "
-              f"step, sgd's included)")
+              f"per train or eval step; K5 twice per rwsadagrad step, the "
+              f"run sums and the update, and once per sgd step)")
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"evaluate gave {metrics}")
         print(f"evaluate over 2 batches: auc {metrics['auc']:.4f}, accuracy "
@@ -2569,7 +3233,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     factored_launches = phase_3e(tables)
     del tables
-    cli_launches = phase_3f()
+    work_dir = tempfile.TemporaryDirectory()
+    try:
+        cli_launches = phase_3f(work_dir.name)
+        cached_launches = phase_3g(work_dir.name)
+    finally:
+        work_dir.cleanup()
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -2579,7 +3248,8 @@ def main() -> int:
               f"{json.dumps(gram_launches)}; train "
               f"{json.dumps(train_launches)}; train_factored "
               f"{json.dumps(factored_launches)}; cli "
-              f"{json.dumps(cli_launches)}")
+              f"{json.dumps(cli_launches)}; train_cached "
+              f"{json.dumps(cached_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -2601,7 +3271,8 @@ def main() -> int:
         paths = {"serve": serve_launches, "serve_int8": int8_launches,
                  "serve_host": host_launches, "gram_ab": gram_launches,
                  "train": train_launches,
-                 "train_factored": factored_launches, "cli": cli_launches}
+                 "train_factored": factored_launches, "cli": cli_launches,
+                 "train_cached": cached_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

@@ -7,7 +7,12 @@ takes every flag of the JAX package's parser under its name and default,
 and one more, `--device` (default `cuda`; `cpu` for the tests: without a
 card, `cuda` raises).  One command covers the reference's five drivers:
 training, and with `--inference-only`, `--use-evstore` and
-`--n-caching-layers {1,2,3}` the C1, C1+C2 and C1+C2+C3 servers.
+`--n-caching-layers {1,2,3}` the C1, C1+C2 and C1+C2+C3 servers.  Training
+with `--use-evstore True` runs through the device-memory-bounded cache
+(`drivers/train.py::run_cached_training`: `--emb-cache-size` entries at
+`--main-precision` 32, 16 or 8, `--train-window` batches a device call,
+masters mapped from `--ev-table-path`'s .bin files when it holds them,
+the checkpoint on a new best eval into `--save-model`).
 
     python -m evstore_tpu_torch.cli --arch-mlp-bot 13-512-256-64-36 ...
 
@@ -21,8 +26,8 @@ Where the port departs from the JAX CLI:
   on the .bin files (`open_table_files`); the JAX CLI raises there.
 - A checkpoint is the port's own (`utils/checkpoint.py`); a JAX
   checkpoint (orbax) cannot be read.  The EV tables are shared.
-- Not ported: training with `--use-evstore` (ROADMAP queue 1 item 7) and
-  the mesh flags above 1 (item 8); both raise NotImplementedError.
+- Not ported: the mesh flags above 1 (ROADMAP queue 1 item 8), which
+  raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +42,6 @@ from typing import List, Optional
 from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
                                       make_dlrm_config)
 
-CACHED_TRAINING_ITEM = "ROADMAP queue 1 item 7 (the trainable cache)"
 MESH_ITEM = "ROADMAP queue 1 item 8 (multi-GPU)"
 
 
@@ -354,9 +358,27 @@ def _run(args) -> int:
 
     if not args.inference_only:
         if args.use_evstore:
-            raise NotImplementedError(
-                f"training with --use-evstore (the HBM-bounded cached "
-                f"trainer) is not ported yet: {CACHED_TRAINING_ITEM}")
+            # training through the cache tier (the reference forbids
+            # training with EVStore, dlrm_s_pytorch_C1.py:1321-1323)
+            if args.num_indices_per_lookup > 1:
+                print("error: --use-evstore requires bag size 1 (the tier "
+                      "protocol is groupability-keyed on one row per table, "
+                      "like the reference's Criteo drivers)", file=sys.stderr)
+                return 2
+            from evstore_tpu_torch.drivers.train import run_cached_training
+            res = run_cached_training(
+                cfg, tcfg, ccfg, make_train,
+                ev_table_dir=(args.ev_table_path or None),
+                table_sizes=list(cfg.table_sizes),
+                save_dir=args.save_model or None,
+                seed=args.numpy_rand_seed,
+                window=args.train_window,
+                make_test_batches=(make_test if args.test_freq > 0
+                                   else None),
+                device=dev)
+            print(f"training done: steps={res.steps} "
+                  f"best={res.best_metric:.4f} (cached)")
+            return 0
         from evstore_tpu_torch.drivers.train import run_training
         res = run_training(
             cfg, tcfg, make_train, make_test,

@@ -37,7 +37,7 @@ from evstore_tpu_torch.train.optim import (OptState, row_state_views,
 from evstore_tpu_torch.utils.device import resolve_device
 
 
-def _mlps_from_jax(dense: Dict, cfg: DLRMConfig,
+def mlps_from_jax(dense: Dict, cfg: DLRMConfig,
                    dev: torch.device) -> Dict[str, torch.Tensor]:
     """{"bot"|"top": {"layer_i": {"w": [in, out], "b"}}} -> the DLRM's MLP
     state-dict entries (weights [out, in])."""
@@ -52,8 +52,8 @@ def _mlps_from_jax(dense: Dict, cfg: DLRMConfig,
     return state
 
 
-def _mlps_to_numpy(state: Dict[str, torch.Tensor], cfg: DLRMConfig) -> Dict:
-    """The inverse of `_mlps_from_jax`."""
+def mlps_to_numpy(state: Dict[str, torch.Tensor], cfg: DLRMConfig) -> Dict:
+    """The inverse of `mlps_from_jax`."""
     out: Dict = {}
     for part, dims in (("bot", cfg.mlp_bot), ("top", cfg.mlp_top)):
         out[part] = {f"layer_{i}": {
@@ -96,7 +96,7 @@ def params_from_jax(dense: Dict, sparse: Dict, cfg: DLRMConfig,
     arrays for the port's store).  Raises ValueError for a table whose
     kind or parameters are not the ones `cfg` gives."""
     dev = resolve_device(device)
-    state = _mlps_from_jax(dense, cfg, dev)
+    state = mlps_from_jax(dense, cfg, dev)
     tables = []
     for t, names in enumerate(_names(cfg)):
         entry = sparse[f"table_{t}"]
@@ -117,7 +117,7 @@ def params_from_jax(dense: Dict, sparse: Dict, cfg: DLRMConfig,
 def params_to_numpy(model) -> Tuple[Dict, Dict]:
     """The port's DLRM -> (dense, sparse) numpy pytree in the JAX layout."""
     params = dict(model.named_parameters())
-    dense = _mlps_to_numpy(params, model.cfg)
+    dense = mlps_to_numpy(params, model.cfg)
     sparse: Dict = {}
     for t, names in enumerate(_names(model.cfg)):
         entry = sparse[f"table_{t}"] = {}
@@ -163,7 +163,7 @@ def opt_state_from_jax(step, dense: Dict, sparse: Dict, cfg: DLRMConfig,
         flat = torch.from_numpy(np.concatenate(parts)).to(dev)
         rows.update(row_state_views(flat, [p.shape[0] for p in parts],
                                     [s.name for s in members]))
-    mlp = _mlps_from_jax(dense["mlp"], cfg, dev)
+    mlp = mlps_from_jax(dense["mlp"], cfg, dev)
     for t, names in enumerate(_names(cfg)):
         if "kind_md/proj" in names:
             mlp[names["kind_md/proj"]] = torch.from_numpy(np.array(
@@ -184,5 +184,5 @@ def opt_state_to_numpy(opt: OptState, cfg: DLRMConfig
         if "kind_md/proj" in names:
             _put(fields["fact"], f"table_{t}/kind_md/proj",
                  opt.dense[names["kind_md/proj"]].cpu().numpy().copy())
-    return (opt.step, {"mlp": _mlps_to_numpy(opt.dense, cfg),
+    return (opt.step, {"mlp": mlps_to_numpy(opt.dense, cfg),
                        "fact": fields["fact"]}, fields["sparse"])

@@ -1,7 +1,8 @@
-"""Training driver: the DLRM train and eval loop with checkpoints and the
-EV export.
+"""Training drivers: the DLRM train and eval loop with checkpoints and the
+EV export, and the same loop through the device-memory-bounded cache.
 
-Port of `evstore_tpu/drivers/train.py::run_training`.  Reference:
+Port of `evstore_tpu/drivers/train.py`: `run_training` and
+`run_cached_training` with its helpers.  Reference:
 dlrm_s_pytorch.py run() (:922-1990): the epoch loop, the periodic eval
 (test_freq), a checkpoint and the per-table EV export on every new best
 eval, the MLPerf threshold early exit, and resume with the skip-upto fast
@@ -12,7 +13,15 @@ the caller's `model` (for example the JAX package's weights through
 `convert.params_from_jax`: torch cannot replay `jax.random`).  It trains on
 `device` (the card unless the caller says otherwise).  Not ported: the mesh
 options (`mesh`, the butterfly and alltoall exchanges, `dedup_exchange`;
-ROADMAP queue 1 item 8) and `run_cached_training` (item 7).
+ROADMAP queue 1 item 8), for both drivers.
+
+`run_cached_training` trains through `cache/trainable.py::
+TrainableDeviceCache`: the tables stay in host memory (or on disk, mapped
+from the EV .bin files), and the card holds the cache's cells and the
+MLPs.  Its checkpoint on a new best eval is the cache's `table_<t>.npy` /
+`mom_<t>.npy` files beside `dense_params.npz` (the MLPs and their sums
+under the JAX package's `p...` / `s...` keys, weights [in, out]) and
+`best.json`, the JAX package's files, which either package restores.
 
 Besides the JAX package's log lines, the driver logs the seconds and GB/s
 of every checkpoint save, the restore and every EV export, and the steps
@@ -22,15 +31,20 @@ per second of the loop without its evals and saves.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import json
 import math
 import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from evstore_tpu_torch.config import DLRMConfig, TrainConfig
-from evstore_tpu_torch.models.dlrm import DLRM
+from evstore_tpu_torch.convert import mlps_from_jax, mlps_to_numpy
+from evstore_tpu_torch.models.dlrm import DLRM, init_host_tables
+from evstore_tpu_torch.train.metrics import binary_metrics
 from evstore_tpu_torch.train.optim import OptState
 from evstore_tpu_torch.train.train_loop import (evaluate, init_opt_state,
                                                 make_eval_step,
@@ -41,6 +55,7 @@ from evstore_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                 latest_step,
                                                 restore_checkpoint,
                                                 save_checkpoint)
+from evstore_tpu_torch.utils.device import resolve_device
 from evstore_tpu_torch.utils.logging import MLPerfLogger
 
 MESH_ITEM = "ROADMAP queue 1 item 8 (multi-GPU)"
@@ -200,3 +215,210 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
     mll.event("run_stop", {"status": "done"})
     return TrainResult(model=model, opt_state=opt_state, best_metric=best,
                        steps=step, history=history)
+
+
+# --------------------------------------------------------- cached training
+
+def _cached_eval(tc, cfg: DLRMConfig, model: DLRM,
+                 make_test_batches: Callable[[], Iterable]
+                 ) -> Dict[str, float]:
+    """Eval through the cached trainer: write the cache back to the masters,
+    then score the test batches with their rows read from the masters on
+    the host and handed to the forward, so that no table goes to the card
+    (as run_training's periodic eval, dlrm_s_pytorch.py:1743-1796)."""
+    tc.flush_to_host()
+    dev = next(model.parameters()).device
+    scores, labels = [], []
+    with torch.inference_mode():
+        for batch in make_test_batches():
+            dense_x, idx, y = batch[0], np.asarray(batch[1]), batch[-1]
+            rows = np.stack([tc.host_tables[t][idx[:, t]]
+                             for t in range(cfg.num_tables)], axis=1)
+            logits = model(torch.from_numpy(np.asarray(
+                dense_x, np.float32)).to(dev), None,
+                emb_rows=torch.from_numpy(rows).to(dev))
+            scores.append(torch.sigmoid(logits).cpu().numpy())
+            labels.append(np.asarray(y))
+    return binary_metrics(np.concatenate(scores), np.concatenate(labels))
+
+
+def _npz_key(prefix: str, part: str, layer: int, leaf: str) -> str:
+    """A dense leaf's key in `dense_params.npz`: "p" (weights) or "s"
+    (sums) + `jax.tree_util.keystr` of its path in the JAX dense pytree."""
+    return f"{prefix}['{part}']['layer_{layer}']['{leaf}']"
+
+
+def _save_dense_npz(model: DLRM, dstate: Dict[str, torch.Tensor],
+                    out_dir: str, step: int, metrics) -> None:
+    """`dense_params.npz` and `best.json` beside the cache's `save` files:
+    with them, the whole state of cached training at its best eval."""
+    os.makedirs(out_dir, exist_ok=True)
+    flat = {}
+    for prefix, state in (("p", dict(model.named_parameters())),
+                          ("s", dstate)):
+        for part, layers in mlps_to_numpy(state, model.cfg).items():
+            for name, leaves in layers.items():
+                for leaf, arr in leaves.items():
+                    flat[_npz_key(prefix, part, int(name[6:]), leaf)] = arr
+    np.savez(os.path.join(out_dir, "dense_params.npz"), **flat)
+    with open(os.path.join(out_dir, "best.json"), "w") as f:
+        json.dump({"step": step, "metrics": metrics}, f)
+
+
+def restore_dense_npz(model: DLRM, dstate: Dict[str, torch.Tensor],
+                      out_dir: str):
+    """The inverse of `_save_dense_npz`, in place: -> (model, dstate)."""
+    z = np.load(os.path.join(out_dir, "dense_params.npz"))
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    for prefix, state in (("p", dict(model.named_parameters())),
+                          ("s", dstate)):
+        tree = {part: {f"layer_{i}": {
+            leaf: z[_npz_key(prefix, part, i, leaf)] for leaf in ("w", "b")}
+            for i in range(len(dims) - 1)}
+            for part, dims in (("bot", cfg.mlp_bot), ("top", cfg.mlp_top))}
+        with torch.no_grad():
+            for name, value in mlps_from_jax(tree, cfg, dev).items():
+                state[name].copy_(value)
+    return model, dstate
+
+
+def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
+                        make_train_batches: Callable[[], Iterable],
+                        tables=None, ev_table_dir: Optional[str] = None,
+                        table_sizes=None,
+                        save_dir: Optional[str] = None,
+                        mesh=None,
+                        seed: int = 0,
+                        window: int = 0,
+                        make_test_batches: Optional[Callable] = None,
+                        ev_export_dir: Optional[str] = None,
+                        log_fn=print,
+                        model: Optional[DLRM] = None,
+                        device=None) -> TrainResult:
+    """Training with device memory bounded by the cache tier (the reference
+    forbids training with EVStore, dlrm_s_pytorch_C1.py:1321-1323).  The
+    masters are `tables`, the mapped `ev-table-<t+1>.bin` files of
+    `ev_table_dir` (with `table_sizes`) when that directory holds them, or
+    the tables `DLRM(cfg, seed=seed)` draws, made in host memory; the
+    model's MLPs come from `model` (the caller's, e.g. the JAX package's
+    weights through `convert.py`; its tables, if any, are the masters when
+    `tables` is None) or from the same seed.
+
+    Batches stream through `TrainableDeviceCache.train_batches` (pipelined)
+    or, with window > 1, `train_batches_windowed`.  With make_test_batches
+    and tcfg.test_freq > 0 the stream is cut every test_freq batches for an
+    eval through the cache, and a new best writes the cache's files and the
+    dense npz into `save_dir` and the EV tables into `ev_export_dir`; a
+    last eval follows the loop.  The model is trained in place; the result
+    holds its dense sums as `opt_state.dense`."""
+    from evstore_tpu_torch.cache.trainable import (TrainableDeviceCache,
+                                                   init_dense_state)
+    if mesh is not None:
+        raise NotImplementedError(f"cached training over a mesh "
+                                  f"(ShardedTrainableDeviceCache) is not "
+                                  f"ported yet: {MESH_ITEM}")
+    dev = resolve_device(device)
+    if model is None:
+        model = DLRM(cfg, device=dev, seed=seed, tables=False)
+    elif model.cfg != cfg:
+        raise ValueError("the model was built from another DLRMConfig")
+    if ev_table_dir and not os.path.exists(
+            os.path.join(ev_table_dir, "ev-table-1.bin")):
+        ev_table_dir = None   # no .bin masters there: masters in memory
+    if ev_table_dir:
+        tc = TrainableDeviceCache.from_files(cfg, tcfg, ccfg, ev_table_dir,
+                                             table_sizes, device=dev)
+    elif tables is not None:
+        tc = TrainableDeviceCache(cfg, tcfg, ccfg, tables, device=dev)
+    elif model.has_sparse():
+        tc = TrainableDeviceCache(cfg, tcfg, ccfg, list(model.tables),
+                                  device=dev)
+    else:
+        tc = TrainableDeviceCache(cfg, tcfg, ccfg,
+                                  init_host_tables(cfg, seed),
+                                  copy_tables=False, device=dev)
+    dstate = init_dense_state(model)
+    history = {"loss": [], "eval": []}
+    step = 0
+    best = -float("inf")
+    do_eval = make_test_batches is not None and tcfg.test_freq > 0
+    t0 = t_run = time.perf_counter()
+    t_aside = 0.0     # evals and saves, off the step rate
+    n_since = 0
+
+    def eval_and_track():
+        nonlocal best, t_aside
+        t1 = time.perf_counter()
+        metrics = _cached_eval(tc, cfg, model, make_test_batches)
+        history["eval"].append((step, metrics))
+        log_fn(f"eval @ {step}: auc {metrics['auc']:.4f} "
+               f"acc {metrics['accuracy']:.4f}")
+        score = (metrics["auc"] if not np.isnan(metrics["auc"])
+                 else metrics["accuracy"])
+        if score > best:
+            best = score
+            if save_dir:
+                tc.save(save_dir)
+                _save_dense_npz(model, dstate, save_dir, step, metrics)
+            if ev_export_dir:
+                tc.export_ev_tables(ev_export_dir)
+        t_aside += time.perf_counter() - t1
+        return metrics
+
+    def progress(loss, bsize):
+        nonlocal t0, n_since
+        last = float(loss)
+        dt = time.perf_counter() - t0
+        history["loss"].append((step, last))
+        s = tc.stats()
+        log_fn(f"step {step}: loss {last:.6f} "
+               f"({n_since * bsize / max(dt, 1e-9):.0f}"
+               f" examples/s, hit rate {s['hit_rate']:.3f}, "
+               f"cache hbm {s['hbm_bytes'] / 1e6:.1f} MB)")
+        t0, n_since = time.perf_counter(), 0
+
+    for _ in range(tcfg.nepochs):
+        # the stream is cut at test_freq batches for the periodic eval; a
+        # driver drained at a cut has landed all its write-backs
+        batch_iter = iter(make_train_batches())
+        while True:
+            if do_eval:
+                chunk = list(itertools.islice(batch_iter, tcfg.test_freq))
+                if not chunk:
+                    break
+            else:
+                chunk = batch_iter
+            if window and window > 1:
+                stream = tc.train_batches_windowed(
+                    model, dstate, chunk, window=window, start_step=step + 1)
+            else:
+                stream = tc.train_batches(model, dstate, chunk,
+                                          start_step=step + 1)
+            for _, _, loss in stream:
+                step += 1
+                n_since += 1
+                if step % max(tcfg.print_freq, 1) == 0:
+                    progress(loss, tcfg.batch_size)
+            if not do_eval:
+                break
+            eval_and_track()
+    _fence(dev)
+    dt = time.perf_counter() - t_run - t_aside
+    log_fn(f"trained {step} steps in {dt:.3f} s "
+           f"({step / max(dt, 1e-9):.2f} steps/s)")
+    if do_eval:  # the last eval, as run_training's
+        eval_and_track()
+    if ev_table_dir:
+        tc.flush_files()
+    elif save_dir and not do_eval:
+        tc.save(save_dir)
+    else:
+        tc.flush_to_host()
+    stats = tc.stats()
+    tc.close()
+    best = best if best > -float("inf") else float("nan")
+    log_fn(f"cached training done: steps={step} cache={stats} "
+           f"best={best:.4f}")
+    return TrainResult(model=model, opt_state=OptState(step, dstate, {}),
+                       best_metric=best, steps=step, history=history)

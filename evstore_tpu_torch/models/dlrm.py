@@ -30,14 +30,21 @@ from evstore_tpu_torch.utils.device import resolve_device
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _mlp(dims, rng: np.random.Generator, dtype) -> nn.ModuleList:
+def _mlp_draws(dims, rng: np.random.Generator):
     """The reference's init: W ~ N(0, sqrt(2/(m+n))), b ~ N(0, sqrt(1/n))
-    (dlrm_s_pytorch.py:215-240)."""
-    layers = nn.ModuleList()
+    (dlrm_s_pytorch.py:215-240), as (w [n, m], b [n]) a layer."""
+    out = []
     for m, n in zip(dims[:-1], dims[1:]):
-        lin = nn.Linear(m, n, dtype=dtype)
         w = rng.normal(0.0, np.sqrt(2.0 / (m + n)), (n, m))
-        b = rng.normal(0.0, np.sqrt(1.0 / n), (n,))
+        out.append((w, rng.normal(0.0, np.sqrt(1.0 / n), (n,))))
+    return out
+
+
+def _mlp(dims, rng: np.random.Generator, dtype) -> nn.ModuleList:
+    layers = nn.ModuleList()
+    for (m, n), (w, b) in zip(zip(dims[:-1], dims[1:]),
+                              _mlp_draws(dims, rng)):
+        lin = nn.Linear(m, n, dtype=dtype)
         with torch.no_grad():
             lin.weight.copy_(torch.from_numpy(w))
             lin.bias.copy_(torch.from_numpy(b))
@@ -67,6 +74,16 @@ def _expected(cfg: DLRMConfig) -> List[Dict[str, tuple]]:
         if kind == "md" and dim != cfg.embedding_dim:
             out[t]["proj"] = (dim, cfg.embedding_dim)
     return out
+
+
+def init_host_tables(cfg: DLRMConfig, seed: int = 0) -> List[np.ndarray]:
+    """The plain tables `DLRM(cfg, seed=seed)` draws, as float32 numpy
+    arrays in host memory, without building them on a device: the masters
+    of cached training (`cache/trainable.py`)."""
+    rng = np.random.default_rng(seed)
+    _mlp_draws(cfg.mlp_bot, rng)
+    _mlp_draws(cfg.mlp_top, rng)
+    return [e["kind_plain"] for e in init_sparse_arch(cfg, rng)]
 
 
 class DLRM(nn.Module):

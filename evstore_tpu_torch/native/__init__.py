@@ -16,7 +16,12 @@ batched: one call per batch of requests.
 - `NativeAssigner` is the slot-assignment front end of the device C1 cache
   (`cache/device_cache.py::NativeDeviceC1Cache`): per batch, one call runs
   the EvLFU policy over the cache's slots and returns the gather indices,
-  the scatter list and the miss-row buffer.
+  the scatter list and the miss-row buffer.  Its training mode
+  (`assign_batch_train`, for `cache/trainable.py::TrainableDeviceCache`)
+  defers the reuse of an evicted slot by one batch, reports the evictions
+  and each position's final gradient target, and leaves the miss reads to
+  `fetch_rows`, which the trainer calls once its write-backs landed;
+  `resident_entries` lists the cache's keys and slots for a flush.
 - `NativeShardedCache` is the table-partitioned engine (`ShardedEngine`
   in the C++): the tables split round-robin over `n_workers` threads, each
   with its own C1 (and C2) share, over borrowed RAM tables; C1 and C1+C2
@@ -26,10 +31,6 @@ batched: one call per batch of requests.
 - The Criteo TSV parser (`parse_criteo_tsv_native`, `_range`, `_chunks`)
   feeds `data/criteo.py`.  Its errors reach the caller: nothing here falls
   back to the Python parser.
-
-Not bound yet: the training assigner (`esv_assign_batch_train`,
-`esv_fetch_rows`, `esv_assign_resident`).  Its C code is in the copy and
-waits for its slice.
 """
 
 from __future__ import annotations
@@ -73,6 +74,15 @@ SIGNATURES = {
     # handle, idx, B, slots, scat_slots, scat_m, buf, maxM, &n_scat
     "esv_assign_batch": (_L, [_P, _I64, _L, _I32, _I32, _I32, _F32, _L,
                               ctypes.POINTER(_L)]),
+    # training mode: the above, then evicted keys and slots, their room,
+    # &n_evicted, the final gradient target per position
+    "esv_assign_batch_train": (_L, [_P, _I64, _L, _I32, _I32, _I32, _F32,
+                                    _L, ctypes.POINTER(_L), _U64, _I32, _L,
+                                    ctypes.POINTER(_L), _I32]),
+    # handle, tables, rows, n, out rows
+    "esv_fetch_rows": (None, [_P, _I32, _I64, _L, _F32]),
+    # handle, keys, slots, room
+    "esv_assign_resident": (_L, [_P, _U64, _I32, _L]),
     "esv_assign_stats": (None, [_P, _F64]),
     "esv_assign_close": (None, [_P]),
     # the log-structured key-value store: path, value bytes
@@ -280,6 +290,79 @@ class NativeAssigner:
             raise RuntimeError("esv_assign_batch: buffer overflow")
         return (slots, scat_slots[:n_scat.value], scat_m[:n_scat.value],
                 buf[:n_buf])
+
+    def assign_batch_train(self, idx: np.ndarray):
+        """Training mode: deferred slot reuse, the evictions and the final
+        gradient targets.  idx [B, T] -> (slots [B, T], scat_slots, scat_m,
+        buf [n_buf, D] (not read: `fetch_rows` reads the misses), evicted
+        keys [(t, row), ...], evicted slots, upd [B, T]).  upd[b, t] is the
+        position's final gradient target after the batch, its key's cache
+        slot or C + m for its buffer row m, or INT32_MAX where the key was
+        evicted within the batch and has no buffer row."""
+        (slots, scat_slots, scat_m, buf, ev_keys, ev_slots,
+         upd) = self.assign_batch_train_raw(idx)
+        keys = [(int(k >> 40), int(k & ((1 << 40) - 1))) for k in ev_keys]
+        return slots, scat_slots, scat_m, buf, keys, ev_slots, upd
+
+    def assign_batch_train_raw(self, idx: np.ndarray):
+        """`assign_batch_train` with the evicted keys packed, a uint64 array
+        of table << 40 | row (the engine's key layout)."""
+        idx = np.ascontiguousarray(idx, np.int64)
+        B, T = idx.shape
+        maxM = B * T
+        slots = np.empty((B, T), np.int32)
+        scat_slots = np.empty(maxM, np.int32)
+        scat_m = np.empty(maxM, np.int32)
+        buf = np.empty((maxM, self.dim), np.float32)
+        ev_keys = np.empty(maxM + self.capacity, np.uint64)
+        ev_slots = np.empty(maxM + self.capacity, np.int32)
+        upd = np.empty((B, T), np.int32)
+        n_scat = ctypes.c_long(0)
+        n_ev = ctypes.c_long(0)
+        n_buf = self._lib.esv_assign_batch_train(
+            self._handle(), idx.reshape(-1), B, slots.reshape(-1),
+            scat_slots, scat_m, buf.reshape(-1), maxM, ctypes.byref(n_scat),
+            ev_keys, ev_slots, len(ev_keys), ctypes.byref(n_ev),
+            upd.reshape(-1))
+        if n_buf == -2:
+            raise ValueError(
+                "esv_assign_batch_train: row id out of [0, 2^40)")
+        if n_buf < 0:
+            raise RuntimeError("esv_assign_batch_train: buffer overflow")
+        ne = n_ev.value
+        return (slots, scat_slots[:n_scat.value], scat_m[:n_scat.value],
+                buf[:n_buf], ev_keys[:ne].copy(), ev_slots[:ne].copy(), upd)
+
+    def fetch_rows(self, keys) -> np.ndarray:
+        """The store's rows of keys [(t, row), ...], read on the engine's
+        reader pool -> [n, D] float32."""
+        tabs = np.asarray([k[0] for k in keys], np.int32)
+        rows = np.asarray([k[1] for k in keys], np.int64)
+        return self.fetch_rows_arrays(tabs, rows)
+
+    def fetch_rows_arrays(self, tabs: np.ndarray, rows: np.ndarray
+                          ) -> np.ndarray:
+        """`fetch_rows` of tables tabs [n] and rows rows [n]."""
+        n = len(tabs)
+        tabs = np.ascontiguousarray(tabs, np.int32)
+        rows = np.ascontiguousarray(rows, np.int64)
+        out = np.empty((n, self.dim), np.float32)
+        if n:
+            self._lib.esv_fetch_rows(self._handle(), tabs, rows, n,
+                                     out.reshape(-1))
+        return out
+
+    def resident_entries(self):
+        """Every cache-resident key and its slot: ([(t, row), ...],
+        slots int32 [n])."""
+        keys = np.empty(self.capacity, np.uint64)
+        slots = np.empty(self.capacity, np.int32)
+        n = self._lib.esv_assign_resident(self._handle(), keys, slots,
+                                          self.capacity)
+        keep = slots[:n] >= 0
+        out_keys = [(int(k >> 40), int(k & ((1 << 40) - 1)))
+                    for k in keys[:n][keep]]
+        return out_keys, slots[:n][keep].copy()
 
     def stats(self) -> dict:
         s = np.zeros(4, np.float64)

@@ -17,18 +17,19 @@ of tables of one width at once (every table of a train step's batch, or
 the rows of its bags): map each table's ids to global ids (an id outside
 [0, N_t) becomes PAD_ROW first, so that it cannot land in the next table's
 rows), sort them, sum each sorted segment, update the row accumulators (one
-flat [sum N_t] buffer), pre-scale each entry by lr / (sqrt(state_row) +
-eps) and apply with the kernel.  `adagrad_row_update` is the same with an
-elementwise state (one flat [sum N_t, D] buffer), and hands the kernel each
-run's update on the run's first entry (see there why); `sgd_row_update`
-pre-scales each entry by lr and needs no segment sum.  The
-tables' global row ranges are disjoint, so this is the per-table math, run
-once.  None of them waits for the device: every buffer is sized by the
-batch, not by the number of distinct ids.  The tables and the state are
-updated in place.  The kernel sums each run in a fixed order; the segment
-sums that feed the accumulators come from `index_add_`, whose atomics on
-the card add in any order, so the accumulators and the per-row scale agree
-between runs only to rounding.
+flat [sum N_t] buffer) and hand the kernel each run's update
+lr * G / (sqrt(state_row) + eps) on the run's first entry.
+`adagrad_row_update` is the same with an elementwise state (one flat
+[sum N_t, D] buffer); `sgd_row_update` pre-scales each entry by lr and
+needs no segment sum.  The tables' global row ranges are disjoint, so this
+is the per-table math, run once.  None of them waits for the device: every
+buffer is sized by the batch, not by the number of distinct ids.  The
+tables and the state are updated in place.  The segment sums are the
+kernel's too (`segment_sums`: a launch over a zeroed scratch table), so
+the sum that moves a row's accumulator and the one that moves the row are
+one sum, taken in the kernel's fixed order: the updates are bitwise
+repeatable on the card.  `rwsadagrad_row_update_global` is the trainable
+cache's form, over ids that are global already.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ Tables = Union[torch.Tensor, Sequence[torch.Tensor]]
 # it after the launches queued before it, and the wrapper spends no host
 # time on an allocation per call.
 _scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+# `segment_sums`' tables of run sums, one per (device, stream, width)
+_sums: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
 
 def _scratch_for(dev: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -182,20 +185,41 @@ def _sorted_entries(name: str, state: Optional[torch.Tensor],
     return g, rows_sorted, grads.reshape(K, D).float()[order]
 
 
-def _segment_sums(rows_sorted: torch.Tensor, g_sorted: torch.Tensor,
-                  n: int):
+def _sums_for(dev: torch.device, stream: int, k: int,
+              d: int) -> torch.Tensor:
+    """The table `segment_sums` sums runs into: one per (device, stream,
+    width) on the card, grown as needed and otherwise the same tensor, so
+    that the kernel's table descriptor stays cached; a new one on the
+    CPU."""
+    if dev.type != "cuda":
+        return torch.zeros((k, d), dtype=torch.float32, device=dev)
+    buf = _sums.get((dev.index, stream, d))
+    if buf is None or buf.shape[0] < k:
+        buf = torch.zeros((max(k, 1), d), dtype=torch.float32, device=dev)
+        _sums[(dev.index, stream, d)] = buf
+    else:
+        buf[:k].zero_()
+    return buf
+
+
+def segment_sums(rows_sorted: torch.Tensor, g_sorted: torch.Tensor,
+                 n: int):
     """Sum each run of equal sorted ids, with buffers sized by K (no
     wait for the number of runs): (first [K], the entry begins its run;
     seg [K], the entry's run; Gc [K, D], the run sums by run; valid [K],
     the run is a row of the group; seg_at [K], its row, 0 for the
-    others)."""
+    others).  The row-update kernel sums the runs, over a zeroed table
+    of K rows keyed by the run's index, in its fixed order (on the CPU,
+    its plain version, in float64)."""
     K, D = g_sorted.shape
     dev = g_sorted.device
     first = torch.ones(K, dtype=torch.bool, device=dev)
     first[1:] = rows_sorted[1:] != rows_sorted[:-1]
     seg = torch.cumsum(first, 0) - 1                          # [K] int64
-    Gc = torch.zeros((K, D), dtype=torch.float32,
-                     device=dev).index_add_(0, seg, g_sorted)
+    sums = _sums_for(dev, _build.stream(dev.index) if dev.type == "cuda"
+                     else 0, K, D)
+    scatter_sub_sorted(sums, seg.to(torch.int32), g_sorted)
+    Gc = -sums[:K]
     seg_row = torch.full((K,), INT32_MAX, dtype=torch.int64, device=dev)
     seg_row[seg] = rows_sorted.long()       # one value per run
     valid = seg_row < n                     # PAD_ROW and unused runs
@@ -220,31 +244,35 @@ def adagrad_row_update(state: torch.Tensor, tables: Tables,
                        eps: float = EPS):
     """Adagrad on the rows in `ids`, elementwise, in place: state[row] +=
     G_row^2 and table[row] -= lr * G_row / (sqrt(state[row]) + eps), with
-    G_row the sum of the row's entries (one sort, one segment sum, one
-    launch of the kernel).  One table [N, D] with ids [K],
-    grads [K, D] and state [N, D], or a list of T tables with ids [R, T],
+    G_row the sum of the row's entries (one sort and two launches of the
+    kernel: the segment sums, then the update).  One table [N, D] with ids
+    [K], grads [K, D] and state [N, D], or a list of T tables with ids [R, T],
     grads [R, T, D] and `state` the flat [sum N_t, D] buffer, table t's
     rows at [bases[t], bases[t+1]).  Ids may repeat and may lie outside
     their table (PAD_ROW): those are inert.  Returns (state, tables)."""
     g, rows_sorted, g_sorted = _sorted_entries(
         "adagrad_row_update", state, tables, ids, grads,
         lambda n, D: (n, D))
-    first, seg, Gc, valid, seg_at = _segment_sums(rows_sorted, g_sorted,
-                                                  g.total_rows)
+    first, seg, Gc, valid, seg_at = segment_sums(rows_sorted, g_sorted,
+                                                 g.total_rows)
     inc = torch.where(valid[:, None], Gc * Gc, 0.0)
     st_rows = state[seg_at] + inc
     state.index_add_(0, seg_at, inc)
-    # The update of each run, on its first entry and 0 on the others, so
-    # that the kernel's run sum is that update exactly.  Pre-scaling every
-    # entry instead (as rwsadagrad does) is ill-conditioned here: an
-    # element's update is about lr * sign(G) whatever |G| is, so where a
-    # run's entries nearly cancel, the kernel's sum and `Gc` (two sums of
-    # the same entries, rounded apart) give updates 1e-4 apart.
     upd = torch.where(valid[:, None], lr * Gc / (torch.sqrt(st_rows) + eps),
                       0.0)
-    scatter_sub_sorted(tables, rows_sorted,
-                       torch.where(first[:, None], upd[seg], 0.0))
-    return state, tables
+    return state, _apply_runs(tables, rows_sorted, first, seg, upd)
+
+
+def _apply_runs(tables, rows_sorted, first, seg, upd):
+    """table[row] -= upd of the row's run, through one launch: each run's
+    update on its first entry and 0 on the others, so that the kernel's
+    run sum is that update exactly.  Pre-scaling every entry instead is
+    ill-conditioned: a row's first update is about lr * sign(G) whatever
+    |G| is, so where a run's entries nearly cancel, the sum that moved the
+    accumulator and the kernel's second sum of the same entries, rounded
+    apart, would move the row by their difference."""
+    return scatter_sub_sorted(tables, rows_sorted,
+                              torch.where(first[:, None], upd[seg], 0.0))
 
 
 def rwsadagrad_row_update(state: torch.Tensor, tables: Tables,
@@ -261,12 +289,46 @@ def rwsadagrad_row_update(state: torch.Tensor, tables: Tables,
     g, rows_sorted, g_sorted = _sorted_entries(
         "rwsadagrad_row_update", state, tables, ids, grads,
         lambda n, D: (n,))
-    _, seg, Gc, valid, seg_at = _segment_sums(rows_sorted, g_sorted,
-                                              g.total_rows)
+    return _rwsadagrad_sorted(g, state, tables, rows_sorted, g_sorted, lr,
+                              eps)
+
+
+def rwsadagrad_row_update_global(state: torch.Tensor,
+                                 tables: Sequence[torch.Tensor],
+                                 rows: torch.Tensor, grads: torch.Tensor,
+                                 lr, eps: float = EPS):
+    """`rwsadagrad_row_update` over a group whose ids are global already:
+    rows [K] index the group's row space (table t's rows at [bases[t],
+    bases[t+1])), grads [K, D], `state` the flat [sum N_t] accumulator.
+    The trainable cache's step updates its cache slots and its miss
+    buffer's rows this way, one sort and one update for both.  Ids outside
+    the group are inert.  Returns (state, tables)."""
+    g = table_group("rwsadagrad_row_update_global", list(tables),
+                    global_ids=True)
+    K, D = rows.numel(), g.dim
+    if tuple(grads.shape) != (K, D) or tuple(state.shape) != \
+            (g.total_rows,):
+        raise ValueError(f"rwsadagrad_row_update_global: rows [{K}], grads "
+                         f"{tuple(grads.shape)}, state {tuple(state.shape)}"
+                         f" for {len(tables)} tables of {g.total_rows} rows"
+                         f" in all, width {D}")
+    rows = rows.reshape(-1).long()
+    ok = (rows >= 0) & (rows < g.total_rows)
+    gid = torch.where(ok, rows, INT32_MAX).to(torch.int32)
+    rows_sorted, order = torch.sort(gid, stable=True)
+    return _rwsadagrad_sorted(g, state, list(tables), rows_sorted,
+                              grads.float()[order], lr, eps)
+
+
+def _rwsadagrad_sorted(g, state, tables, rows_sorted, g_sorted, lr, eps):
+    """rwsadagrad's update from the sorted global ids and their grads: the
+    row's accumulator and the row move by the same run sum G, as in the
+    JAX step's dense form."""
+    first, seg, Gc, valid, seg_at = segment_sums(rows_sorted, g_sorted,
+                                                 g.total_rows)
     inc = torch.where(valid, (Gc * Gc).mean(dim=1), 0.0)
     st_rows = state[seg_at] + inc
     state.index_add_(0, seg_at, inc)
-    # per run; 0 for inert ids, whose entries the kernel skips anyway
-    scale = torch.where(valid, lr / (torch.sqrt(st_rows) + eps), 0.0)
-    scatter_sub_sorted(tables, rows_sorted, g_sorted * scale[seg][:, None])
-    return state, tables
+    upd = torch.where(valid[:, None],
+                      lr * Gc / (torch.sqrt(st_rows) + eps)[:, None], 0.0)
+    return state, _apply_runs(tables, rows_sorted, first, seg, upd)

@@ -11,8 +11,9 @@ applies row updates to what it gathered.  Every row comes through the
 grouped row-gather kernel, one launch per width (`models/embedding.py`:
 plain tables, q and r, md tables, pooling weights; a multi-hot batch
 [B, T, L] is B·L lookups per table), and every row update through the
-row-update kernel, one sort and one launch per update group (the sources
-of one width under one row rule, `train/optim.py::update_groups`), with
+row-update kernel, one sort per update group (the sources of one width
+under one row rule, `train/optim.py::update_groups`) and one launch of
+it, two under adagrad and rwsadagrad (the run sums, then the update), with
 the optimizer state as one flat buffer a group.  The q, r and md tables
 take the JAX package's dense branch (elementwise adagrad under adagrad
 and rwsadagrad) on the rows the batch touched, which equals the dense
@@ -110,9 +111,10 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     on the model's device (reading it waits for the device).  Its four
     stages are `torch.profiler` spans named `train_step.<stage>`.  With the
     kernels on, the gather is one launch per width and the row update one
-    per update group (for a one-hot batch over plain tables, one each for
-    all tables); the grouped updates need `opt_state`'s sums to be the
-    views of one flat buffer a group that `init_opt_state` and
+    call per update group (for a one-hot batch over plain tables, one each
+    for all tables), a launch of the row-update kernel under sgd and two
+    under adagrad and rwsadagrad; the grouped updates need `opt_state`'s
+    sums to be the views of one flat buffer a group that `init_opt_state` and
     `opt_state_from_jax` build (ValueError otherwise).  Under
     `weighted_pooling="learned"` the pooling weights take the optimizer's
     row update; "fixed" leaves them alone."""

@@ -1,0 +1,273 @@
+"""The port's cached-training driver and its CLI against the JAX package's,
+on the CPU.
+
+- `drivers/train.py::run_cached_training` against JAX's, the port handed
+  `init_dlrm(PRNGKey(seed))`'s MLPs and tables through `convert.py`, with
+  the periodic eval, the checkpoint on a new best (`save_dir`) and the EV
+  export (`ev_export_dir`), pipelined (window 0) and windowed (8), and
+  with the masters mapped from .bin files: the loss history, every eval's
+  metrics, the exported tables, the saved tables and the final mapped
+  files within 1e-5·(1 + |ref|) (the metrics 5e-5, the AUC's slack for a
+  score that lands the other side of a tie), the steps and evals equal,
+  and each package's `restore_dense_npz` reading the other's dense npz.
+- `cli.main` with `--use-evstore True` against `evstore_tpu.cli.main`
+  (the port's DLRM built from `init_dlrm`'s weights, as in
+  test_torch_cli.py), at `--main-precision` 32 and 16 and
+  `--train-window` 0 and 4; bags refused with the JAX CLI's message.
+- `mesh=` raises NotImplementedError naming ROADMAP queue 1 item 8.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from evstore_tpu import cli as jcli
+from evstore_tpu import config as jcfg
+from evstore_tpu.cache.storage import write_ev_tables_binary
+from evstore_tpu.data import synthetic as jsyn
+from evstore_tpu.drivers import train as jtrain
+from evstore_tpu.models.dlrm import init_dlrm
+from evstore_tpu_torch import cli
+from evstore_tpu_torch import config as pcfg
+from evstore_tpu_torch.cache.trainable import init_dense_state
+from evstore_tpu_torch.convert import params_from_jax
+from evstore_tpu_torch.drivers import train as ptrain
+from evstore_tpu_torch.models import dlrm as pdlrm
+
+RealDLRM = pdlrm.DLRM
+
+
+def bound(got, ref, slack=0.0, what=""):
+    """|got - ref| <= 1e-5 (1 + |ref|) + slack, elementwise."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, what
+    np.testing.assert_array_less(np.abs(got - ref), 1e-5 * (1 + np.abs(ref))
+                                 + slack + 1e-300, err_msg=what)
+
+
+def _setup(seed=0, bs=16, n_train=30, n_test=5, test_freq=10, lr=0.2):
+    cj, cp = jcfg.tiny_dlrm_config(), pcfg.tiny_dlrm_config()
+    kw = dict(batch_size=bs, learning_rate=lr, optimizer="rwsadagrad",
+              test_freq=test_freq, print_freq=5)
+    tj, tp = jcfg.TrainConfig(**kw), pcfg.TrainConfig(**kw)
+    dcfg = jsyn.RandomDataConfig(num_dense=4, table_sizes=cj.table_sizes,
+                                 batch_size=bs, num_batches=n_train, seed=0)
+    tdcfg = jsyn.RandomDataConfig(num_dense=4, table_sizes=cj.table_sizes,
+                                  batch_size=bs, num_batches=n_test, seed=99)
+    params = jax.tree_util.tree_map(
+        np.asarray, init_dlrm(jax.random.PRNGKey(seed), cj))
+    return (cj, cp, tj, tp, params,
+            lambda: jsyn.learnable_batches(dcfg),
+            lambda: jsyn.learnable_batches(tdcfg))
+
+
+def _port_model(cp, params):
+    state, tables = params_from_jax(params.dense, params.sparse, cp,
+                                    device="cpu")
+    model = RealDLRM(cp, device="cpu", tables=False)
+    model.load_state_dict({k: v for k, v in state.items()
+                           if not k.startswith("tables.")})
+    return model, tables
+
+
+def _compare(res_p, res_j):
+    assert res_p.steps == res_j.steps
+    assert [s for s, _ in res_p.history["loss"]] == \
+        [s for s, _ in res_j.history["loss"]]
+    bound([v for _, v in res_p.history["loss"]],
+          [v for _, v in res_j.history["loss"]], what="losses")
+    assert [s for s, _ in res_p.history["eval"]] == \
+        [s for s, _ in res_j.history["eval"]]
+    for (_, mp), (_, mj) in zip(res_p.history["eval"],
+                                res_j.history["eval"]):
+        assert mp.keys() == mj.keys()
+        bound([mp[k] for k in mj], [mj[k] for k in mj], 5e-5, "metrics")
+    bound([res_p.best_metric], [res_j.best_metric], 5e-5, "best")
+
+
+@pytest.mark.parametrize("window,precision", [(0, 32), (8, 32), (0, 16)])
+def test_run_cached_training_matches_jax(tmp_path, window, precision):
+    cj, cp, tj, tp, params, make_train, make_test = _setup()
+    cc = dict(policy="evlfu", total_size=24, main_precision=precision)
+    out = {}
+    for side in ("j", "p"):
+        d = tmp_path / side
+        kw = dict(save_dir=str(d / "best"), window=window,
+                  make_test_batches=make_test,
+                  ev_export_dir=str(d / "ev"), log_fn=lambda *a: None)
+        if side == "j":
+            out[side] = jtrain.run_cached_training(
+                cj, tj, jcfg.CacheConfig(**cc), make_train, seed=0, **kw)
+        else:
+            model, tables = _port_model(cp, params)
+            out[side] = ptrain.run_cached_training(
+                cp, tp, pcfg.CacheConfig(**cc), make_train, tables=tables,
+                model=model, device="cpu", **kw)
+    _compare(out["p"], out["j"])
+    assert len(out["p"].history["eval"]) == 4      # 3 periodic + the last
+    for t in range(3):
+        name = f"ev-table-{t + 1}.bin"
+        a = np.fromfile(tmp_path / "p" / "ev" / name, np.float32)
+        b = np.fromfile(tmp_path / "j" / "ev" / name, np.float32)
+        bound(a, b, what=name)
+        for f in (f"table_{t}.npy", f"mom_{t}.npy"):
+            got = np.load(tmp_path / "p" / "best" / f)
+            ref = np.load(tmp_path / "j" / "best" / f)
+            if f.startswith("mom"):
+                np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+            else:
+                bound(got, ref, what=f)
+    for side in ("p", "j"):
+        with open(tmp_path / side / "best" / "best.json") as f:
+            assert set(__import__("json").load(f)) == {"step", "metrics"}
+    # each package restores the other's dense npz
+    jd = jax.tree_util.tree_map(jnp.asarray, params.dense)
+    jz = jax.tree_util.tree_map(lambda p: jnp.zeros_like(p, jnp.float32), jd)
+    from_port = jtrain.restore_dense_npz(jd, jz, str(tmp_path / "p" / "best"))
+    from_jax = jtrain.restore_dense_npz(jd, jz, str(tmp_path / "j" / "best"))
+    model, _ = _port_model(cp, params)
+    dstate = init_dense_state(model)
+    ptrain.restore_dense_npz(model, dstate, str(tmp_path / "j" / "best"))
+    for i in range(2):
+        w = model.bot[i].weight.detach().numpy().T
+        np.testing.assert_array_equal(
+            w, np.asarray(from_jax[0]["bot"][f"layer_{i}"]["w"]))
+        np.testing.assert_array_equal(
+            dstate[f"bot.{i}.weight"].numpy().T,
+            np.asarray(from_jax[1]["bot"][f"layer_{i}"]["w"]))
+        bound(np.asarray(from_port[0]["top"][f"layer_{i}"]["w"]),
+              np.asarray(from_jax[0]["top"][f"layer_{i}"]["w"]),
+              what="top w")
+    assert out["p"].opt_state.dense.keys() == dstate.keys()
+
+
+def test_run_cached_training_file_backed_matches_jax(tmp_path):
+    """Masters mapped from the .bin files (`ev_table_dir`), no eval: the
+    files after the run within the bound of JAX's, and the row sums'
+    files beside them."""
+    cj, cp, tj, tp, params, make_train, _ = _setup(n_train=20)
+    tables = [params.sparse[f"table_{t}"]["kind_plain"] for t in range(3)]
+    cc = dict(policy="evlfu", total_size=16)
+    for side in ("j", "p"):
+        write_ev_tables_binary(tables, str(tmp_path / side), 32)
+    res_j = jtrain.run_cached_training(
+        cj, tj, jcfg.CacheConfig(**cc), make_train,
+        ev_table_dir=str(tmp_path / "j"), table_sizes=list(cj.table_sizes),
+        log_fn=lambda *a: None)
+    model, _ = _port_model(cp, params)
+    res_p = ptrain.run_cached_training(
+        cp, tp, pcfg.CacheConfig(**cc), make_train,
+        ev_table_dir=str(tmp_path / "p"), table_sizes=list(cp.table_sizes),
+        model=model, device="cpu", log_fn=lambda *a: None)
+    _compare(res_p, res_j)
+    for t in range(3):
+        for name in (f"ev-table-{t + 1}.bin", f"mom-{t + 1}.bin"):
+            a = np.fromfile(tmp_path / "p" / name, np.float32)
+            b = np.fromfile(tmp_path / "j" / name, np.float32)
+            if name.startswith("mom"):
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                bound(a, b, what=name)
+        assert not np.array_equal(
+            np.fromfile(tmp_path / "p" / f"ev-table-{t + 1}.bin",
+                        np.float32), tables[t].ravel())
+
+
+def test_run_cached_training_draws_the_ports_own_init():
+    """Without a model or tables: the MLPs and the masters `DLRM(cfg,
+    seed=seed)` draws, the tables made in host memory only."""
+    _, cp, _, tp, _, make_train, _ = _setup(n_train=3)
+    res = ptrain.run_cached_training(
+        cp, tp, pcfg.CacheConfig(total_size=50), make_train, seed=4,
+        device="cpu", log_fn=lambda *a: None)
+    assert not res.model.has_sparse() and res.steps == 3
+    ref = RealDLRM(cp, device="cpu", seed=4)
+    assert not torch.equal(res.model.bot[0].weight, ref.bot[0].weight)
+    assert np.array_equal(pdlrm.init_host_tables(cp, 4)[2],
+                          ref.tables[2].detach().numpy())
+
+
+def test_mesh_raises():
+    _, cp, _, tp, _, make_train, _ = _setup(n_train=1)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ptrain.run_cached_training(cp, tp, pcfg.CacheConfig(), make_train,
+                                   mesh=object(), device="cpu")
+
+
+# ------------------------------------------------------------- the CLI
+
+ARCH = ("--arch-sparse-feature-size 4 --arch-embedding-size 40-30 "
+        "--arch-mlp-bot 4-8-4 --arch-mlp-top 8-1 --compute-dtype float32")
+
+
+def _jax_cfg(cfg):
+    return jcfg.make_dlrm_config(
+        cfg.embedding_dim, cfg.table_sizes, cfg.mlp_bot[1:-1],
+        cfg.mlp_top[1:-1], num_dense=cfg.mlp_bot[0],
+        compute_dtype=cfg.compute_dtype,
+        interaction_itself=cfg.interaction_itself)
+
+
+def _from_jax_init(cfg, *, device=None, seed=0, tables=True):
+    """The port's DLRM with `init_dlrm(PRNGKey(seed))`'s weights."""
+    params = jax.tree_util.tree_map(
+        np.asarray, init_dlrm(jax.random.PRNGKey(seed), _jax_cfg(cfg)))
+    state, _ = params_from_jax(params.dense, params.sparse, cfg,
+                               device=device)
+    model = RealDLRM(cfg, device=device, seed=seed)
+    model.load_state_dict(state)
+    return model
+
+
+def _floats(pattern, text):
+    return [tuple(float(x) for x in m) for m in re.findall(pattern, text)]
+
+
+@pytest.mark.parametrize("extra", [
+    "", "--train-window 4", "--main-precision 16 --train-window 4"])
+def test_cli_cached_training_matches_jax(capsys, monkeypatch, tmp_path,
+                                         extra):
+    monkeypatch.setattr(ptrain, "DLRM", _from_jax_init)
+    argv = (ARCH + " --mini-batch-size 16 --num-batches 20 --print-freq 5 "
+            "--use-evstore True --optimizer rwsadagrad --learning-rate 0.1 "
+            "--emb-cache-size 24 --test-freq 10 --nbatches-test 4 "
+            + extra).split()
+    outs = []
+    for side, fn, more in (("j", jcli.main, []),
+                           ("p", cli.main, ["--device", "cpu"])):
+        save = str(tmp_path / side)
+        assert fn(argv + ["--save-model", save] + more) == 0
+        outs.append(capsys.readouterr().out)
+    ref, got = outs
+    loss = r"step (\d+): loss ([-\d.]+) \(\d+ examples/s, hit rate ([\d.]+)"
+    g, r = _floats(loss, got), _floats(loss, ref)
+    assert len(g) == len(r) == 4
+    assert [(s, h) for s, _, h in g] == [(s, h) for s, _, h in r]
+    bound([v for _, v, _ in g], [v for _, v, _ in r], 5e-7, "losses")
+    ev = r"eval @ (\d+): auc ([-\d.na]+) acc ([-\d.]+)"
+    assert len(_floats(ev, got)) == len(_floats(ev, ref)) == 3
+    bound(_floats(ev, got), _floats(ev, ref), 5e-5, "evals")
+    done = r"training done: steps=(\d+) best=([-\d.]+) \(cached\)"
+    (gs, gb), = _floats(done, got)
+    (rs, rb), = _floats(done, ref)
+    assert gs == rs == 20
+    bound([gb], [rb], 5e-5, "best")
+    for t in range(2):
+        bound(np.load(tmp_path / "p" / f"table_{t}.npy"),
+              np.load(tmp_path / "j" / f"table_{t}.npy"), what="tables")
+    assert os.path.exists(tmp_path / "p" / "dense_params.npz")
+
+
+def test_cli_cached_training_refuses_bags(capsys):
+    argv = (ARCH + " --mini-batch-size 8 --num-batches 2 --use-evstore True "
+            "--optimizer rwsadagrad --num-indices-per-lookup 3").split()
+    assert jcli.main(argv) == 2
+    ref = capsys.readouterr().err
+    assert cli.main(argv + ["--device", "cpu"]) == 2
+    got = capsys.readouterr().err
+    assert got == ref and "bag size 1" in got

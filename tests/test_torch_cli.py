@@ -196,7 +196,8 @@ def test_kernel_flags(flags, gather, interaction):
 # ------------------------------------------------------- what raises
 
 @pytest.mark.parametrize("flags,item", [
-    ("--use-evstore True", "item 7"), ("--mesh-data 2", "item 8"),
+    ("--use-evstore True --mesh-model 2", "item 8"),
+    ("--mesh-data 2", "item 8"),
     ("--mesh-model 2", "item 8"), ("--alltoall-impl butterfly", "item 8"),
     ("--inference-only --use-evstore True --use-device-cache True "
      "--mesh-model 4", "item 8")])

@@ -41,6 +41,7 @@ def test_every_port_module_imports_without_jax():
             "evstore_tpu_torch.cache.storage",
             "evstore_tpu_torch.cache.policy",
             "evstore_tpu_torch.cache.service",
+            "evstore_tpu_torch.cache.trainable",
             "evstore_tpu_torch.ops.cuda_interaction",
             "evstore_tpu_torch.utils.trace",
             "evstore_tpu_torch.data.loader",

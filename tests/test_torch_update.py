@@ -11,9 +11,9 @@ Inputs are made with numpy from a seed and handed to both packages.  They
 hold duplicate ids (a Zipf-like head), PAD_ROW entries and bf16 tables.
 
 Tolerances, those of tests/test_pallas_update.py: f32 tables rtol 1e-5,
-atol 1e-6, accumulators rtol 1e-5, atol 1e-7 (the port and the Pallas path
-sum pre-scaled entries, row_update scales the sum: they agree only to
-rounding); bf16 tables within one bf16 ulp of the reference plus rtol 1e-4
+atol 1e-6, accumulators rtol 1e-5, atol 1e-7 (the Pallas path sums
+pre-scaled entries, the port scales each run's sum as row_update does: they
+agree only to rounding); bf16 tables within one bf16 ulp of the reference plus rtol 1e-4
 (the f32 result rounds to bf16 once, and a rounding difference can cross a
 bf16 rounding boundary).  The plain row_update, which scales the sum as
 JAX does, is held to the same f32 tolerances.  dedup_rows is exact.
