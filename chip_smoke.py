@@ -151,10 +151,35 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    size, int8 codes within one of each other's), and K3 at the path's
    shape against its plain version.  Runs 1, 4, 5 and 7 are
    the `train_cached` path: K1, K2, K3, K4 and K5 must each launch there;
+3h. the multi-GPU modules (`parallel/`) at world 1 over NCCL in this
+   process (NCCL takes one card a rank: more ranks are held on the CPU by
+   the tests), with the NCCL version and world size printed: at the full
+   Kaggle width, B=128, lr 0.1, (1) `make_sharded_eval_step` against
+   `evaluate`; (2) the psum route (`make_sharded_train_step`) under
+   rwsadagrad and sgd, 20 steps against `make_train_step` from the same
+   state, compounding with the dense exchange and each from the
+   reference's state with `dedup_exchange`, bit for bit or by phase 3b's
+   rule (printed), and its steps/s beside 3b's; (3)
+   `run_training(mesh=make_mesh(1, 1))` against `run_training` on one
+   device from the same weights and batches (losses, tables, sums and
+   MLPs; the mesh's result comes back on rank 0's host); (4) the butterfly
+   route with the planner's order, 5 steps against the psum route's, then
+   the same 5 steps from the same state with the plain gather and update
+   (K2 and K5 off) against the kernels' (the rows the batches touch by
+   phase 3b's rule, every other row of the 26 slots unchanged in both),
+   its steps/s and peak device memory (the stack pads every table to the
+   largest); (5)
+   `ShardedDeviceC1Cache` at fp32 (64,000 entries) and int8 (the
+   C1+C2+C3 script's), 40 batches of phase 3's stream, rows and stats
+   equal to `NativeDeviceC1Cache`'s (fp32 rows to the store's), then
+   `run_inference(mesh=)` at depth 2, its scores equal to phase 3's and
+   its requests/s beside them.  K1, K2 (grouped), K4 and K5 must launch
+   on `train_sharded` (2, 3) and `train_butterfly` (4), K1, K2 and K3 on
+   `serve_sharded` (5);
 4. the kernels' launch counts by path (serve, serve_int8, serve_host,
-   gram_ab, train, train_factored, cli, train_cached) and one JSON line
-   describing every kernel, each of which must have launched on some
-   path;
+   gram_ab, train, train_factored, cli, train_cached, train_sharded,
+   train_butterfly, serve_sharded) and one JSON line describing every
+   kernel, each of which must have launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
@@ -185,7 +210,7 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "3 main path": 200, "3c three tiers int8": 200,
                   "3d host tiers": 240, "3b train": 240,
                   "3e train factored": 240, "3f cli": 420,
-                  "3g cached training": 300,
+                  "3g cached training": 300, "3h mesh": 300,
                   "4 kernels line": 30}
 
 
@@ -360,6 +385,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    import copy
     import dataclasses
 
     import numpy as np
@@ -1460,6 +1486,460 @@ def main() -> int:
                   flush=True)
             return path
 
+    # ------------------------------------------------------- 3h the mesh
+    def phase_3h(serve3):
+        """The port's multi-GPU modules at world 1 over NCCL, in this
+        process (NCCL takes one card a rank; more ranks than one card are
+        held on the CPU by the tests): the psum route (the row-sharded step
+        at the full Kaggle width, rwsadagrad and sgd, dense and dedup
+        exchange, 20 steps each against `make_train_step` from the same
+        state; `run_training(mesh=)` against `run_training` on one device;
+        the sharded eval against `evaluate`), the butterfly route (the
+        planner's order, 5 steps against the psum route, then against its
+        plain gather and update from the same state), and
+        `ShardedDeviceC1Cache` (fp32 at 64,000 entries and int8
+        at the C1+C2+C3 script's size against `NativeDeviceC1Cache`, then
+        `run_inference(mesh=)` at depth 2 against phase 3's scores).
+        Returns the launch counts of the paths train_sharded,
+        train_butterfly and serve_sharded."""
+        import torch.distributed as dist
+
+        from evstore_tpu_torch.drivers.train import run_training
+        from evstore_tpu_torch.parallel import butterfly as bf
+        from evstore_tpu_torch.parallel import sharded as sh
+        from evstore_tpu_torch.parallel.mesh import make_mesh
+        from evstore_tpu_torch.parallel.multihost import init_multihost
+        from evstore_tpu_torch.parallel.planner import plan_table_shards
+        from evstore_tpu_torch.train.train_loop import make_eval_step
+        paths = {p: dict.fromkeys(wrappers, 0) for p in (
+            "train_sharded", "train_butterfly", "serve_sharded")}
+
+        def counted(path, fn):
+            """fn() with every count set to 0 just before; its launches go
+            to `path`."""
+            reset_counts()
+            out = fn()
+            for k, v in read_counts().items():
+                paths[path][k] += v
+            return out
+
+        def gib(n):
+            return f"{n / 2 ** 30:.2f} GiB"
+
+        def held(a, b, what, worst):
+            """Bit for bit (as floats), else phase 3b's rule: 1e-4·(1 +
+            |ref|); the largest difference kept in `worst`."""
+            a, b = a.detach(), b.detach()
+            if torch.equal(a, b):
+                return
+            ok, d = within(a, b, 1e-4)
+            worst[what] = max(worst.get(what, 0.0), d)
+            if not ok:
+                raise AssertionError(f"{what} differs: max|d| {d}")
+
+        def held_sums(a, b, what, worst):
+            if torch.equal(a, b):
+                return
+            ok, d = within_own(a, b, 1e-4)
+            worst[what] = max(worst.get(what, 0.0), d)
+            if not ok:
+                raise AssertionError(f"{what} differs: {d}")
+
+        def held_losses(got, ref, what, worst):
+            for k, (g, r) in enumerate(zip(got, ref)):
+                if g == r:
+                    continue
+                d = abs(g - r) / abs(r)
+                worst[what] = max(worst.get(what, 0.0), d)
+                if not d <= 1e-5:
+                    raise AssertionError(f"{what} {k}: loss {g}, ref {r}")
+
+        def parted(worst):
+            return ("bit for bit" if not worst else
+                    "parted, within phase 3b's rule: " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in worst.items()))
+
+        def steps_per_s(step, batches, windows=2):
+            """Steps/s of `step` over the batches, the median window."""
+            rates = []
+            for _ in range(windows):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches:
+                    step(*b)
+                torch.cuda.synchronize()
+                rates.append(len(batches) / (time.perf_counter() - t0))
+            return sorted(rates)[len(rates) // 2], rates
+
+        with Phase("3h mesh"):
+            _, world = init_multihost(device=dev.type, timeout_s=120)
+            mesh = make_mesh(device=dev)
+            nccl = torch.cuda.nccl.version()
+            nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) \
+                else str(nccl)
+            print(f"mesh: NCCL {nccl}, backend {dist.get_backend()}, world {world} in this "
+                  f"process ({torch.cuda.device_count()} card(s)), mesh "
+                  f"{mesh.shape}, rank (d, m) = ({mesh.d}, {mesh.m}) on "
+                  f"{mesh.device}", flush=True)
+            B = 128
+            rws = TrainConfig(batch_size=B, learning_rate=0.1,
+                              optimizer="rwsadagrad")
+            sgd = dataclasses.replace(rws, optimizer="sgd")
+            stream = list(random_batches(RandomDataConfig(
+                num_dense=cfg.num_dense_features, table_sizes=cfg.table_sizes,
+                batch_size=B, num_batches=20 + 2 * 20 + 2, seed=args.seed + 9,
+                distribution="grouped_zipf", zipf_alpha=1.05,
+                group_noise=0.1)))
+            checked, timed, evals = stream[:20], stream[20:40], stream[60:]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            base = DLRM(cfg, device=dev, seed=args.seed)
+            print(f"set-up: the Kaggle model on {dev} in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+            # the sharded eval against evaluate on the same weights
+            sm, _ = sh.shard_dlrm_params(base, mesh)
+            seval = sh.make_sharded_eval_step(cfg, mesh)
+            got = torch.cat([seval(sm, d, i) for d, i, _ in evals])
+            ref = torch.cat([make_eval_step(cfg)(base, d, i)
+                             for d, i, _ in evals])
+            worst = {}
+            held(got, ref, "eval probabilities", worst)
+            m_got = evaluate(sm, cfg, evals, seval)
+            m_ref = evaluate(base, cfg, evals)
+            if m_got != m_ref:
+                raise AssertionError(f"sharded eval {m_got} != {m_ref}")
+            print(f"make_sharded_eval_step over {len(evals)} batches of {B}: "
+                  f"probabilities {parted(worst)} against evaluate's; "
+                  f"metrics equal ({m_ref})", flush=True)
+            del sm
+
+            # the psum route: 20 steps against make_train_step from the
+            # same state (the reference a whole copy of the same weights):
+            # the dense exchange compounding from one state, the dedup
+            # exchange each step from the reference's state (its unique
+            # rows' grads are summed in another order)
+            @torch.no_grad()
+            def sync(dst, dst_st, src, src_st):
+                for a_, b_ in zip(dst.parameters(), src.parameters()):
+                    a_.copy_(b_)
+                for part in ("dense", "sparse"):
+                    for k, v in getattr(src_st, part).items():
+                        getattr(dst_st, part)[k].copy_(v)
+                dst_st.step = src_st.step
+
+            def compare(sm, st, ref, ref_st, worst):
+                for i in range(cfg.num_tables):
+                    held(sm.tables[i], ref.tables[i], "tables", worst)
+                for k, v in ref_st.sparse.items():
+                    held_sums(st.sparse[k], v, "row sums", worst)
+                for k, v in ref_st.dense.items():
+                    held_sums(st.dense[k], v, "dense sums", worst)
+                for a_, b_ in zip(sm.parameters(), ref.parameters()):
+                    if a_.requires_grad:
+                        held(a_, b_, "MLPs", worst)
+
+            for t in (rws, sgd):
+                step_ref = make_train_step(cfg, t)
+                for dedup in (False, True):
+                    ref, ref_st = sh.shard_dlrm_params(
+                        base, mesh, init_opt_state(base, t))
+                    sm, st = sh.shard_dlrm_params(base, mesh,
+                                                  init_opt_state(base, t))
+                    step = sh.make_sharded_train_step(cfg, t, mesh,
+                                                      dedup_exchange=dedup)
+                    worst = {}
+                    if not dedup:
+                        ref_losses = [float(step_ref(ref, ref_st, *b))
+                                      for b in checked]
+                        losses = counted("train_sharded", lambda: [
+                            float(step(sm, st, *b)) for b in checked])
+                        held_losses(losses, ref_losses, "loss", worst)
+                        compare(sm, st, ref, ref_st, worst)
+                        mode = "compounding from one state"
+                    else:
+                        for b in checked:
+                            sync(sm, st, ref, ref_st)
+                            lr_ = float(step_ref(ref, ref_st, *b))
+                            ls_ = counted("train_sharded",
+                                          lambda: float(step(sm, st, *b)))
+                            held_losses([ls_], [lr_], "loss", worst)
+                            compare(sm, st, ref, ref_st, worst)
+                        mode = "each from the reference's state"
+                    rate, rates = counted("train_sharded", lambda: steps_per_s(
+                        lambda *b: step(sm, st, *b), timed))
+                    print(f"psum route, {t.optimizer}, "
+                          f"{'dedup' if dedup else 'dense'} exchange [{card}]:"
+                          f" 20 steps {mode} against make_train_step: "
+                          f"losses, tables, sums and MLPs {parted(worst)}; "
+                          f"{rate:.2f} steps/s (windows "
+                          f"{', '.join(f'{r:.2f}' for r in rates)}; phase 3b "
+                          f"{t.optimizer} in this run: "
+                          f"{train_rates[t.optimizer]:.2f})", flush=True)
+                    del sm, st, step, ref, ref_st
+                    torch.cuda.empty_cache()
+            # run_training over the mesh against run_training on one
+            # device, from the same weights and batches (a loss logged
+            # every 5 steps); the mesh's result is on rank 0's host
+            logged = dataclasses.replace(rws, print_freq=5)
+            lines, one_lines = [], []
+            one = run_training(cfg, logged, lambda: checked, seed=args.seed,
+                               log_fn=one_lines.append,
+                               model=copy.deepcopy(base))
+            res = counted("train_sharded", lambda: run_training(
+                cfg, logged, lambda: checked, seed=args.seed, mesh=mesh,
+                log_fn=lines.append, model=base))
+            rate_line = next(x for x in lines if x.startswith("trained "))
+            one_rate = next(x for x in one_lines if x.startswith("trained "))
+            if res.steps != 20 or res.opt_state.step != one.opt_state.step \
+                    or [s for s, _ in res.history["loss"]] != [5, 10, 15, 20]:
+                raise AssertionError(f"run_training(mesh=) gave {res.steps}"
+                                     f" steps, logged {res.history['loss']}")
+            if res.model.tables[0].device.type != "cpu":
+                raise AssertionError("run_training(mesh=)'s result is not "
+                                     "on the host")
+            worst = {}
+            held_losses([x for _, x in res.history["loss"]],
+                        [x for _, x in one.history["loss"]], "loss", worst)
+            for i in range(cfg.num_tables):
+                held(res.model.tables[i].to(dev), one.model.tables[i],
+                     "tables", worst)
+            for part, what in (("sparse", "row sums"),
+                               ("dense", "dense sums")):
+                for k, v in getattr(one.opt_state, part).items():
+                    held_sums(getattr(res.opt_state, part)[k].to(dev), v,
+                              what, worst)
+            for a_, b_ in zip(res.model.parameters(),
+                              one.model.parameters()):
+                if a_.requires_grad:
+                    held(a_.to(dev), b_, "MLPs", worst)
+            print(f"run_training(mesh=make_mesh(1, 1)), rwsadagrad, 20 "
+                  f"steps against run_training on one device from the same "
+                  f"weights and batches: losses (steps 5-20), tables, sums "
+                  f"and MLPs {parted(worst)}; the result on rank 0's host; "
+                  f"{rate_line} (one device: {one_rate}) [{card}]",
+                  flush=True)
+            del res, one
+            torch.cuda.empty_cache()
+            print(f"psum route: peak device memory {gib(torch.cuda.max_memory_allocated())} "
+                  f"(the model, its reference copy and the shard with their "
+                  f"sums)", flush=True)
+
+            # the butterfly route: the planner's order, 5 steps against
+            # the psum route's
+            sm, st = sh.shard_dlrm_params(base, mesh, init_opt_state(base,
+                                                                     rws))
+            step = sh.make_sharded_train_step(cfg, rws, mesh)
+            p_losses = [float(step(sm, st, *b)) for b in checked[:5]]
+            order, imb = plan_table_shards(cfg.table_sizes, mesh.world)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            bst = bf.init_butterfly_state(base, rws, mesh, order)
+            torch.cuda.synchronize()
+            print(f"butterfly: order {order} (imbalance {imb:.2f}), stack "
+                  f"{tuple(bst.stack.shape)} built in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            bstep = bf.make_butterfly_train_step(cfg, rws, mesh,
+                                                 table_order=order)
+            # what the plain run below starts from: the rows the 5
+            # batches touch, the MLPs, their sums and the step, and per
+            # slot the integer sum of every other row's bits
+            slots = [order.index(t) for t in range(cfg.num_tables)]
+            touched = [torch.from_numpy(np.unique(np.concatenate(
+                [np.asarray(b[1])[:, t] for b in checked[:5]]))).to(dev)
+                for t in range(cfg.num_tables)]
+
+            def touched_rows():
+                return ([bst.stack[j, touched[t]].clone()
+                         for t, j in enumerate(slots)],
+                        [bst.row_state[j, touched[t]].clone()
+                         for t, j in enumerate(slots)])
+
+            def rest_bits():
+                out = []
+                for x in (bst.stack, bst.row_state):
+                    for t, j in enumerate(slots):
+                        v = x[j].view(torch.int32)
+                        out.append(int(v.sum()) - int(v[touched[t]].sum()))
+                return out
+
+            def mlps():
+                return {k: v.detach().clone()
+                        for k, v in bst.model.named_parameters()}
+
+            init_rows, init_sums = touched_rows()
+            init_mlps, init_bits, init_step = mlps(), rest_bits(), bst.step
+            init_dense = {k: v.clone() for k, v in bst.dense_state.items()}
+            b_losses = counted("train_butterfly", lambda: [
+                float(bstep(bst, *b)) for b in checked[:5]])
+            worst = {}
+            held_losses(b_losses, p_losses, "loss", worst)
+            for t, n in enumerate(cfg.table_sizes):     # plain tables
+                slot = order.index(t)
+                held(bst.stack[slot, :n], sm.tables[t], "tables", worst)
+                held_sums(bst.row_state[slot, :n],
+                          st.sparse[f"tables.{t}"], "row sums", worst)
+            # the same 5 steps from the same state through the plain
+            # gather and update (K2 and K5 off): the grouped K2 over the 26
+            # slots and the grouped K5 over the flat row state at their
+            # largest shapes, against their plain versions
+            k_rows, k_sums = touched_rows()
+            k_mlps, k_bits = mlps(), rest_bits()
+            with torch.no_grad():
+                for t, j in enumerate(slots):
+                    bst.stack[j, touched[t]] = init_rows[t]
+                    bst.row_state[j, touched[t]] = init_sums[t]
+                for k, p_ in bst.model.named_parameters():
+                    p_.copy_(init_mlps[k])
+                for k, v in init_dense.items():
+                    bst.dense_state[k].copy_(v)
+            bst.step = init_step
+            plain_step = bf.make_butterfly_train_step(
+                dataclasses.replace(cfg, use_gather_kernel=False),
+                dataclasses.replace(rws, use_update_kernel=False), mesh,
+                table_order=order)
+            pl_losses = [float(plain_step(bst, *b)) for b in checked[:5]]
+            pworst = {}
+            held_losses(b_losses, pl_losses, "loss", pworst)
+            pl_rows, pl_sums = touched_rows()
+            for t in range(cfg.num_tables):
+                held(k_rows[t], pl_rows[t], "touched rows", pworst)
+                held_sums(k_sums[t], pl_sums[t], "row sums", pworst)
+            for k, v in mlps().items():
+                held(k_mlps[k], v, "MLPs", pworst)
+            pl_bits = rest_bits()
+            if not k_bits == pl_bits == init_bits:
+                raise AssertionError("the butterfly changed rows that its "
+                                     "batches do not touch: kernels "
+                                     f"{k_bits != init_bits}, plain "
+                                     f"{pl_bits != init_bits}")
+            print(f"butterfly route, rwsadagrad, K2 and K5 against their "
+                  f"plain versions [{card}]: 5 steps from the same state "
+                  f"(stack {tuple(bst.stack.shape)}, flat row state "
+                  f"{bst.row_state.numel()} rows): losses, the "
+                  f"{sum(len(x) for x in touched)} touched rows, their sums "
+                  f"and the MLPs {parted(pworst)}; every other row of the "
+                  f"{len(slots)} slots unchanged in both (integer sums of "
+                  f"their bits)", flush=True)
+            del init_rows, init_sums, k_rows, k_sums, pl_rows, pl_sums
+            rate, rates = counted("train_butterfly", lambda: steps_per_s(
+                lambda *b: bstep(bst, *b), timed))
+            print(f"butterfly route, rwsadagrad [{card}]: 5 steps against "
+                  f"the psum route: losses, tables and row sums "
+                  f"{parted(worst)}; {rate:.2f} steps/s (windows "
+                  f"{', '.join(f'{r:.2f}' for r in rates)}); peak device "
+                  f"memory {gib(torch.cuda.max_memory_allocated())} (the "
+                  f"stack pads 26 tables to {max(cfg.table_sizes)} rows: "
+                  f"{gib(bst.stack.nbytes)}, row sums "
+                  f"{gib(bst.row_state.nbytes)})", flush=True)
+            del bst, bstep, sm, st, step, base
+            torch.cuda.empty_cache()
+
+            # ShardedDeviceC1Cache against NativeDeviceC1Cache, on phase 3's
+            # stream: the native cache's rows first, then the sharded one's
+            tables = init_embedding_tables(cfg.table_sizes, cfg.embedding_dim,
+                                           np.random.default_rng(args.seed))
+            storage = StorageManager("dummy", dim=cfg.embedding_dim).load(
+                tables=tables)
+            ccfg1 = CacheConfig(policy="evlfu", n_caching_layers=1,
+                                total_size=64000, main_precision=32)
+            ccfg3 = CacheConfig(policy="evlfu", n_caching_layers=3,
+                                total_size=75425, main_precision=8,
+                                secondary_precision=4,
+                                size_proportion=(48, 48, 4))
+            resolver = AltKeyResolver(seeded_altkeys())
+            n_b = 40
+            for label, cc in (("fp32, 64,000 entries", ccfg1),
+                              ("int8 C1 + C2 + C3, 75,425 entries", ccfg3)):
+                it = serve_stream()
+                batches = [next(it)[1] for _ in range(n_b)]
+                one = build_cache(cc, cfg, storage, resolver,
+                                  use_device_cache=True, device=dev)
+                with torch.inference_mode():
+                    want = [one.lookup_batch(i).cpu() for i in batches]
+                s_one = one.stats()
+                one.close()
+                del one
+                shard = build_cache(cc, cfg, storage, resolver,
+                                    use_device_cache=True, device=dev,
+                                    mesh=mesh)
+                with torch.inference_mode():
+                    got = counted("serve_sharded", lambda: [
+                        shard.lookup_batch(i) for i in batches])
+                    for k, (g, w) in enumerate(zip(got, want)):
+                        if not torch.equal(g.cpu(), w):
+                            raise AssertionError(f"{label}: batch {k}'s rows"
+                                                 f" differ from the native "
+                                                 f"cache's")
+                    if cc.main_precision == 32:
+                        for k, i in enumerate(batches):
+                            rows = np.stack([tables[t][i[:, t]] for t in
+                                             range(cfg.num_tables)], axis=1)
+                            if not np.array_equal(got[k].cpu().numpy(),
+                                                  rows):
+                                raise AssertionError("sharded rows differ "
+                                                     "from the store's")
+                s_sh = shard.stats()
+                for key in ("requests", "perfect_hits", "size", "hit_rate",
+                            "bytes_shipped", "hbm_bytes", "c2", "c3"):
+                    if s_one.get(key) != s_sh.get(key):
+                        raise AssertionError(f"{label}: stats {key} "
+                                             f"{s_sh.get(key)} != "
+                                             f"{s_one.get(key)}")
+                if s_sh["hbm_bytes_per_chip"] * mesh.world != \
+                        s_sh["hbm_bytes"]:
+                    raise AssertionError(f"hbm bytes {s_sh}")
+                store = (" and the store's" if cc.main_precision == 32
+                         else "")
+                print(f"ShardedDeviceC1Cache {label} [{card}]: {n_b} batches "
+                      f"of 2048, rows equal to NativeDeviceC1Cache's{store}"
+                      f", stats equal (hit_rate {s_sh['hit_rate']:.6f}, "
+                      f"perfect_hits {s_sh['perfect_hits']}, hbm_bytes_per_"
+                      f"chip {s_sh['hbm_bytes_per_chip']})", flush=True)
+                shard.close()
+                del shard, got, want
+            # run_inference over the mesh at depth 2, on phase 3's stream
+            model = DLRM(cfg, device=dev, seed=args.seed, tables=False)
+            it = serve_stream()
+            warm = [next(it) for _ in range(serve3["warm"])]
+            scored = [next(it) for _ in range(N_SCORED)]
+            res = counted("serve_sharded", lambda: run_inference(
+                model, cfg, ccfg1, scored, storage, warmup_batches=warm,
+                use_device_cache=True, pipeline_depth=2, mesh=mesh,
+                log_fn=lambda *a: None))
+            if not np.array_equal(res.scores, serve3["scores"]):
+                raise AssertionError("run_inference(mesh=) scores differ "
+                                     "from phase 3's")
+            print(f"run_inference(mesh=), ShardedDeviceC1Cache fp32, "
+                  f"pipeline_depth 2 [{card}]: {res.requests} requests in "
+                  f"{res.elapsed_s:.3f} s = "
+                  f"{res.requests / res.elapsed_s:.1f} requests/s (phase 3 "
+                  f"in this run: {serve3['depth 2']:.1f} at depth 2); p50 "
+                  f"{res.latency['p50_s'] * 1e6:.2f} us, p99 "
+                  f"{res.latency['p99_s'] * 1e6:.2f} us; scores equal to "
+                  f"phase 3's", flush=True)
+            del model, res, storage, tables, resolver
+            torch.cuda.empty_cache()
+            dist.destroy_process_group()
+            wanted = {"train_sharded": ("interaction_fwd", "interaction_bwd",
+                                        "gather_rows_grouped",
+                                        "scatter_sub_sorted"),
+                      "train_butterfly": ("interaction_fwd",
+                                          "interaction_bwd",
+                                          "gather_rows_grouped",
+                                          "scatter_sub_sorted"),
+                      "serve_sharded": ("interaction_fwd", "gather_rows",
+                                        "gather_rows_dequant_int8")}
+            out = {}
+            for p, names in wanted.items():
+                out[p] = {k: paths[p][k] for k in names}
+                if min(out[p].values()) < 1:
+                    raise AssertionError(f"a kernel of {p} never ran: "
+                                         f"{paths[p]}")
+            print(f"mesh path launches: {json.dumps(out)}", flush=True)
+            return out
+
     # ------------------------------------------ 3e train factored tables
     def phase_3e(tables):
         """Training at the Kaggle model's full width beyond one-hot plain
@@ -2536,6 +3016,9 @@ def main() -> int:
         print(f"check: rows bit-exact vs store; scores vs plain max|d| "
               f"{sdiff:.3e}; auc {res.metrics['auc']:.4f} (random weights "
               f"and labels)")
+        # what phase 3h's sharded cache serves against
+        serve3 = {"warm": len(warmup), "scores": res.scores,
+                  "depth 2": res2.requests / res2.elapsed_s}
 
         # the Python DeviceC1Cache, at fp32 and int8, for two batches each:
         # rows equal to the store's, or to their int8 round trip
@@ -3176,6 +3659,7 @@ def main() -> int:
                   f"samples/s (median of 3 windows of 20 steps; windows "
                   f"{', '.join(f'{r:.2f}' for r in runs)} steps/s)",
                   flush=True)
+        train_rates = dict(rates)       # beside phase 3h's routes
         print(f"sgd: {rates['sgd']:.2f} steps/s in this run; 42.68 on an "
               f"NVIDIA H100 80GB HBM3 at 700.00 W when sgd updated its "
               f"tables one by one (a torch.unique each); "
@@ -3239,6 +3723,7 @@ def main() -> int:
         cached_launches = phase_3g(work_dir.name)
     finally:
         work_dir.cleanup()
+    mesh_launches = phase_3h(serve3)
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -3249,7 +3734,8 @@ def main() -> int:
               f"{json.dumps(train_launches)}; train_factored "
               f"{json.dumps(factored_launches)}; cli "
               f"{json.dumps(cli_launches)}; train_cached "
-              f"{json.dumps(cached_launches)}")
+              f"{json.dumps(cached_launches)}; " + "; ".join(
+                  f"{p} {json.dumps(c)}" for p, c in mesh_launches.items()))
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -3272,7 +3758,7 @@ def main() -> int:
                  "serve_host": host_launches, "gram_ab": gram_launches,
                  "train": train_launches,
                  "train_factored": factored_launches, "cli": cli_launches,
-                 "train_cached": cached_launches}
+                 "train_cached": cached_launches, **mesh_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

@@ -32,6 +32,10 @@ with no host round trip.
   applies once per batch.  With `n_caching_layers` 2-3 the engine's host C2
   (DRAM, secondary precision) and C3 (alt keys) stand behind the device
   C1, and serve its misses without a store read.
+- `ShardedDeviceC1Cache` shards the slots of the native cache over the
+  ranks of a mesh (`parallel/mesh.py`): rank 0's engine plans each batch
+  and broadcasts it, each rank applies its share, and one all-reduce
+  combines the rows.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Dict, Iterable, Iterator, List, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from evstore_tpu_torch.cache.policy import EvLFU
 from evstore_tpu_torch.cache.storage import StorageManager
@@ -408,3 +413,191 @@ class NativeDeviceC1Cache:
     def close(self):
         """Free the engine, its copy of the tables and its reader pool."""
         self.engine.close()
+
+
+class ShardedDeviceC1Cache:
+    """The device C1 cache with its slots sharded over ranks: capacity C
+    splits into C / n slots a rank, so it grows with the cards, while the
+    policy stays one host trajectory.  Port of the JAX package's
+    `ShardedDeviceC1Cache`, one process per rank.
+
+    Rank 0 alone holds the tier engine and its `NativeAssigner` (the
+    stores, C2 and C3 of the hybrid stack too).  Per batch every rank of
+    the world calls `lookup_batch` with the same ids; rank 0 assigns and
+    broadcasts a size header, then the gather slots with the scatter
+    lists, then the miss rows padded to a multiple of `insert_bucket`
+    (int8 codes at 8 bits).  Each rank writes the misses it owns into its
+    `c_local` slots (`index_copy_`; a foreign entry goes to a scratch row
+    past them) and reads the [B, T] rows with the two-source gather (K2 at
+    fp32, K3 at int8) over [its slots | the miss rows]: its own slot s
+    reads s - r0, a miss row (slot C + j) reads c_local + j on rank 0 of
+    the cache axis only, any other slot -1, which gives a zero row.  One
+    `all_reduce` over the cache axis then gives every rank the same rows,
+    each the one rank's row plus zeros.  `axis` is "data", "model" or
+    both (the default: every rank of the mesh, as in JAX); rows equal
+    `NativeDeviceC1Cache`'s.  `stats()` is the assigner's on rank 0 (the
+    other ranks have no policy and report the cache's sizes only), with
+    `hbm_bytes` (the whole cache) and `hbm_bytes_per_chip` (a rank's
+    slots)."""
+
+    def __init__(self, cfg: CacheConfig, n_tables: int, dim: int, mesh,
+                 axis=None, insert_bucket: int = 4096,
+                 n_reader_threads: int = 4):
+        _check_precision(cfg)
+        self.mesh = mesh
+        self.device = mesh.device
+        self.cfg = cfg
+        self.n_tables = n_tables
+        self.dim = dim
+        self.insert_bucket = insert_bucket
+        self.precision = cfg.main_precision
+        axes = ("data", "model") if axis is None else (
+            (axis,) if isinstance(axis, str) else tuple(axis))
+        if set(axes) == {"data", "model"}:
+            self.group, n, me = mesh.group, mesh.world, mesh.rank
+        elif axes == ("model",):
+            self.group, n, me = mesh.model_group, mesh.n_model, mesh.m
+        elif axes == ("data",):
+            self.group, n, me = mesh.data_group, mesh.n_data, mesh.d
+        else:
+            raise ValueError(f"axis {axis!r}: data, model or both")
+        self.capacity = (cfg.tier_capacities()[0] if cfg.n_caching_layers
+                         >= 2 else cfg.total_size)
+        if self.capacity % n:
+            raise ValueError(f"capacity {self.capacity} must divide the "
+                             f"{n}-chip cache axis")
+        self.n_shards, self.shard = n, me
+        self.c_local = self.capacity // n
+        self.engine = self.assigner = None
+        if dist.get_rank() == 0:
+            eng_cfg = cfg if cfg.n_caching_layers >= 2 else CacheConfig(
+                policy="evlfu", n_caching_layers=1, total_size=1)
+            self.engine = NativeTieredCache(eng_cfg, n_tables, dim,
+                                            n_reader_threads)
+            self.assigner = NativeAssigner(self.engine, self.capacity,
+                                           cfg.flush_rate,
+                                           cfg.perfect_item_cap)
+        dtype = torch.uint8 if self.precision == 8 else torch.float32
+        # the rank's slots and one scratch row for foreign scatter entries
+        self._store = torch.zeros((self.c_local + 1, dim), dtype=dtype,
+                                  device=self.device)
+        self.cache_values = self._store[:self.c_local]
+        self.bytes_shipped = 0
+        self.host_s = {"assign": 0.0, "pack": 0.0, "wait": 0.0, "copy": 0.0}
+        self._table_sizes: Sequence[int] = ()
+
+    def load_tables(self, tables: Sequence[np.ndarray]):
+        """Copy the float32 tables into rank 0's engine (the other ranks
+        keep only their sizes, to check ids)."""
+        if self.engine is not None:
+            self.engine.load_tables(tables)
+        self._table_sizes = [len(t) for t in tables]
+        return self
+
+    def open_table_files(self, bin_dir: str, table_sizes: Sequence[int],
+                         precision: int = 32):
+        if self.engine is not None:
+            self.engine.open_table_files(bin_dir, table_sizes, precision)
+        self._table_sizes = list(table_sizes)
+        return self
+
+    def load_altkeys(self, alt_tables: Sequence[np.ndarray]):
+        if self.engine is not None:
+            self.engine.load_altkeys([np.asarray(a, np.uint32)
+                                      for a in alt_tables])
+        return self
+
+    def _plan(self, idx: np.ndarray):
+        """Rank 0 assigns and packs; every rank gets (slots [B, T],
+        scatter slots, scatter rows, miss rows) on its device."""
+        dev = self.device
+        B, T = idx.shape
+        t0 = time.perf_counter()
+        head = torch.zeros(2, dtype=torch.int64)
+        if self.assigner is not None:
+            slots, scat_slots, scat_m, buf = self.assigner.assign_batch(idx)
+            t1 = time.perf_counter()
+            self.host_s["assign"] += t1 - t0
+            M = buf.shape[0]
+            buf_p = np.zeros((_pad(M, self.insert_bucket), self.dim),
+                             np.float32)
+            buf_p[:M] = buf
+            if self.precision == 8:
+                buf_p = np_quantize_int8(buf_p)
+            head[:] = torch.tensor([scat_slots.size, buf_p.shape[0]])
+            self.host_s["pack"] += time.perf_counter() - t1
+        t2 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        t3 = time.perf_counter()
+        self.host_s["wait"] += t3 - t2
+        head = head.to(dev)
+        dist.broadcast(head, src=0, group=self.mesh.group)
+        n_c, Mp = (int(v) for v in head.cpu())
+        if self.assigner is not None:
+            ints = torch.from_numpy(np.concatenate(
+                [slots.ravel(), scat_slots, scat_m]).astype(
+                    np.int32, copy=False)).to(dev)
+            pay = torch.from_numpy(buf_p).to(dev)
+        else:
+            ints = torch.empty(B * T + 2 * n_c, dtype=torch.int32,
+                               device=dev)
+            pay = torch.empty((Mp, self.dim), dtype=self._store.dtype,
+                              device=dev)
+        dist.broadcast(ints, src=0, group=self.mesh.group)
+        dist.broadcast(pay, src=0, group=self.mesh.group)
+        self.bytes_shipped += pay.numel() * pay.element_size()
+        return (ints[:B * T].view(B, T), ints[B * T:B * T + n_c],
+                ints[B * T + n_c:], pay, t3)
+
+    def lookup_batch(self, idx: np.ndarray) -> torch.Tensor:
+        """[B, T] int -> [B, T, D] fp32 rows on every rank's device;
+        collective over the world (every rank passes the same ids).
+        Raises ValueError for an id outside its table."""
+        idx = np.asarray(idx)
+        check_ids(idx, self._table_sizes)
+        slots, scat_slots, scat_m, pay, t0 = self._plan(idx)
+        C, cl = self.capacity, self.c_local
+        r0 = self.shard * cl
+        # the misses this rank owns into its slots, the others into the
+        # scratch row past them
+        pos = scat_slots.long() - r0
+        pos = torch.where((pos >= 0) & (pos < cl), pos, cl)
+        self._store.index_copy_(0, pos, pay[scat_m.long()])
+        s = slots.long()
+        own = (s >= r0) & (s < r0 + cl)
+        miss = (s >= C) & (self.shard == 0)
+        gid = torch.where(own, s - r0, torch.where(miss, s - C + cl, -1))
+        gid = gid.to(torch.int32)
+        if self.precision == 8:
+            rows = gather_rows_dequant_int8(self.cache_values, gid, pay)
+        else:
+            rows = gather_rows(self.cache_values, gid, secondary=pay)
+        dist.all_reduce(rows, group=self.group)
+        self.host_s["copy"] += time.perf_counter() - t0
+        return rows
+
+    def request_batch(self, idx: np.ndarray) -> np.ndarray:
+        """`lookup_batch` with the rows brought back to the host."""
+        return self.lookup_batch(idx).cpu().numpy()
+
+    def stats(self) -> dict:
+        s = self.assigner.stats() if self.assigner is not None else {}
+        per = self.c_local * self.dim * self._store.element_size()
+        s.update({
+            "capacity": self.capacity,
+            "hbm_bytes": per * self.n_shards,
+            "hbm_bytes_per_chip": per,
+            "bytes_shipped": self.bytes_shipped,
+        })
+        if self.engine is not None and self.cfg.n_caching_layers >= 2:
+            es = self.engine.stats()
+            for tier in ("c2", "c3"):
+                if tier in es:
+                    s[tier] = es[tier]
+        return s
+
+    def close(self):
+        """Free rank 0's engine."""
+        if self.engine is not None:
+            self.engine.close()

@@ -26,8 +26,23 @@ Where the port departs from the JAX CLI:
   on the .bin files (`open_table_files`); the JAX CLI raises there.
 - A checkpoint is the port's own (`utils/checkpoint.py`); a JAX
   checkpoint (orbax) cannot be read.  The EV tables are shared.
-- Not ported: the mesh flags above 1 (ROADMAP queue 1 item 8), which
-  raise NotImplementedError.
+- The mesh flags (`--mesh-data`, `--mesh-model`, `--dedup-exchange`,
+  `--alltoall-impl`) keep the JAX meanings over one process per rank:
+
+      torchrun --nproc-per-node 4 -m evstore_tpu_torch.cli \
+          --device cpu --mesh-data 2 --mesh-model 2 ...
+
+  Under torchrun (`WORLD_SIZE` set) the CLI starts the world
+  (`parallel/multihost.py::init_multihost`: NCCL on `cuda`, a card a rank;
+  gloo on `cpu`), `--mesh-data 0` means `WORLD_SIZE // --mesh-model`, and
+  a mesh whose size is not the world's raises.  Training takes the mesh's
+  exchange (`drivers/train.py::run_training`); serving shards the device
+  cache's slots (`--use-evstore True --use-device-cache True
+  --mesh-model` above 1).  Only rank 0 prints.  Without `WORLD_SIZE` the
+  mesh flags raise and say to launch under torchrun, where the JAX CLI
+  lays its mesh over the devices one process sees.  Cached training
+  (`--use-evstore True`) over more than one rank is not ported
+  (NotImplementedError, ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -42,7 +57,10 @@ from typing import List, Optional
 from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
                                       make_dlrm_config)
 
-MESH_ITEM = "ROADMAP queue 1 item 8 (multi-GPU)"
+CACHED_MESH_ITEM = ("ROADMAP queue 1 item 8b (ShardedTrainableDeviceCache, "
+                    "cached training over a mesh)")
+TORCHRUN = ("launch under torchrun: torchrun --nproc-per-node N -m "
+            "evstore_tpu_torch.cli ...")
 
 
 def _dash_ints(s: str) -> List[int]:
@@ -135,7 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize-mlp-with-bit", type=int, default=32)
     p.add_argument("--enable-profiling", action="store_true")
     p.add_argument("--tensor-board-filename", type=str, default="run_0")
-    # parallelism: one card; the mesh flags above 1 are not ported
+    # parallelism: one process per rank under torchrun
     p.add_argument("--mesh-data", type=int, default=0,
                    help="data-parallel mesh axis (0 = all devices)")
     p.add_argument("--mesh-model", type=int, default=1,
@@ -331,14 +349,59 @@ def _make_data(args, cfg):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    import torch.distributed as dist
     args = build_parser().parse_args(argv)
-    if args.enable_profiling:
-        # a trace around the whole run (≙ torch.autograd.profiler around
-        # the main loop, dlrm_s_pytorch.py:1567-1569, 1880-1890)
-        from evstore_tpu_torch.utils.profiling import profile_trace
-        with profile_trace(os.path.join(args.output_dir, "profile")):
-            return _run(args)
-    return _run(args)
+    started = dist.is_initialized()
+    try:
+        if args.enable_profiling:
+            # a trace around the whole run (≙ torch.autograd.profiler
+            # around the main loop, dlrm_s_pytorch.py:1567-1569,
+            # 1880-1890)
+            from evstore_tpu_torch.utils.profiling import profile_trace
+            with profile_trace(os.path.join(args.output_dir, "profile")):
+                rc = _run(args)
+        else:
+            rc = _run(args)
+        if not started and dist.is_initialized():
+            dist.barrier()          # the ranks leave the world together
+        return rc
+    finally:
+        if not started and dist.is_initialized():
+            dist.destroy_process_group()   # the world this run started
+
+
+def _mesh(args, dev):
+    """The (data, model) mesh of a run under torchrun, or None for one
+    process (see the module's docstring)."""
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    training = not args.inference_only
+    if training and args.use_evstore and (args.mesh_model > 1
+                                          or ranks > 1):
+        raise NotImplementedError(f"--use-evstore training over a mesh is "
+                                  f"not ported yet: {CACHED_MESH_ITEM}")
+    if "WORLD_SIZE" not in os.environ:
+        if (args.mesh_data > 1 or args.mesh_model > 1
+                or args.alltoall_impl != "psum" or args.dedup_exchange):
+            raise ValueError(f"--mesh-data, --mesh-model, --alltoall-impl "
+                             f"and --dedup-exchange run over several "
+                             f"ranks: {TORCHRUN}")
+        return None
+    from evstore_tpu_torch.parallel.mesh import make_mesh
+    from evstore_tpu_torch.parallel.multihost import init_multihost
+    _, world = init_multihost(device=dev.type)
+    n_model = max(args.mesh_model, 1)
+    n_data = args.mesh_data or world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"--mesh-data {n_data} x --mesh-model {n_model} "
+                         f"!= WORLD_SIZE {world}")
+    if world == 1:
+        return None
+    if not training and not (args.use_evstore and args.use_device_cache
+                             and n_model > 1):
+        raise ValueError("serving over several ranks shards the device "
+                         "cache: pass --use-evstore True "
+                         "--use-device-cache True --mesh-model above 1")
+    return make_mesh(n_data, n_model, device=dev)
 
 
 def _run(args) -> int:
@@ -346,9 +409,10 @@ def _run(args) -> int:
     from evstore_tpu_torch.utils.device import resolve_device
     dev = resolve_device(args.device)
     cfg, tcfg, ccfg = configs_from_args(args)
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise NotImplementedError(f"--mesh-data / --mesh-model above 1 "
-                                  f"are not ported yet: {MESH_ITEM}")
+    mesh = _mesh(args, dev)
+    if mesh is not None:
+        dev = mesh.device
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     if args.mlperf_logging:
         from evstore_tpu_torch.utils.logging import MLPerfLogger
         MLPerfLogger().submission_metadata(
@@ -385,15 +449,15 @@ def _run(args) -> int:
             ckpt_dir=args.save_model or None,
             ev_export_dir=(args.ev_table_path or None),
             resume=bool(args.load_model), seed=args.numpy_rand_seed,
-            dedup_exchange=args.dedup_exchange,
+            mesh=mesh, dedup_exchange=args.dedup_exchange,
             alltoall_impl=args.alltoall_impl,
             multihot=args.num_indices_per_lookup > 1, device=dev)
-        print(f"training done: steps={res.steps} best={res.best_metric:.4f}")
+        say(f"training done: steps={res.steps} best={res.best_metric:.4f}")
         return 0
-    return _serve(args, cfg, tcfg, ccfg, make_test, dev)
+    return _serve(args, cfg, tcfg, ccfg, make_test, dev, mesh, say)
 
 
-def _serve(args, cfg, tcfg, ccfg, make_test, dev) -> int:
+def _serve(args, cfg, tcfg, ccfg, make_test, dev, mesh, say) -> int:
     """The inference path (the reference's C1 / C1C2 / C1C2C3 drivers)."""
     from evstore_tpu_torch.cache.storage import StorageManager
     from evstore_tpu_torch.models.dlrm import DLRM
@@ -430,14 +494,17 @@ def _serve(args, cfg, tcfg, ccfg, make_test, dev) -> int:
                                and (use_native or args.use_device_cache)):
         # the engine reads the exported .bin files itself
         if args.use_device_cache:
-            from evstore_tpu_torch.cache.device_cache import \
-                NativeDeviceC1Cache
+            from evstore_tpu_torch.cache.device_cache import (
+                NativeDeviceC1Cache, ShardedDeviceC1Cache)
             if use_native:
                 raise ValueError("use_native and use_device_cache are "
                                  "exclusive: the device cache runs its own "
                                  "engine")
-            cache = NativeDeviceC1Cache(ccfg, cfg.num_tables,
-                                        cfg.embedding_dim, device=dev)
+            cache = (ShardedDeviceC1Cache(ccfg, cfg.num_tables,
+                                          cfg.embedding_dim, mesh)
+                     if mesh is not None else
+                     NativeDeviceC1Cache(ccfg, cfg.num_tables,
+                                         cfg.embedding_dim, device=dev))
         else:
             from evstore_tpu_torch.native import NativeTieredCache
             cache = NativeTieredCache(ccfg, cfg.num_tables,
@@ -462,16 +529,16 @@ def _serve(args, cfg, tcfg, ccfg, make_test, dev) -> int:
                        if args.trace_inference_workload else None),
             cdf_path=args.write_cdf_file or None,
             use_native=use_native, use_device_cache=args.use_device_cache,
-            cache=cache, device=dev)
+            cache=cache, device=dev, mesh=mesh)
     finally:
         if cache is not None:
             cache.close()
         if sm is not None:
             sm.close()
-    print(f"inference done: metrics={res.metrics} "
-          f"perfect_hits={res.cache_stats.get('perfect_hits')} "
-          f"p99={res.latency.get('p99_s')}")
-    print(f"cache stats: {json.dumps(res.cache_stats)}")
+    say(f"inference done: metrics={res.metrics} "
+        f"perfect_hits={res.cache_stats.get('perfect_hits')} "
+        f"p99={res.latency.get('p99_s')}")
+    say(f"cache stats: {json.dumps(res.cache_stats)}")
     return 0
 
 

@@ -10,6 +10,12 @@ side), so the port never imports JAX.  The port's parameter names are
 `DLRM`'s: `tables.<i>` (the i-th plain table), `qr.<t>.q|r`,
 `md.<t>.table|proj` and `pool_w.<t>`.
 
+Over a mesh (`parallel/`), `shard_from_jax` and `butterfly_from_jax` turn
+the same numpy pytrees into one rank's row shard (`parallel/sharded.py`)
+or its slots of the butterfly stack (`parallel/butterfly.py`), and
+`shard_to_numpy` and `butterfly_to_numpy` gather them back, collectively
+over the mesh's ranks.
+
 The optimizer state converts the same way.  The JAX package's
 `OptState(step, dense, sparse)` holds `dense = {"mlp": <the dense pytree>,
 "fact": <the qr/md entries' pytree>}` (adagrad and rwsadagrad sums, shaped
@@ -186,3 +192,56 @@ def opt_state_to_numpy(opt: OptState, cfg: DLRMConfig
                  opt.dense[names["kind_md/proj"]].cpu().numpy().copy())
     return (opt.step, {"mlp": mlps_to_numpy(opt.dense, cfg),
                        "fact": fields["fact"]}, fields["sparse"])
+
+
+# ----------------------------------------------------------- over a mesh
+
+def _full_from_jax(dense: Dict, sparse: Dict, cfg: DLRMConfig, opt, dev):
+    """The single-device DLRM (and OptState, from opt = (step, dense,
+    sparse) in the JAX layout, or None) on `dev`."""
+    from evstore_tpu_torch.models.dlrm import DLRM
+    state, _ = params_from_jax(dense, sparse, cfg, device=dev)
+    model = DLRM(cfg, device=dev)
+    model.load_state_dict(state)
+    st = None if opt is None else opt_state_from_jax(*opt, cfg, device=dev)
+    return model, st
+
+
+def shard_from_jax(dense: Dict, sparse: Dict, cfg: DLRMConfig, mesh,
+                   opt=None):
+    """The JAX params (and opt = (step, dense, sparse) of its OptState, or
+    None), as numpy -> rank (d, m)'s shard of `mesh` on its device:
+    (model, OptState or None), as `parallel/sharded.py::
+    shard_dlrm_params` cuts them."""
+    from evstore_tpu_torch.parallel.sharded import shard_dlrm_params
+    model, st = _full_from_jax(dense, sparse, cfg, opt, "cpu")
+    return shard_dlrm_params(model, mesh, st)
+
+
+def shard_to_numpy(model, mesh, opt_state: OptState = None):
+    """A rank's shard -> (dense, sparse[, (step, dense, sparse)]) numpy
+    in the JAX layout, the whole tables gathered over the model group
+    (collective)."""
+    from evstore_tpu_torch.parallel.sharded import unshard_dlrm_params
+    full, st = unshard_dlrm_params(model, mesh, opt_state, device="cpu")
+    out = params_to_numpy(full)
+    return out if st is None else (*out, opt_state_to_numpy(st, model.cfg))
+
+
+def butterfly_from_jax(dense: Dict, sparse: Dict, cfg: DLRMConfig, tcfg,
+                       mesh, table_order=None, opt=None):
+    """The JAX params (plain tables) -> this rank's `ButterflyState`:
+    its slots of the [T_pad, N_max, D] stack and the MLPs, with zero sums
+    and step 0, or those of opt = (step, dense, sparse)."""
+    from evstore_tpu_torch.parallel.butterfly import init_butterfly_state
+    model, st = _full_from_jax(dense, sparse, cfg, opt, "cpu")
+    return init_butterfly_state(model, tcfg, mesh, table_order, st)
+
+
+def butterfly_to_numpy(state, cfg: DLRMConfig, mesh, tcfg):
+    """A rank's `ButterflyState` -> (dense, sparse, (step, dense, sparse))
+    numpy in the JAX layout, every table broadcast from its owner
+    (collective)."""
+    from evstore_tpu_torch.parallel.butterfly import unstack_state
+    model, st = unstack_state(state, cfg, mesh, tcfg, device="cpu")
+    return (*params_to_numpy(model), opt_state_to_numpy(st, cfg))

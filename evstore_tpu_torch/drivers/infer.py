@@ -28,13 +28,17 @@ With `pipeline_depth` > 0 the lookup (and the host rows' copy to the card)
 runs on a prefetch thread, one or more batches ahead of the scoring, on the
 same stream, and the timed region covers only the scoring.
 
+With a `mesh` (`parallel/mesh.py`) and `use_device_cache`, the cache is
+`ShardedDeviceC1Cache`, its slots sharded over the mesh's ranks.  Every
+rank runs the serving loop on the same batches (the lookups are
+collective, the rows come back whole on every rank); rank 0 logs.
+
 Departures from the JAX driver, where it ignores an option: the device
 cache runs EvLFU only, so `use_device_cache=True` with policy lfu or lru
 raises, and so does `use_native=True` beside `use_device_cache=True`.  The
 stores behind the engine are its own (`open_table_files`): as in the JAX
 driver, a file-backed store raises there, and the caller opens the files
-on the cache and passes it as `cache=`.  Not ported: the sharded cache
-(`mesh`).
+on the cache and passes it as `cache=`.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from evstore_tpu_torch.cache.device_cache import NativeDeviceC1Cache
+from evstore_tpu_torch.cache.device_cache import (NativeDeviceC1Cache,
+                                                  ShardedDeviceC1Cache)
 from evstore_tpu_torch.cache.storage import DummyStore, StorageManager
 from evstore_tpu_torch.cache.tiers import (AltKeyResolver, TieredCache,
                                            make_cache_from_policy)
@@ -56,6 +61,7 @@ from evstore_tpu_torch.models.embedding import check_ids
 from evstore_tpu_torch.native import NativeTieredCache
 from evstore_tpu_torch.train.metrics import binary_metrics
 from evstore_tpu_torch.utils.device import resolve_device
+from evstore_tpu_torch.utils.logging import quiet
 from evstore_tpu_torch.utils.trace import LatencyRecorder, WorkloadTracer
 
 TRUE_PER_REQUEST = "true-per-request (bs=1, fenced transfer)"
@@ -78,9 +84,9 @@ class InferenceResult:
 def build_cache(ccfg: CacheConfig, cfg: DLRMConfig, storage: StorageManager,
                 altkey_resolver: Optional[AltKeyResolver] = None,
                 use_native: bool = False, use_device_cache: bool = False,
-                device=None):
+                device=None, mesh=None):
     """The cache `run_inference` serves through (see the module's
-    docstring); `device` is the device cache's."""
+    docstring); `device` is the device cache's, `mesh` shards its slots."""
     if (ccfg.policy in ("lfu", "lru") and ccfg.n_caching_layers == 1
             and not use_native and not use_device_cache):
         # the Python baselines (reference cache_algo/LFU.py, LRU.py); with
@@ -106,8 +112,12 @@ def build_cache(ccfg: CacheConfig, cfg: DLRMConfig, storage: StorageManager,
                              "loads its tables from a loaded dummy store; "
                              "use NativeDeviceC1Cache.open_table_files "
                              "directly")
-        dc = NativeDeviceC1Cache(ccfg, cfg.num_tables, cfg.embedding_dim,
-                                 device=device)
+        if mesh is not None:
+            dc = ShardedDeviceC1Cache(ccfg, cfg.num_tables,
+                                      cfg.embedding_dim, mesh)
+        else:
+            dc = NativeDeviceC1Cache(ccfg, cfg.num_tables,
+                                     cfg.embedding_dim, device=device)
         dc.load_tables(storage.store.tables)
         if alts is not None:
             dc.load_altkeys(alts)
@@ -138,6 +148,7 @@ def run_inference(model: torch.nn.Module, cfg: DLRMConfig, ccfg: CacheConfig,
                   pipeline_depth: int = 0,
                   cache=None,
                   device=None,
+                  mesh=None,
                   log_fn=print) -> InferenceResult:
     """Serve `batches` of (dense, idx, labels) numpy arrays through the
     tiered cache and `model` (a `DLRM` on `device`).
@@ -148,7 +159,13 @@ def run_inference(model: torch.nn.Module, cfg: DLRMConfig, ccfg: CacheConfig,
     engine, builds the cache itself, passes it as `cache` and closes it
     itself.  With `pipeline_depth` > 0 the lookups run on a prefetch thread
     that is joined when the run ends.  `trace_dir` receives the requests'
-    row ids, one `trace-table-<t>.csv` per table."""
+    row ids, one `trace-table-<t>.csv` per table.  With `mesh` and
+    `use_device_cache` the cache is sharded over the mesh's ranks: every
+    rank calls this with the same batches, and only rank 0 logs."""
+    if mesh is not None:
+        device = mesh.device if device is None else device
+        if mesh.rank != 0:
+            log_fn = quiet
     dev = resolve_device(device)
     mdev = next(model.parameters()).device
     if mdev.type != dev.type or (dev.index is not None and mdev != dev):
@@ -157,7 +174,7 @@ def run_inference(model: torch.nn.Module, cfg: DLRMConfig, ccfg: CacheConfig,
     owned = cache is None
     if owned:
         cache = build_cache(ccfg, cfg, storage, altkey_resolver,
-                            use_native, use_device_cache, dev)
+                            use_native, use_device_cache, dev, mesh)
     try:
         return _serve(model, cfg, cache, batches, dev, warmup_batches,
                       ev_lookup_only, trace_dir, cdf_path, pipeline_depth,

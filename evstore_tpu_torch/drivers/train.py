@@ -11,9 +11,21 @@ forward.
 The model is the port's own init from `seed` (`DLRM(cfg, seed=seed)`), or
 the caller's `model` (for example the JAX package's weights through
 `convert.params_from_jax`: torch cannot replay `jax.random`).  It trains on
-`device` (the card unless the caller says otherwise).  Not ported: the mesh
-options (`mesh`, the butterfly and alltoall exchanges, `dedup_exchange`;
-ROADMAP queue 1 item 8), for both drivers.
+`device` (the card unless the caller says otherwise).
+
+With a `mesh` (`parallel/mesh.py`, one process per rank, every rank
+calling `run_training` with the same arguments and batches) it trains
+SPMD: `alltoall_impl="psum"` row-shards the plain tables over the model
+axis (`parallel/sharded.py`, optionally with `dedup_exchange`);
+"butterfly" or "alltoall" places whole tables on the ranks of the world,
+as `parallel/planner.py::plan_table_shards` orders them, and exchanges
+with all-to-alls (`parallel/butterfly.py`).  Evaluation scores come back
+whole on every rank, so every rank takes the same decisions.  Checkpoints
+and EV exports of a mesh run are the single-device files, written by rank
+0 after the tables are gathered one at a time, so any run resumes them at
+any mesh shape; a resumed run carries its optimizer state and step on
+every route.  Only rank 0 logs.  `run_cached_training` over a mesh
+(`ShardedTrainableDeviceCache`) is ROADMAP queue 1 item 8b.
 
 `run_cached_training` trains through `cache/trainable.py::
 TrainableDeviceCache`: the tables stay in host memory (or on disk, mapped
@@ -56,9 +68,10 @@ from evstore_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                 restore_checkpoint,
                                                 save_checkpoint)
 from evstore_tpu_torch.utils.device import resolve_device
-from evstore_tpu_torch.utils.logging import MLPerfLogger
+from evstore_tpu_torch.utils.logging import MLPerfLogger, quiet
 
-MESH_ITEM = "ROADMAP queue 1 item 8 (multi-GPU)"
+CACHED_MESH_ITEM = ("ROADMAP queue 1 item 8b (ShardedTrainableDeviceCache, "
+                    "cached training over a mesh)")
 
 
 @dataclasses.dataclass
@@ -73,6 +86,68 @@ class TrainResult:
 def _fence(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+class _Route:
+    """How `run_training` steps, scores and snapshots its state: on one
+    device, row-sharded over a mesh, or through the butterfly."""
+
+    def __init__(self, cfg, tcfg, model, opt_state, mesh, alltoall_impl,
+                 dedup_exchange, log_fn):
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
+        if mesh is None:
+            self.kind = "single"
+            self.model, self.opt = model, opt_state
+            self._step = make_train_step(cfg, tcfg)
+            self._eval = make_eval_step(cfg)
+        elif alltoall_impl in ("butterfly", "alltoall"):
+            from evstore_tpu_torch.parallel import butterfly as bf
+            from evstore_tpu_torch.parallel.planner import plan_table_shards
+            self.kind = "butterfly"
+            # LPT-balanced placement (the reference splits contiguously);
+            # a layout choice, numerically the same
+            order, imb = plan_table_shards(cfg.table_sizes, mesh.world)
+            log_fn(f"butterfly placement: order {order} (imbalance "
+                   f"{imb:.2f})")
+            self.model = bf.init_butterfly_state(model, tcfg, mesh, order,
+                                                 opt_state)
+            self.opt = None
+            self._step = bf.make_butterfly_train_step(
+                cfg, tcfg, mesh, dedup_exchange=dedup_exchange,
+                table_order=order)
+            self._eval = bf.make_butterfly_eval_step(cfg, mesh, order)
+        else:
+            from evstore_tpu_torch.parallel import sharded as sh
+            self.kind = "psum"
+            self.model, self.opt = sh.shard_dlrm_params(model, mesh,
+                                                        opt_state)
+            self._step = sh.make_sharded_train_step(
+                cfg, tcfg, mesh, dedup_exchange=dedup_exchange)
+            self._eval = sh.make_sharded_eval_step(
+                cfg, mesh, dedup_exchange=dedup_exchange)
+
+    def step(self, dense_x, idx, y, bw):
+        if self.kind == "butterfly":
+            return self._step(self.model, dense_x, idx, y, bw)
+        return self._step(self.model, self.opt, dense_x, idx, y, bw)
+
+    def evaluate(self, batches):
+        return evaluate(self.model, self.cfg, batches, self._eval)
+
+    def snapshot(self):
+        """The single-device model and optimizer state: the trained ones
+        without a mesh; over a mesh, gathered to the host of rank 0 one
+        table at a time, and (None, None) on the other ranks (collective
+        over the mesh's ranks)."""
+        if self.kind == "single":
+            return self.model, self.opt
+        if self.kind == "butterfly":
+            from evstore_tpu_torch.parallel.butterfly import unstack_state
+            return unstack_state(self.model, self.cfg, self.mesh, self.tcfg,
+                                 "cpu", dst=0)
+        from evstore_tpu_torch.parallel.sharded import unshard_dlrm_params
+        return unshard_dlrm_params(self.model, self.mesh, self.opt, "cpu",
+                                   dst=0)
 
 
 def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
@@ -92,12 +167,27 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
     """A full training run.  make_*_batches are zero-argument callables
     that return a fresh batch iterator (each epoch iterates again).
     `multihot` is accepted for the JAX signature: the step takes one-hot
-    and bagged batches by their shape.  The model is trained in place."""
-    if mesh is not None or alltoall_impl != "psum" or dedup_exchange:
-        raise NotImplementedError(
-            f"mesh training (mesh, alltoall_impl={alltoall_impl!r}, "
-            f"dedup_exchange) is not ported yet: {MESH_ITEM}")
+    and bagged batches by their shape.  Without a mesh the model is
+    trained in place; with one (see the module's docstring) the result
+    holds, on rank 0, the single-device model and optimizer state gathered
+    from the ranks to its host (CPU), and on the other ranks None for both;
+    the gather passes one table at a time through rank 0's card.  `alltoall_impl` and `dedup_exchange` choose a
+    mesh's exchange: without one they raise ValueError."""
+    from evstore_tpu_torch.parallel.mesh import Mesh
     del multihot
+    if alltoall_impl not in ("psum", "butterfly", "alltoall"):
+        raise ValueError(f"unknown alltoall_impl {alltoall_impl!r}")
+    if mesh is None and (alltoall_impl != "psum" or dedup_exchange):
+        raise ValueError(f"alltoall_impl={alltoall_impl!r} and "
+                         f"dedup_exchange={dedup_exchange} choose a mesh's "
+                         "exchange; pass a mesh (parallel/mesh.py)")
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        device = mesh.device
+        if mesh.rank != 0:
+            log_fn = quiet
     mll = MLPerfLogger(log_fn=log_fn)
     mll.event("init_start")
     if model is None:
@@ -119,8 +209,11 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
             log_fn(f"resumed from checkpoint step {s} ({gb:.3f} GB in "
                    f"{dt:.3f} s, {gb / max(dt, 1e-9):.3f} GB/s)")
 
-    step_fn = make_train_step(cfg, tcfg)
-    eval_step = make_eval_step(cfg) if make_test_batches else None
+    route = _Route(cfg, tcfg, model, opt_state, mesh, alltoall_impl,
+                   dedup_exchange, log_fn)
+    if route.kind != "single":
+        model = opt_state = None      # the route holds the rank's copy
+    writer = mesh is None or mesh.rank == 0
     best = -float("inf")
     history = {"loss": [], "eval": []}
     step = 0
@@ -129,16 +222,22 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
 
     def new_best(metrics):
         """Checkpoint and export on a new best eval (dlrm_s_pytorch.py:
-        1755-1796)."""
+        1755-1796); over a mesh, by rank 0 from the state gathered to its
+        host."""
         nonlocal best
         score = metrics["auc"] if not math.isnan(metrics["auc"]) \
             else metrics["accuracy"]
         if score <= best:
             return
         best = score
+        if not (ckpt_dir or ev_export_dir):
+            return
+        snap, snap_opt = route.snapshot()
+        if not writer:
+            return
         if ckpt_dir:
             t0 = time.perf_counter()
-            path = save_checkpoint(ckpt_dir, step, model, opt_state,
+            path = save_checkpoint(ckpt_dir, step, snap, snap_opt,
                                    extra={"metrics": metrics})
             dt = time.perf_counter() - t0
             gb = os.path.getsize(path) / 1e9
@@ -146,7 +245,7 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
                    f"({gb / max(dt, 1e-9):.3f} GB/s)")
         if ev_export_dir:
             t0 = time.perf_counter()
-            paths = export_ev_tables(model, ev_export_dir,
+            paths = export_ev_tables(snap, ev_export_dir,
                                      table_sizes=cfg.table_sizes)
             dt = time.perf_counter() - t0
             gb = sum(os.path.getsize(p) for p in paths) / 1e9
@@ -156,7 +255,7 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
     def run_eval():
         nonlocal t_aside
         t0 = time.perf_counter()
-        metrics = evaluate(model, cfg, make_test_batches(), eval_step)
+        metrics = route.evaluate(make_test_batches())
         history["eval"].append((step, metrics))
         new_best(metrics)
         t_aside += time.perf_counter() - t0
@@ -173,7 +272,7 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
             step += 1
             if step <= start_step:
                 continue   # skip-upto fast-forward (dlrm_s_pytorch.py:1605)
-            loss = step_fn(model, opt_state, dense_x, idx, y, bw)
+            loss = route.step(dense_x, idx, y, bw)
             n_since += 1
             n_run += 1
             if step % max(tcfg.print_freq, 1) == 0:
@@ -213,6 +312,7 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
     if make_test_batches:
         run_eval()
     mll.event("run_stop", {"status": "done"})
+    model, opt_state = route.snapshot()
     return TrainResult(model=model, opt_state=opt_state, best_metric=best,
                        steps=step, history=history)
 
@@ -315,9 +415,8 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
     from evstore_tpu_torch.cache.trainable import (TrainableDeviceCache,
                                                    init_dense_state)
     if mesh is not None:
-        raise NotImplementedError(f"cached training over a mesh "
-                                  f"(ShardedTrainableDeviceCache) is not "
-                                  f"ported yet: {MESH_ITEM}")
+        raise NotImplementedError(f"cached training over a mesh is not "
+                                  f"ported yet: {CACHED_MESH_ITEM}")
     dev = resolve_device(device)
     if model is None:
         model = DLRM(cfg, device=dev, seed=seed, tables=False)

@@ -11,7 +11,7 @@ stores [in, out] (see `convert.py`).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from evstore_tpu_torch.models.embedding import (MDTable, QRTable, RowSource,
                                                 table_kinds)
 from evstore_tpu_torch.ops.cuda_interaction import DotInteraction
 from evstore_tpu_torch.ops.interaction import cat_interaction, dot_interaction
+from evstore_tpu_torch.parallel.mesh import shard_rows
 from evstore_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -104,10 +105,18 @@ class DLRM(nn.Module):
     or a tensor) for a plain table (with `pool_w` at ones under weighted
     pooling), or the table's entry in the JAX layout
     (`{"kind_plain": ..., "pool_w": ...}`, `{"kind_qr": {"q", "r"}}`,
-    `{"kind_md": {"table", "proj"}}`)."""
+    `{"kind_md": {"table", "proj"}}`).
+
+    `row_shard` (m, n_model) keeps of each plain table only model shard
+    m's rows [m·Nl, (m+1)·Nl), Nl = ceil(N / n_model), zero-padded past N
+    (`parallel/sharded.py`): the tables are given or drawn whole and cut
+    here; the pooling weights, qr and md tables and MLPs stay whole.  Such
+    a model looks rows up only through the sharded step's exchange, so its
+    `forward` needs `emb_rows`."""
 
     def __init__(self, cfg: DLRMConfig, *, device=None, seed: int = 0,
-                 tables: Union[bool, Sequence] = True):
+                 tables: Union[bool, Sequence] = True,
+                 row_shard: Tuple[int, int] = (0, 1)):
         super().__init__()
         cfg.validate()
         if cfg.interaction_op not in ("dot", "cat"):
@@ -160,12 +169,14 @@ class DLRM(nn.Module):
                     None if proj is None else param(proj, grad=True))
             else:
                 plain_ids.append(t)
-                self.tables.append(param(e["kind_plain"]))
+                self.tables.append(param(shard_rows(e["kind_plain"],
+                                                    *row_shard)))
                 if cfg.weighted_pooling:
                     self.pool_w[str(t)] = param(
                         e.get("pool_w", np.ones((cfg.table_sizes[t], 1),
                                                 np.float32)))
         self.plain_ids = tuple(plain_ids)
+        self.row_shard = tuple(row_shard)
         self.to(dev)
 
     def has_sparse(self) -> bool:
@@ -231,6 +242,10 @@ class DLRM(nn.Module):
         if emb_rows is None:
             if not self.has_sparse():
                 raise ValueError("this DLRM holds no tables; pass emb_rows")
+            if self.row_shard[1] > 1:
+                raise ValueError("this DLRM holds one row shard of its "
+                                 "tables; look rows up through "
+                                 "parallel/sharded.py")
             emb_rows = sparse_arch_lookup(self.entries(), idx, self.cfg,
                                           bag_weights, self.pool_weights())
         return self.top_mlp(self.interact(x, emb_rows.to(x.dtype)))

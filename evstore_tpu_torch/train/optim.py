@@ -106,13 +106,18 @@ class UpdateGroup(NamedTuple):
     members: Tuple[int, ...]     # indices into the sources
 
 
-def update_groups(sources: Sequence, name: str) -> List[UpdateGroup]:
-    """Each gather group (`models/embedding.py::gather_groups`, one width)
-    split into its runs of one row rule: one group under sgd and adagrad;
-    under rwsadagrad, the plain tables' (row-wise) and the factorised
-    tables' (elementwise), which `gather_groups` puts in that order."""
+def update_groups(sources: Sequence, name: str,
+                  groups: Optional[Sequence[Sequence[int]]] = None
+                  ) -> List[UpdateGroup]:
+    """Each gather group (`models/embedding.py::gather_groups`, one width,
+    or the caller's `groups`) split into its runs of one row rule: one
+    group under sgd and adagrad; under rwsadagrad, the plain tables'
+    (row-wise) and the factorised tables' (elementwise), which
+    `gather_groups` puts in that order."""
     out = []
-    for g, members in enumerate(gather_groups(sources)):
+    if groups is None:
+        groups = gather_groups(sources)
+    for g, members in enumerate(groups):
         lo = 0
         for j in range(1, len(members) + 1):
             if j == len(members) or row_rule(name, sources[members[j]].part) \
@@ -124,14 +129,16 @@ def update_groups(sources: Sequence, name: str) -> List[UpdateGroup]:
     return out
 
 
-def state_groups(sources: Sequence, name: str):
+def state_groups(sources: Sequence, name: str,
+                 groups: Optional[Sequence[Sequence[int]]] = None):
     """[(rule, [RowSource])]: the sources whose state shares one flat
-    buffer, in buffer order (the update groups; none under sgd)."""
+    buffer, in buffer order (the update groups of `gather_groups` or of
+    the caller's `groups`; none under sgd)."""
     name = name.lower()
     if name == "sgd":
         return []
     return [(u.rule, [sources[i] for i in u.members])
-            for u in update_groups(sources, name)]
+            for u in update_groups(sources, name, groups)]
 
 
 def row_state_views(flat: torch.Tensor, sizes: Sequence[int],
@@ -191,7 +198,8 @@ def dense_parameters(model) -> Dict[str, torch.nn.Parameter]:
 def make_optimizer(name: str, eps: float = 1e-10):
     """Returns (init_fn, dense_update_fn, sparse_row_update_fn).
 
-    init_fn(model) -> OptState
+    init_fn(model, groups=None) -> OptState (the row state's flat buffers
+        follow `state_groups(..., groups)`)
     dense_update_fn(state, params, lr): params {name: Parameter with .grad},
         updated in place with state {name: sum}
     sparse_row_update_fn(row_state, table, rows, row_grads, lr): rows [U]
@@ -202,7 +210,7 @@ def make_optimizer(name: str, eps: float = 1e-10):
     if name not in OPTIMIZERS:
         raise ValueError(f"unsupported optimizer {name}")
 
-    def init(model) -> OptState:
+    def init(model, groups=None) -> OptState:
         """Zero sums: per dense parameter, and one flat buffer per state
         group of the row-updated ones, each parameter's a view of it."""
         if name == "sgd":
@@ -210,7 +218,8 @@ def make_optimizer(name: str, eps: float = 1e-10):
         dense = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in dense_parameters(model).items()}
         sparse: Dict[str, torch.Tensor] = {}
-        for rule, members in state_groups(model.row_sources(), name):
+        for rule, members in state_groups(model.row_sources(), name,
+                                          groups):
             rows = sum(s.rows for s in members)
             flat = torch.zeros(
                 (rows,) if rule == "rwsadagrad" else (rows, members[0].width),

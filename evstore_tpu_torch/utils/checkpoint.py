@@ -49,6 +49,7 @@ def save_checkpoint(ckpt_dir: str, step: int, model: DLRM,
                     opt_state: OptState, extra: Optional[dict] = None) -> str:
     """Save the model, the optimizer state and `extra` (JSON) as step
     `step`; returns the checkpoint's path."""
+    _whole(model)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
     state = {"model": model.state_dict(),
@@ -139,7 +140,15 @@ def quantize_mlps(model: DLRM, bits: int = 8) -> DLRM:
 
 # ------------------------------------------------------- EV-table handoff
 
+def _whole(model: DLRM) -> None:
+    if model.row_shard[1] > 1:
+        raise ValueError("the model holds one row shard of its tables; "
+                         "gather it first (parallel/sharded.py::"
+                         "unshard_dlrm_params)")
+
+
 def _plain_tables(model: DLRM):
+    _whole(model)
     if len(model.tables) != model.cfg.num_tables:
         raise ValueError("EV export requires plain tables (qr/md tables "
                          "are factorized and have no row-wise EVs)")

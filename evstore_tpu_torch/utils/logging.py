@@ -14,6 +14,10 @@ import time
 from typing import Optional
 
 
+def quiet(*_args, **_kw) -> None:
+    """A log_fn that prints nothing (the ranks other than 0 of a mesh)."""
+
+
 class MLPerfLogger:
     def __init__(self, benchmark: str = "dlrm", log_fn=print,
                  enabled: bool = True, rank: int = 0):

@@ -324,13 +324,20 @@ def test_run_training_resume_skips_completed_steps(tmp_path):
 
 
 def test_run_training_refuses_mesh_options():
+    """The exchange options need a mesh (`parallel/mesh.py::make_mesh`;
+    the mesh routes are tests/test_torch_sharded.py's and
+    test_torch_butterfly.py's); a mesh must be one."""
     from evstore_tpu_torch.drivers.train import run_training
     _, cp = tiny()
     tp = pcfg.TrainConfig()
-    for kw in (dict(mesh=object()), dict(alltoall_impl="butterfly"),
-               dict(dedup_exchange=True)):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        run_training(cp, tp, lambda: [], device="cpu", mesh=object())
+    for kw in (dict(alltoall_impl="butterfly"), dict(dedup_exchange=True)):
+        with pytest.raises(ValueError, match="pass a mesh"):
             run_training(cp, tp, lambda: [], device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown alltoall_impl"):
+        run_training(cp, tp, lambda: [], device="cpu",
+                     alltoall_impl="ring")
     other = DLRM(pcfg.make_dlrm_config(4, (40, 30, 21), (8,), (8,),
                                        num_dense=4), device="cpu")
     with pytest.raises(ValueError, match="another DLRMConfig"):

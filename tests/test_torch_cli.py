@@ -18,7 +18,14 @@ package's (`evstore_tpu.cli`), on the CPU (`--device cpu`).
   C1+C2+C3 in the engine; C1 on the device cache), metrics within atol
   1e-6 and perfect hits equal.  Where the JAX CLI raises on a file-backed
   store behind the engine, it serves the same tables from its checkpoint.
-- What is not ported raises NotImplementedError with its ROADMAP item.
+- The mesh flags over 4 gloo ranks in torchrun's environment
+  (`--mesh-data 2 --mesh-model 2 --dedup-exchange True`, `--alltoall-impl
+  butterfly`, and serving with `--use-device-cache True --mesh-model 4`),
+  each held to the port's own single-device run of the same flags, which
+  the cases above hold to the JAX CLI (the JAX CLI lays its mesh over the
+  8 devices of one process, so it cannot run these shapes).
+- Without a world the mesh flags raise and say to launch under torchrun;
+  what is not ported raises NotImplementedError with its ROADMAP item.
 """
 
 import ast
@@ -195,15 +202,117 @@ def test_kernel_flags(flags, gather, interaction):
 
 # ------------------------------------------------------- what raises
 
-@pytest.mark.parametrize("flags,item", [
-    ("--use-evstore True --mesh-model 2", "item 8"),
-    ("--mesh-data 2", "item 8"),
-    ("--mesh-model 2", "item 8"), ("--alltoall-impl butterfly", "item 8"),
+@pytest.mark.parametrize("flags,error,item", [
+    ("--use-evstore True --mesh-model 2", NotImplementedError, "item 8b"),
+    ("--mesh-data 2", ValueError, "launch under torchrun"),
+    ("--mesh-model 2", ValueError, "launch under torchrun"),
+    ("--alltoall-impl butterfly", ValueError, "launch under torchrun"),
     ("--inference-only --use-evstore True --use-device-cache True "
-     "--mesh-model 4", "item 8")])
-def test_unported_options_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+     "--mesh-model 4", ValueError, "launch under torchrun")])
+def test_unported_options_raise(monkeypatch, flags, error, item):
+    """Without a world (no WORLD_SIZE) the mesh flags raise and say to
+    launch under torchrun; cached training over a mesh is not ported
+    (ROADMAP queue 1 item 8b)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(error, match=item):
         cli.main((ARCH + " --num-batches 2 --device cpu " + flags).split())
+
+
+# ---------------------------------------- over 4 gloo ranks, as torchrun
+
+def _torchrun(argv, world, cwd, limit_s=180):
+    """`python -m evstore_tpu_torch.cli argv` in `world` processes with
+    torchrun's environment, the rendezvous store held here as torchrun's
+    agent holds it; -> each rank's output (all must exit 0)."""
+    import subprocess
+    import sys
+    store = torch.distributed.TCPStore("127.0.0.1", 0, world, True,
+                                       wait_for_workers=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(store.port), OMP_NUM_THREADS="1",
+               TORCHELASTIC_USE_AGENT_STORE="True",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "evstore_tpu_torch.cli", *argv],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=cwd,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=limit_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out}"
+    return outs
+
+
+def _printed(text):
+    return [ln for ln in text.splitlines() if not ln.startswith(":::MLLOG")
+            and not ln.startswith("[W") and "socket.cpp" not in ln]
+
+
+@pytest.mark.parametrize("mesh_flags", [
+    "--mesh-data 2 --mesh-model 2 --dedup-exchange True --optimizer "
+    "rwsadagrad",
+    "--alltoall-impl butterfly --optimizer adagrad"])
+def test_train_over_four_ranks_matches_one(capsys, tmp_path, mesh_flags):
+    """The CLI over 4 gloo ranks against its own single-device run of the
+    same flags and seed: each printed loss and eval, and the result,
+    within 1e-5·(1 + |ref|) plus the print's rounding; only rank 0
+    prints."""
+    base = (ARCH + " --mini-batch-size 16 --num-batches 10 --print-freq 2 "
+            "--learning-rate 0.1 --nbatches-test 4 --test-freq 5 "
+            "--device cpu").split()
+    outs = _torchrun(base + mesh_flags.split(), 4, str(tmp_path))
+    ref = _out(capsys, cli.main, base + [
+        f for f in mesh_flags.split() if f in ("--optimizer", "rwsadagrad",
+                                               "adagrad")])
+    got = "\n".join(_printed(outs[0]))
+    for pattern in (r"step (\d+): loss ([-\d.]+)",
+                    r"eval @ (\d+): auc ([-\d.na]+) acc ([-\d.]+)",
+                    r"training done: steps=(\d+) best=([-\d.inf]+)"):
+        g, r = _floats(pattern, got), _floats(pattern, ref)
+        assert len(g) == len(r) > 0, pattern
+        _close(g, r, slack=5e-5)
+    if "butterfly" in mesh_flags:
+        assert "butterfly placement: order" in got
+    for out in outs[1:]:
+        assert not [ln for ln in _printed(out) if "loss" in ln
+                    or "done" in ln]
+
+
+def test_serve_sharded_device_cache_over_four_ranks(capsys, tmp_path):
+    """`--use-device-cache True --mesh-model 4` over 4 gloo ranks: the
+    printed metrics, perfect hits and cache stats of the single-card run
+    (the stats beside `hbm_bytes_per_chip`, a quarter of `hbm_bytes`)."""
+    base = (ARCH + " --mini-batch-size 16 --nbatches-test 6 --inference-only "
+            "--use-evstore True --use-device-cache True --emb-cache-size 40 "
+            "--device cpu").split()
+    outs = _torchrun(base + ["--mesh-model", "4"], 4, str(tmp_path))
+    ref = _out(capsys, cli.main, base)
+    got = _printed(outs[0])
+
+    def done(lines):        # the metrics and perfect hits, not the p99
+        return [ln.split(" p99=")[0] for ln in lines
+                if ln.startswith("inference done")]
+
+    assert done(got) == done(ref.splitlines()) and len(done(got)) == 1
+    import json
+    stats = json.loads(next(ln for ln in got
+                            if ln.startswith("cache stats: "))[13:])
+    want = json.loads(next(ln for ln in ref.splitlines()
+                           if ln.startswith("cache stats: "))[13:])
+    assert stats.pop("hbm_bytes_per_chip") * 4 == stats["hbm_bytes"]
+    assert stats == want
+    for out in outs[1:]:
+        assert not [ln for ln in _printed(out) if "done" in ln]
 
 
 def test_without_a_card_cuda_raises():

@@ -51,7 +51,12 @@ def test_every_port_module_imports_without_jax():
             "evstore_tpu_torch.utils.logging",
             "evstore_tpu_torch.utils.config_io",
             "evstore_tpu_torch.utils.memory",
-            "evstore_tpu_torch.utils.profiling"} <= set(mods)
+            "evstore_tpu_torch.utils.profiling",
+            "evstore_tpu_torch.parallel.mesh",
+            "evstore_tpu_torch.parallel.multihost",
+            "evstore_tpu_torch.parallel.planner",
+            "evstore_tpu_torch.parallel.sharded",
+            "evstore_tpu_torch.parallel.butterfly"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
