@@ -164,9 +164,10 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    device from the same weights and batches (losses, tables, sums and
    MLPs; the mesh's result comes back on rank 0's host); (4) the butterfly
    route with the planner's order, 5 steps against the psum route's, then
-   the same 5 steps from the same state with the plain gather and update
-   (K2 and K5 off) against the kernels' (the rows the batches touch by
-   phase 3b's rule, every other row of the 26 slots unchanged in both),
+   5 more with K2 and K5 and the same 5 from the same state with the
+   plain gather and update (K2 and K5 off; after the warm-up the sums are
+   not zero) against the kernels' (the rows the batches touch by phase
+   3b's rule, every other row of the 26 slots unchanged in both),
    its steps/s and peak device memory (the stack pads every table to the
    largest); (5)
    `ShardedDeviceC1Cache` at fp32 (64,000 entries) and int8 (the
@@ -176,16 +177,41 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    its requests/s beside them.  K1, K2 (grouped), K4 and K5 must launch
    on `train_sharded` (2, 3) and `train_butterfly` (4), K1, K2 and K3 on
    `serve_sharded` (5);
+3i. the sharded trainable cache and the offline tools, at world 1 over
+   NCCL in this process, the Kaggle width (masters of 4.86 GB in host
+   memory from --seed, C1 of 64,000 cells, B=128, rwsadagrad, lr 0.1,
+   f32 compute): (a) `ShardedTrainableDeviceCache` beside
+   `TrainableDeviceCache`, 16 + 100 per-batch steps at fp32 and at int8,
+   then over 3f's exported .bin files (`from_files`), each bit for bit
+   (losses, flushed tables and row sums, MLPs and their sums, cells),
+   `save`'s files byte-equal, with steps/s beside 3g's per-batch rate and
+   the device memory it adds; (b) `run_cached_training(mesh=)` beside the
+   one-device driver from the same weights with an eval every 50 steps,
+   bit for bit, steps/s of both; (c) `gen_altkeys` on the card over the
+   first 1,000,000 rows (k = 10), rows/s, its neighbour sets equal to the
+   CPU run's on 20,000 of them wherever the 10th and 11th distances
+   differ by more than 1e-5 relative, and the cost of the full kNN as
+   arithmetic; (d) the model with its tables cut to 100,000 rows by
+   `truncate_tables`, exported at batch 2048 (`torch.export`, the K1
+   custom op), saved, loaded and scoring one grouped_zipf batch within
+   1e-5·(1+|ref|) of `DLRM.predict`, with the times of each; (e) the
+   CLIs of `reduce_precision` (32 -> 8 bits) and `visualize` over 3f's
+   tables and `plot_cdf` over 3f's latency CSV, each saying which path
+   (plots or the matplotlib-free fallbacks) it took.  K1, K2
+   (two-source), K3, K4 and K5 must launch on `train_cached_sharded`
+   ((a), (b)), K1 on `export` ((d));
 4. the kernels' launch counts by path (serve, serve_int8, serve_host,
    gram_ab, train, train_factored, cli, train_cached, train_sharded,
-   train_butterfly, serve_sharded) and one JSON line describing every
-   kernel, each of which must have launched on some path;
+   train_butterfly, serve_sharded, train_cached_sharded, export) and one
+   JSON line describing every kernel, each of which must have launched
+   on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
 copy of the 4.86 GB of tables, or reads the files), its stores and its
 temporary files before the next one starts; 3f leaves its preprocessed
-data and exported tables to 3g, which removes them.
+data, exported tables and latency CSV to 3g and 3i, after which they are
+removed.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -211,6 +237,7 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "3d host tiers": 240, "3b train": 240,
                   "3e train factored": 240, "3f cli": 420,
                   "3g cached training": 300, "3h mesh": 300,
+                  "3i sharded cache and tools": 420,
                   "4 kernels line": 30}
 
 
@@ -873,6 +900,7 @@ def main() -> int:
     # ------------------------------------------- 3g cached training
     CACHED_C1 = 64_000      # bench/dlrm_s_criteo_kaggle_C1.sh's cache size
     CACHED_HBM = 256 << 20  # the device memory the phase may add, at most
+    cached_rates = {}       # 3g's steps/s by (driver, bits), beside 3i's
     CACHED_B = 128          # the recipe's batch
     CACHED_N = 200          # batches of the bf16 and int8 runs
     CACHED_FILES = 100      # batches over the mapped files
@@ -1105,6 +1133,7 @@ def main() -> int:
                 split = ", ".join(f"{k} {v / len(timed) * 1e3:.3f}"
                                   for k, v in tc.host_s.items())
                 rates[(how, precision)] = len(timed) / secs
+                cached_rates[(how, precision)] = rates[(how, precision)]
                 print(f"3g(7) {how} at {precision} bits [{card}]: "
                       f"{len(timed)} steps after 16 in {secs:.3f} s = "
                       f"{len(timed) / secs:.2f} steps/s "
@@ -1495,8 +1524,8 @@ def main() -> int:
         exchange, 20 steps each against `make_train_step` from the same
         state; `run_training(mesh=)` against `run_training` on one device;
         the sharded eval against `evaluate`), the butterfly route (the
-        planner's order, 5 steps against the psum route, then against its
-        plain gather and update from the same state), and
+        planner's order, 5 steps against the psum route, then 5 more
+        against its plain gather and update from the same state), and
         `ShardedDeviceC1Cache` (fp32 at 64,000 entries and int8
         at the C1+C2+C3 script's size against `NativeDeviceC1Cache`, then
         `run_inference(mesh=)` at depth 2 against phase 3's scores).
@@ -1742,12 +1771,31 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.2f} s", flush=True)
             bstep = bf.make_butterfly_train_step(cfg, rws, mesh,
                                                  table_order=order)
-            # what the plain run below starts from: the rows the 5
-            # batches touch, the MLPs, their sums and the step, and per
-            # slot the integer sum of every other row's bits
+            b_losses = counted("train_butterfly", lambda: [
+                float(bstep(bst, *b)) for b in checked[:5]])
+            worst = {}
+            held_losses(b_losses, p_losses, "loss", worst)
+            for t, n in enumerate(cfg.table_sizes):     # plain tables
+                slot = order.index(t)
+                held(bst.stack[slot, :n], sm.tables[t], "tables", worst)
+                held_sums(bst.row_state[slot, :n],
+                          st.sparse[f"tables.{t}"], "row sums", worst)
+            # then 5 more steps from that state with K2 and K5, and the
+            # same 5 from the same state through the plain gather and
+            # update: the grouped K2 over the 26 slots and the grouped K5
+            # over the flat row state at their largest shapes, against
+            # their plain versions.  From the fresh state (zero sums) the
+            # first rwsadagrad step moves each weight by lr times the sign
+            # of its gradient, so rounding would choose the sign where a
+            # gradient cancels; after 5 steps the sums are not zero, as
+            # 3g(2) starts its held comparison after warm-up steps.  What
+            # both runs start from: the rows the 5 batches touch, the
+            # MLPs, their sums and the step, and per slot the integer sum
+            # of every other row's bits
+            held_b = checked[5:10]
             slots = [order.index(t) for t in range(cfg.num_tables)]
             touched = [torch.from_numpy(np.unique(np.concatenate(
-                [np.asarray(b[1])[:, t] for b in checked[:5]]))).to(dev)
+                [np.asarray(b[1])[:, t] for b in held_b]))).to(dev)
                 for t in range(cfg.num_tables)]
 
             def touched_rows():
@@ -1771,19 +1819,8 @@ def main() -> int:
             init_rows, init_sums = touched_rows()
             init_mlps, init_bits, init_step = mlps(), rest_bits(), bst.step
             init_dense = {k: v.clone() for k, v in bst.dense_state.items()}
-            b_losses = counted("train_butterfly", lambda: [
-                float(bstep(bst, *b)) for b in checked[:5]])
-            worst = {}
-            held_losses(b_losses, p_losses, "loss", worst)
-            for t, n in enumerate(cfg.table_sizes):     # plain tables
-                slot = order.index(t)
-                held(bst.stack[slot, :n], sm.tables[t], "tables", worst)
-                held_sums(bst.row_state[slot, :n],
-                          st.sparse[f"tables.{t}"], "row sums", worst)
-            # the same 5 steps from the same state through the plain
-            # gather and update (K2 and K5 off): the grouped K2 over the 26
-            # slots and the grouped K5 over the flat row state at their
-            # largest shapes, against their plain versions
+            k_losses = counted("train_butterfly", lambda: [
+                float(bstep(bst, *b)) for b in held_b])
             k_rows, k_sums = touched_rows()
             k_mlps, k_bits = mlps(), rest_bits()
             with torch.no_grad():
@@ -1799,9 +1836,9 @@ def main() -> int:
                 dataclasses.replace(cfg, use_gather_kernel=False),
                 dataclasses.replace(rws, use_update_kernel=False), mesh,
                 table_order=order)
-            pl_losses = [float(plain_step(bst, *b)) for b in checked[:5]]
+            pl_losses = [float(plain_step(bst, *b)) for b in held_b]
             pworst = {}
-            held_losses(b_losses, pl_losses, "loss", pworst)
+            held_losses(k_losses, pl_losses, "loss", pworst)
             pl_rows, pl_sums = touched_rows()
             for t in range(cfg.num_tables):
                 held(k_rows[t], pl_rows[t], "touched rows", pworst)
@@ -1816,12 +1853,12 @@ def main() -> int:
                                      f"{pl_bits != init_bits}")
             print(f"butterfly route, rwsadagrad, K2 and K5 against their "
                   f"plain versions [{card}]: 5 steps from the same state "
-                  f"(stack {tuple(bst.stack.shape)}, flat row state "
-                  f"{bst.row_state.numel()} rows): losses, the "
-                  f"{sum(len(x) for x in touched)} touched rows, their sums "
-                  f"and the MLPs {parted(pworst)}; every other row of the "
-                  f"{len(slots)} slots unchanged in both (integer sums of "
-                  f"their bits)", flush=True)
+                  f"after 5 warm-up steps (stack {tuple(bst.stack.shape)}, "
+                  f"flat row state {bst.row_state.numel()} rows): losses, "
+                  f"the {sum(len(x) for x in touched)} touched rows, their "
+                  f"sums and the MLPs {parted(pworst)}; every other row of "
+                  f"the {len(slots)} slots unchanged in both (integer sums "
+                  f"of their bits)", flush=True)
             del init_rows, init_sums, k_rows, k_sums, pl_rows, pl_sums
             rate, rates = counted("train_butterfly", lambda: steps_per_s(
                 lambda *b: bstep(bst, *b), timed))
@@ -1938,6 +1975,450 @@ def main() -> int:
                     raise AssertionError(f"a kernel of {p} never ran: "
                                          f"{paths[p]}")
             print(f"mesh path launches: {json.dumps(out)}", flush=True)
+            return out
+
+    # ------------------------- 3i the sharded trainable cache and the tools
+    SHARDED_N = 100         # held steps a 3i(a) run, after 16 warm-up ones
+    KNN_ROWS = 1_000_000    # rows of the alt-key kNN on the card
+    KNN_CPU_ROWS = 20_000   # rows it is held to the CPU on
+    EXPORT_ROWS = 100_000   # rows a table keeps in the export
+
+    def phase_3i(d):
+        """The sharded trainable cache at world 1 over NCCL and the offline
+        tools, at the full Kaggle width: (a) `ShardedTrainableDeviceCache`
+        beside `TrainableDeviceCache`, per batch, at fp32 and int8, then
+        over 3f's exported .bin files (`from_files`), bit for bit, `save`'s
+        files byte-equal, steps/s and device memory; (b)
+        `run_cached_training(mesh=)` beside the one-device driver with a
+        periodic eval, bit for bit; (c) `gen_altkeys` on the card over the
+        first 1,000,000 rows, held to its CPU run on 20,000 of them; (d)
+        the export of the model with its tables cut to 100,000 rows, saved,
+        loaded and scoring one batch against `DLRM.predict`; (e) the CLIs
+        of `reduce_precision`, `visualize` and `plot_cdf` over 3f's files.
+        Returns the launch counts of the paths train_cached_sharded and
+        export."""
+        import contextlib
+        import filecmp
+
+        import torch.distributed as dist
+
+        from evstore_tpu_torch.cache import trainable as trn
+        from evstore_tpu_torch.data.synthetic import learnable_batches
+        from evstore_tpu_torch.drivers.train import run_cached_training
+        from evstore_tpu_torch.models.dlrm import init_host_tables
+        from evstore_tpu_torch.parallel.mesh import make_mesh
+        from evstore_tpu_torch.parallel.multihost import init_multihost
+        from evstore_tpu_torch.tools import (export_model, gen_altkeys,
+                                             plot_cdf, reduce_precision,
+                                             visualize)
+        paths = {p: dict.fromkeys(wrappers, 0) for p in (
+            "train_cached_sharded", "export")}
+
+        def counted(path, fn):
+            """fn() with every count set to 0 just before; its launches go
+            to `path`."""
+            reset_counts()
+            out = fn()
+            for k, v in read_counts().items():
+                paths[path][k] += v
+            return out
+
+        def captured(fn, argv):
+            """A tool's `main(argv)`, which must return 0: -> its output."""
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                rc = fn(argv)
+            if rc != 0:
+                raise AssertionError(f"{fn.__module__}.main returned {rc}")
+            return "\n".join(tee.text)
+
+        with Phase("3i sharded cache and tools"):
+            init_multihost(device=dev.type, timeout_s=120)
+            mesh = make_mesh(1, 1, device=dev)
+            kcfg = dataclasses.replace(cfg, compute_dtype="float32")
+            sizes, D = kcfg.table_sizes, kcfg.embedding_dim
+            tcfg = TrainConfig(batch_size=CACHED_B, learning_rate=0.1,
+                               optimizer="rwsadagrad")
+            t0 = time.perf_counter()
+            base = init_host_tables(kcfg, args.seed + 41)
+            work = {k: [t.copy() for t in base] for k in ("one", "mesh")}
+            stream = list(learnable_batches(RandomDataConfig(
+                num_dense=kcfg.num_dense_features, table_sizes=sizes,
+                batch_size=CACHED_B, num_batches=16 + SHARDED_N + 4,
+                seed=args.seed + 43, distribution="grouped_zipf",
+                zipf_alpha=1.05, group_noise=0.1)))
+            gb = sum(sizes) * D * 4 / 1e9
+            print(f"3i set-up: {gb:.3f} GB of masters and "
+                  f"{sum(sizes) * 4 / 1e9:.3f} GB of row sums a trainer in "
+                  f"host memory, two copies, {len(stream)} learnable "
+                  f"grouped_zipf batches of {CACHED_B}, in "
+                  f"{time.perf_counter() - t0:.2f} s; world "
+                  f"{dist.get_world_size()} over {dist.get_backend()}, mesh "
+                  f"{mesh.shape}", flush=True)
+
+            def reset(batches):
+                for t in range(len(sizes)):
+                    rows = np.unique(np.concatenate(
+                        [np.asarray(b[1])[:, t] for b in batches]))
+                    for w in work.values():
+                        w[t][rows] = base[t][rows]
+
+            def drive(tc, batches, path=None):
+                """16 warm-up and the held per-batch steps from the seed's
+                MLPs: -> (model, dstate, losses, steps/s of the held)."""
+                model = DLRM(kcfg, device=dev, seed=args.seed, tables=False)
+                dst = trn.init_dense_state(model)
+
+                def steps(part, first):
+                    return [float(tc.train_batch(model, dst, first + k, *b)[2])
+                            for k, b in enumerate(part)]
+
+                run = (lambda f: counted(path, f)) if path else \
+                    (lambda f: f())
+                losses = run(lambda: steps(batches[:16], 1))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses += run(lambda: steps(batches[16:], 17))
+                torch.cuda.synchronize()
+                return model, dst, losses, (len(batches) - 16) / (
+                    time.perf_counter() - t1)
+
+            def same(one, sh, a, b, what):
+                """Bit for bit: losses, MLPs and sums, cells, the flushed
+                masters and sums."""
+                (m1, d1, l1, _), (m2, d2, l2, _) = a, b
+                bad = [k for k, v in m1.state_dict().items()
+                       if not torch.equal(v, m2.state_dict()[k])]
+                bad += [k for k in d1 if not torch.equal(d1[k], d2[k])]
+                if l1 != l2 or bad or not torch.equal(one.cache_values,
+                                                      sh.cache_values):
+                    raise AssertionError(f"3i(a) {what}: losses equal "
+                                         f"{l1 == l2}, MLPs or sums {bad}")
+                for t in range(len(sizes)):
+                    if not (np.array_equal(one.host_tables[t],
+                                           sh.host_tables[t])
+                            and np.array_equal(one.host_mom[t],
+                                               sh.host_mom[t])):
+                        raise AssertionError(f"3i(a) {what}: table {t}")
+
+            # (a) in-memory masters at fp32 (with save) and int8
+            rate = {}
+            for precision in (32, 8):
+                cc = CacheConfig(total_size=CACHED_C1,
+                                 main_precision=precision)
+                one = trn.TrainableDeviceCache(kcfg, tcfg, cc, work["one"],
+                                               copy_tables=False, device=dev)
+                a = drive(one, stream[:16 + SHARDED_N])
+                one.flush_to_host()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                mem0 = torch.cuda.memory_allocated()
+                sh = trn.ShardedTrainableDeviceCache(
+                    kcfg, tcfg, cc, work["mesh"], mesh, copy_tables=False)
+                b = drive(sh, stream[:16 + SHARDED_N],
+                          "train_cached_sharded")
+                added = torch.cuda.max_memory_allocated() - mem0
+                counted("train_cached_sharded", sh.flush_to_host)
+                same(one, sh, a, b, f"{precision} bits")
+                st = sh.stats()
+                if st["hbm_bytes_per_chip"] != st["hbm_bytes"] or \
+                        st["hbm_bytes"] != one.stats()["hbm_bytes"]:
+                    raise AssertionError(f"3i(a) stats {st}")
+                rate[precision] = (a[3], b[3])
+                saved = ""
+                if precision == 32:
+                    t1 = time.perf_counter()
+                    for tc, k in ((one, "one"), (sh, "mesh")):
+                        tc.save(os.path.join(d, f"save_{k}"))
+                    names = sorted(os.listdir(os.path.join(d, "save_one")))
+                    match, miss, err = filecmp.cmpfiles(
+                        os.path.join(d, "save_one"),
+                        os.path.join(d, "save_mesh"), names, shallow=False)
+                    if miss or err or len(match) != 2 * len(sizes):
+                        raise AssertionError(f"3i(a) save files differ: "
+                                             f"{miss} {err}")
+                    for k in ("one", "mesh"):
+                        shutil.rmtree(os.path.join(d, f"save_{k}"))
+                    saved = (f"; save's {len(match)} files byte-equal "
+                             f"({time.perf_counter() - t1:.2f} s for both "
+                             f"saves and the comparison)")
+                g = cached_rates.get(("batch", 32))
+                print(f"3i(a) ShardedTrainableDeviceCache, world 1 over "
+                      f"NCCL, {precision} bits [{card}]: {SHARDED_N} "
+                      f"per-batch steps after 16 bit for bit with "
+                      f"TrainableDeviceCache.train_batch (losses, "
+                      f"{len(sizes)} flushed tables and row sums, MLPs and "
+                      f"their sums, cells); {b[3]:.2f} steps/s against the "
+                      f"one-device class's {a[3]:.2f} in this phase ("
+                      f"{b[3] / a[3]:.3f}x)"
+                      + (f" and 3g's per-batch {g:.2f}" if g and
+                         precision == 32 else "")
+                      + f"; device memory added {added / 2**20:.1f} MiB; "
+                      f"hbm_bytes {st['hbm_bytes']}{saved}", flush=True)
+                one.close()
+                sh.close()
+                del one, sh, a, b
+                reset(stream)
+
+            # (a) the masters mapped from 3f's exported files
+            ev = os.path.join(d, "ev")
+            t1 = time.perf_counter()
+            tabs = [np.fromfile(os.path.join(ev, f"ev-table-{t + 1}.bin"),
+                                np.float32).reshape(n, D)
+                    for t, n in enumerate(sizes)]
+            moms = [np.fromfile(os.path.join(ev, f"mom-{t + 1}.bin"),
+                                np.float32) for t in range(len(sizes))]
+            cc = CacheConfig(total_size=CACHED_C1)
+            one = trn.TrainableDeviceCache(kcfg, tcfg, cc, tabs,
+                                           copy_tables=False, device=dev)
+            one.host_mom = moms
+            sh = trn.ShardedTrainableDeviceCache.from_files(
+                kcfg, tcfg, cc, ev, sizes, mesh=mesh)
+            a = drive(one, stream[:16 + SHARDED_N])
+            b = drive(sh, stream[:16 + SHARDED_N], "train_cached_sharded")
+            one.flush_to_host()
+            counted("train_cached_sharded", sh.flush_files)
+            same(one, sh, a, b, "from_files")
+            for t, n in enumerate(sizes):
+                if not np.array_equal(np.fromfile(os.path.join(
+                        ev, f"ev-table-{t + 1}.bin"), np.float32),
+                        one.host_tables[t].ravel()):
+                    raise AssertionError(f"3i(a) from_files: the file of "
+                                         f"table {t} differs")
+            print(f"3i(a) from_files over 3f's {len(sizes)} .bin files "
+                  f"[{card}]: {SHARDED_N} steps after 16 bit for bit with "
+                  f"the one-device class over the same masters in memory, "
+                  f"the files after flush_files equal to its tables; "
+                  f"{b[3]:.2f} steps/s against {a[3]:.2f}; "
+                  f"{time.perf_counter() - t1:.2f} s with the reads",
+                  flush=True)
+            one.close()
+            sh.close()
+            del one, sh, a, b, tabs, moms
+
+            # (b) run_cached_training over the mesh beside one device
+            drv = dataclasses.replace(tcfg, test_freq=50, print_freq=25)
+            # 100 steps, a multiple of test_freq: the one-device driver
+            # cuts its stream there, as the mesh's evals every 50 steps
+            train_b, test_b = stream[:100], stream[-4:]
+            runs = {}
+            for label, m in (("one", None), ("mesh", mesh)):
+                lines = []
+                model = DLRM(kcfg, device=dev, seed=args.seed, tables=False)
+
+                def run_it(m=m, model=model, lines=lines):
+                    return run_cached_training(
+                        kcfg, drv, CacheConfig(total_size=CACHED_C1),
+                        lambda: iter(train_b), tables=base, mesh=m,
+                        make_test_batches=lambda: iter(test_b), model=model,
+                        device=dev, log_fn=lines.append)
+
+                res = (counted("train_cached_sharded", run_it) if m
+                       else run_it())
+                got = re.search(r"trained (\d+) steps in [\d.]+ s "
+                                r"\(([\d.]+) steps/s\)", "\n".join(lines))
+                runs[label] = (res, float(got.group(2)),
+                               {k: v.clone() for k, v in
+                                res.model.state_dict().items()})
+            (r1, s1, w1), (r2, s2, w2) = runs["one"], runs["mesh"]
+            if r1.history != r2.history or r1.best_metric != r2.best_metric \
+                    or r1.steps != r2.steps or any(
+                        not torch.equal(w1[k], w2[k]) for k in w1):
+                raise AssertionError("3i(b) run_cached_training(mesh=) "
+                                     "differs from one device")
+            print(f"3i(b) run_cached_training(mesh=make_mesh(1, 1)) "
+                  f"[{card}]: {r2.steps} steps and "
+                  f"{len(r2.history['eval'])} evals bit for bit with the "
+                  f"one-device (pipelined) run: losses, evals (best "
+                  f"{r2.best_metric:.6f}), MLPs; {s2:.2f} steps/s against "
+                  f"{s1:.2f} ({s2 / s1:.3f}x; against (a)'s sharded "
+                  f"{rate[32][1]:.2f}: {s2 / rate[32][1]:.3f}x)", flush=True)
+            del runs, r1, r2, w1, w2, work
+
+            # (c) the alt-key kNN on the card
+            sub, n_rows = [], 0
+            for t in base:
+                k = min(len(t), KNN_ROWS - n_rows)
+                sub.append(t[:k])
+                n_rows += k
+                if n_rows == KNN_ROWS:
+                    break
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            alts = gen_altkeys.generate_altkeys(sub, n_neighbors=10,
+                                                device=dev)
+            secs = time.perf_counter() - t1
+            # where a block's time goes: one block of 2048 queries timed by
+            # CUDA events, its parts as `_topk_neighbors_blocked` runs them
+            x = torch.from_numpy(np.concatenate(sub)).to(dev)
+            sq = torch.sum(x * x, dim=1)
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            marks[0].record()
+            dd = torch.addmm(sq[:2048, None] + sq[None, :], x[:2048], x.t(),
+                             alpha=-2.0)
+            marks[1].record()
+            nn_ = torch.arange(2048, device=dev)
+            dd[nn_, nn_] = float("inf")
+            marks[2].record()
+            torch.topk(dd, 10, dim=1, largest=False)
+            marks[3].record()
+            torch.cuda.synchronize()
+            part = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
+            blk_bms, blk_by = bound_ms(2048 * KNN_ROWS * 4 + KNN_ROWS * D * 4,
+                                       2.0 * 2048 * KNN_ROWS * D, "float32")
+            del x, sq, dd
+            for t, a_ in enumerate(alts):
+                tab = (a_ % 100).astype(np.int64) - 1
+                row = (a_ // 100).astype(np.int64)
+                lens = np.asarray([len(x) for x in sub])
+                if len(a_) != len(sub[t]) or tab.min() < 0 or \
+                        tab.max() >= len(sub) or (row >= lens[tab]).any():
+                    raise AssertionError(f"3i(c) alt keys of table {t} "
+                                         f"name no row")
+            rows20 = np.concatenate(sub)[:KNN_CPU_ROWS]
+            cpu = gen_altkeys._topk_neighbors_blocked(rows20, 11,
+                                                      device="cpu")
+            gpu = gen_altkeys._topk_neighbors_blocked(rows20, 10, device=dev)
+            r64 = rows20.astype(np.float64)
+            ii = np.arange(len(r64))
+            dk = ((r64 - r64[cpu[:, 9]]) ** 2).sum(1)
+            dk1 = ((r64 - r64[cpu[:, 10]]) ** 2).sum(1)
+            sep = dk1 - dk > 1e-5 * dk
+            off = [i for i in ii[sep] if set(gpu[i]) != set(cpu[i, :10])]
+            if off:
+                raise AssertionError(f"3i(c) {len(off)} rows' neighbour "
+                                     f"sets differ from the CPU's")
+            full = sum(sizes)
+            flop = float(full) ** 2 * D * 2
+            print(f"3i(c) gen_altkeys on the card [{card}]: {KNN_ROWS} rows "
+                  f"of the first {len(sub)} tables, k=10, in {secs:.2f} s "
+                  f"({KNN_ROWS / secs:.0f} rows/s); one block of 2048 "
+                  f"queries: distances (the broadcast add and addmm) "
+                  f"{part[0]:.3f} ms, the self mask {part[1]:.3f} ms, topk "
+                  f"{part[2]:.3f} ms, against a bound of {blk_bms:.3f} ms "
+                  f"({blk_by}: the [2048, {KNN_ROWS}] distances written once)"
+                  f"; {KNN_CPU_ROWS} of them "
+                  f"against the CPU run: neighbour sets equal on all "
+                  f"{int(sep.sum())} rows whose 10th and 11th distances "
+                  f"differ by more than 1e-5 relative. The full kNN over "
+                  f"{full} rows is {full}^2 x {D} x 2 = {flop:.2e} flop, "
+                  f"{flop / PEAK_OPS_PER_S['float32'] / 60:.1f} min at the "
+                  f"f32 peak (not run): phase 3c keeps uniform alt keys",
+                  flush=True)
+            del sub, alts, rows20, cpu, gpu, r64
+
+            # (d) the export
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            whole = DLRM(kcfg, device=dev, seed=args.seed, tables=base)
+            small = export_model.truncate_tables(whole, EXPORT_ROWS)
+            del whole, base
+            torch.cuda.empty_cache()
+            t_build = time.perf_counter() - t1
+            mb = sum(t.numel() * t.element_size() for t in small.tables) / 1e6
+            path = os.path.join(d, "export", "dlrm.pt2")
+            os.makedirs(os.path.dirname(path))
+            t1 = time.perf_counter()
+            prog = export_model.trace_program(small, 2048)
+            t_trace = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            torch.export.save(prog, path)
+            t_save = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            fn = export_model.load_exported(path)
+            t_load = time.perf_counter() - t1
+            ops = prog.graph_module.code.count("evstore.dot_interaction")
+            dx, idx, _ = next(random_batches(RandomDataConfig(
+                num_dense=kcfg.num_dense_features,
+                table_sizes=small.cfg.table_sizes, batch_size=2048,
+                num_batches=1, seed=args.seed + 45,
+                distribution="grouped_zipf", zipf_alpha=1.05,
+                group_noise=0.1)))
+            dxt = torch.from_numpy(np.asarray(dx, np.float32)).to(dev)
+            idt = torch.from_numpy(np.asarray(idx, np.int32)).to(dev)
+            with torch.no_grad():
+                want = small.predict(dxt, idt)
+            counted("export", lambda: fn(dxt, idt))     # the first call
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = counted("export", lambda: fn(dxt, idt))
+            torch.cuda.synchronize()
+            t_score = time.perf_counter() - t1
+            ok, dmax = within(got, want, 1e-5)
+            if not ok or ops != 1 or paths["export"]["interaction_fwd"] != 2:
+                raise AssertionError(f"3i(d) the exported program: scores "
+                                     f"max|d| {dmax}, {ops} K1 ops, "
+                                     f"launches {paths['export']}")
+            print(f"3i(d) the export [{card}]: the Kaggle model with its "
+                  f"tables cut to {EXPORT_ROWS} rows by truncate_tables "
+                  f"({mb:.1f} MB, built in {t_build:.2f} s); "
+                  f"torch.export at batch 2048 {t_trace:.2f} s, save "
+                  f"{t_save:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
+                  f"load {t_load:.2f} s, one scored batch "
+                  f"{t_score * 1e3:.3f} ms; scores within {dmax:.3e} of "
+                  f"DLRM.predict (limit 1e-5 (1 + |ref|)); the program holds "
+                  f"{ops} evstore.dot_interaction op, which launched K1 "
+                  f"{paths['export']['interaction_fwd']} times in 2 calls",
+                  flush=True)
+            del small, prog, fn, dxt, idt, want, got
+            torch.cuda.empty_cache()
+
+            # (e) the tools' CLIs
+            plots = visualize.have("matplotlib")
+            dash = "-".join(str(n) for n in sizes)
+            t1 = time.perf_counter()
+            captured(reduce_precision.main, [
+                "--in-dir", ev, "--out-dir", os.path.join(d, "ev8"),
+                "--table-sizes", dash, "--dim", str(D),
+                "--new-precision", "8"])
+            t_red = time.perf_counter() - t1
+            for t, n in enumerate(sizes):
+                if os.path.getsize(os.path.join(
+                        d, "ev8", f"ev-table-{t + 1}.bin")) != n * D:
+                    raise AssertionError(f"3i(e) 8-bit table {t}")
+            shutil.rmtree(os.path.join(d, "ev8"))
+            t1 = time.perf_counter()
+            viz = captured(visualize.main, [
+                "--ev-table-path", ev, "--dim", str(D), "--table-sizes",
+                dash, "--table", "2", "--sample", "2000", "--out-dir",
+                os.path.join(d, "viz")])
+            t_viz = time.perf_counter() - t1
+            with open(os.path.join(d, "viz", "report.json")) as f:
+                report = json.load(f)
+            t1 = time.perf_counter()
+            cdf = captured(plot_cdf.main, [
+                os.path.join(d, "cdf.csv"), "--out",
+                os.path.join(d, "cdf.png")])
+            t_cdf = time.perf_counter() - t1
+            sk = visualize.have("sklearn")
+            said = {"visualize plots": plots or "no plots" in viz,
+                    "visualize neighbours": sk or "NumPy fallback" in viz,
+                    "plot_cdf": ("wrote" in cdf) if plots else
+                    ("ASCII fallback" in cdf and "p99=" in cdf)}
+            if set(report) != {"norms", "neighbors"} or \
+                    not all(said.values()):
+                raise AssertionError(f"3i(e) the tools: {said}, report "
+                                     f"{sorted(report)}")
+            print(f"3i(e) the tools' CLIs over 3f's files [{card}]: "
+                  f"reduce_precision 32 -> 8 bits over {sum(sizes)} rows "
+                  f"{t_red:.2f} s; visualize (table 2, 2000 rows) "
+                  f"{t_viz:.2f} s; plot_cdf {t_cdf:.2f} s; matplotlib "
+                  f"{'present' if plots else 'absent'}, sklearn "
+                  f"{'present' if sk else 'absent'}: each tool said which "
+                  f"path it took", flush=True)
+            dist.destroy_process_group()
+            wanted = {"train_cached_sharded": (
+                "interaction_fwd", "interaction_bwd", "gather_rows",
+                "gather_rows_dequant_int8", "scatter_sub_sorted"),
+                "export": ("interaction_fwd",)}
+            out = {}
+            for p, names in wanted.items():
+                out[p] = {k: paths[p][k] for k in names}
+                if min(out[p].values()) < 1:
+                    raise AssertionError(f"a kernel of {p} never ran: "
+                                         f"{paths[p]}")
+            print(f"3i path launches: {json.dumps(out)}", flush=True)
             return out
 
     # ------------------------------------------ 3e train factored tables
@@ -3721,9 +4202,10 @@ def main() -> int:
     try:
         cli_launches = phase_3f(work_dir.name)
         cached_launches = phase_3g(work_dir.name)
+        mesh_launches = phase_3h(serve3)
+        mesh_launches.update(phase_3i(work_dir.name))
     finally:
         work_dir.cleanup()
-    mesh_launches = phase_3h(serve3)
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):

@@ -415,6 +415,26 @@ class NativeDeviceC1Cache:
         self.engine.close()
 
 
+def broadcast_header(values, n: int, mesh) -> List[int]:
+    """Rank 0's n ints (`values`; None on the other ranks) to every rank of
+    the mesh, read back on the host: the sizes of a plan's parts."""
+    head = torch.tensor(list(values) if values is not None else [0] * n,
+                        dtype=torch.int64).to(mesh.device)
+    dist.broadcast(head, src=0, group=mesh.group)
+    return [int(v) for v in head.cpu()]
+
+
+def broadcast_array(arr, shape, dtype: torch.dtype, mesh) -> torch.Tensor:
+    """Rank 0's numpy array (None on the other ranks, which give its shape
+    and dtype) on every rank's device."""
+    if arr is not None:
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(mesh.device)
+    else:
+        t = torch.empty(shape, dtype=dtype, device=mesh.device)
+    dist.broadcast(t, src=0, group=mesh.group)
+    return t
+
+
 class ShardedDeviceC1Cache:
     """The device C1 cache with its slots sharded over ranks: capacity C
     splits into C / n slots a rank, so it grows with the cards, while the
@@ -513,7 +533,7 @@ class ShardedDeviceC1Cache:
         dev = self.device
         B, T = idx.shape
         t0 = time.perf_counter()
-        head = torch.zeros(2, dtype=torch.int64)
+        head = ints = buf_p = None
         if self.assigner is not None:
             slots, scat_slots, scat_m, buf = self.assigner.assign_batch(idx)
             t1 = time.perf_counter()
@@ -524,28 +544,20 @@ class ShardedDeviceC1Cache:
             buf_p[:M] = buf
             if self.precision == 8:
                 buf_p = np_quantize_int8(buf_p)
-            head[:] = torch.tensor([scat_slots.size, buf_p.shape[0]])
+            head = (scat_slots.size, buf_p.shape[0])
+            ints = np.concatenate([slots.ravel(), scat_slots,
+                                   scat_m]).astype(np.int32, copy=False)
             self.host_s["pack"] += time.perf_counter() - t1
         t2 = time.perf_counter()
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         t3 = time.perf_counter()
         self.host_s["wait"] += t3 - t2
-        head = head.to(dev)
-        dist.broadcast(head, src=0, group=self.mesh.group)
-        n_c, Mp = (int(v) for v in head.cpu())
-        if self.assigner is not None:
-            ints = torch.from_numpy(np.concatenate(
-                [slots.ravel(), scat_slots, scat_m]).astype(
-                    np.int32, copy=False)).to(dev)
-            pay = torch.from_numpy(buf_p).to(dev)
-        else:
-            ints = torch.empty(B * T + 2 * n_c, dtype=torch.int32,
-                               device=dev)
-            pay = torch.empty((Mp, self.dim), dtype=self._store.dtype,
-                              device=dev)
-        dist.broadcast(ints, src=0, group=self.mesh.group)
-        dist.broadcast(pay, src=0, group=self.mesh.group)
+        n_c, Mp = broadcast_header(head, 2, self.mesh)
+        ints = broadcast_array(ints, (B * T + 2 * n_c,), torch.int32,
+                               self.mesh)
+        pay = broadcast_array(buf_p, (Mp, self.dim), self._store.dtype,
+                              self.mesh)
         self.bytes_shipped += pay.numel() * pay.element_size()
         return (ints[:B * T].view(B, T), ints[B * T:B * T + n_c],
                 ints[B * T + n_c:], pay, t3)

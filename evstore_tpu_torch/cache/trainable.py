@@ -1,9 +1,9 @@
 """Training DLRM with device memory bounded by the C1 cache.
 
-Port of `TrainableDeviceCache` from `evstore_tpu/cache/trainable.py` (its
-sharded subclass is ROADMAP queue 1 item 8).  The reference trains with
-whole tables on the accelerator and serves through EVStore; here the
-sparse updates write through the cache tier:
+Port of `TrainableDeviceCache` and `ShardedTrainableDeviceCache` from
+`evstore_tpu/cache/trainable.py`.  The reference trains with whole tables
+on the accelerator and serves through EVStore; here the sparse updates
+write through the cache tier:
 
 - The masters live in host memory: the float32 tables and their rwsadagrad
   row sums (`host_tables`, `host_mom`; numpy, or `np.memmap` over the EV
@@ -47,6 +47,9 @@ Three drivers give the same trajectory bit for bit:
 - `train_batches_windowed`, K batches per upload and download, a window
   ahead on the host.
 
+`ShardedTrainableDeviceCache` shards the cells over a mesh's model axis,
+one process per rank (its docstring).
+
 Departures from the JAX class: stochastic rounding draws from a
 `torch.Generator` seeded with the step index, not from `jax.random`; the
 static bucket sizes (`insert_bucket`, `_bucket`) are a TPU lowering and
@@ -63,7 +66,10 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from evstore_tpu_torch.cache.device_cache import (broadcast_array,
+                                                  broadcast_header)
 from evstore_tpu_torch.cache.storage import write_ev_tables_binary
 from evstore_tpu_torch.config import CacheConfig, DLRMConfig, TrainConfig
 from evstore_tpu_torch.models.dlrm import dlrm_loss
@@ -77,6 +83,8 @@ from evstore_tpu_torch.ops.cuda_update import (rwsadagrad_row_update_global,
                                                segment_sums)
 from evstore_tpu_torch.ops.quant import dequantize_int8
 from evstore_tpu_torch.ops.table_desc import INT32_MAX
+from evstore_tpu_torch.parallel.sharded import (_all_gather_cat, _slice,
+                                                mean_over_data)
 from evstore_tpu_torch.train.optim import (dense_parameters, lr_schedule,
                                            make_optimizer, row_update)
 from evstore_tpu_torch.utils.device import resolve_device
@@ -144,6 +152,21 @@ class _Staging:
             self.event = None
 
 
+def _map_files(bin_dir: str, table_sizes: Sequence[int], dim: int):
+    """The float32 `ev-table-<t+1>.bin` files mapped read-write, and the
+    `mom-<t+1>.bin` row-sum files beside them (created zeroed if absent):
+    -> (tables, sums), lists of `np.memmap`."""
+    tables, moms = [], []
+    for t, n in enumerate(table_sizes):
+        p = os.path.join(bin_dir, f"ev-table-{t + 1}.bin")
+        tables.append(np.memmap(p, np.float32, mode="r+", shape=(n, dim)))
+        mp = os.path.join(bin_dir, f"mom-{t + 1}.bin")
+        if not os.path.exists(mp):
+            np.zeros(n, np.float32).tofile(mp)
+        moms.append(np.memmap(mp, np.float32, mode="r+", shape=(n,)))
+    return tables, moms
+
+
 def _offsets(parts) -> np.ndarray:
     """Where each part starts in one buffer of all of them, and the end."""
     return np.cumsum([0] + [int(np.asarray(p).size) for p in parts])
@@ -178,6 +201,29 @@ class TrainableDeviceCache:
         # updates compute in float32, and the masters and sums stay float32
         self.cache_dtype = {32: torch.float32, 16: torch.bfloat16,
                             8: torch.uint8}[ccfg.main_precision]
+        self.engine = self.assigner = None
+        self.host_tables = self.host_mom = None
+        if self._holds_masters():
+            self._init_masters(ccfg, tables, copy_tables)
+        self._init_cells(*self._cell_layout())
+        self.lr_fn = lr_schedule(tcfg.learning_rate, tcfg.lr_num_warmup_steps,
+                                 tcfg.lr_decay_start_step,
+                                 tcfg.lr_num_decay_steps)
+        self._dense_update = make_optimizer("rwsadagrad", eps)[1]
+        self._gen = torch.Generator(device=self.device)
+        self._up = _Staging(self.device, torch.int32)
+        self._down = _Staging(self.device, torch.float32)
+        self.dropped_updates = 0
+        self.host_s = dict.fromkeys(("assign", "fetch", "land", "step"), 0.0)
+
+    def _holds_masters(self) -> bool:
+        """Whether this process holds the masters, the engine and the
+        assigner (every process of one device; rank 0 of a mesh)."""
+        return True
+
+    def _init_masters(self, ccfg: CacheConfig, tables: Sequence,
+                      copy_tables: bool) -> None:
+        cfg = self.cfg
         # The masters are the engine's store, borrowed without a copy, so
         # that a miss read sees the write-backs made before it.  A copy is
         # C-ordered float32 numpy: a borrow of anything else would copy
@@ -216,25 +262,27 @@ class TrainableDeviceCache:
                     "be invisible to miss reads")
         self.assigner = NativeAssigner(self.engine, self.capacity,
                                        ccfg.flush_rate, ccfg.perfect_item_cap)
+
+    def _cell_layout(self):
+        """(this process's cells, scratch rows past them)."""
+        return self.capacity, 0
+
+    def _init_cells(self, n_own: int, scratch: int) -> None:
+        """The cells on the card: `_store` [n_own + scratch, D] of the
+        cache's type (the cells the step's ids address; `cache_values` its
+        first n_own rows, this process's cells) and `_mom`, one flat float32
+        buffer [store's sums | buffer sums], so that one grouped update
+        covers the cells and the buffer (grown with the buffer).  A buffer
+        row m has the id `_cells` + m."""
+        self._cells = n_own + scratch
         dev = self.device
-        self.cache_values = torch.zeros((self.capacity, self.dim),
-                                        dtype=self.cache_dtype, device=dev)
-        # [cache_mom | buffer sums]: one flat buffer, so that one grouped
-        # update covers the cache and the buffer; grown with the buffer
-        self._mom = torch.zeros(self.capacity, dtype=torch.float32,
-                                device=dev)
-        self.cache_mom = self._mom[:self.capacity]
+        self._store = torch.zeros((self._cells, self.dim),
+                                  dtype=self.cache_dtype, device=dev)
+        self.cache_values = self._store[:n_own]
+        self._mom = torch.zeros(self._cells, dtype=torch.float32, device=dev)
+        self.cache_mom = self._mom[:n_own]
         self._buf = torch.zeros((0, self.dim), dtype=torch.float32,
                                 device=dev)
-        self.lr_fn = lr_schedule(tcfg.learning_rate, tcfg.lr_num_warmup_steps,
-                                 tcfg.lr_decay_start_step,
-                                 tcfg.lr_num_decay_steps)
-        self._dense_update = make_optimizer("rwsadagrad", eps)[1]
-        self._gen = torch.Generator(device=dev)
-        self._up = _Staging(dev, torch.int32)
-        self._down = _Staging(dev, torch.float32)
-        self.dropped_updates = 0
-        self.host_s = dict.fromkeys(("assign", "fetch", "land", "step"), 0.0)
 
     @classmethod
     def from_files(cls, cfg: DLRMConfig, tcfg: TrainConfig, ccfg: CacheConfig,
@@ -245,40 +293,32 @@ class TrainableDeviceCache:
         absent).  Host memory holds only the page cache's working set;
         write-backs land in the mapped pages and reach the files with
         `flush_files`."""
-        D = cfg.embedding_dim
-        tables, moms = [], []
-        for t, n in enumerate(table_sizes):
-            p = os.path.join(bin_dir, f"ev-table-{t + 1}.bin")
-            tables.append(np.memmap(p, np.float32, mode="r+", shape=(n, D)))
-            mp = os.path.join(bin_dir, f"mom-{t + 1}.bin")
-            if not os.path.exists(mp):
-                np.zeros(n, np.float32).tofile(mp)
-            moms.append(np.memmap(mp, np.float32, mode="r+", shape=(n,)))
+        tables, moms = _map_files(bin_dir, table_sizes, cfg.embedding_dim)
         obj = cls(cfg, tcfg, ccfg, tables, copy_tables=False, **kw)
         obj.host_mom = moms
-        obj._file_backed = True
         return obj
 
     def flush_files(self):
         """Write the cache back to the masters and the mapped masters and
         sums to their files (for in-memory masters, a flush only)."""
         self.flush_to_host()
-        for arr in list(self.host_tables) + list(self.host_mom):
+        for arr in list(self.host_tables or []) + list(self.host_mom or []):
             if isinstance(arr, np.memmap):
                 arr.flush()
 
     # ------------------------------------------------------------ the step
 
     def _reserve(self, n: int) -> None:
-        """Room for n buffer rows (and their sums after the cache's)."""
+        """Room for n buffer rows (and their sums after the cells')."""
         n = max(n, 1)
         if n <= self._buf.shape[0]:
             return
         n = max(n, 2 * self._buf.shape[0])
-        C = self.capacity
+        C = self._cells
         mom = torch.zeros(C + n, dtype=torch.float32, device=self.device)
-        mom[:C] = self.cache_mom
-        self._mom, self.cache_mom = mom, mom[:C]
+        mom[:C] = self._mom[:C]
+        self._mom = mom
+        self.cache_mom = mom[:self.cache_values.shape[0]]
         self._buf = torch.zeros((n, self.dim), dtype=torch.float32,
                                 device=self.device)
 
@@ -298,27 +338,27 @@ class TrainableDeviceCache:
             self.cache_values, slots).float()
 
     def _read_rows(self, gi: torch.Tensor) -> torch.Tensor:
-        """The batch's rows [B, T, D] float32: gi < C reads the cache cell,
-        gi = C + m buffer row m.  The float32 buffer is never rounded to
-        the cache's type."""
-        C = self.capacity
+        """The batch's rows [B, T, D] float32: gi < C = `_cells` reads the
+        cell, gi = C + m buffer row m, any other id a zero row.  The
+        float32 buffer is never rounded to the cache's type."""
+        C = self._cells
         kern = self.cfg.use_gather_kernel
         take = gather_rows if kern else gather_rows_ref
         if self.cache_dtype == torch.float32:
-            return take(self.cache_values, gi, self._buf)
+            return take(self._store, gi, self._buf)
         in_c = (gi < C)[..., None]
         from_buf = take(self._buf, gi - C)
         return torch.where(in_c, self._read_slots(gi), from_buf)
 
     def _row_update(self, gi: torch.Tensor, g: torch.Tensor, lr: float,
                     seed: int) -> None:
-        """rwsadagrad on the cells the batch read, keyed by gi [K]: the
-        gradients g [K, D] of one cell coalesce before its sum moves."""
-        C = self.capacity
+        """rwsadagrad on the cells the batch read, keyed by gi [K] (ids
+        as `_read_rows` takes them; any other id is inert): the gradients
+        g [K, D] of one cell coalesce before its sum moves."""
+        C = self._cells
         kern = self.tcfg.use_update_kernel
         if self.cache_dtype == torch.float32 and kern:
-            rwsadagrad_row_update_global(self._mom,
-                                         [self.cache_values, self._buf],
+            rwsadagrad_row_update_global(self._mom, [self._store, self._buf],
                                          gi, g, lr, self.eps)
             return
         in_c = gi < C
@@ -351,14 +391,14 @@ class TrainableDeviceCache:
             gc[torch.where(valid, seg_at, C)] = Gc
         else:
             gc.index_add_(0, cell, g)
-        gc = gc[:C]
+        gc = gc[:self.cache_values.shape[0]]
         inc = torch.mean(gc * gc, dim=1)
         touched = inc > 0
         mom2 = self.cache_mom + inc
         std = torch.sqrt(mom2) + self.eps
         upd = _q8_decode(self.cache_values) - \
             (lr * gc / std[:, None]) * touched[:, None]
-        self._gen.manual_seed(seed)
+        self._gen.manual_seed(self._sr_seed(seed))
         enc = _q8_encode_sr(upd, self._gen)
         self.cache_values.copy_(torch.where(touched[:, None], enc,
                                             self.cache_values))
@@ -370,16 +410,16 @@ class TrainableDeviceCache:
         cache cells scat_slots take buffer rows scat_src (with their sums)
         before the forward.  Updates the cache, the buffer, the model's
         dense parameters and dstate in place; returns the loss."""
-        C = self.capacity
+        C = self._cells
         with torch.no_grad():
             if scat_slots.numel():
                 src = scat_src.long()
-                slots = scat_slots.long()
-                self.cache_values.index_copy_(
+                slots = self._scatter_rows(scat_slots)
+                self._store.index_copy_(
                     0, slots, self._encode_det(self._buf.index_select(0, src)))
-                self.cache_mom.index_copy_(
+                self._mom.index_copy_(
                     0, slots, self._mom[C:].index_select(0, src))
-            emb = self._read_rows(gi)
+            emb = self._exchange(self._read_rows(self._read_ids(gi)))
         emb.requires_grad_(True)
         params = dense_parameters(model)
         for p in params.values():
@@ -388,10 +428,38 @@ class TrainableDeviceCache:
                          self.tcfg.loss_function, self.tcfg.loss_weights)
         loss.backward()
         with torch.no_grad():
+            loss = self._mean_over_data(loss.detach(), params)
             self._dense_update(dstate, params, lr)
-            self._row_update(gi.reshape(-1), emb.grad.reshape(-1, self.dim),
-                             lr, seed)
-        return loss.detach()
+            ids, g = self._row_grads(gi, emb.grad)
+            self._row_update(ids, g, lr, seed)
+        return loss
+
+    # the step's hooks: one device as they are; the sharded class
+    # (`ShardedTrainableDeviceCache`) maps ids to its cells and exchanges
+
+    def _scatter_rows(self, scat_slots: torch.Tensor) -> torch.Tensor:
+        """The `_store` rows the misses inserted at `scat_slots` land in."""
+        return scat_slots.long()
+
+    def _read_ids(self, gi: torch.Tensor) -> torch.Tensor:
+        """The ids `_read_rows` takes for the gather indices gi [B, T]."""
+        return gi
+
+    def _exchange(self, rows: torch.Tensor) -> torch.Tensor:
+        return rows
+
+    def _mean_over_data(self, loss: torch.Tensor, params) -> torch.Tensor:
+        """The loss, and the dense grads in place, of the global batch."""
+        return loss
+
+    def _row_grads(self, gi: torch.Tensor, grad: torch.Tensor):
+        """(ids [K], grads [K, D]) of the row update from the gather
+        indices and the rows' cotangent."""
+        return gi.reshape(-1), grad.reshape(-1, self.dim)
+
+    def _sr_seed(self, seed: int) -> int:
+        """The seed of a step's stochastic rounding: the step's index."""
+        return seed
 
     def _check_model(self, model) -> None:
         if model.cfg != self.cfg:
@@ -896,11 +964,16 @@ class TrainableDeviceCache:
 
     # ------------------------------------------------------------ the rest
 
+    # The files below are written by the process that holds the masters
+    # (rank 0 of a mesh); the flush before them is collective.
+
     def save(self, out_dir: str):
         """Flush, then each table's rows and sums as `table_<t>.npy` and
         `mom_<t>.npy` (the JAX package's files, which it reads too)."""
-        os.makedirs(out_dir, exist_ok=True)
         self.flush_to_host()
+        if self.host_tables is None:
+            return
+        os.makedirs(out_dir, exist_ok=True)
         for t, (tab, mom) in enumerate(zip(self.host_tables, self.host_mom)):
             np.save(os.path.join(out_dir, f"table_{t}.npy"), tab)
             np.save(os.path.join(out_dir, f"mom_{t}.npy"), mom)
@@ -908,7 +981,8 @@ class TrainableDeviceCache:
     def load(self, in_dir: str):
         """Restore the masters and sums from `save`'s files; the cache
         starts cold and refills through misses."""
-        for t in range(self.n_tables):
+        for t in range(self.n_tables if self.host_tables is not None
+                       else 0):
             self.host_tables[t][:] = np.load(
                 os.path.join(in_dir, f"table_{t}.npy"))
             self.host_mom[t][:] = np.load(
@@ -917,17 +991,254 @@ class TrainableDeviceCache:
 
     def export_ev_tables(self, out_dir: str, precision: int = 32):
         """The trained tables as EV .bin files for the serving tiers
-        (dlrm_s_pytorch.py:1780-1796)."""
+        (dlrm_s_pytorch.py:1780-1796): -> their paths ([] where no
+        masters are held)."""
         self.flush_to_host()
+        if self.host_tables is None:
+            return []
         return write_ev_tables_binary(self.host_tables, out_dir, precision)
 
     def stats(self) -> dict:
-        s = self.assigner.stats()
+        """The assigner's counters (where it runs) with `hbm_bytes`, the
+        whole cache's cells and sums, and `hbm_bytes_per_chip`, this
+        process's."""
+        s = self.assigner.stats() if self.assigner is not None else {}
         item = torch.empty((), dtype=self.cache_dtype).element_size()
-        hbm = int(self.capacity * (self.dim * item + 4))
-        s.update({"capacity": self.capacity, "hbm_bytes_per_chip": hbm,
-                  "hbm_bytes": hbm, "dropped_updates": self.dropped_updates})
+        row = self.dim * item + 4
+        s.update({"capacity": self.capacity,
+                  "hbm_bytes_per_chip": int(self.cache_values.shape[0] * row),
+                  "hbm_bytes": int(self.capacity * row),
+                  "dropped_updates": self.dropped_updates})
         return s
 
     def close(self):
-        self.engine.close()
+        if self.engine is not None:
+            self.engine.close()
+
+
+class ShardedTrainableDeviceCache(TrainableDeviceCache):
+    """The trainable cache with its cells sharded over the "model" axis of
+    a mesh (`parallel/mesh.py`), so that the cache's capacity grows with the
+    cards, and the batch data-parallel over "data".  Port of the JAX
+    package's `ShardedTrainableDeviceCache`, one process per rank; every
+    rank calls each method with the same arguments (the global batch).
+
+    - Cells: model rank m holds the cells [m·Cl, (m+1)·Cl), Cl = C /
+      n_model (`cache_values` [Cl, D], `cache_mom` [Cl]), and a scratch
+      row past them for the misses other ranks own.  The miss buffer is
+      whole on every rank.
+    - Host: rank 0 alone holds the masters (in memory, or mapped files
+      under `from_files`), the engine and its training assigner.  A batch:
+      rank 0 assigns and broadcasts a size header, then the gather indices,
+      the scatter lists and the evicted cells (`device_cache.py::
+      broadcast_header`, `broadcast_array`, as `ShardedDeviceC1Cache`
+      does), then, after the evicted cells have landed, the miss rows and
+      their sums.
+    - Step: each rank writes the misses it owns into its cells and reads
+      its data slice's rows with the two-source gather (K2, or K3 for uint8
+      cells) over [its cells | the buffer]: a foreign cell reads -1, a zero
+      row, and only model rank 0 serves buffer rows; one all-reduce over
+      the model group gives the rows, which become the autograd leaf (the
+      psum route's `_Lookup`).  The loss and the dense grads take one
+      all-reduce over the data group (`parallel/sharded.py::
+      mean_over_data`); the rows' grads, divided by n_data, one all-gather
+      over it, and every replica of a shard applies the same rwsadagrad
+      (K5) to its cells and to the whole buffer, a foreign cell's id
+      PAD_ROW.  uint8 cells re-encode with stochastic rounding seeded by
+      the step and the model index (model rank 0 takes the one-device
+      seed), not the data index, so the replicas of a shard hold the same
+      bytes.
+    - Write-backs: the ranks of data row 0 read the dying cells they own
+      (zero rows elsewhere) and a reduce over the model group delivers
+      them to rank 0, which writes the masters; the buffer rows go back
+      from rank 0's copy.  `flush_to_host` lands the resident cells the
+      same way, at most Cl at a time; `save`, `export_ev_tables` and
+      `flush_files` then write the one-device class's files on rank 0.
+    - Drivers: `train_batch`.  `train_batches` and `train_batches_windowed`
+      yield its per-batch stream, which is the pipelined and windowed
+      trajectory (JAX's `run_cached_training` drives its sharded class
+      one batch at a time too).
+
+    At world 1 it equals `TrainableDeviceCache` bit for bit."""
+
+    def __init__(self, cfg: DLRMConfig, tcfg: TrainConfig, ccfg: CacheConfig,
+                 tables: Optional[Sequence], mesh, eps: float = 1e-10,
+                 copy_tables: bool = True):
+        self.mesh = mesh
+        self.n_cache_shards = mesh.n_model
+        if ccfg.total_size % self.n_cache_shards:
+            raise ValueError(f"capacity {ccfg.total_size} must divide the "
+                             f"{self.n_cache_shards}-shard model axis")
+        self.c_local = ccfg.total_size // self.n_cache_shards
+        self.r0 = mesh.m * self.c_local
+        super().__init__(cfg, tcfg, ccfg, tables, eps=eps,
+                         copy_tables=copy_tables, device=mesh.device)
+
+    @classmethod
+    def from_files(cls, cfg: DLRMConfig, tcfg: TrainConfig, ccfg: CacheConfig,
+                   bin_dir: str, table_sizes: Sequence[int], mesh=None,
+                   **kw):
+        """The masters mapped from the .bin files by rank 0 (the other
+        ranks read no file)."""
+        tables = moms = None
+        if mesh.rank == 0:
+            tables, moms = _map_files(bin_dir, table_sizes,
+                                      cfg.embedding_dim)
+        obj = cls(cfg, tcfg, ccfg, tables, mesh, copy_tables=False, **kw)
+        if moms is not None:
+            obj.host_mom = moms
+        return obj
+
+    def _holds_masters(self) -> bool:
+        return self.mesh.rank == 0
+
+    def _cell_layout(self):
+        return self.c_local, 1          # a scratch row for foreign misses
+
+    # ------------------------------------------------------ the step hooks
+
+    def _own(self, gi: torch.Tensor):
+        """(whether each global cell id is this rank's, its local cell)."""
+        loc = gi.long() - self.r0
+        return (loc >= 0) & (loc < self.c_local), loc
+
+    def _scatter_rows(self, scat_slots: torch.Tensor) -> torch.Tensor:
+        own, loc = self._own(scat_slots)
+        return torch.where(own, loc, self.c_local)      # the scratch row
+
+    def _read_ids(self, gi: torch.Tensor) -> torch.Tensor:
+        lo, hi = _slice(gi.shape[0], self.mesh)
+        g = gi[lo:hi].long()
+        own, loc = self._own(g)
+        C = self.capacity
+        serve = (g >= C) & (self.mesh.m == 0)
+        return torch.where(own, loc, torch.where(
+            serve, g - C + self._cells, -1)).to(torch.int32)
+
+    def _exchange(self, rows: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(rows, group=self.mesh.model_group)
+        return rows
+
+    def _mean_over_data(self, loss: torch.Tensor, params) -> torch.Tensor:
+        return mean_over_data(loss, params, self.mesh)
+
+    def _row_grads(self, gi: torch.Tensor, grad: torch.Tensor):
+        n = self.mesh.n_data
+        g = _all_gather_cat(grad, self.mesh.data_group, n) / n
+        own, loc = self._own(gi)
+        ids = torch.where(own, loc, torch.where(
+            gi.long() >= self.capacity, gi.long() - self.capacity
+            + self._cells, INT32_MAX))
+        return ids.reshape(-1), g.reshape(-1, self.dim)
+
+    def _sr_seed(self, seed: int) -> int:
+        return seed + (self.mesh.m << 40)
+
+    # ------------------------------------------------------ the host side
+
+    def _land_cells(self, slots: torch.Tensor, keys) -> None:
+        """The current rows and sums of the cells `slots` (global ids on
+        every rank's device) into rank 0's masters at `keys` (packed
+        table << 40 | row, on rank 0): each rank of data row 0 reads the
+        cells it owns, zeros elsewhere, and a sum over its model group
+        gives rank 0 every one (collective over data row 0)."""
+        if slots.numel() == 0 or self.mesh.d != 0:
+            return
+        own, loc = self._own(slots)
+        rows = self._read_slots(torch.where(own, loc, -1).to(torch.int32))
+        sums = torch.where(own, self._mom[torch.where(own, loc, 0)], 0.0)
+        both = torch.cat([rows, sums[:, None]], dim=1)
+        dist.reduce(both, dst=0, group=self.mesh.model_group)
+        if self.host_tables is not None:
+            arr = both.cpu().numpy()
+            keys = np.asarray(keys, np.int64)
+            self._write_masters((keys >> 40).astype(np.int32),
+                                keys & KEY_ROW, arr[:, :self.dim],
+                                arr[:, self.dim])
+
+    def train_batch(self, model, dstate, step_idx: int, dense_x, idx,
+                    labels):
+        """One step of the global batch on every rank (see the class):
+        -> (model, dstate, the global batch's loss)."""
+        self._check_model(model)
+        idx = np.asarray(idx)
+        check_ids(idx, self.cfg.table_sizes)
+        B, T = idx.shape
+        D, mesh = self.dim, self.mesh
+        head = ints = ev_keys = None
+        if self.assigner is not None:
+            (gather_idx, scat_slots, scat_m, M, ev_keys, ev_slots, buf_t,
+             buf_r) = self._assign(idx)
+            head = (len(scat_slots), M, len(ev_slots))
+            ints = np.concatenate([gather_idx.ravel(), scat_slots, scat_m,
+                                   ev_slots]).astype(np.int32, copy=False)
+        n_s, M, E = broadcast_header(head, 3, mesh)
+        ints = broadcast_array(ints, (B * T + 2 * n_s + E,), torch.int32,
+                               mesh)
+        o = B * T
+        gi, ss, sm, es = (ints[:o].view(B, T), ints[o:o + n_s],
+                          ints[o + n_s:o + 2 * n_s], ints[o + 2 * n_s:])
+        # before the read: a key evicted and missed again in this batch
+        # must read its updated value
+        t0 = time.perf_counter()
+        self._land_cells(es, ev_keys)
+        self.host_s["land"] += time.perf_counter() - t0
+        floats = None
+        if self.assigner is not None:
+            rows, moms = self._fetch(buf_t, buf_r)
+            floats = np.concatenate([rows.reshape(-1), moms])
+        floats = broadcast_array(floats, (M * (D + 1),), torch.float32, mesh)
+        t0 = time.perf_counter()
+        self._reserve(M)
+        C = self._cells
+        with torch.no_grad():
+            self._buf[:M] = floats[:M * D].view(M, D)
+            self._mom[C:C + M] = floats[M * D:]
+        lo, hi = _slice(B, mesh)
+        dense_x = np.asarray(dense_x, np.float32)[lo:hi]
+        labels = np.asarray(labels, np.float32)[lo:hi]
+        _, (dx, lb) = self._upload([], [dense_x, labels])
+        loss = self._step(model, dstate, gi, ss, sm, dx.view(dense_x.shape),
+                          lb.view(labels.shape),
+                          float(self.lr_fn(step_idx)), int(step_idx))
+        # the dying cells may have taken this batch's updates
+        self._land_cells(es, ev_keys)
+        if self.host_tables is not None:
+            # then the buffer rows that are not cached
+            nonres = np.ones(M, bool)
+            nonres[scat_m[scat_m < M]] = False
+            nb = self._buf[:M].cpu().numpy()
+            nbm = self._mom[C:C + M].cpu().numpy()
+            self._write_masters(buf_t[nonres], buf_r[nonres], nb[nonres],
+                                nbm[nonres])
+        self.host_s["step"] += time.perf_counter() - t0
+        return model, dstate, loss
+
+    def train_batches(self, model, dstate, batches, start_step: int = 1):
+        """`train_batch` over (dense, idx, labels) batches: yields (model,
+        dstate, loss) per batch."""
+        for k, (dense_x, idx, labels) in enumerate(batches):
+            yield self.train_batch(model, dstate, start_step + k, dense_x,
+                                   idx, labels)
+
+    def train_batches_windowed(self, model, dstate, batches,
+                               window: int = 16, start_step: int = 1):
+        """The per-batch stream (`train_batches`): the windowed driver's
+        trajectory is the per-batch one."""
+        del window
+        return self.train_batches(model, dstate, batches, start_step)
+
+    def flush_to_host(self):
+        """Land every resident cell in rank 0's masters, at most Cl cells
+        at a time (collective)."""
+        keys = slots = None
+        if self.assigner is not None:
+            res, slots = self.assigner.resident_entries()
+            keys = np.asarray([(t << 40) | r for t, r in res], np.int64)
+        n, = broadcast_header(None if slots is None else (len(slots),), 1,
+                              self.mesh)
+        slots = broadcast_array(slots, (n,), torch.int32, self.mesh)
+        for a in range(0, n, self.c_local):
+            self._land_cells(slots[a:a + self.c_local],
+                             None if keys is None
+                             else keys[a:a + self.c_local])

@@ -36,13 +36,15 @@ Where the port departs from the JAX CLI:
   (`parallel/multihost.py::init_multihost`: NCCL on `cuda`, a card a rank;
   gloo on `cpu`), `--mesh-data 0` means `WORLD_SIZE // --mesh-model`, and
   a mesh whose size is not the world's raises.  Training takes the mesh's
-  exchange (`drivers/train.py::run_training`); serving shards the device
-  cache's slots (`--use-evstore True --use-device-cache True
-  --mesh-model` above 1).  Only rank 0 prints.  Without `WORLD_SIZE` the
-  mesh flags raise and say to launch under torchrun, where the JAX CLI
-  lays its mesh over the devices one process sees.  Cached training
-  (`--use-evstore True`) over more than one rank is not ported
-  (NotImplementedError, ROADMAP queue 1 item 8b).
+  exchange (`drivers/train.py::run_training`), or with `--use-evstore
+  True` shards the trainable cache's cells over the model axis
+  (`run_cached_training(mesh=)`); serving shards the device cache's slots
+  (`--use-evstore True --use-device-cache True --mesh-model` above 1).
+  Only rank 0 prints.  Without `WORLD_SIZE` the mesh flags raise and say
+  to launch under torchrun, where the JAX CLI lays its mesh over the
+  devices one process sees.  Cached training with `--mesh-model 1` over
+  more than one rank runs data-parallel on a (world, 1) mesh, where the
+  JAX CLI trains on one device.
 """
 
 from __future__ import annotations
@@ -57,8 +59,6 @@ from typing import List, Optional
 from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
                                       make_dlrm_config)
 
-CACHED_MESH_ITEM = ("ROADMAP queue 1 item 8b (ShardedTrainableDeviceCache, "
-                    "cached training over a mesh)")
 TORCHRUN = ("launch under torchrun: torchrun --nproc-per-node N -m "
             "evstore_tpu_torch.cli ...")
 
@@ -373,12 +373,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 def _mesh(args, dev):
     """The (data, model) mesh of a run under torchrun, or None for one
     process (see the module's docstring)."""
-    ranks = int(os.environ.get("WORLD_SIZE", "1"))
     training = not args.inference_only
-    if training and args.use_evstore and (args.mesh_model > 1
-                                          or ranks > 1):
-        raise NotImplementedError(f"--use-evstore training over a mesh is "
-                                  f"not ported yet: {CACHED_MESH_ITEM}")
     if "WORLD_SIZE" not in os.environ:
         if (args.mesh_data > 1 or args.mesh_model > 1
                 or args.alltoall_impl != "psum" or args.dedup_exchange):
@@ -439,9 +434,9 @@ def _run(args) -> int:
                 window=args.train_window,
                 make_test_batches=(make_test if args.test_freq > 0
                                    else None),
-                device=dev)
-            print(f"training done: steps={res.steps} "
-                  f"best={res.best_metric:.4f} (cached)")
+                mesh=mesh, device=dev)
+            say(f"training done: steps={res.steps} "
+                f"best={res.best_metric:.4f} (cached)")
             return 0
         from evstore_tpu_torch.drivers.train import run_training
         res = run_training(

@@ -24,8 +24,7 @@ whole on every rank, so every rank takes the same decisions.  Checkpoints
 and EV exports of a mesh run are the single-device files, written by rank
 0 after the tables are gathered one at a time, so any run resumes them at
 any mesh shape; a resumed run carries its optimizer state and step on
-every route.  Only rank 0 logs.  `run_cached_training` over a mesh
-(`ShardedTrainableDeviceCache`) is ROADMAP queue 1 item 8b.
+every route.  Only rank 0 logs.
 
 `run_cached_training` trains through `cache/trainable.py::
 TrainableDeviceCache`: the tables stay in host memory (or on disk, mapped
@@ -34,6 +33,10 @@ MLPs.  Its checkpoint on a new best eval is the cache's `table_<t>.npy` /
 `mom_<t>.npy` files beside `dense_params.npz` (the MLPs and their sums
 under the JAX package's `p...` / `s...` keys, weights [in, out]) and
 `best.json`, the JAX package's files, which either package restores.
+With a mesh it trains through `ShardedTrainableDeviceCache`, one batch at
+a time as the JAX driver drives its sharded class; rank 0 holds the
+masters, scores the evals and broadcasts their metrics, and alone writes
+the files, which are the one-device run's.
 
 Besides the JAX package's log lines, the driver logs the seconds and GB/s
 of every checkpoint save, the restore and every EV export, and the steps
@@ -69,10 +72,6 @@ from evstore_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                 save_checkpoint)
 from evstore_tpu_torch.utils.device import resolve_device
 from evstore_tpu_torch.utils.logging import MLPerfLogger, quiet
-
-CACHED_MESH_ITEM = ("ROADMAP queue 1 item 8b (ShardedTrainableDeviceCache, "
-                    "cached training over a mesh)")
-
 
 @dataclasses.dataclass
 class TrainResult:
@@ -320,13 +319,27 @@ def run_training(cfg: DLRMConfig, tcfg: TrainConfig,
 # --------------------------------------------------------- cached training
 
 def _cached_eval(tc, cfg: DLRMConfig, model: DLRM,
-                 make_test_batches: Callable[[], Iterable]
+                 make_test_batches: Callable[[], Iterable], mesh=None
                  ) -> Dict[str, float]:
     """Eval through the cached trainer: write the cache back to the masters,
     then score the test batches with their rows read from the masters on
     the host and handed to the forward, so that no table goes to the card
-    (as run_training's periodic eval, dlrm_s_pytorch.py:1743-1796)."""
+    (as run_training's periodic eval, dlrm_s_pytorch.py:1743-1796).  Over
+    a mesh (collective) rank 0, which holds the masters, scores and
+    broadcasts the metrics."""
     tc.flush_to_host()
+    if mesh is None:
+        return _score_from_masters(tc, cfg, model, make_test_batches)
+    import torch.distributed as dist
+    out = [_score_from_masters(tc, cfg, model, make_test_batches)
+           if mesh.rank == 0 else None]
+    dist.broadcast_object_list(out, src=0, group=mesh.group)
+    return out[0]
+
+
+def _score_from_masters(tc, cfg: DLRMConfig, model: DLRM,
+                        make_test_batches: Callable[[], Iterable]
+                        ) -> Dict[str, float]:
     dev = next(model.parameters()).device
     scores, labels = [], []
     with torch.inference_mode():
@@ -411,12 +424,25 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
     eval through the cache, and a new best writes the cache's files and the
     dense npz into `save_dir` and the EV tables into `ev_export_dir`; a
     last eval follows the loop.  The model is trained in place; the result
-    holds its dense sums as `opt_state.dense`."""
-    from evstore_tpu_torch.cache.trainable import (TrainableDeviceCache,
-                                                   init_dense_state)
+    holds its dense sums as `opt_state.dense`.
+
+    With a `mesh` (`parallel/mesh.py`; every rank calls with the same
+    arguments and batches) the cells shard over its model axis
+    (`ShardedTrainableDeviceCache`), which trains one batch at a time, as
+    the JAX driver drives it: `window` is ignored and the eval comes every
+    test_freq steps.  Rank 0 holds the masters (`tables` and the files are
+    read there), scores the evals and broadcasts their metrics, so every
+    rank takes the same decisions; only rank 0 logs and writes."""
+    from evstore_tpu_torch.cache.trainable import (
+        ShardedTrainableDeviceCache, TrainableDeviceCache, init_dense_state)
+    from evstore_tpu_torch.parallel.mesh import Mesh
     if mesh is not None:
-        raise NotImplementedError(f"cached training over a mesh is not "
-                                  f"ported yet: {CACHED_MESH_ITEM}")
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        device = mesh.device
+        if mesh.rank != 0:
+            log_fn = quiet
     dev = resolve_device(device)
     if model is None:
         model = DLRM(cfg, device=dev, seed=seed, tables=False)
@@ -425,18 +451,20 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
     if ev_table_dir and not os.path.exists(
             os.path.join(ev_table_dir, "ev-table-1.bin")):
         ev_table_dir = None   # no .bin masters there: masters in memory
+    host = mesh is None or mesh.rank == 0
+    cls, kw = ((TrainableDeviceCache, {"device": dev}) if mesh is None
+               else (ShardedTrainableDeviceCache, {"mesh": mesh}))
     if ev_table_dir:
-        tc = TrainableDeviceCache.from_files(cfg, tcfg, ccfg, ev_table_dir,
-                                             table_sizes, device=dev)
-    elif tables is not None:
-        tc = TrainableDeviceCache(cfg, tcfg, ccfg, tables, device=dev)
-    elif model.has_sparse():
-        tc = TrainableDeviceCache(cfg, tcfg, ccfg, list(model.tables),
-                                  device=dev)
+        tc = cls.from_files(cfg, tcfg, ccfg, ev_table_dir, table_sizes, **kw)
     else:
-        tc = TrainableDeviceCache(cfg, tcfg, ccfg,
-                                  init_host_tables(cfg, seed),
-                                  copy_tables=False, device=dev)
+        copy = True
+        if tables is None and model.has_sparse():
+            tables = list(model.tables)
+        elif tables is None:
+            tables = init_host_tables(cfg, seed) if host else None
+            copy = False
+        tc = cls(cfg, tcfg, ccfg, tables if host else None,
+                 copy_tables=copy, **kw)
     dstate = init_dense_state(model)
     history = {"loss": [], "eval": []}
     step = 0
@@ -449,7 +477,7 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
     def eval_and_track():
         nonlocal best, t_aside
         t1 = time.perf_counter()
-        metrics = _cached_eval(tc, cfg, model, make_test_batches)
+        metrics = _cached_eval(tc, cfg, model, make_test_batches, mesh)
         history["eval"].append((step, metrics))
         log_fn(f"eval @ {step}: auc {metrics['auc']:.4f} "
                f"acc {metrics['accuracy']:.4f}")
@@ -459,7 +487,8 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
             best = score
             if save_dir:
                 tc.save(save_dir)
-                _save_dense_npz(model, dstate, save_dir, step, metrics)
+                if host:
+                    _save_dense_npz(model, dstate, save_dir, step, metrics)
             if ev_export_dir:
                 tc.export_ev_tables(ev_export_dir)
         t_aside += time.perf_counter() - t1
@@ -470,14 +499,27 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
         last = float(loss)
         dt = time.perf_counter() - t0
         history["loss"].append((step, last))
-        s = tc.stats()
-        log_fn(f"step {step}: loss {last:.6f} "
-               f"({n_since * bsize / max(dt, 1e-9):.0f}"
-               f" examples/s, hit rate {s['hit_rate']:.3f}, "
-               f"cache hbm {s['hbm_bytes'] / 1e6:.1f} MB)")
+        if host:
+            s = tc.stats()
+            log_fn(f"step {step}: loss {last:.6f} "
+                   f"({n_since * bsize / max(dt, 1e-9):.0f}"
+                   f" examples/s, hit rate {s['hit_rate']:.3f}, "
+                   f"cache hbm {s['hbm_bytes'] / 1e6:.1f} MB)")
         t0, n_since = time.perf_counter(), 0
 
     for _ in range(tcfg.nepochs):
+        if mesh is not None:
+            # one batch at a time, the eval every test_freq steps
+            for dense_x, idx, y in make_train_batches():
+                step += 1
+                _, _, loss = tc.train_batch(model, dstate, step, dense_x,
+                                            idx, y)
+                n_since += 1
+                if step % max(tcfg.print_freq, 1) == 0:
+                    progress(loss, np.asarray(dense_x).shape[0])
+                if do_eval and step % tcfg.test_freq == 0:
+                    eval_and_track()
+            continue
         # the stream is cut at test_freq batches for the periodic eval; a
         # driver drained at a cut has landed all its write-backs
         batch_iter = iter(make_train_batches())

@@ -33,10 +33,12 @@ def _take_or_zero(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """`index_select` of rows, with a zero row for an index outside
     [0, len(src))."""
     flat = idx.reshape(-1).long()
+    if src.shape[0] == 0:
+        return src.new_zeros((*idx.shape, src.shape[1]))
     ok = (flat >= 0) & (flat < src.shape[0])
-    rows = torch.zeros((flat.numel(), src.shape[1]), dtype=src.dtype,
-                       device=src.device)
-    rows[ok] = torch.index_select(src, 0, flat[ok])
+    rows = torch.index_select(src, 0, torch.where(ok, flat, 0))
+    rows = torch.where(ok[:, None], rows, torch.zeros((), dtype=src.dtype,
+                                                       device=src.device))
     return rows.reshape(*idx.shape, src.shape[1])
 
 

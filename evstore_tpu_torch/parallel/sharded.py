@@ -328,6 +328,23 @@ def plain_shifts(sources, members, mesh: Mesh) -> torch.Tensor:
                         dtype=torch.int64, device=mesh.device)
 
 
+def mean_over_data(loss: torch.Tensor, params, mesh: Mesh) -> torch.Tensor:
+    """The loss and the grads of `params` (a dict, grads set in place)
+    averaged over the data group by one all_reduce, as JAX's `pmean`:
+    -> the loss of the global batch."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params.values()]
+    buf = torch.cat([loss.float().reshape(1)]
+                    + [g.float().reshape(-1) for g in grads])
+    dist.all_reduce(buf, group=mesh.data_group)
+    buf /= mesh.n_data
+    off = 1
+    for p, g in zip(params.values(), grads):
+        p.grad = buf[off:off + g.numel()].view_as(p).to(p.dtype)
+        off += g.numel()
+    return buf[0].clone()
+
+
 def _slice(n: int, mesh: Mesh) -> Tuple[int, int]:
     if n % mesh.n_data:
         raise ValueError(f"a batch of {n} does not split over "
@@ -392,18 +409,7 @@ def make_sharded_train_step(cfg: DLRMConfig, tcfg: TrainConfig, mesh: Mesh,
                          tcfg.loss_function, tcfg.loss_weights)
         loss.backward()
         with torch.no_grad():
-            # the loss and the dense grads: one all_reduce over data
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params.values()]
-            buf = torch.cat([loss.detach().float().reshape(1)]
-                            + [g.float().reshape(-1) for g in grads])
-            dist.all_reduce(buf, group=mesh.data_group)
-            buf /= n_data
-            off = 1
-            for p, g in zip(params.values(), grads):
-                p.grad = buf[off:off + g.numel()].view_as(p).to(p.dtype)
-                off += g.numel()
-            loss = buf[0].clone()
+            loss = mean_over_data(loss.detach(), params, mesh)
             # the row grads (and under dedup the unique ids): one
             # all_gather over data each
             parts = [_grad(look.leaves[u.gather])[:, u.lo:u.hi]

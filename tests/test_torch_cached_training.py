@@ -14,7 +14,14 @@ on the CPU.
   (the port's DLRM built from `init_dlrm`'s weights, as in
   test_torch_cli.py), at `--main-precision` 32 and 16 and
   `--train-window` 0 and 4; bags refused with the JAX CLI's message.
-- `mesh=` raises NotImplementedError naming ROADMAP queue 1 item 8.
+- The file-backed run over a (2, 2) mesh of 4 gloo ranks
+  (`ShardedTrainableDeviceCache.from_files`, rank 0 mapping the files)
+  against JAX's over `make_mesh(2, 2)`: losses and the tables' files
+  after the run as above, the row sums' files within rtol 1e-5 of the
+  port's one-device run and of a quarter of JAX's (JAX's sharded step
+  keeps n_model² times the row sums, ROADMAP queue 3).  `mesh=` other than a `parallel.mesh.Mesh` raises
+  TypeError; the rest of cached training over a mesh is held in
+  tests/test_torch_sharded_trainable_cache.py.
 """
 
 import os
@@ -178,6 +185,75 @@ def test_run_cached_training_file_backed_matches_jax(tmp_path):
                         np.float32), tables[t].ravel())
 
 
+def _mesh_file_rank(rank, world, d, state, batches):
+    """run_cached_training over a (2, 2) mesh with the masters mapped from
+    d's .bin files (read by rank 0)."""
+    from evstore_tpu_torch.parallel.mesh import make_mesh
+    cp = pcfg.tiny_dlrm_config()
+    tp = pcfg.TrainConfig(batch_size=16, learning_rate=0.2,
+                          optimizer="rwsadagrad", test_freq=10,
+                          print_freq=5)
+    model = RealDLRM(cp, device="cpu", tables=False)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    res = ptrain.run_cached_training(
+        cp, tp, pcfg.CacheConfig(policy="evlfu", total_size=16),
+        lambda: iter(batches), ev_table_dir=d,
+        table_sizes=list(cp.table_sizes), mesh=make_mesh(2, 2, device="cpu"),
+        model=model, log_fn=lambda *a: None)
+    return res.steps, res.history
+
+
+def test_run_cached_training_file_backed_over_a_mesh_matches_jax(tmp_path):
+    """The masters mapped from .bin files, the cells sharded over a (2, 2)
+    gloo world: the files after the run, and the losses, against JAX's
+    file-backed run over make_mesh(2, 2)."""
+    from evstore_tpu.parallel.mesh import make_mesh
+    from evstore_tpu_torch.parallel.multihost import spawn_local
+    cj, cp, tj, tp, params, make_train, _ = _setup(n_train=20)
+    tables = [params.sparse[f"table_{t}"]["kind_plain"] for t in range(3)]
+    for side in ("j", "p", "one"):
+        write_ev_tables_binary(tables, str(tmp_path / side), 32)
+    model, _ = _port_model(cp, params)
+    ptrain.run_cached_training(
+        cp, tp, pcfg.CacheConfig(policy="evlfu", total_size=16), make_train,
+        ev_table_dir=str(tmp_path / "one"), table_sizes=list(cp.table_sizes),
+        model=model, device="cpu", log_fn=lambda *a: None)
+    res_j = jtrain.run_cached_training(
+        cj, tj, jcfg.CacheConfig(policy="evlfu", total_size=16), make_train,
+        ev_table_dir=str(tmp_path / "j"), table_sizes=list(cj.table_sizes),
+        mesh=make_mesh(2, 2, devices=jax.devices()[:4]),
+        log_fn=lambda *a: None)
+    model, _ = _port_model(cp, params)
+    state = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    batches = [tuple(np.asarray(a) for a in b) for b in make_train()]
+    res = spawn_local(_mesh_file_rank, 4, (str(tmp_path / "p"), state,
+                                           batches),
+                      timeout_s=60, limit_s=240)
+    steps, history = res[0]
+    assert steps == res_j.steps == 20
+    assert [s for s, _ in history["loss"]] == \
+        [s for s, _ in res_j.history["loss"]]
+    bound([v for _, v in history["loss"]],
+          [v for _, v in res_j.history["loss"]], what="losses")
+    assert all(r == res[0] for r in res[1:])
+    for t in range(3):
+        name = f"ev-table-{t + 1}.bin"
+        bound(np.fromfile(tmp_path / "p" / name, np.float32),
+              np.fromfile(tmp_path / "j" / name, np.float32), what=name)
+        # the row sums are the one-device run's; JAX's sharded step keeps
+        # n_model² times them (ROADMAP queue 3: the transpose of its psum
+        # over "model" is a psum, so its row grads are n_model times the
+        # true ones, which rwsadagrad's step lr·g/√Σg² does not see)
+        name = f"mom-{t + 1}.bin"
+        a = np.fromfile(tmp_path / "p" / name, np.float32)
+        np.testing.assert_allclose(
+            a, np.fromfile(tmp_path / "one" / name, np.float32),
+            rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(
+            a * 4, np.fromfile(tmp_path / "j" / name, np.float32),
+            rtol=1e-5, atol=1e-6)
+
+
 def test_run_cached_training_draws_the_ports_own_init():
     """Without a model or tables: the MLPs and the masters `DLRM(cfg,
     seed=seed)` draws, the tables made in host memory only."""
@@ -193,8 +269,10 @@ def test_run_cached_training_draws_the_ports_own_init():
 
 
 def test_mesh_raises():
+    """A mesh that is not the port's `parallel.mesh.Mesh` raises (cached
+    training over a mesh: tests/test_torch_sharded_trainable_cache.py)."""
     _, cp, _, tp, _, make_train, _ = _setup(n_train=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ptrain.run_cached_training(cp, tp, pcfg.CacheConfig(), make_train,
                                    mesh=object(), device="cpu")
 

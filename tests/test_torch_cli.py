@@ -24,8 +24,12 @@ package's (`evstore_tpu.cli`), on the CPU (`--device cpu`).
   each held to the port's own single-device run of the same flags, which
   the cases above hold to the JAX CLI (the JAX CLI lays its mesh over the
   8 devices of one process, so it cannot run these shapes).
-- Without a world the mesh flags raise and say to launch under torchrun;
-  what is not ported raises NotImplementedError with its ROADMAP item.
+- `--use-evstore True --mesh-model 2` (cached training, the trainable
+  cache's cells sharded) over 4 gloo ranks against the JAX CLI with the
+  same flags and `--mesh-data 4` over its 8 devices, the port's model
+  from `init_dlrm`'s weights: each printed loss, hit rate, eval and the
+  best within 1e-5·(1 + |ref|) plus the print's rounding.
+- Without a world the mesh flags raise and say to launch under torchrun.
 """
 
 import ast
@@ -203,7 +207,8 @@ def test_kernel_flags(flags, gather, interaction):
 # ------------------------------------------------------- what raises
 
 @pytest.mark.parametrize("flags,error,item", [
-    ("--use-evstore True --mesh-model 2", NotImplementedError, "item 8b"),
+    ("--use-evstore True --mesh-model 2", ValueError,
+     "launch under torchrun"),
     ("--mesh-data 2", ValueError, "launch under torchrun"),
     ("--mesh-model 2", ValueError, "launch under torchrun"),
     ("--alltoall-impl butterfly", ValueError, "launch under torchrun"),
@@ -211,8 +216,7 @@ def test_kernel_flags(flags, gather, interaction):
      "--mesh-model 4", ValueError, "launch under torchrun")])
 def test_unported_options_raise(monkeypatch, flags, error, item):
     """Without a world (no WORLD_SIZE) the mesh flags raise and say to
-    launch under torchrun; cached training over a mesh is not ported
-    (ROADMAP queue 1 item 8b)."""
+    launch under torchrun, cached training's too."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(error, match=item):
         cli.main((ARCH + " --num-batches 2 --device cpu " + flags).split())
@@ -313,6 +317,65 @@ def test_serve_sharded_device_cache_over_four_ranks(capsys, tmp_path):
     assert stats == want
     for out in outs[1:]:
         assert not [ln for ln in _printed(out) if "done" in ln]
+
+
+def _cached_rank(rank, world, argv, state):
+    """`cli.main(argv)` on a rank of a spawned world, the model built with
+    `state` (the JAX package's weights): -> (rc, what it printed)."""
+    import contextlib
+    import io
+    import evstore_tpu_torch.drivers.train as dtrain
+
+    def from_state(cfg, *, device=None, seed=0, tables=True):
+        model = RealDLRM(cfg, device=device, seed=seed)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+        return model
+
+    dtrain.DLRM = from_state
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def test_cached_training_over_four_ranks_matches_jax(capsys, tmp_path):
+    """`--use-evstore True --mesh-model 2` over 4 gloo ranks (a (2, 2)
+    mesh) against the JAX CLI's sharded trainable cache on (4, 2)."""
+    from evstore_tpu_torch.parallel.multihost import spawn_local
+    argv = (ARCH + " --mini-batch-size 16 --num-batches 20 --print-freq 5 "
+            "--use-evstore True --optimizer rwsadagrad --learning-rate 0.1 "
+            "--emb-cache-size 24 --test-freq 10 --nbatches-test 4 "
+            "--mesh-model 2").split()
+    ref = _out(capsys, jcli.main, argv + ["--mesh-data", "4", "--save-model",
+                                          str(tmp_path / "j")])
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.configs_from_args(args)[0]
+    state = {k: v.detach().numpy() for k, v in _from_jax_init(
+        cfg, device="cpu", seed=args.numpy_rand_seed).state_dict().items()}
+    res = spawn_local(_cached_rank, 4, (argv + [
+        "--device", "cpu", "--save-model", str(tmp_path / "p")], state),
+        timeout_s=60, limit_s=240)
+    assert [rc for rc, _ in res] == [0] * 4
+    got = res[0][1]
+    loss = r"step (\d+): loss ([-\d.]+) \(\d+ examples/s, hit rate ([\d.]+)"
+    g, r = _floats(loss, got), _floats(loss, ref)
+    assert len(g) == len(r) == 4
+    assert [(s, h) for s, _, h in g] == [(s, h) for s, _, h in r]
+    _close([v for _, v, _ in g], [v for _, v, _ in r])
+    ev = r"eval @ (\d+): auc ([-\d.na]+) acc ([-\d.]+)"
+    assert len(_floats(ev, got)) == len(_floats(ev, ref)) == 3
+    _close(_floats(ev, got), _floats(ev, ref), slack=5e-5)
+    done = r"training done: steps=(\d+) best=([-\d.]+) \(cached\)"
+    (gs, gb), = _floats(done, got)
+    (rs, rb), = _floats(done, ref)
+    assert gs == rs == 20
+    _close([gb], [rb], slack=5e-5)
+    for t in range(2):
+        _close(np.load(tmp_path / "p" / f"table_{t}.npy"),
+               np.load(tmp_path / "j" / f"table_{t}.npy"))
+    for _, out in res[1:]:
+        assert "loss" not in out and "done" not in out
 
 
 def test_without_a_card_cuda_raises():

@@ -56,7 +56,13 @@ def test_every_port_module_imports_without_jax():
             "evstore_tpu_torch.parallel.multihost",
             "evstore_tpu_torch.parallel.planner",
             "evstore_tpu_torch.parallel.sharded",
-            "evstore_tpu_torch.parallel.butterfly"} <= set(mods)
+            "evstore_tpu_torch.parallel.butterfly",
+            "evstore_tpu_torch.tools",
+            "evstore_tpu_torch.tools.export_model",
+            "evstore_tpu_torch.tools.gen_altkeys",
+            "evstore_tpu_torch.tools.plot_cdf",
+            "evstore_tpu_torch.tools.reduce_precision",
+            "evstore_tpu_torch.tools.visualize"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -181,6 +187,9 @@ def test_entry_points_without_a_card_raise():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_inference(model, cfg, CacheConfig(total_size=60), [], sm,
                           **kw)
+    from evstore_tpu_torch.tools.gen_altkeys import generate_altkeys
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_altkeys([t.detach().numpy() for t in model.tables])
 
 
 def _run_smoke(cwd):
