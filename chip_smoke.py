@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of evstore_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only 3j]
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
@@ -34,7 +34,16 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    entries, runs from chunk boundaries, K=1, K = E*m +- 1, all PAD_ROW; f32
    and bf16), each launched twice on copies of one table (bitwise equal),
    and grouped over the 26 tables at K = 3,328; beside each K2 and K5 time,
-   the kernel's device time (profiler) and the wrapper's host time;
+   the kernel's device time (profiler) and the wrapper's host time, or
+   "not measured" where a trace reads less than the bound; and at the
+   widths of phase 3j: K1 and K4 at (2048, 26, 64) and (2048, 26, 128),
+   f32 and bf16; K2 two-source over 4,000,000 cells of 128 and a buffer
+   of 16,384 rows at R = 2048·26, f32 and bf16; K3 over such uint8 cells;
+   K5 grouped at K = 2048·26 Zipf entries over the 26 Terabyte tables
+   (D = 64) and over the cells and the buffer (D = 128, the column tiles
+   of 40, 40, 40 and 8); those cases are timed rotating over input sets
+   (idx draws, shifted ids or copies) that pass the 50 MB L2 four times
+   together, so that no call reads what the one before left in L2;
 2b. K2 grouped bit for bit and K5 grouped against their plain versions at
    the widths phase 3e adds (1: pooling weights; 18: qr concat's q and r;
    md_solver's widths below 36), f32 and bf16 (a bf16 row of odd width
@@ -200,9 +209,38 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    (plots or the matplotlib-free fallbacks) it took.  K1, K2
    (two-source), K3, K4 and K5 must launch on `train_cached_sharded`
    ((a), (b)), K1 on `export` ((d));
+3j. the MLPerf recipe's shape (bench/run_and_time.sh: dim 128, the 26
+   Terabyte tables capped at 40M rows, 104.5 GB at float32, top MLP
+   1024-1024-512-256-1, B=2048, lr 1.0 with 2,750 warm-up steps) through
+   the trainable cache from sparse masters (memory files, `MemoryFiles`):
+   (0) the card, free RAM and disk, the first touch of a page, and the
+   pages the runs can touch, held to a quarter of the smaller room; (a)
+   `cli.main` with the recipe's model, loss and schedule flags plus
+   `--data-generation random --use-evstore True --emb-cache-size
+   4000000 --ev-table-path <masters>`, 32 batches; (b) `from_files` per
+   batch and pipelined from fresh masters, bit for bit (losses, stats,
+   the resident cells and sums, the MLPs and their sums, the rows and
+   sums read back from the files), 6 + 32 grouped_zipf batches, at fp32
+   and int8 with 4,000,000 cells and fp32 with 64,000,000 (16,000,000
+   where those do not fit), each with steps/s, the host split, the
+   window's hit rate, the device memory added, host RSS, the pages the
+   files took and a profiled window of 3 steps; in (a) and (b) every loss
+   finite and under 2 ln 2 (how many pass 0.75 is printed); (c) the
+   shape cut to 1M rows a table (3.64 GB, drawn on the card and written
+   with `write_ev_tables_binary`): the cache over those files, from
+   `make_train_step`'s state after 20 warm-up steps, held to it for 10
+   steps, each from one state (`cache_against_full`: the loss 1e-4, the
+   rows' step change 1e-2, the MLPs and both sums 1e-4), then the kernels
+   on against off by 3g(3)'s rules at fp32 and int8; (d) the Terabyte
+   shape (dim 64, 13.87 GB of tables on the card, two copies) held by
+   3b's rules under sgd and rwsadagrad at lr 0.1, with steps/s over 50
+   steps of `train` after 5.  K1, K2,
+   K4 and K5 must launch in every part (`train_mlperf`), K3 in the int8
+   cell; the phase's directory is removed at its end;
 4. the kernels' launch counts by path (serve, serve_int8, serve_host,
    gram_ab, train, train_factored, cli, train_cached, train_sharded,
-   train_butterfly, serve_sharded, train_cached_sharded, export) and one
+   train_butterfly, serve_sharded, train_cached_sharded, export,
+   train_mlperf) and one
    JSON line describing every kernel, each of which must have launched
    on some path;
 5. as the last line: {"ok": true, "device": {...}}.
@@ -212,6 +250,9 @@ copy of the 4.86 GB of tables, or reads the files), its stores and its
 temporary files before the next one starts; 3f leaves its preprocessed
 data, exported tables and latency CSV to 3g and 3i, after which they are
 removed.
+
+`--only 3j` runs phases 0-2 and 3j alone, a quicker check of the MLPerf
+shape, and prints neither the kernels line nor the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -238,7 +279,7 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "3e train factored": 240, "3f cli": 420,
                   "3g cached training": 300, "3h mesh": 300,
                   "3i sharded cache and tools": 420,
-                  "4 kernels line": 30}
+                  "3j mlperf shape": 420, "4 kernels line": 30}
 
 
 class Phase:
@@ -347,6 +388,115 @@ def within_own(got, ref, rel: float):
     return bool((scaled <= rel).all()), float(scaled.max())
 
 
+def step_change(after_a, after_b, before_b):
+    """|d_a - d_b| / |d_b|, d = after - before (2-norms), the changes of b
+    taken as the plain reference."""
+    import numpy as np
+    size = float(np.linalg.norm(np.asarray(after_b, np.float64) - before_b))
+    diff = float(np.linalg.norm(np.asarray(after_a, np.float64) - after_b))
+    return diff / size if size else (0.0 if diff == 0 else np.inf)
+
+
+CACHE_TO_FULL_LIMITS = {"loss": 1e-4, "rows": 1e-2, "row sums": 1e-4,
+                        "MLPs": 1e-4, "MLP sums": 1e-4}
+
+
+def cache_against_full(torch, tc, model, dst, full, st_f, step_f, batches,
+                       step0, run=lambda fn: fn()):
+    """The trainable cache `tc` (with `model` and its dense sums `dst`)
+    held to the full-table step `step_f` on `full` and its state `st_f`,
+    one step at a time from one state: before each batch the cache writes
+    its cells back (`flush_to_host`) and the full tables take the batch's
+    rows and row sums from the masters, and the MLPs and their sums from
+    `model` and `dst`; both then take the batch at step step0 + k (the
+    cache's step through run(fn)).  Held after each step
+    (CACHE_TO_FULL_LIMITS): the loss |a - b| / (1 + |b|) 1e-4; the batch's
+    rows, read back from the masters, by their step change
+    |d_cached - d_full| / |d_full| per table 1e-2; the row sums, the MLPs'
+    sums (within_own) and the MLPs (|a - b| / (1 + |b|)) 1e-4.  Raises on
+    the first step past a limit; -> the worst of each over the steps."""
+    import numpy as np
+    worst = dict.fromkeys(CACHE_TO_FULL_LIMITS, 0.0)
+    dev = full.tables[0].device
+    params_f = dict(full.named_parameters())
+    T = len(tc.host_tables)
+    for k, (dense, idx, y) in enumerate(batches):
+        idx = np.asarray(idx)
+        rows = [np.unique(idx[:, t]) for t in range(T)]
+        rows_d = [torch.from_numpy(r).to(dev) for r in rows]
+        tc.flush_to_host()
+        before = [np.array(tc.host_tables[t][r]) for t, r in enumerate(rows)]
+        with torch.no_grad():
+            for t, r in enumerate(rows):
+                full.tables[t][rows_d[t]] = torch.from_numpy(
+                    before[t]).to(dev)
+                st_f.sparse[f"tables.{t}"][rows_d[t]] = torch.from_numpy(
+                    np.array(tc.host_mom[t][r])).to(dev)
+            for n, p in model.named_parameters():
+                params_f[n].copy_(p)
+                st_f.dense[n].copy_(dst[n])
+        st_f.step = step0 + k
+        lc = float(run(lambda: tc.train_batch(model, dst, step0 + k, dense,
+                                              idx, y)[2]))
+        lf = float(step_f(full, st_f, dense, idx, y))
+        tc.flush_to_host()
+        got = {"loss": abs(lc - lf) / (1 + abs(lf)), "rows": 0.0,
+               "row sums": 0.0, "MLPs": 0.0, "MLP sums": 0.0}
+        for t, r in enumerate(rows):
+            ref = full.tables[t][rows_d[t]].detach().cpu().numpy()
+            got["rows"] = max(got["rows"], step_change(
+                tc.host_tables[t][r], ref, before[t]))
+            got["row sums"] = max(got["row sums"], within_own(
+                torch.from_numpy(np.array(tc.host_mom[t][r])),
+                st_f.sparse[f"tables.{t}"][rows_d[t]].cpu(), 1e-4)[1])
+        for n, p in model.named_parameters():
+            v = params_f[n].detach()
+            got["MLPs"] = max(got["MLPs"], float(
+                ((p.detach() - v).abs() / (1 + v.abs())).max()))
+            got["MLP sums"] = max(got["MLP sums"], within_own(
+                dst[n], st_f.dense[n], 1e-4)[1])
+        for key, v in got.items():
+            worst[key] = max(worst[key], v)
+        if not all(got[key] <= lim
+                   for key, lim in CACHE_TO_FULL_LIMITS.items()):
+            raise AssertionError(f"the cache against the full-table step, "
+                                 f"step {step0 + k}: {got} (limits "
+                                 f"{CACHE_TO_FULL_LIMITS})")
+    return worst
+
+
+L2_BYTES = 50 * 2**20              # H100 SXM data sheet
+
+
+def n_sets(nbytes: float, times: int = 4) -> int:
+    """How many input sets of `nbytes` each pass the L2 `times` over."""
+    return max(1, -(-times * L2_BYTES // max(1, int(nbytes))))
+
+
+def rotating(calls):
+    """One callable that runs calls[0], calls[1], ... in turn: timed over
+    input sets that together pass the L2 several times, each call reads
+    its inputs from memory, not from what the call before left in L2."""
+    k = [0]
+
+    def call():
+        k[0] += 1
+        return calls[(k[0] - 1) % len(calls)]()
+    return call
+
+
+def on_device(dev_us: float, host_us: float, bms: float):
+    """The traced device time beside the bound, as text, and in ms; a
+    trace that reads less than the bound (it missed a kernel, or the L2
+    held the inputs) is not a reading: 'not measured' and None."""
+    if dev_us * 1e-3 < bms:
+        return (f" device_us not measured (a trace of {dev_us:.2f} us, "
+                f"under the bound) host_us {host_us:.2f}", None)
+    return (f" device_us {dev_us:.2f} host_us {host_us:.2f} "
+            f"({100 * bms * 1e3 / dev_us:.0f}% of the bound on the device)",
+            dev_us / 1e3)
+
+
 def bound_ms(nbytes: float, ops: float, dtype: str):
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the peak rate of their type."""
@@ -376,6 +526,70 @@ def profile_steps(torch, run, n: int):
             c, t = on_card.get(e.name, (0, 0.0))
             on_card[e.name] = (c + 1, t + e.device_time_total / 1e3)
     return wall_ms, on_card
+
+
+def meminfo_kb(field: str) -> int:
+    """A field of /proc/meminfo, in kB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1])
+    raise KeyError(field)
+
+
+def rss_gb() -> float:
+    """This process's resident set (VmRSS), in GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise KeyError("VmRSS")
+
+
+class MemoryFiles:
+    """Sparse float32 masters: in directory `d`, each `ev-table-<t>.bin`
+    and `mom-<t>.bin` of `sizes` x `dim` is a link to a memory file
+    (`os.memfd_create`) cut to its size with ftruncate, so its holes read
+    as zero and only the pages a run touches take memory.  Memory files,
+    not files on the checkout's disk: a gVisor 9p filesystem
+    reports every file as fully allocated and caches a mapped file 2 MB at
+    a time, so random rows over 104.5 GB of tables would cache them whole.
+    /proc/meminfo's Shmem counts the pages the files hold (`touched_mb`);
+    it is checked to stay flat when the first file is made."""
+
+    def __init__(self, d: str, sizes, dim: int):
+        os.makedirs(d)
+        self.dir, self.fds = d, []
+        self.shmem0 = meminfo_kb("Shmem")
+        self.virtual = 0
+        for t, n in enumerate(sizes):
+            for name, nbytes in ((f"ev-table-{t + 1}.bin", n * dim * 4),
+                                 (f"mom-{t + 1}.bin", n * 4)):
+                fd = os.memfd_create(name)
+                self.fds.append(fd)
+                os.ftruncate(fd, nbytes)
+                os.symlink(f"/proc/{os.getpid()}/fd/{fd}",
+                           os.path.join(d, name))
+                self.virtual += nbytes
+                if len(self.fds) == 1 and self.touched_mb() > 1.0:
+                    raise AssertionError(
+                        f"{name} is not sparse: {nbytes} bytes made "
+                        f"{self.touched_mb():.1f} MB of shared memory")
+
+    def touched_mb(self) -> float:
+        """The MB of pages the files hold (Shmem's growth)."""
+        return (meminfo_kb("Shmem") - self.shmem0) / 1024
+
+    def blocks_mb(self) -> float:
+        """The files' st_blocks, in MB (a gVisor 9p filesystem reports
+        the size)."""
+        return sum(os.fstat(fd).st_blocks * 512 for fd in self.fds) / 2**20
+
+    def close(self) -> None:
+        for fd in self.fds:
+            os.close(fd)
+        self.fds = []
+        shutil.rmtree(self.dir)
 
 
 # each kernel of the train path by its function's name (K5 is two)
@@ -410,6 +624,9 @@ def by_kernel(on_card, n: int, kernels=TRAIN_KERNELS) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["3j"], default=None,
+                    help="run phases 0-2 and this phase alone (a quick "
+                         "check; no kernels line and no result line)")
     args = ap.parse_args()
 
     import copy
@@ -431,7 +648,9 @@ def main() -> int:
     from evstore_tpu_torch.drivers.infer import TRUE_PER_REQUEST
     from evstore_tpu_torch.native import NativeShardedCache, NativeTieredCache
     from evstore_tpu_torch.config import (CacheConfig, TrainConfig,
-                                          kaggle_dlrm_config)
+                                          kaggle_dlrm_config,
+                                          mlperf_dlrm_config,
+                                          terabyte_dlrm_config)
     from evstore_tpu_torch.data.synthetic import (RandomDataConfig,
                                                   random_batches)
     from evstore_tpu_torch.drivers.infer import build_cache, run_inference
@@ -537,6 +756,231 @@ def main() -> int:
 
     def read_counts():
         return {name: w.launches for name, w in wrappers.items()}
+
+    def held_on_off(tcfg_, model, plain, take, label=""):
+        """Phase 3b's check: five steps with every kernel on, each held to a
+        step with every kernel off taken from the same state (on `plain`, a
+        copy of `model` built from the config with the kernels off); then
+        five more from one state, compounding, held to the same rule after
+        every step (loss 1e-5 relative; MLPs and tables 1e-4·(1+|ref|);
+        accumulators 1e-4 of their own size).  The per-step loss sees only
+        the forward (K1, K2); the compounded losses see K4 and K5 through
+        the state they leave behind.  take(n) gives n batches.  -> (the
+        step with the kernels, its state)."""
+        off_t = dataclasses.replace(tcfg_, use_update_kernel=False)
+        step_k, step_p = (make_train_step(model.cfg, tcfg_),
+                          make_train_step(plain.cfg, off_t))
+        st_k, st_p = init_opt_state(model, tcfg_), init_opt_state(plain,
+                                                                  off_t)
+
+        @torch.no_grad()
+        def sync():
+            plain.load_state_dict(model.state_dict())
+            for part in ("dense", "sparse"):
+                for k, v in getattr(st_k, part).items():
+                    getattr(st_p, part)[k].copy_(v)
+
+        def check(dense, idx, y, worst):
+            """One step on each copy; raises if they disagree, and keeps the
+            worst loss, weight and accumulator differences in `worst`."""
+            lk = float(step_k(model, st_k, dense, idx, y))
+            lp = float(step_p(plain, st_p, dense, idx, y))
+            worst["loss"] = max(worst["loss"], abs(lk - lp) / abs(lp))
+            if not abs(lk - lp) <= 1e-5 * abs(lp):
+                raise AssertionError(f"loss {lk} with the kernels, {lp} "
+                                     "without")
+            pk, pp = dense_parameters(model), dense_parameters(plain)
+            pairs = [("mlp", n, pk[n], pp[n]) for n in pk]
+            pairs += [("table", t, model.tables[t], plain.tables[t])
+                      for t in range(model.cfg.num_tables)]
+            for kind, what, a, b in pairs:
+                a, b = a.detach(), b.detach()
+                rel = float(((a - b).abs() / (1 + b.abs())).max())
+                worst[kind] = max(worst[kind], rel)
+                if not rel <= 1e-4:
+                    raise AssertionError(f"{kind} {what} differs, kernels on "
+                                         f"vs off: max|d|/(1+|ref|) {rel}")
+            for part in ("dense", "sparse"):
+                for k, v in getattr(st_p, part).items():
+                    ok, rel = within_own(getattr(st_k, part)[k], v, 1e-4)
+                    worst["acc"] = max(worst["acc"], rel)
+                    if not ok:
+                        raise AssertionError(
+                            f"accumulator {k} differs, kernels on vs off: "
+                            f"max|d|/(|ref| + mean nonzero |ref|) {rel}")
+
+        for mode in ("each from one state", "compounded from one state"):
+            worst = dict.fromkeys(("loss", "mlp", "table", "acc"), 0.0)
+            sync()
+            for dense, idx, y in take(5):
+                if mode.startswith("each"):
+                    sync()
+                check(dense, idx, y, worst)
+            print(f"{label}kernels on vs off, 5 {tcfg_.optimizer} steps "
+                  f"{mode}: max rel loss diff {worst['loss']:.3e} (limit "
+                  f"1e-5); max|d|/"
+                  f"(1+|ref|) MLPs {worst['mlp']:.3e}, tables "
+                  f"{worst['table']:.3e} (limit 1e-4); accumulators max|d|/"
+                  f"(|ref| + mean nonzero |ref|) {worst['acc']:.3e} (limit "
+                  f"1e-4)", flush=True)
+        return step_k, st_k
+
+    def cached_on_off(trainer, work, moms, sd0, dst0, held_b, precisions,
+                      tag, step0=1):
+        """Phase 3g(3)'s check of the trainable cache with every kernel on
+        against every kernel off, at each of `precisions` (32, 16, 8 bits):
+        trainer(bits, on) -> (cache, model, dense state) over the shared
+        masters `work` (list of [N_t, D] float32); both start from the
+        rows `work` holds for the six batches `held_b`, the row sums
+        `moms`, the MLPs `sd0` and their sums `dst0`; 3 warm-up steps, then
+        3 held ones, each from one state (the plain trainer takes the kernel
+        trainer's cells, MLPs and sums before each step, and the masters'
+        rows are swapped so that it starts from the same ones): the loss
+        1e-5 relative, the MLPs 1e-4·(1+|ref|), the cells' and the
+        written-back rows' step change 1e-2 of the plain change's norm, the
+        row and dense sums 1e-4 of their own size.  At 8 bits both trainers
+        seed the stochastic encode with the step index on one device, so
+        they draw the same u: every code must lie within one of the other
+        side's; and K3 at the batch's shape over the int8 cells is held to
+        its plain version bit for bit.  Steps are numbered from step0."""
+        from evstore_tpu_torch.cache import trainable as trn
+        rows3 = [np.unique(np.concatenate([np.asarray(b[1])[:, t]
+                                           for b in held_b]))
+                 for t in range(len(work))]
+        start3 = [work[t][rows3[t]].copy() for t in range(len(work))]
+        limits = {"loss": 1e-5, "mlp": 1e-4, "cells": 1e-2,
+                  "rows": 1e-2, "sums": 1e-4}
+
+        def as_f32(v):
+            return trn._q8_decode(v) if v.dtype == torch.uint8 \
+                else v.float()
+
+        for precision in precisions:
+            for t in range(len(work)):
+                work[t][rows3[t]] = start3[t]
+            tk, mk, sk = trainer(precision, True)
+            tp, mp, sp = trainer(precision, False)
+            with torch.no_grad():
+                mk.load_state_dict(sd0)
+                for n_ in sk:
+                    sk[n_].copy_(dst0[n_])
+            for t in range(len(work)):
+                tk.host_mom[t][:] = moms[t]
+            held = dict.fromkeys(limits, 0.0)
+            codes = [0, 0]      # the largest code distance, codes apart
+            for k, b in enumerate(held_b):
+                idx = np.asarray(b[1])
+                with torch.no_grad():
+                    tp.cache_values.copy_(tk.cache_values)
+                    tp.cache_mom.copy_(tk.cache_mom)
+                    mp.load_state_dict(mk.state_dict())
+                    for n_ in sk:
+                        sp[n_].copy_(sk[n_])
+                    cells0 = tk.cache_values.clone()
+                # the masters are shared and the row sums apart: the
+                # plain trainer starts from the rows and sums the
+                # kernel trainer started from, which then gets its own
+                # back
+                pre = [(work[t][idx[:, t]].copy(),
+                        tk.host_mom[t][idx[:, t]].copy())
+                       for t in range(len(work))]
+                lk = float(tk.train_batch(mk, sk, step0 + k, *b)[2])
+                post_k = [(work[t][idx[:, t]].copy(),
+                           tk.host_mom[t][idx[:, t]].copy())
+                          for t in range(len(work))]
+                for t, (rows, sums) in enumerate(pre):
+                    work[t][idx[:, t]] = rows
+                    tp.host_mom[t][idx[:, t]] = sums
+                scat = {}
+                assign = tp.assigner.assign_batch_train_raw
+
+                def spy(ids):
+                    out = assign(ids)
+                    scat["slots"], scat["m"] = out[1], out[2]
+                    return out
+
+                tp.assigner.assign_batch_train_raw = spy
+                lp = float(tp.train_batch(mp, sp, step0 + k, *b)[2])
+                tp.assigner.assign_batch_train_raw = assign
+                post_p = [(work[t][idx[:, t]].copy(),
+                           tp.host_mom[t][idx[:, t]].copy())
+                          for t in range(len(work))]
+                for t, (rows, _) in enumerate(post_k):
+                    work[t][idx[:, t]] = rows
+                if k < 3:
+                    continue
+                # the cells' change, each inserted cell from the row it
+                # took, as its cell's type holds it (the plain
+                # trainer's buffer keeps the row)
+                start = as_f32(cells0)
+                slots = torch.from_numpy(scat["slots"]).long().to(dev)
+                start[slots] = as_f32(tp._encode_det(tp._buf[
+                    torch.from_numpy(scat["m"]).long().to(dev)]))
+                held["cells"] = max(held["cells"], step_change(
+                    as_f32(tk.cache_values).cpu().numpy(),
+                    as_f32(tp.cache_values).cpu().numpy(),
+                    start.cpu().numpy()))
+                if precision == 8:
+                    gap = (tk.cache_values.int()
+                           - tp.cache_values.int()).abs()
+                    codes[0] = max(codes[0], int(gap.max()))
+                    codes[1] += int((gap > 0).sum())
+                    if codes[0] > 1:
+                        raise AssertionError(f"{tag} int8, step {k + 1}"
+                                             f": codes {codes[0]} apart")
+                held["rows"] = max(held["rows"], step_change(
+                    np.concatenate([r for r, _ in post_k]),
+                    np.concatenate([r for r, _ in post_p]),
+                    np.concatenate([r for r, _ in pre])))
+                held["loss"] = max(held["loss"], abs(lk - lp) / abs(lp))
+                ref_sd = mp.state_dict()
+                for n_, a in mk.state_dict().items():
+                    v = ref_sd[n_]
+                    held["mlp"] = max(held["mlp"], float(
+                        ((a - v).abs() / (1 + v.abs())).max()))
+                for a, v in [(tk.cache_mom, tp.cache_mom)] + [
+                        (sk[n_], sp[n_]) for n_ in sk] + [
+                        (torch.from_numpy(mk_), torch.from_numpy(mp_))
+                        for (_, mk_), (_, mp_) in zip(post_k, post_p)]:
+                    held["sums"] = max(held["sums"], within_own(
+                        a, v, 1e-4)[1])
+                if not all(held[k_] <= lim
+                           for k_, lim in limits.items()):
+                    raise AssertionError(f"{tag} kernels on against "
+                                         f"off at {precision} bits, "
+                                         f"step {k + 1}: {held}")
+            k3 = ""
+            if precision == 8:
+                # K3 at this path's shape: one source, the uint8 cells,
+                # the batch's idx [B, T]
+                shape = np.asarray(held_b[0][1]).shape
+                gi = torch.randint(0, tk.capacity, shape,
+                                   dtype=torch.int32, device=dev)
+                got = gather_rows_dequant_int8(tk.cache_values, gi)
+                want_ = gather_rows_dequant_int8_ref(tk.cache_values,
+                                                     gi)
+                if not torch.equal(got, want_):
+                    raise AssertionError(f"{tag} K3 at {list(shape)} "
+                                         f"over the int8 cells differs "
+                                         f"from its plain version")
+                k3 = (f"; int8 codes at most {codes[0]} apart, "
+                      f"{codes[1]} codes apart in all; K3 at idx "
+                      f"{list(shape)} over the {tk.capacity} x {tk.dim}"
+                      f" uint8 cells equals its "
+                      f"plain version bit for bit")
+            print(f"{tag} kernels on against off at {precision} bits, "
+                  f"3 held steps after 3 warm-up ones (per-batch, from "
+                  f"(2)'s state): max rel loss diff "
+                  f"{held['loss']:.3e} (limit 1e-5); MLPs "
+                  f"max|d|/(1+|ref|) {held['mlp']:.3e} (limit 1e-4); "
+                  f"step change |d_on - d_off| / |d_off| of the cells "
+                  f"{held['cells']:.3e} and of the rows written back "
+                  f"{held['rows']:.3e} (limit 1e-2); row and dense sums "
+                  f"max|d|/(|ref| + mean nonzero |ref|) "
+                  f"{held['sums']:.3e} (limit 1e-4){k3}", flush=True)
+            tk.close()
+            tp.close()
+            del tk, tp, mk, mp, sk, sp
 
     # -------------------------------------- 2b grouped kernels, new widths
     BAG_B, BAG_L = 128, 10      # the recipe's batch; the reference's bags
@@ -950,15 +1394,6 @@ def main() -> int:
         def grown():
             return torch.cuda.max_memory_allocated() - mem0
 
-        def step_change(after_a, after_b, before_b):
-            """|d_a - d_b| / |d_b|, d = after - before (2-norms), the
-            changes of b taken as the plain reference."""
-            size = float(np.linalg.norm(np.asarray(after_b, np.float64)
-                                        - before_b))
-            diff = float(np.linalg.norm(np.asarray(after_a, np.float64)
-                                        - after_b))
-            return diff / size if size else (0.0 if diff == 0 else np.inf)
-
         with Phase("3g cached training"):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -1361,149 +1796,15 @@ def main() -> int:
             torch.cuda.empty_cache()
 
             # (3) the kernels on against off at 32, 16 and 8 bits, each from
-            # (2)'s state: 3 warm-up and 3 held steps.  At 8 bits both
-            # trainers seed the stochastic encode with the step index on
-            # one device, so they draw the same u: every code must lie
-            # within one of the other side's
+            # (2)'s state
             held_b = stream[warm + n2:warm + n2 + 6]
-            rows3 = [ids_of(held_b, t) for t in range(len(sizes))]
-            start3 = [work[t][rows3[t]].copy() for t in range(len(sizes))]
             sd0 = {k: v.clone() for k, v in model.state_dict().items()}
             dst0 = {k: v.clone() for k, v in dst.items()}
             del model, dst
-            limits = {"loss": 1e-5, "mlp": 1e-4, "cells": 1e-2,
-                      "rows": 1e-2, "sums": 1e-4}
-
-            def as_f32(v):
-                return trn._q8_decode(v) if v.dtype == torch.uint8 \
-                    else v.float()
-
-            for precision in (32, 16, 8):
-                for t in range(len(sizes)):
-                    work[t][rows3[t]] = start3[t]
-                tk, mk, sk = trainer(precision)
-                tp, mp, sp = trainer(precision, cfg=off_cfg, opt=off_t)
-                with torch.no_grad():
-                    mk.load_state_dict(sd0)
-                    for n_ in sk:
-                        sk[n_].copy_(dst0[n_])
-                for t in range(len(sizes)):
-                    tk.host_mom[t][:] = moms[t]
-                held = dict.fromkeys(limits, 0.0)
-                codes = [0, 0]      # the largest code distance, codes apart
-                for k, b in enumerate(held_b):
-                    idx = np.asarray(b[1])
-                    with torch.no_grad():
-                        tp.cache_values.copy_(tk.cache_values)
-                        tp.cache_mom.copy_(tk.cache_mom)
-                        mp.load_state_dict(mk.state_dict())
-                        for n_ in sk:
-                            sp[n_].copy_(sk[n_])
-                        cells0 = tk.cache_values.clone()
-                    # the masters are shared and the row sums apart: the
-                    # plain trainer starts from the rows and sums the
-                    # kernel trainer started from, which then gets its own
-                    # back
-                    pre = [(work[t][idx[:, t]].copy(),
-                            tk.host_mom[t][idx[:, t]].copy())
-                           for t in range(len(sizes))]
-                    lk = float(tk.train_batch(mk, sk, k + 1, *b)[2])
-                    post_k = [(work[t][idx[:, t]].copy(),
-                               tk.host_mom[t][idx[:, t]].copy())
-                              for t in range(len(sizes))]
-                    for t, (rows, sums) in enumerate(pre):
-                        work[t][idx[:, t]] = rows
-                        tp.host_mom[t][idx[:, t]] = sums
-                    scat = {}
-                    assign = tp.assigner.assign_batch_train_raw
-
-                    def spy(ids):
-                        out = assign(ids)
-                        scat["slots"], scat["m"] = out[1], out[2]
-                        return out
-
-                    tp.assigner.assign_batch_train_raw = spy
-                    lp = float(tp.train_batch(mp, sp, k + 1, *b)[2])
-                    tp.assigner.assign_batch_train_raw = assign
-                    post_p = [(work[t][idx[:, t]].copy(),
-                               tp.host_mom[t][idx[:, t]].copy())
-                              for t in range(len(sizes))]
-                    for t, (rows, _) in enumerate(post_k):
-                        work[t][idx[:, t]] = rows
-                    if k < 3:
-                        continue
-                    # the cells' change, each inserted cell from the row it
-                    # took, as its cell's type holds it (the plain
-                    # trainer's buffer keeps the row)
-                    start = as_f32(cells0)
-                    slots = torch.from_numpy(scat["slots"]).long().to(dev)
-                    start[slots] = as_f32(tp._encode_det(tp._buf[
-                        torch.from_numpy(scat["m"]).long().to(dev)]))
-                    held["cells"] = max(held["cells"], step_change(
-                        as_f32(tk.cache_values).cpu().numpy(),
-                        as_f32(tp.cache_values).cpu().numpy(),
-                        start.cpu().numpy()))
-                    if precision == 8:
-                        gap = (tk.cache_values.int()
-                               - tp.cache_values.int()).abs()
-                        codes[0] = max(codes[0], int(gap.max()))
-                        codes[1] += int((gap > 0).sum())
-                        if codes[0] > 1:
-                            raise AssertionError(f"3g(3) int8, step {k + 1}"
-                                                 f": codes {codes[0]} apart")
-                    held["rows"] = max(held["rows"], step_change(
-                        np.concatenate([r for r, _ in post_k]),
-                        np.concatenate([r for r, _ in post_p]),
-                        np.concatenate([r for r, _ in pre])))
-                    held["loss"] = max(held["loss"], abs(lk - lp) / abs(lp))
-                    ref_sd = mp.state_dict()
-                    for n_, a in mk.state_dict().items():
-                        v = ref_sd[n_]
-                        held["mlp"] = max(held["mlp"], float(
-                            ((a - v).abs() / (1 + v.abs())).max()))
-                    for a, v in [(tk.cache_mom, tp.cache_mom)] + [
-                            (sk[n_], sp[n_]) for n_ in sk] + [
-                            (torch.from_numpy(mk_), torch.from_numpy(mp_))
-                            for (_, mk_), (_, mp_) in zip(post_k, post_p)]:
-                        held["sums"] = max(held["sums"], within_own(
-                            a, v, 1e-4)[1])
-                    if not all(held[k_] <= lim
-                               for k_, lim in limits.items()):
-                        raise AssertionError(f"3g(3) kernels on against "
-                                             f"off at {precision} bits, "
-                                             f"step {k + 1}: {held}")
-                k3 = ""
-                if precision == 8:
-                    # K3 at this path's shape: one source, 64,000 x 36
-                    # uint8 cells, idx [128, 26]
-                    gi = torch.randint(0, tk.capacity, (CACHED_B,
-                                                        len(sizes)),
-                                       dtype=torch.int32, device=dev)
-                    got = gather_rows_dequant_int8(tk.cache_values, gi)
-                    want_ = gather_rows_dequant_int8_ref(tk.cache_values,
-                                                         gi)
-                    if not torch.equal(got, want_):
-                        raise AssertionError("3g(3) K3 at [128, 26] over "
-                                             "the int8 cells differs from "
-                                             "its plain version")
-                    k3 = (f"; int8 codes at most {codes[0]} apart, "
-                          f"{codes[1]} codes apart in all; K3 at idx "
-                          f"[{CACHED_B}, {len(sizes)}] over the "
-                          f"{tk.capacity} x {D} uint8 cells equals its "
-                          f"plain version bit for bit")
-                print(f"3g(3) kernels on against off at {precision} bits, "
-                      f"3 held steps after 3 warm-up ones (per-batch, from "
-                      f"(2)'s state): max rel loss diff "
-                      f"{held['loss']:.3e} (limit 1e-5); MLPs "
-                      f"max|d|/(1+|ref|) {held['mlp']:.3e} (limit 1e-4); "
-                      f"step change |d_on - d_off| / |d_off| of the cells "
-                      f"{held['cells']:.3e} and of the rows written back "
-                      f"{held['rows']:.3e} (limit 1e-2); row and dense sums "
-                      f"max|d|/(|ref| + mean nonzero |ref|) "
-                      f"{held['sums']:.3e} (limit 1e-4){k3}", flush=True)
-                tk.close()
-                tp.close()
-                del tk, tp, mk, mp, sk, sp
+            cached_on_off(
+                lambda p, on: trainer(p) if on else trainer(
+                    p, cfg=off_cfg, opt=off_t),
+                work, moms, sd0, dst0, held_b, (32, 16, 8), "3g(3)")
             del work, base, stream, moms
             path = {k: launches[k] for k in (
                 "interaction_fwd", "interaction_bwd", "gather_rows",
@@ -2421,6 +2722,620 @@ def main() -> int:
             print(f"3i path launches: {json.dumps(out)}", flush=True)
             return out
 
+    # ----------------------------------------------- 3j the MLPerf shape
+    MLPERF_C1 = 4_000_000   # cells: scripts/mlperf_rehearsal.py's default
+    MLPERF_BIG = (64_000_000, 16_000_000)   # the large cell, largest first
+    MLPERF_M = 16_384       # miss-buffer rows of phase 2's cases
+    MLPERF_B = 2048         # bench/run_and_time.sh's batch
+    MLPERF_CLI_N = 32       # batches of random data through the CLI
+    MLPERF_WARM, MLPERF_N = 6, 32   # warm-up and timed batches a driver run
+    TB_WARM, TB_N = 5, 50   # 3j(d): warm-up and timed steps an optimizer
+    MLPERF_PROF = 3         # pipelined steps under the profiler, a cell
+    MLPERF_CUT_WARM, MLPERF_CUT_N = 20, 10  # 3j(c): warm-up, held steps
+    # the recipe's flags that set data, cadence and logging, not the model
+    RECIPE_DROP = {"--data-generation": 1, "--data-set": 1,
+                   "--print-freq": 1, "--test-freq": 1,
+                   "--mlperf-logging": 0, "--mlperf-auc-threshold": 1}
+
+    def phase_3j():
+        """The MLPerf recipe's shape (bench/run_and_time.sh: dim 128, the
+        26 Terabyte tables capped at 40M rows, 204,184,588 rows or 104.5
+        GB at float32, bottom 13-512-256-128, top 1024-1024-512-256-1, B
+        2048, lr 1.0 with 2,750 warm-up steps) trained through the
+        trainable cache from sparse masters (`MemoryFiles`), and the
+        Terabyte shape (bench/dlrm_s_criteo_terabyte.sh: dim 64, tables
+        capped at 10M rows, 13.87 GB) with its tables on the card: (0) the
+        room (card, free RAM and disk) and the pages the runs can touch;
+        (a) `cli.main` with the recipe's model, loss and schedule flags plus
+        `--data-generation random --use-evstore True --optimizer
+        rwsadagrad --emb-cache-size 4000000 --ev-table-path <sparse
+        masters>`; (b) `TrainableDeviceCache.from_files` per batch and
+        pipelined from fresh masters, bit for bit, on grouped_zipf batches
+        (alpha 1.05, group noise 0.1) at fp32 and int8 with 4,000,000
+        cells and fp32 with 64,000,000 (16,000,000 where those do not
+        fit), with steps/s, the host split, the window's hit rate, the
+        device memory added, host RSS, the pages the files took and a
+        profiled window; (c) the shape cut to 1M rows a table, its tables
+        drawn and written with `write_ev_tables_binary`, the cache from
+        those files held to `make_train_step` by 3g(2)'s rules and the
+        kernels on against off by 3g(3)'s at fp32 and int8; (d) the
+        Terabyte shape's step held by 3b's rules under sgd and rwsadagrad
+        (lr 0.1), with steps/s.  K1, K2, K4 and K5 must launch in every
+        part of the path, K3 in the int8 cell.  Returns the path's launch
+        counts (`train_mlperf`)."""
+        import contextlib
+
+        from evstore_tpu_torch import cli
+        from evstore_tpu_torch.cache import trainable as trn
+        launches = dict.fromkeys(wrappers, 0)
+        need = ("interaction_fwd", "interaction_bwd", "scatter_sub_sorted")
+
+        def counted(fn, what, gather=("gather_rows",), extra=()):
+            """fn() with every count set to 0 just before; its launches go
+            to the path's, and K1, K4, K5, the gathers `gather` and the
+            kernels `extra` must each have launched."""
+            reset_counts()
+            out = fn()
+            got = read_counts()
+            for k, v in got.items():
+                launches[k] += v
+            idle = [k for k in need + tuple(gather) + tuple(extra)
+                    if got[k] < 1]
+            if idle:
+                raise AssertionError(f"3j {what}: {idle} never launched: "
+                                     f"{got}")
+            return out
+
+        def recipe_flags():
+            flags, out, k = bench_flags("run_and_time.sh"), [], 0
+            while k < len(flags):
+                if flags[k] in RECIPE_DROP:
+                    k += 1 + RECIPE_DROP[flags[k]]
+                    continue
+                out.append(flags[k])
+                k += 1
+            return out
+
+        def ids_of(batches, t):
+            return np.unique(np.concatenate(
+                [np.asarray(b[1])[:, t] for b in batches]))
+
+        def pages(batches, dim):
+            """The pages of the tables and sums that `batches` can touch:
+            an upper bound on what a run from fresh masters lands."""
+            per = 4096 // (dim * 4)
+            return sum(len(np.unique(r // per)) + len(np.unique(r // 1024))
+                       for r in (ids_of(batches, t)
+                                 for t in range(len(batches[0][1][0]))))
+
+        def fence():
+            torch.cuda.synchronize()
+
+        def held_down(losses):
+            """The recipe's schedule keeps training from diverging: every
+            loss finite and under 2 ln 2, twice a constant guess's on
+            random labels (without the warm-up the loss diverges within
+            two steps).  Within the warm-up a printed loss passes 0.75 in
+            the JAX package too, on the recipe's flags and random labels
+            (tests/test_torch_mlperf_shape.py), so that is counted, not
+            held."""
+            return all(np.isfinite(losses)) and max(losses) < 2 * np.log(2)
+
+        with Phase("3j mlperf shape"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            d = tempfile.mkdtemp(prefix="mlperf-")
+            live = []       # MemoryFiles to close
+            try:
+                flags = recipe_flags()
+                parsed = cli.build_parser().parse_args(flags)
+                rcfg, rt, _ = cli.configs_from_args(parsed)
+                if rcfg.embedding_dim != 128 or sum(rcfg.table_sizes) != \
+                        204_184_588 or rt.lr_num_warmup_steps != 2750:
+                    raise AssertionError(f"run_and_time.sh's flags gave "
+                                         f"{rcfg}, {rt}")
+                cfg = dataclasses.replace(rcfg, compute_dtype="float32")
+                tcfg = dataclasses.replace(rt, optimizer="rwsadagrad")
+                sizes, D, T = cfg.table_sizes, cfg.embedding_dim, \
+                    cfg.num_tables
+                gb = sum(sizes) * D * 4 / 1e9
+
+                # (0) the room
+                ram = meminfo_kb("MemAvailable") * 1024
+                disk = shutil.disk_usage(d).free
+                room = min(ram, disk) / 4
+                stream = list(random_batches(RandomDataConfig(
+                    num_dense=13, table_sizes=sizes, batch_size=MLPERF_B,
+                    num_batches=MLPERF_WARM + MLPERF_N + MLPERF_PROF,
+                    seed=args.seed + 61, distribution="grouped_zipf",
+                    zipf_alpha=1.05, group_noise=0.1)))
+                cli_argv = flags + [
+                    "--data-generation", "random", "--num-batches",
+                    str(MLPERF_CLI_N), "--print-freq",
+                    str(max(1, MLPERF_CLI_N // 5)), "--use-evstore",
+                    "True", "--optimizer", "rwsadagrad", "--emb-cache-size",
+                    str(MLPERF_C1)]
+                cli_args = cli.build_parser().parse_args(cli_argv)
+                cli_stream = list(cli._make_data(cli_args, rcfg)[0]())
+                n_cli = len(cli_stream)
+                while n_cli > 1 and pages(cli_stream[:n_cli], D) * 4096 \
+                        > room:
+                    n_cli //= 2
+                worst = max(pages(stream, D), pages(cli_stream[:n_cli], D))
+                if worst * 4096 > room:
+                    raise AssertionError(f"3j: {worst} pages a run over "
+                                         f"the room of {room / 1e9:.1f} GB")
+                cli_argv[cli_argv.index("--num-batches") + 1] = str(n_cli)
+                print(f"3j(0) room [{card}]: {ram / 1e9:.1f} GB of host "
+                      f"RAM available, {disk / 1e9:.1f} GB of disk free "
+                      f"under {d}; a run from fresh masters touches at "
+                      f"most {worst} pages of 4 KB ({worst * 4096 / 1e9:.2f}"
+                      f" GB; the CLI's {n_cli} uniform batches or the "
+                      f"drivers' {len(stream)} grouped_zipf ones), within a "
+                      f"quarter of the smaller, {room / 1e9:.1f} GB",
+                      flush=True)
+
+                def masters(name):
+                    m = MemoryFiles(os.path.join(d, name), sizes, D)
+                    live.append(m)
+                    return m
+
+                def release(m):
+                    m.close()
+                    live.remove(m)
+
+                # what the first touch of a memory file's page costs: one
+                # of rows read from the largest table's holes, then the
+                # same rows written
+                probe = MemoryFiles(os.path.join(d, "probe"),
+                                    [max(sizes)], D)
+                live.append(probe)
+                tab = np.memmap(os.path.join(probe.dir, "ev-table-1.bin"),
+                                np.float32, mode="r+", shape=(max(sizes), D))
+                rows = np.random.default_rng(args.seed).choice(
+                    max(sizes), 20_000, replace=False)
+                t0 = time.perf_counter()
+                tab[rows].sum()
+                t1 = time.perf_counter()
+                tab[rows] = 1.0
+                t2 = time.perf_counter()
+                print(f"3j(0) a memory file's pages: the first read of a "
+                      f"row {(t1 - t0) / len(rows) * 1e6:.2f} us, a write "
+                      f"to it then {(t2 - t1) / len(rows) * 1e6:.2f} us "
+                      f"({len(rows)} random rows of a {max(sizes)}-row "
+                      f"table; {probe.touched_mb():.1f} MB of pages)",
+                      flush=True)
+                del tab
+                release(probe)
+
+                # (a) the CLI
+                m = masters("cli")
+                print(f"3j(0) sparse masters: {len(m.fds)} files, "
+                      f"{m.virtual / 1e9:.1f} GB ({gb:.1f} GB of tables), "
+                      f"{m.touched_mb():.1f} MB of pages after making them "
+                      f"(st_blocks reports {m.blocks_mb() / 1e3:.1f} GB)",
+                      flush=True)
+                argv = cli_argv + ["--ev-table-path", m.dir]
+                tee = Tee(sys.stdout)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(tee):
+                    rc = counted(lambda: cli.main(argv), "(a) the CLI")
+                secs = time.perf_counter() - t0
+                out = "\n".join(tee.text)
+                trained = re.search(r"trained (\d+) steps in ([\d.]+) s "
+                                    r"\(([\d.]+) steps/s\)", out)
+                seen = re.findall(r"step (\d+): loss ([-\d.naif]+) .*hit "
+                                  r"rate ([\d.]+)", out)
+                losses = [float(x) for _, x, _ in seen]
+                if rc != 0 or trained is None or \
+                        int(trained.group(1)) != n_cli or not losses or \
+                        not held_down(losses):
+                    raise AssertionError(f"3j(a) the CLI: rc {rc}, "
+                                         f"losses {losses}")
+                rate = float(trained.group(3))
+                print(f"3j(a) cli [{card}]: run_and_time.sh's model, loss "
+                      f"and schedule flags + --data-generation random "
+                      f"--use-evstore True --emb-cache-size {MLPERF_C1} "
+                      f"over {gb:.1f} GB of sparse masters (bf16 compute, "
+                      f"the CLI's default): {n_cli} steps at {rate:.2f} "
+                      f"steps/s ({rate * MLPERF_B:.0f} samples/s); the run "
+                      f"took {secs:.2f} s with the flush; losses "
+                      f"{', '.join(f'{x:.4f}' for x in losses)} (finite,"
+                      f" under 2 ln 2; above 0.75: "
+                      f"{sum(x >= 0.75 for x in losses)} of {len(losses)})"
+                      f"; hit rate {seen[-1][2]}; host RSS "
+                      f"{rss_gb():.2f} GB; the files took "
+                      f"{m.touched_mb():.1f} MB", flush=True)
+                release(m)
+
+                # (b) the two drivers on fresh sparse masters, per cell
+                free_card = torch.cuda.mem_get_info()[0]
+                big = next((c for c in MLPERF_BIG
+                            if c * (D * 4 + 4) + (8 << 30) < free_card),
+                           MLPERF_BIG[-1])
+                item = {32: 4, 8: 1}
+
+                def run(label, bits, cap, how):
+                    mst = masters(f"{label}-{how}")
+                    model = DLRM(cfg, device=dev, seed=args.seed,
+                                 tables=False)
+                    dst = trn.init_dense_state(model)
+                    fence()
+                    mem0 = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    tc = trn.TrainableDeviceCache.from_files(
+                        cfg, tcfg, CacheConfig(total_size=cap,
+                                               main_precision=bits),
+                        mst.dir, sizes, device=dev)
+                    t_init, rss_init = time.perf_counter() - t0, rss_gb()
+                    if rss_init > meminfo_kb("MemTotal") * 1024 / 2e9:
+                        tc.close()
+                        raise MemoryError(f"{cap} cells: host RSS "
+                                          f"{rss_init:.1f} GB")
+                    mark = {}
+
+                    def window():
+                        fence()
+                        mark["t"] = time.perf_counter()
+                        mark["s"] = tc.stats()
+                        for k in tc.host_s:
+                            tc.host_s[k] = 0.0
+
+                    def drive():
+                        losses = []
+                        if how == "batch":
+                            for k, b in enumerate(stream[:MLPERF_WARM
+                                                         + MLPERF_N]):
+                                if k == MLPERF_WARM:
+                                    window()
+                                losses.append(tc.train_batch(
+                                    model, dst, k + 1, *b)[2])
+                        else:
+                            for k, (_, _, loss) in enumerate(
+                                    tc.train_batches(model, dst, stream[
+                                        :MLPERF_WARM + MLPERF_N])):
+                                losses.append(loss)
+                                if k + 1 == MLPERF_WARM:
+                                    window()
+                        fence()
+                        return [float(x) for x in losses]
+
+                    losses = counted(drive, f"(b) {label} {how}",
+                                     extra=("gather_rows_dequant_int8",)
+                                     if bits == 8 else ())
+                    secs = time.perf_counter() - mark["t"]
+                    s0, s1 = mark["s"], tc.stats()
+                    L0, L1 = s0["requests"] * T, s1["requests"] * T
+                    hit = (s1["hit_rate"] * L1 - s0["hit_rate"] * L0) / \
+                        (L1 - L0)
+                    persist = torch.cuda.memory_allocated() - mem0
+                    peak = torch.cuda.max_memory_allocated() - mem0
+                    # the cells and their sums, and the buffer's rows and
+                    # sums; at most 256 MiB more (scratch, staging)
+                    cells = cap * (D * item[bits] + 4)
+                    buf = tc._buf.shape[0] * (D * 4 + 4)
+                    if not held_down(losses) or \
+                            s1["hbm_bytes"] != cells or \
+                            persist > cells + buf + (256 << 20):
+                        raise AssertionError(f"3j(b) {label} {how}: losses "
+                                             f"{losses}, {s1}")
+                    split = ", ".join(f"{k} {v / MLPERF_N * 1e3:.2f}"
+                                      for k, v in tc.host_s.items())
+                    print(f"3j(b) {label} {how} [{card}]: from_files and "
+                          f"the engine in {t_init:.2f} s (host RSS "
+                          f"{rss_init:.2f} GB); {MLPERF_N} steps after "
+                          f"{MLPERF_WARM} in {secs:.3f} s = "
+                          f"{MLPERF_N / secs:.2f} steps/s "
+                          f"({MLPERF_N * MLPERF_B / secs:.0f} samples/s); "
+                          f"host ms a step: {split}; C1 hit rate of the "
+                          f"window {hit:.4f}, {s1['size']} of {cap} cells "
+                          f"({'full' if s1['size'] >= cap else 'not full'});"
+                          f" device memory added {persist / 2**30:.3f} GiB "
+                          f"(peak {peak / 2**30:.3f} GiB) against cells x "
+                          f"(row + 4) {cells / 2**30:.3f} GiB + the buffer "
+                          f"{buf / 2**30:.3f} GiB; host RSS {rss_gb():.2f} "
+                          f"GB; the files took {mst.touched_mb():.1f} MB "
+                          f"(st_blocks reports {mst.blocks_mb() / 1e3:.1f} "
+                          f"GB); losses {losses[0]:.4f} .. {losses[-1]:.4f}"
+                          f" (max {max(losses):.4f}, above 0.75: "
+                          f"{sum(x >= 0.75 for x in losses)} of "
+                          f"{len(losses)})", flush=True)
+                    keys, slots = tc.assigner.resident_keys()
+                    order = np.argsort(keys)
+                    sl = torch.from_numpy(slots[order]).long().to(dev)
+                    rec = dict(
+                        losses=losses, stats=s1, keys=keys[order],
+                        slots=slots[order],
+                        cells=tc.cache_values[sl].cpu(),
+                        sums=tc.cache_mom[sl].cpu(),
+                        model={k: v.to("cpu", copy=True) for k, v in
+                               model.state_dict().items()},
+                        dst={k: v.to("cpu", copy=True)
+                             for k, v in dst.items()})
+                    del sl
+                    t0 = time.perf_counter()
+                    tc.flush_files()
+                    t_flush = time.perf_counter() - t0
+                    tabs = [np.memmap(os.path.join(
+                        mst.dir, f"ev-table-{t + 1}.bin"), np.float32,
+                        mode="r", shape=(n, D)) for t, n in enumerate(sizes)]
+                    moms = [np.memmap(os.path.join(
+                        mst.dir, f"mom-{t + 1}.bin"), np.float32, mode="r",
+                        shape=(n,)) for t, n in enumerate(sizes)]
+                    ids = [ids_of(stream[:MLPERF_WARM + MLPERF_N], t)
+                           for t in range(T)]
+                    rec["rows"] = [(np.array(tabs[t][r]),
+                                    np.array(moms[t][r]))
+                                   for t, r in enumerate(ids)]
+                    del tabs, moms
+                    if how == "pipelined":
+                        # a profiled window of the pipelined driver
+                        more = tc.train_batches(
+                            model, dst, stream[MLPERF_WARM + MLPERF_N:],
+                            start_step=MLPERF_WARM + MLPERF_N + 1)
+
+                        def profiled():
+                            wall, on_card = profile_steps(
+                                torch, lambda: next(more), MLPERF_PROF)
+                            for _ in more:
+                                pass
+                            return wall, on_card
+
+                        wall, on_card = counted(
+                            profiled, f"(b) {label} profiled",
+                            extra=("gather_rows_dequant_int8",)
+                            if bits == 8 else ())
+                        busy = sum(t for _, t in on_card.values())
+                        print(f"3j(b) {label} a profiled window of "
+                              f"{MLPERF_PROF} pipelined steps: {wall:.2f} "
+                              f"ms wall, device busy {busy:.3f} ms "
+                              f"({busy / wall:.1%}), "
+                              f"{sum(c for c, _ in on_card.values())} "
+                              f"kernels and copies; " + by_kernel(
+                                  on_card, MLPERF_PROF, CACHED_KERNELS)
+                              + f"; flush_files {t_flush:.2f} s", flush=True)
+                    tc.close()
+                    del tc, model, dst
+                    torch.cuda.empty_cache()
+                    return mst, rec
+
+                cells_run = [("fp32-4M", 32, MLPERF_C1),
+                             ("int8-4M", 8, MLPERF_C1),
+                             (f"fp32-{big // 10**6}M", 32, big)]
+                for label, bits, cap in cells_run:
+                    t_cell = time.perf_counter()
+                    try:
+                        m_a, a = run(label, bits, cap, "batch")
+                    except MemoryError as e:
+                        if cap == MLPERF_BIG[-1]:
+                            raise
+                        print(f"3j(b) {label}: {e}; stepping down to "
+                              f"{MLPERF_BIG[-1]} cells", flush=True)
+                        release(live[-1])
+                        label, cap = f"fp32-{MLPERF_BIG[-1] // 10**6}M", \
+                            MLPERF_BIG[-1]
+                        m_a, a = run(label, bits, cap, "batch")
+                    m_b, b = run(label, bits, cap, "pipelined")
+                    parted = [k for k, ok in (
+                        ("losses", a["losses"] == b["losses"]),
+                        ("stats", a["stats"] == b["stats"]),
+                        ("resident keys", np.array_equal(a["keys"],
+                                                         b["keys"])),
+                        ("their slots", np.array_equal(a["slots"],
+                                                       b["slots"])),
+                        ("cells", torch.equal(a["cells"], b["cells"])),
+                        ("cell sums", torch.equal(a["sums"], b["sums"])),
+                        ("MLPs", all(torch.equal(a["model"][k],
+                                                 b["model"][k])
+                                     for k in a["model"])),
+                        ("MLP sums", all(torch.equal(a["dst"][k],
+                                                     b["dst"][k])
+                                         for k in a["dst"])),
+                        ("rows from the files", all(
+                            np.array_equal(x[0], y[0])
+                            for x, y in zip(a["rows"], b["rows"]))),
+                        ("sums from the files", all(
+                            np.array_equal(x[1], y[1])
+                            for x, y in zip(a["rows"], b["rows"]))))
+                        if not ok]
+                    if parted:
+                        raise AssertionError(f"3j(b) {label}: per-batch and "
+                                             f"pipelined part in {parted}")
+                    n_rows = sum(len(r[0]) for r in a["rows"])
+                    print(f"3j(b) {label}: per-batch and pipelined bit for "
+                          f"bit over {MLPERF_WARM + MLPERF_N} steps: "
+                          f"losses, stats, {len(a['keys'])} resident cells "
+                          f"and their sums, the MLPs and their sums, and "
+                          f"{n_rows} rows and sums read back from the "
+                          f"files; the cell took "
+                          f"{time.perf_counter() - t_cell:.1f} s", flush=True)
+                    release(m_a)
+                    release(m_b)
+                    del a, b
+
+                # (c) the shape cut to 1M rows a table, held to the
+                # full-table step
+                t_part = time.perf_counter()
+                cfg1 = mlperf_dlrm_config(max_ind_range=1_000_000,
+                                          compute_dtype="float32")
+                s1 = cfg1.table_sizes
+                g1 = torch.Generator(device=dev).manual_seed(args.seed + 71)
+                t0 = time.perf_counter()
+                tabs = [torch.empty(n, D, device=dev).uniform_(
+                    -float(np.sqrt(1.0 / n)), float(np.sqrt(1.0 / n)),
+                    generator=g1) for n in s1]
+                ev1 = os.path.join(d, "cut1m")
+                write_ev_tables_binary([t.cpu().numpy() for t in tabs], ev1,
+                                       32)
+                full = DLRM(cfg1, device=dev, seed=args.seed, tables=tabs)
+                del tabs
+                torch.cuda.empty_cache()
+                cut = list(random_batches(RandomDataConfig(
+                    num_dense=13, table_sizes=s1, batch_size=MLPERF_B,
+                    num_batches=MLPERF_CUT_WARM + MLPERF_CUT_N + 6,
+                    seed=args.seed + 73, distribution="grouped_zipf",
+                    zipf_alpha=1.05, group_noise=0.1)))
+                print(f"3j(c) the 1M cut: {sum(s1)} rows x {D} "
+                      f"({sum(s1) * D * 4 / 1e9:.2f} GB) drawn on the card, "
+                      f"written with write_ev_tables_binary and loaded "
+                      f"for make_train_step in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+                st_f = init_opt_state(full, tcfg)
+                step_f = make_train_step(cfg1, tcfg)
+                warm_b = cut[:MLPERF_CUT_WARM]
+                held = cut[MLPERF_CUT_WARM:MLPERF_CUT_WARM + MLPERF_CUT_N]
+                for b_ in warm_b:
+                    step_f(full, st_f, *b_)
+                keys1 = sum(len(ids_of(held, t)) for t in range(T))
+                tc = trn.TrainableDeviceCache.from_files(
+                    cfg1, tcfg, CacheConfig(total_size=keys1), ev1, s1,
+                    device=dev)
+                for t in range(T):
+                    rows = ids_of(warm_b, t)
+                    rows_d = torch.from_numpy(rows).to(dev)
+                    tc.host_tables[t][rows] = full.tables[t][rows_d].cpu()
+                    tc.host_mom[t][rows] = \
+                        st_f.sparse[f"tables.{t}"][rows_d].cpu()
+                model = DLRM(cfg1, device=dev, seed=args.seed, tables=False)
+                dst = trn.init_dense_state(model)
+                with torch.no_grad():
+                    params_f = dict(full.named_parameters())
+                    for n_, p_ in model.named_parameters():
+                        p_.copy_(params_f[n_])
+                        dst[n_].copy_(st_f.dense[n_])
+                worst = cache_against_full(
+                    torch, tc, model, dst, full, st_f, step_f, held,
+                    MLPERF_CUT_WARM,
+                    run=lambda fn: counted(fn, "(c) the cut"))
+                if tc.stats()["size"] != keys1:
+                    raise AssertionError(f"3j(c): {tc.stats()['size']} "
+                                         f"cached of {keys1} keys")
+                print(f"3j(c) {MLPERF_CUT_N} steps with every key cached "
+                      f"(capacity {keys1}, none evicted), from "
+                      f"make_train_step's state after {MLPERF_CUT_WARM} "
+                      f"steps on the full tables, under the recipe's "
+                      f"schedule, each step from one state (the full "
+                      f"tables take the batch's rows and sums from the "
+                      f"cache, and its MLPs and their sums, before each): "
+                      f"losses within {worst['loss']:.3e} of 1 + |ref| "
+                      f"(limit 1e-4), the rows' step change |d_cached - "
+                      f"d_full| / |d_full| at most {worst['rows']:.3e} "
+                      f"(limit 1e-2), the row sums {worst['row sums']:.3e}"
+                      f" and the MLPs' sums {worst['MLP sums']:.3e} of "
+                      f"their own size, the MLPs max|d|/(1+|ref|) "
+                      f"{worst['MLPs']:.3e} (limits 1e-4)", flush=True)
+                work, moms = tc.host_tables, tc.host_mom
+                tc.close()
+                sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+                dst0 = {k: v.clone() for k, v in dst.items()}
+                del tc, model, dst, full, st_f, step_f, params_f
+                torch.cuda.empty_cache()
+
+                off1 = dataclasses.replace(cfg1, use_gather_kernel=False,
+                                           use_interaction_kernel=False)
+                off_t = dataclasses.replace(tcfg, use_update_kernel=False)
+                on_off = cut[MLPERF_CUT_WARM + MLPERF_CUT_N:]
+                keys6 = sum(len(ids_of(on_off, t)) for t in range(T))
+
+                def trainer1(bits, on):
+                    c_, o_ = (cfg1, tcfg) if on else (off1, off_t)
+                    tc_ = trn.TrainableDeviceCache(
+                        c_, o_, CacheConfig(total_size=keys6,
+                                            main_precision=bits), work,
+                        copy_tables=False, device=dev)
+                    m_ = DLRM(c_, device=dev, seed=args.seed, tables=False)
+                    return tc_, m_, trn.init_dense_state(m_)
+
+                cached_on_off(trainer1, work, moms, sd0, dst0, on_off,
+                              (32, 8), "3j(c)",
+                              step0=MLPERF_CUT_WARM + MLPERF_CUT_N + 1)
+                del work, moms, cut, held, warm_b
+                torch.cuda.empty_cache()
+                print(f"3j(c) took {time.perf_counter() - t_part:.1f} s",
+                      flush=True)
+                t_part = time.perf_counter()
+
+                # (d) the Terabyte shape with its tables on the card
+                tb = terabyte_dlrm_config(compute_dtype="float32")
+                g2 = torch.Generator(device=dev).manual_seed(args.seed + 81)
+                t0 = time.perf_counter()
+                tabs = [torch.empty(n, tb.embedding_dim, device=dev).uniform_(
+                    -float(np.sqrt(1.0 / n)), float(np.sqrt(1.0 / n)),
+                    generator=g2) for n in tb.table_sizes]
+                model = DLRM(tb, device=dev, seed=args.seed, tables=tabs)
+                del tabs
+                torch.cuda.empty_cache()
+                plain = DLRM(dataclasses.replace(
+                    tb, use_gather_kernel=False,
+                    use_interaction_kernel=False), device=dev,
+                    seed=args.seed, tables=list(model.tables))
+                fence()
+                tb_gb = sum(tb.table_sizes) * tb.embedding_dim * 4 / 1e9
+                print(f"3j(d) the Terabyte shape: {sum(tb.table_sizes)} rows"
+                      f" x {tb.embedding_dim} ({tb_gb:.2f} GB) drawn on the "
+                      f"card, two copies of the model in "
+                      f"{time.perf_counter() - t0:.2f} s, "
+                      f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+                      f"allocated", flush=True)
+                tb_stream = iter(list(random_batches(RandomDataConfig(
+                    num_dense=13, table_sizes=tb.table_sizes,
+                    batch_size=MLPERF_B,
+                    num_batches=2 * (2 * 5 + TB_WARM + TB_N),
+                    seed=args.seed + 83, distribution="grouped_zipf",
+                    zipf_alpha=1.05, group_noise=0.1))))
+
+                def take(n):
+                    return [next(tb_stream) for _ in range(n)]
+
+                opts = [TrainConfig(learning_rate=0.1, optimizer=o)
+                        for o in ("sgd", "rwsadagrad")]
+
+                def checks():
+                    for o in opts:
+                        held_on_off(o, model, plain, take,
+                                    label=f"3j(d) terabyte {o.optimizer} ")
+
+                counted(checks, "(d) the Terabyte checks",
+                        gather=("gather_rows_grouped",))
+                del plain
+                torch.cuda.empty_cache()
+
+                def rates():
+                    out = {}
+                    for o in opts:
+                        train(model, tb, o, take(TB_WARM))
+                        out[o.optimizer] = train(model, tb, o, take(TB_N))[
+                            2]["it_per_s"]
+                    return out
+
+                tb_rates = counted(rates, "(d) the Terabyte windows",
+                                   gather=("gather_rows_grouped",))
+                print(f"3j(d) terabyte train B={MLPERF_B} lr 0.1 [{card}]: "
+                      + "; ".join(
+                          f"{o} {r:.2f} steps/s ({r * MLPERF_B:.0f} "
+                          f"samples/s; all {TB_N} steps of `train` after "
+                          f"{TB_WARM} over all their time)"
+                          for o, r in tb_rates.items())
+                      + f"; (d) took {time.perf_counter() - t_part:.1f} s",
+                      flush=True)
+                del model
+                torch.cuda.empty_cache()
+            finally:
+                for m in list(live):
+                    m.close()
+                shutil.rmtree(d, ignore_errors=True)
+            if os.path.exists(d):
+                raise AssertionError(f"3j: {d} is still there")
+            print(f"3j: the phase's directory is gone", flush=True)
+            path = {k: launches[k] for k in (
+                "interaction_fwd", "interaction_bwd", "gather_rows",
+                "gather_rows_grouped", "gather_rows_dequant_int8",
+                "scatter_sub_sorted")}
+            print(f"train_mlperf path launches: {json.dumps(path)}",
+                  flush=True)
+            return path
+
     # ------------------------------------------ 3e train factored tables
     def phase_3e(tables):
         """Training at the Kaggle model's full width beyond one-hot plain
@@ -2774,6 +3689,7 @@ def main() -> int:
                                       (2048, 26, 36), (2049, 26, 36),
                                       (65536, 26, 36),
                                       (4096, 26, 64), (4096, 26, 128),
+                                      (2048, 26, 64), (2048, 26, 128),
                                       (256, 3, 4), (129, 26, 4),
                                       (129, 26, 7)]
                     for dt in ("float32", "bfloat16")]
@@ -2812,16 +3728,25 @@ def main() -> int:
             es = x.element_size()
             bms, by = bound_ms((B * (T + 1) * D + B * (D + P)) * es,
                                2.0 * B * P * D, dt)
-            call = lambda: dot_interaction_kernel(x, ly, si)  # noqa: E731
+            sets = [(x, ly)]
+            if B == 2048 and D in (64, 128):
+                # phase 3j's widths, timed over copies that pass L2 4x
+                sets += [(x.clone(), ly.clone()) for _ in range(
+                    n_sets(B * (T + 1) * D * es) - 1)]
+            call = rotating([lambda a=a, b=b: dot_interaction_kernel(
+                a, b, si) for a, b in sets])
             k_ms = time_ms(torch, call)
-            p_ms = time_ms(torch, lambda: dot_interaction_ref(x, ly, si))
-            split = ""
-            if dt == "float32" and not si and not off and T == 26 \
-                    and D == 36 and B in (128, 2048, 65536):
-                dev_us, host_us = device_host_us(torch, call)
-                split = (f" device_us {dev_us:.2f} host_us {host_us:.2f} "
-                         f"({100 * bms * 1e3 / dev_us:.0f}% of the bound on "
-                         f"the device)")
+            p_ms = time_ms(torch, rotating([
+                lambda a=a, b=b: dot_interaction_ref(a, b, si)
+                for a, b in sets]))
+            split, dev_ms = "", None
+            if dt == "float32" and not si and not off and T == 26 and (
+                    D == 36 and B in (128, 2048, 65536)
+                    or B == 2048 and D in (64, 128)):
+                split, dev_ms = on_device(*device_host_us(torch, call), bms)
+            if len(sets) > 1:
+                split += f" (over {len(sets)} input sets)"
+            del sets
             staged = interaction_geometry(B, T + 1, D, es, si).stage_out
             print(f"interaction_fwd {label}: max|d| {err:.3e}, "
                   + ("equal to K6" if k6 is not got else
@@ -2833,7 +3758,7 @@ def main() -> int:
             if (B, T, D, dt, si, off) == (2048, 26, 36, "float32", False,
                                           False):
                 report["interaction_fwd"] = dict(
-                    max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3,
+                    max_abs_err=err, ms=k_ms, device_ms=dev_ms,
                     plain_ms=p_ms, bound_ms=bms, bound_by=by,
                     library_ms=None)
             del x, ly, got, ref, k6
@@ -2850,6 +3775,10 @@ def main() -> int:
                      (129, 26, 7, "float32", False, False),
                      (4096, 26, 128, "float32", False, False),
                      (4096, 26, 128, "bfloat16", False, False),
+                     (2048, 26, 64, "float32", False, False),
+                     (2048, 26, 64, "bfloat16", False, False),
+                     (2048, 26, 128, "float32", False, False),
+                     (2048, 26, 128, "bfloat16", False, False),
                      (256, 3, 4, "float32", True, False),
                      (129, 26, 36, "float32", False, True),
                      (129, 26, 36, "bfloat16", True, True)]
@@ -2882,18 +3811,25 @@ def main() -> int:
             F = T + 1
             bms, by = bound_ms((2 * B * F * D + B * (D + P)) * es,
                                2.0 * B * F * F * D + B * D, dt)
-            call = lambda: dot_interaction_bwd_kernel(  # noqa: E731
-                x, ly, g, si)
+            sets = [(x, ly, g)]
+            if B == 2048 and D in (64, 128):
+                # phase 3j's widths, timed over copies that pass L2 4x
+                sets += [(x.clone(), ly.clone(), g.clone()) for _ in range(
+                    n_sets((B * F * D + B * (D + P)) * es) - 1)]
+            call = rotating([lambda a=a, b=b, c=c: dot_interaction_bwd_kernel(
+                a, b, c, si) for a, b, c in sets])
             k_ms = time_ms(torch, call)
-            p_ms = time_ms(torch,
-                           lambda: dot_interaction_bwd_ref(x, ly, g, si))
-            split = ""
-            if dt == "float32" and not si and not off and T == 26 \
-                    and D == 36 and B in (128, 2048, 65536):
-                dev_us, host_us = device_host_us(torch, call)
-                split = (f" device_us {dev_us:.2f} host_us {host_us:.2f} "
-                         f"({100 * bms * 1e3 / dev_us:.0f}% of the bound on "
-                         f"the device)")
+            p_ms = time_ms(torch, rotating([
+                lambda a=a, b=b, c=c: dot_interaction_bwd_ref(a, b, c, si)
+                for a, b, c in sets]))
+            split, dev_ms = "", None
+            if dt == "float32" and not si and not off and T == 26 and (
+                    D == 36 and B in (128, 2048, 65536)
+                    or B == 2048 and D in (64, 128)):
+                split, dev_ms = on_device(*device_host_us(torch, call), bms)
+            if len(sets) > 1:
+                split += f" (over {len(sets)} input sets)"
+            del sets
             print(f"interaction_bwd {label}: max|d| {err:.3e}, two launches "
                   f"bitwise equal; kernel_ms {k_ms:.4f}{split} plain_ms "
                   f"{p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) library_ms "
@@ -2902,7 +3838,7 @@ def main() -> int:
             if (B, T, D, dt, si, off) == (128, 26, 36, "float32", False,
                                           False):
                 report["interaction_bwd"] = dict(
-                    max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3,
+                    max_abs_err=err, ms=k_ms, device_ms=dev_ms,
                     plain_ms=p_ms, bound_ms=bms, bound_by=by,
                     library_ms=None)
             del x, ly, g, got, again, ref
@@ -2937,12 +3873,9 @@ def main() -> int:
             k_ms = time_ms(torch, call)
             k1_ms = time_ms(torch, lambda: dot_interaction_kernel(x, ly, si))
             p_ms = time_ms(torch, lambda: dot_interaction_ref(x, ly, si))
-            split = ""
+            split, dev_ms = "", None
             if not si:
-                dev_us, host_us = device_host_us(torch, call)
-                split = (f" device_us {dev_us:.2f} host_us {host_us:.2f} "
-                         f"({100 * bms * 1e3 / dev_us:.0f}% of the bound on "
-                         f"the device)")
+                split, dev_ms = on_device(*device_host_us(torch, call), bms)
             print(f"interaction_gram B={B} T={T} D={D} {dt} self={si}: "
                   f"max|d| {err:.3e} vs plain, bit for bit equal to K1; "
                   f"kernel_ms {k_ms:.4f}{split} K1_ms {k1_ms:.4f} plain_ms "
@@ -2951,7 +3884,7 @@ def main() -> int:
                   f"single PyTorch call computes it) [{card}]", flush=True)
             if (B, dt, si) == (2048, "float32", False):
                 report["interaction_gram"] = dict(
-                    max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3,
+                    max_abs_err=err, ms=k_ms, device_ms=dev_ms,
                     plain_ms=p_ms, bound_ms=bms, bound_by=by,
                     library_ms=None)
             del x, ly, got, ref, k1
@@ -2989,46 +3922,62 @@ def main() -> int:
 
         # K2: bit-exact.  Beside each case's event time, the kernel's device
         # time (profiler) and the wrapper's host time per call
-        def k2_case(C, M, R, D, dt, label):
+        def k2_case(C, M, R, D, dt, label, cold=False):
+            """cold: timed over idx draws whose rows pass L2 4x together
+            (each checked too), so that no call reads rows the call
+            before left in L2."""
             tdt = getattr(torch, dt)
             primary = torch.randn(C, D, generator=gen, device=dev).to(tdt)
             secondary = (torch.randn(M, D, generator=gen, device=dev).to(tdt)
                          if M else None)
-            idx = torch.randint(0, C + M, (R,), generator=gen, device=dev,
-                                dtype=torch.int32)
-            if M:       # cache slots, buffer rows and repeats, all mixed
-                q = R // 4
-                idx[:q] = idx[q:2 * q]
-                idx[R // 2: R // 2 + M] = torch.arange(
-                    C, C + M, device=dev, dtype=torch.int32)
-            got = gather_rows(primary, idx, secondary)
-            ref = gather_rows_ref(primary, idx, secondary)
-            torch.cuda.synchronize()
-            iv = torch.int16 if primary.element_size() == 2 else torch.int32
-            if not torch.equal(got.view(iv), ref.view(iv)):
-                raise AssertionError(f"gather_rows differs at {label}")
-            err = float((got.float() - ref.float()).abs().max())
             rb = D * primary.element_size()
-            uniq = int(torch.unique(idx).numel())
+
+            def draw():
+                idx = torch.randint(0, C + M, (R,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                if M:   # cache slots, buffer rows and repeats, all mixed
+                    q = R // 4
+                    idx[:q] = idx[q:2 * q]
+                    idx[R // 2: R // 2 + M] = torch.arange(
+                        C, C + M, device=dev, dtype=torch.int32)
+                return idx
+
+            idxs = [draw()]
+            if cold:
+                idxs += [draw() for _ in range(n_sets(
+                    int(torch.unique(idxs[0]).numel()) * rb) - 1)]
+            iv = torch.int16 if primary.element_size() == 2 else torch.int32
+            err = 0.0
+            for idx in idxs:
+                got = gather_rows(primary, idx, secondary)
+                ref = gather_rows_ref(primary, idx, secondary)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(iv), ref.view(iv)):
+                    raise AssertionError(f"gather_rows differs at {label}")
+                err = max(err, float((got.float() - ref.float()).abs().max()))
+            del got, ref
+            uniq = float(np.mean([torch.unique(i).numel() for i in idxs]))
             bms, by = bound_ms(uniq * rb + R * 4 + R * rb, 0.0, dt)
             combined = (primary if secondary is None
                         else torch.cat([primary, secondary]))
-            call = lambda: gather_rows(primary, idx, secondary)  # noqa: E731
+            call = rotating([lambda i=i: gather_rows(primary, i, secondary)
+                             for i in idxs])
             k_ms = time_ms(torch, call)
-            dev_us, host_us = device_host_us(torch, call)
-            p_ms = time_ms(torch,
-                           lambda: gather_rows_ref(primary, idx, secondary))
-            lib = lambda: torch.index_select(combined, 0, idx)  # noqa: E731
+            split, dev_ms = on_device(*device_host_us(torch, call), bms)
+            p_ms = time_ms(torch, rotating([
+                lambda i=i: gather_rows_ref(primary, i, secondary)
+                for i in idxs]))
+            lib = rotating([lambda i=i: torch.index_select(combined, 0, i)
+                            for i in idxs])
             l_ms = time_ms(torch, lib)
             l_dev, l_host = device_host_us(torch, lib)
-            print(f"gather_rows {label}: bit-exact, kernel_ms {k_ms:.4f} "
-                  f"device_us {dev_us:.2f} host_us {host_us:.2f} plain_ms "
-                  f"{p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}, "
-                  f"{100 * bms * 1e3 / dev_us:.0f}% of it on the device) "
-                  f"library_ms {l_ms:.4f} device_us {l_dev:.2f} host_us "
-                  f"{l_host:.2f} (index_select on one table) [{card}]",
-                  flush=True)
-            return dict(max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3,
+            over = f", over {len(idxs)} idx draws" if cold else ""
+            print(f"gather_rows {label}: bit-exact{over}, kernel_ms "
+                  f"{k_ms:.4f}{split} plain_ms {p_ms:.4f} bound_us "
+                  f"{bms * 1e3:.2f} ({by}) library_ms {l_ms:.4f} device_us "
+                  f"{l_dev:.2f} host_us {l_host:.2f} (index_select on one "
+                  f"table) [{card}]", flush=True)
+            return dict(max_abs_err=err, ms=k_ms, device_ms=dev_ms,
                         plain_ms=p_ms, bound_ms=bms, bound_by=by,
                         library_ms=l_ms)
 
@@ -3043,6 +3992,13 @@ def main() -> int:
                 "table 10131227x36, R=65536 f32")
         k2_case(64000, 4096, 2048 * 26, 36, "bfloat16",
                 "cache 64000x36 + buffer 4096, R=2048*26 bf16 (8-byte path)")
+        # the MLPerf shape's cached step: 4,000,000 cells of 128 and a miss
+        # buffer, the batch's 2048 x 26 positions
+        for dt in ("float32", "bfloat16"):
+            k2_case(MLPERF_C1, MLPERF_M, 2048 * 26, 128, dt,
+                    f"cache {MLPERF_C1}x128 + buffer {MLPERF_M}, "
+                    f"R=2048*26 {dt} (the MLPerf shape's cached step)",
+                    cold=True)
         torch.cuda.empty_cache()
 
         # the grouped K2 over the 26 Kaggle tables at the training step's
@@ -3067,16 +4023,16 @@ def main() -> int:
                            "float32")
         call = lambda: gather_rows_grouped(ktabs, kidx_d)  # noqa: E731
         k_ms = time_ms(torch, call)
-        dev_us, host_us = device_host_us(torch, call)
+        split, dev_ms = on_device(*device_host_us(torch, call), bms)
         p_ms = time_ms(torch, lambda: gather_rows_grouped_ref(ktabs, kidx_d))
         print(f"gather_rows_grouped 26 Kaggle tables (33,762,577 x 36 f32), "
               f"idx [128, 26] (one training step): bit-exact, kernel_ms "
-              f"{k_ms:.4f} device_us {dev_us:.2f} host_us {host_us:.2f} "
+              f"{k_ms:.4f}{split} "
               f"plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) "
               f"library_ms none (no single PyTorch call gathers 26 tables) "
               f"[{card}]", flush=True)
         report["gather_rows_grouped"] = dict(
-            max_abs_err=0.0, ms=k_ms, device_ms=dev_us / 1e3, plain_ms=p_ms,
+            max_abs_err=0.0, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
             bound_ms=bms, bound_by=by, library_ms=None)
         del got, ref
 
@@ -3097,35 +4053,46 @@ def main() -> int:
                 raise AssertionError(f"gather_rows_dequant_int8 is not "
                                      f"deterministic at {label}")
 
-        def k3_case(C, M, R, D, label):
+        def k3_case(C, M, R, D, label, cold=False):
+            """cold: timed over idx draws whose rows pass L2 4x together,
+            each checked as the first."""
             cache = torch.randint(0, 256, (C, D), generator=gen, device=dev,
                                   dtype=torch.uint8)
             buf = torch.randint(0, 256, (M, D), generator=gen, device=dev,
                                 dtype=torch.uint8)
-            idx = torch.randint(0, C + M, (R,), generator=gen, device=dev,
-                                dtype=torch.int32)
-            q = R // 4
-            idx[:q] = idx[q:2 * q]
-            idx[R // 2: R // 2 + M] = torch.arange(C, C + M, device=dev,
-                                                   dtype=torch.int32)
-            k3_check(cache, idx, buf, label)
-            uniq = int(torch.unique(idx).numel())
+
+            def draw():
+                idx = torch.randint(0, C + M, (R,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                q = R // 4
+                idx[:q] = idx[q:2 * q]
+                idx[R // 2: R // 2 + M] = torch.arange(
+                    C, C + M, device=dev, dtype=torch.int32)
+                return idx
+
+            idxs = [draw()]
+            if cold:
+                idxs += [draw() for _ in range(n_sets(
+                    int(torch.unique(idxs[0]).numel()) * D) - 1)]
+            for idx in idxs:
+                k3_check(cache, idx, buf, label)
+            uniq = float(np.mean([torch.unique(i).numel() for i in idxs]))
             bms, by = bound_ms(uniq * D + R * 4 + R * D * 4, 3.0 * R * D,
                                "float32")
-            call = lambda: gather_rows_dequant_int8(  # noqa: E731
-                cache, idx, buf)
+            call = rotating([lambda i=i: gather_rows_dequant_int8(
+                cache, i, buf) for i in idxs])
             k_ms = time_ms(torch, call)
-            dev_us, host_us = device_host_us(torch, call)
-            p_ms = time_ms(torch, lambda: gather_rows_dequant_int8_ref(
-                cache, idx, buf))
+            split, dev_ms = on_device(*device_host_us(torch, call), bms)
+            p_ms = time_ms(torch, rotating([
+                lambda i=i: gather_rows_dequant_int8_ref(cache, i, buf)
+                for i in idxs]))
+            over = f", over {len(idxs)} idx draws" if cold else ""
             print(f"gather_rows_dequant_int8 {label}: bit-exact, two launches "
-                  f"bitwise equal; kernel_ms {k_ms:.4f} device_us "
-                  f"{dev_us:.2f} host_us {host_us:.2f} plain_ms {p_ms:.4f} "
-                  f"bound_us {bms * 1e3:.2f} ({by}, "
-                  f"{100 * bms * 1e3 / dev_us:.0f}% of it on the device) "
+                  f"bitwise equal{over}; kernel_ms {k_ms:.4f}{split} "
+                  f"plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) "
                   f"library_ms none (no single PyTorch call computes it) "
                   f"[{card}]", flush=True)
-            return dict(max_abs_err=0.0, ms=k_ms, device_ms=dev_us / 1e3,
+            return dict(max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
                         plain_ms=p_ms, bound_ms=bms, bound_by=by,
                         library_ms=None)
 
@@ -3136,6 +4103,9 @@ def main() -> int:
                 "cache 36204x36 u8 + buffer 4096, R=65536*26")
         k3_case(36204, 4096, 2048 * 26, 7,
                 "cache 36204x7 u8 + buffer 4096, R=2048*26 (byte path)")
+        k3_case(MLPERF_C1, MLPERF_M, 2048 * 26, 128,
+                f"cache {MLPERF_C1}x128 u8 + buffer {MLPERF_M}, R=2048*26 "
+                f"(the MLPerf shape's int8 cells)", cold=True)
 
         # the cases that break a unit design, checked and not timed: R=1,
         # R that no thread's 4 x 256 units divide, the two sources' edges
@@ -3237,7 +4207,7 @@ def main() -> int:
             lib_vals = (-vals[keep]).to(tdt)
             call = lambda: scatter_sub_sorted(tab, rows, vals)  # noqa: E731
             k_ms = time_ms(torch, call)
-            dev_us, host_us = device_host_us(torch, call)
+            split, dev_ms = on_device(*device_host_us(torch, call), bms)
             p_ms = time_ms(torch,
                            lambda: scatter_sub_sorted_ref(tab_ref, rows, vals))
             lib = lambda: tab_ref.index_add_(0, lib_rows,  # noqa: E731
@@ -3246,14 +4216,13 @@ def main() -> int:
             l_dev, l_host = device_host_us(torch, lib)
             print(f"scatter_sub_sorted {label}: {uniq.numel()} rows, longest "
                   f"run {int(counts.max())}, max|d| {err:.3e}, two launches "
-                  f"bitwise equal; kernel_ms {k_ms:.4f} device_us "
-                  f"{dev_us:.2f} host_us {host_us:.2f} plain_ms {p_ms:.4f} "
-                  f"bound_us {bms * 1e3:.2f} ({by}) library_ms {l_ms:.4f} "
-                  f"device_us {l_dev:.2f} host_us {l_host:.2f} "
+                  f"bitwise equal; kernel_ms {k_ms:.4f}{split} plain_ms "
+                  f"{p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) library_ms "
+                  f"{l_ms:.4f} device_us {l_dev:.2f} host_us {l_host:.2f} "
                   f"(index_add_ of the valid entries"
                   f"{', values in bf16' if dt == 'bfloat16' else ''})"
                   f" [{card}]", flush=True)
-            return dict(max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3,
+            return dict(max_abs_err=err, ms=k_ms, device_ms=dev_ms,
                         plain_ms=p_ms, bound_ms=bms, bound_by=by,
                         library_ms=l_ms)
 
@@ -3316,23 +4285,122 @@ def main() -> int:
                            float(K * D5 + uniq * D5), "float32")
         call = lambda: scatter_sub_sorted(ktabs, grows, gvals)  # noqa: E731
         k_ms = time_ms(torch, call)
-        dev_us, host_us = device_host_us(torch, call)
+        split, dev_ms = on_device(*device_host_us(torch, call), bms)
         ref_tabs = [t.clone() for t in ktabs]
         p_ms = time_ms(torch, lambda: scatter_sub_sorted_grouped_ref(
             ref_tabs, grows, gvals))
         print(f"scatter_sub_sorted grouped, 26 Kaggle tables (33,762,577 x 36"
               f" f32), K=3328 (one training step): {uniq} rows, max|d| "
-              f"{err:.3e}, two launches bitwise equal; kernel_ms {k_ms:.4f} "
-              f"device_us {dev_us:.2f} host_us {host_us:.2f} plain_ms "
-              f"{p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) library_ms none "
-              f"(no single PyTorch call updates 26 tables) [{card}]",
+              f"{err:.3e}, two launches bitwise equal; kernel_ms {k_ms:.4f}"
+              f"{split} plain_ms {p_ms:.4f} bound_us {bms * 1e3:.2f} ({by}) "
+              f"library_ms none (no single PyTorch call updates 26 tables) "
+              f"[{card}]",
               flush=True)
         report["scatter_sub_sorted"] = dict(
-            max_abs_err=err, ms=k_ms, device_ms=dev_us / 1e3, plain_ms=p_ms,
+            max_abs_err=err, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
             bound_ms=bms, bound_by=by, library_ms=None)
         del ktabs, ref_tabs
         torch.cuda.empty_cache()
 
+        def grouped_k5_case(tabs, id_sets, label):
+            """The grouped K5 over `tabs` on the sorted global ids
+            id_sets[0], on two copies (bitwise equal) against the plain
+            version (within 1e-6 (1 + |ref|)), timed beside it and its
+            bound rotating over id_sets, whose rows pass L2 4x together."""
+            D_ = tabs[0].shape[1]
+            sets = [(torch.from_numpy(i.astype(np.int32)).to(dev),
+                     torch.randn(len(i), D_, generator=gen, device=dev)
+                     * 1e-3) for i in id_sets]
+            rows, vals = sets[0]
+            K_ = rows.numel()
+            ref_t = [t.clone() for t in tabs]
+            twice_t = [t.clone() for t in tabs]
+            scatter_sub_sorted(tabs, rows, vals)
+            scatter_sub_sorted(twice_t, rows, vals)
+            scatter_sub_sorted_grouped_ref(ref_t, rows, vals)
+            torch.cuda.synchronize()
+            err_ = 0.0
+            for t, (a_, b_, c_) in enumerate(zip(tabs, ref_t, twice_t)):
+                ok, e_ = within(a_, b_, 1e-6)
+                err_ = max(err_, e_)
+                if not ok or not torch.equal(a_, c_):
+                    raise AssertionError(f"grouped scatter_sub_sorted "
+                                         f"differs or is not deterministic "
+                                         f"at {label}, table {t}: max|d| "
+                                         f"{e_}")
+            del twice_t
+            uniq_ = float(np.mean([len(np.unique(i)) for i in id_sets]))
+            bms_, by_ = bound_ms(K_ * 4 + K_ * D_ * 4 + 2 * uniq_ * D_ * 4,
+                                 float(K_ * D_ + uniq_ * D_), "float32")
+            call_ = rotating([lambda r=r, v=v: scatter_sub_sorted(
+                tabs, r, v) for r, v in sets])
+            k_ms_ = time_ms(torch, call_)
+            split_, _ = on_device(*device_host_us(torch, call_), bms_)
+            p_ms_ = time_ms(torch, rotating([
+                lambda r=r, v=v: scatter_sub_sorted_grouped_ref(ref_t, r, v)
+                for r, v in sets]))
+            print(f"scatter_sub_sorted grouped, {label}: {uniq_:.0f} rows, "
+                  f"max|d| {err_:.3e}, two launches bitwise equal, over "
+                  f"{len(sets)} id draws; kernel_ms {k_ms_:.4f}{split_} "
+                  f"plain_ms {p_ms_:.4f} bound_us "
+                  f"{bms_ * 1e3:.2f} ({by_}) library_ms none (no single "
+                  f"PyTorch call updates a group of tables) [{card}]",
+                  flush=True)
+            del ref_t, sets
+
+        def shifted(ids_by_table, sizes_, D_):
+            """Draws of the same ids, each table's shifted by a share of
+            its size (mod the size) so that the draws touch other rows,
+            as many as pass L2 4x: -> sorted global ids, one per draw."""
+            base = np.concatenate([[0], np.cumsum(sizes_)])[:-1]
+            K_ = ids_by_table.size
+            uniq_ = sum(len(np.unique(ids_by_table[:, t]))
+                        for t in range(ids_by_table.shape[1]))
+            n = n_sets(2 * uniq_ * D_ * 4 + K_ * D_ * 4)
+            sz = np.asarray(sizes_, np.int64)
+            return [np.sort(((ids_by_table + s * (sz // n)) % sz
+                             + base).reshape(-1)) for s in range(n)]
+
+        # the grouped K5 at the new widths, K = 2048 x 26 Zipf entries: D=64
+        # over the 26 Terabyte tables (a grouped_zipf batch of phase 3j(d)'s
+        # shape, each table's ids offset by its base); D=128 over the
+        # MLPerf cached step's group, 4,000,000 cells and the miss buffer
+        # (Zipf ids over the cells and the buffer), which takes K5's
+        # column tiles of 40, 40, 40 and 8
+        tcfg_tb = terabyte_dlrm_config()
+        tb_tabs = [torch.empty(n, 64, device=dev).uniform_(
+            -float(np.sqrt(1.0 / n)), float(np.sqrt(1.0 / n)), generator=gen)
+            for n in tcfg_tb.table_sizes]
+        tb_idx = next(random_batches(RandomDataConfig(
+            num_dense=1, table_sizes=tcfg_tb.table_sizes, batch_size=2048,
+            num_batches=1, seed=args.seed + 53, distribution="grouped_zipf",
+            zipf_alpha=1.05, group_noise=0.1)))[1]
+        grouped_k5_case(tb_tabs, shifted(tb_idx, tcfg_tb.table_sizes, 64),
+                        f"26 Terabyte tables ({sum(tcfg_tb.table_sizes):,} "
+                        f"x 64 f32), K=2048*26 grouped_zipf (one step of "
+                        f"phase 3j(d))")
+        del tb_tabs
+        torch.cuda.empty_cache()
+        cells = [torch.empty(n, 128, device=dev).uniform_(-0.05, 0.05,
+                                                          generator=gen)
+                 for n in (MLPERF_C1, MLPERF_M)]
+        c_ids = next(random_batches(RandomDataConfig(
+            num_dense=1, table_sizes=(MLPERF_C1 + MLPERF_M,),
+            batch_size=2048 * 26, num_batches=1, seed=args.seed + 54,
+            distribution="zipf", zipf_alpha=1.05)))[1][:, 0]
+        grouped_k5_case(cells, shifted(c_ids[:, None],
+                                       (MLPERF_C1 + MLPERF_M,), 128),
+                        f"{MLPERF_C1} cells + {MLPERF_M} buffer rows x 128 "
+                        f"f32, K=2048*26 zipf(1.05) (the MLPerf shape's "
+                        f"cached step)")
+        del cells
+        torch.cuda.empty_cache()
+
+    if args.only == "3j":
+        phase_3j()
+        print(f"total: {time.perf_counter() - t_all:.2f} s (phases 0-2 "
+              f"and 3j)")
+        return 0
     phase_2b()
 
     # ------------------------------------------------------- 3 main path
@@ -3988,7 +5056,6 @@ def main() -> int:
         sgd = dataclasses.replace(tcfg, optimizer="sgd")
         off_cfg = dataclasses.replace(cfg, use_interaction_kernel=False,
                                       use_gather_kernel=False)
-        off_tcfg = dataclasses.replace(tcfg, use_update_kernel=False)
         stream = iter(list(random_batches(RandomDataConfig(
             num_dense=cfg.num_dense_features, table_sizes=cfg.table_sizes,
             batch_size=B, num_batches=5 + 5 + 5 + 2 * (3 + 3 * 20) + 5 + 2,
@@ -4007,66 +5074,8 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
-        # five rwsadagrad steps, every kernel on, each held to a step with
-        # every kernel off taken from the same state; then five more from
-        # one state, compounding, held to the same rule after every step.
-        # The per-step loss sees only the forward (K1, K2); the compounded
-        # losses see K4 and K5 through the state they leave behind.
-        step_k, step_p = (make_train_step(cfg, tcfg),
-                          make_train_step(off_cfg, off_tcfg))
-        st_k, st_p = init_opt_state(model, tcfg), init_opt_state(plain,
-                                                                 off_tcfg)
-
-        @torch.no_grad()
-        def sync():
-            plain.load_state_dict(model.state_dict())
-            for part in ("dense", "sparse"):
-                for k, v in getattr(st_k, part).items():
-                    getattr(st_p, part)[k].copy_(v)
-
-        def check(dense, idx, y, worst):
-            """One step on each copy; raises if they disagree, and keeps the
-            worst loss, weight and accumulator differences in `worst`."""
-            lk = float(step_k(model, st_k, dense, idx, y))
-            lp = float(step_p(plain, st_p, dense, idx, y))
-            worst["loss"] = max(worst["loss"], abs(lk - lp) / abs(lp))
-            if not abs(lk - lp) <= 1e-5 * abs(lp):
-                raise AssertionError(f"loss {lk} with the kernels, {lp} "
-                                     "without")
-            pk, pp = dense_parameters(model), dense_parameters(plain)
-            pairs = [("mlp", n, pk[n], pp[n]) for n in pk]
-            pairs += [("table", t, model.tables[t], plain.tables[t])
-                      for t in range(cfg.num_tables)]
-            for kind, what, a, b in pairs:
-                a, b = a.detach(), b.detach()
-                rel = float(((a - b).abs() / (1 + b.abs())).max())
-                worst[kind] = max(worst[kind], rel)
-                if not rel <= 1e-4:
-                    raise AssertionError(f"{kind} {what} differs, kernels on "
-                                         f"vs off: max|d|/(1+|ref|) {rel}")
-            for part in ("dense", "sparse"):
-                for k, v in getattr(st_p, part).items():
-                    ok, rel = within_own(getattr(st_k, part)[k], v, 1e-4)
-                    worst["acc"] = max(worst["acc"], rel)
-                    if not ok:
-                        raise AssertionError(
-                            f"accumulator {k} differs, kernels on vs off: "
-                            f"max|d|/(|ref| + mean nonzero |ref|) {rel}")
-
-        for mode in ("each from one state", "compounded from one state"):
-            worst = dict.fromkeys(("loss", "mlp", "table", "acc"), 0.0)
-            sync()
-            for dense, idx, y in take(5):
-                if mode.startswith("each"):
-                    sync()
-                check(dense, idx, y, worst)
-            print(f"kernels on vs off, 5 rwsadagrad steps {mode}: max rel "
-                  f"loss diff {worst['loss']:.3e} (limit 1e-5); max|d|/"
-                  f"(1+|ref|) MLPs {worst['mlp']:.3e}, tables "
-                  f"{worst['table']:.3e} (limit 1e-4); accumulators max|d|/"
-                  f"(|ref| + mean nonzero |ref|) {worst['acc']:.3e} (limit "
-                  f"1e-4)", flush=True)
-        del plain, st_p
+        step_k, st_k = held_on_off(tcfg, model, plain, take)
+        del plain
         torch.cuda.empty_cache()
 
         # where a step's time goes: the device's busy time (its kernels and
@@ -4206,6 +5215,7 @@ def main() -> int:
         mesh_launches.update(phase_3i(work_dir.name))
     finally:
         work_dir.cleanup()
+    mlperf_launches = phase_3j()
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -4217,7 +5227,8 @@ def main() -> int:
               f"{json.dumps(factored_launches)}; cli "
               f"{json.dumps(cli_launches)}; train_cached "
               f"{json.dumps(cached_launches)}; " + "; ".join(
-                  f"{p} {json.dumps(c)}" for p, c in mesh_launches.items()))
+                  f"{p} {json.dumps(c)}" for p, c in mesh_launches.items())
+              + f"; train_mlperf {json.dumps(mlperf_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -4240,7 +5251,8 @@ def main() -> int:
                  "serve_host": host_launches, "gram_ab": gram_launches,
                  "train": train_launches,
                  "train_factored": factored_launches, "cli": cli_launches,
-                 "train_cached": cached_launches, **mesh_launches}
+                 "train_cached": cached_launches, **mesh_launches,
+                 "train_mlperf": mlperf_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

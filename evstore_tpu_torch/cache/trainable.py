@@ -154,15 +154,18 @@ class _Staging:
 
 def _map_files(bin_dir: str, table_sizes: Sequence[int], dim: int):
     """The float32 `ev-table-<t+1>.bin` files mapped read-write, and the
-    `mom-<t+1>.bin` row-sum files beside them (created zeroed if absent):
-    -> (tables, sums), lists of `np.memmap`."""
+    `mom-<t+1>.bin` row-sum files beside them (created zeroed if absent:
+    sparse, since holes read as zero, so that no bytes are written; at
+    the MLPerf shape the sums are 817 MB): -> (tables, sums), lists of
+    `np.memmap`."""
     tables, moms = [], []
     for t, n in enumerate(table_sizes):
         p = os.path.join(bin_dir, f"ev-table-{t + 1}.bin")
         tables.append(np.memmap(p, np.float32, mode="r+", shape=(n, dim)))
         mp = os.path.join(bin_dir, f"mom-{t + 1}.bin")
         if not os.path.exists(mp):
-            np.zeros(n, np.float32).tofile(mp)
+            with open(mp, "wb") as f:
+                f.truncate(n * 4)
         moms.append(np.memmap(mp, np.float32, mode="r+", shape=(n,)))
     return tables, moms
 
@@ -552,14 +555,10 @@ class TrainableDeviceCache:
 
     def _writeback_evicted(self, ev_keys, ev_slots) -> None:
         """The cells' current rows and sums into the masters; ev_keys are
-        [(t, row), ...] or packed int64."""
+        packed int64 (table << 40 | row)."""
         if len(ev_keys) == 0:
             return
-        if isinstance(ev_keys, np.ndarray):
-            ts, rs = (ev_keys >> 40).astype(np.int32), ev_keys & KEY_ROW
-        else:
-            ts = np.asarray([k[0] for k in ev_keys], np.int32)
-            rs = np.asarray([k[1] for k in ev_keys], np.int64)
+        ts, rs = (ev_keys >> 40).astype(np.int32), ev_keys & KEY_ROW
         slots = torch.from_numpy(np.ascontiguousarray(
             ev_slots, np.int32)).to(self.device)
         rows = self._read_slots(slots).cpu().numpy()
@@ -569,8 +568,8 @@ class TrainableDeviceCache:
     def flush_to_host(self):
         """Write every cached cell (and its sum) back to the masters, so
         that `host_tables` hold the trained tables."""
-        keys, slots = self.assigner.resident_entries()
-        if keys:
+        keys, slots = self.assigner.resident_keys()
+        if len(keys):
             self._writeback_evicted(keys, slots)
 
     # ------------------------------------------------------------- drivers
@@ -1233,8 +1232,7 @@ class ShardedTrainableDeviceCache(TrainableDeviceCache):
         at a time (collective)."""
         keys = slots = None
         if self.assigner is not None:
-            res, slots = self.assigner.resident_entries()
-            keys = np.asarray([(t << 40) | r for t, r in res], np.int64)
+            keys, slots = self.assigner.resident_keys()
         n, = broadcast_header(None if slots is None else (len(slots),), 1,
                               self.mesh)
         slots = broadcast_array(slots, (n,), torch.int32, self.mesh)

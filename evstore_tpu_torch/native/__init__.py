@@ -21,7 +21,7 @@ batched: one call per batch of requests.
   defers the reuse of an evicted slot by one batch, reports the evictions
   and each position's final gradient target, and leaves the miss reads to
   `fetch_rows`, which the trainer calls once its write-backs landed;
-  `resident_entries` lists the cache's keys and slots for a flush.
+  `resident_keys` lists the cache's keys, packed, and slots for a flush.
 - `NativeShardedCache` is the table-partitioned engine (`ShardedEngine`
   in the C++): the tables split round-robin over `n_workers` threads, each
   with its own C1 (and C2) share, over borrowed RAM tables; C1 and C1+C2
@@ -352,17 +352,15 @@ class NativeAssigner:
                                      out.reshape(-1))
         return out
 
-    def resident_entries(self):
-        """Every cache-resident key and its slot: ([(t, row), ...],
-        slots int32 [n])."""
+    def resident_keys(self):
+        """Every cache-resident key, packed (table << 40 | row, int64
+        [n]), and its slot (int32 [n])."""
         keys = np.empty(self.capacity, np.uint64)
         slots = np.empty(self.capacity, np.int32)
         n = self._lib.esv_assign_resident(self._handle(), keys, slots,
                                           self.capacity)
         keep = slots[:n] >= 0
-        out_keys = [(int(k >> 40), int(k & ((1 << 40) - 1)))
-                    for k in keys[:n][keep]]
-        return out_keys, slots[:n][keep].copy()
+        return keys[:n][keep].astype(np.int64), slots[:n][keep].copy()
 
     def stats(self) -> dict:
         s = np.zeros(4, np.float64)

@@ -26,6 +26,7 @@ other package both ways.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -236,8 +237,9 @@ def test_train_assigner_matches_jax(capacity):
         np.testing.assert_array_equal(pa.fetch_rows(keys),
                                       ja.fetch_rows(keys))
     rk, rs = ja.resident_entries()
-    gk, gs = pa.resident_entries()
-    assert rk == gk and len(gk) > 0
+    gk, gs = pa.resident_keys()
+    assert gk.dtype == np.int64 and len(gk) > 0
+    np.testing.assert_array_equal(gk, [(t << 40) | r for t, r in rk])
     np.testing.assert_array_equal(rs, gs)
     assert pa.stats() == ja.stats()
     bad = np.zeros((2, 3), np.int64)
@@ -388,6 +390,24 @@ def test_file_backed_training_matches_in_ram(tmp_path):
             np.fromfile(tmp_path / f"mom-{t + 1}.bin", np.float32),
             ram["mom"][t])
     assert not np.allclose(ram["tables"][0], c.tables[0])
+
+
+def test_map_files_makes_absent_sums_sparse_zeros(tmp_path):
+    """An absent `mom-<t>.bin` is made with truncate: its holes read as
+    zero and hold no blocks (`test_file_backed_training_matches_in_ram`
+    trains from such files)."""
+    sizes = (1_000_000, 3)
+    write_ev_tables_binary([np.ones((n, 4), np.float32) for n in sizes],
+                           str(tmp_path), 32)
+    tables, moms = ptr._map_files(str(tmp_path), sizes, 4)
+    for t, (n, m) in enumerate(zip(sizes, moms)):
+        st = os.stat(tmp_path / f"mom-{t + 1}.bin")
+        assert st.st_size == n * 4 and m.shape == (n,)
+        assert st.st_blocks * 512 < n * 4 // 8 or n * 4 < 4096
+        assert not m.any()
+    assert all(t.shape == (n, 4) and np.all(t == 1)
+               for t, n in zip(tables, sizes))
+    del tables, moms
 
 
 def test_bf16_cache_rows_track_fp32():
