@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of evstore_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed N] [--only 3j]
+    python3 chip_smoke.py [--seed N] [--only 3j | --only altkeys
+                                          [--query-rows a:b]]
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
@@ -43,7 +44,19 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    (D = 64) and over the cells and the buffer (D = 128, the column tiles
    of 40, 40, 40 and 8); those cases are timed rotating over input sets
    (idx draws, shifted ids or copies) that pass the 50 MB L2 four times
-   together, so that no call reads what the one before left in L2;
+   together, so that no call reads what the one before left in L2; K7,
+   the alt-key kNN, at the tool's call on the card (131,072 queries)
+   against the first 1,048,576 rows of the Kaggle tables at their init
+   scales (k = 10), with its device and host µs and both bounds (the
+   function's 72 flop a pair at the TF32 and at the f32 FMA peak),
+   the plain version in blocks of 2,048 queries, and at the cases that
+   break its design (N = 1,013 and N = 37 < k + m; Q = 1, 3, 2,049; D =
+   7, 36, 64, 128; k = 1, 10, 11, 32; duplicate and zero rows; query ids
+   of -1; the init's extreme scales side by side; near-ties that fail
+   the certificate, every one swept), each launched twice bit for bit
+   and held to the plain version by the rule: neighbour sets equal where
+   the k-th and k+1-th float64 distances differ by more than 1e-5
+   relative, the nearest where the 1st and 2nd do (`knn_rule`);
 2b. K2 grouped bit for bit and K5 grouped against their plain versions at
    the widths phase 3e adds (1: pooling weights; 18: qr concat's q and r;
    md_solver's widths below 36), f32 and bf16 (a bf16 row of odd width
@@ -62,19 +75,27 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    `DeviceC1Cache` at fp32 and at int8 for a few batches, held to the
    store's rows and to their int8 round trip;
 3c. the published three-tier configuration (int8 C1, 4-bit C2, alt-key C3,
-   48-48-4, 75,425 entries), warmed up until all three tiers are full
-   and then scored over 64 batches through `run_inference` with
+   48-48-4, 75,425 entries), served twice: with one uniform row of each
+   row's table as its alt key, from --seed; then with the alt keys of
+   the kNN (K7, k = 10) of every row the serving stream's first 60 + 64 +
+   1 batches reach (about 0.68M) over all 33,762,577 rows, each row's key
+   the most accessed of its 10 by the stream's counts (gen_altkeys'
+   rule), 2,048 sampled rows held to the plain version over all rows by
+   the rule (the other rows keep their uniform keys).  Each run is
+   warmed up until all three tiers are full (at most 60 batches) and
+   then scored over 64 batches through `run_inference` with
    `pipeline_depth` 2: the int8 gather's launch count must be above 0, C2
    and C3 must be live, and one more batch's int8 rows must equal the
    plain version's on the same cache state and miss buffer, on the int8
-   grid;
+   grid; C3's stats side by side;
 3d. the host tiers, over the same tables written to 26 .bin files in a
    temporary directory: (a) the published C1 as the reference's driver
    runs it, the Python `TieredCache` (EvLFU, 64,000 fp32) over an
    `MmapStore`, 16 scored batches, held to the plain forward on the
    store's rows; (b) the published C1+C2+C3 through the engine's host path
-   (`use_native`), reading the files and the alt keys' .bin files, 64
-   batches; (c) the LFU and LRU baselines at 64,000, Python (4 batches)
+   (`use_native`), reading the files and 3c's kNN alt keys from their
+   .bin files, 64 batches; (c) the LFU and LRU baselines at 64,000,
+   Python (4 batches)
    and in the engine (64); (d) 256 requests of batch size 1 through (b)'s
    engine, each timed alone; (e) the A/B of the two interaction forwards
    on (b)'s rows: the bottom MLP, `DotInteractionGram` (K6) and the top
@@ -196,11 +217,11 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    `save`'s files byte-equal, with steps/s beside 3g's per-batch rate and
    the device memory it adds; (b) `run_cached_training(mesh=)` beside the
    one-device driver from the same weights with an eval every 50 steps,
-   bit for bit, steps/s of both; (c) `gen_altkeys` on the card over the
-   first 1,000,000 rows (k = 10), rows/s, its neighbour sets equal to the
-   CPU run's on 20,000 of them wherever the 10th and 11th distances
-   differ by more than 1e-5 relative, and the cost of the full kNN as
-   arithmetic; (d) the model with its tables cut to 100,000 rows by
+   bit for bit, steps/s of both; (c) `gen_altkeys` on the card (K7) over
+   the first 1,000,000 rows (k = 10), rows/s beside the 21.1 s the
+   plain addmm and topk path took (PERF.md §5), its
+   neighbour sets held to the CPU run's on 20,000 of them by the rule;
+   (d) the model with its tables cut to 100,000 rows by
    `truncate_tables`, exported at batch 2048 (`torch.export`, the K1
    custom op), saved, loaded and scoring one grouped_zipf batch within
    1e-5·(1+|ref|) of `DLRM.predict`, with the times of each; (e) the
@@ -208,7 +229,7 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    tables and `plot_cdf` over 3f's latency CSV, each saying which path
    (plots or the matplotlib-free fallbacks) it took.  K1, K2
    (two-source), K3, K4 and K5 must launch on `train_cached_sharded`
-   ((a), (b)), K1 on `export` ((d));
+   ((a), (b)), K1 on `export` ((d)), K7 on `tools` ((c));
 3j. the MLPerf recipe's shape (bench/run_and_time.sh: dim 128, the 26
    Terabyte tables capped at 40M rows, 104.5 GB at float32, top MLP
    1024-1024-512-256-1, B=2048, lr 1.0 with 2,750 warm-up steps) through
@@ -237,12 +258,12 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    steps of `train` after 5.  K1, K2,
    K4 and K5 must launch in every part (`train_mlperf`), K3 in the int8
    cell; the phase's directory is removed at its end;
-4. the kernels' launch counts by path (serve, serve_int8, serve_host,
-   gram_ab, train, train_factored, cli, train_cached, train_sharded,
-   train_butterfly, serve_sharded, train_cached_sharded, export,
-   train_mlperf) and one
-   JSON line describing every kernel, each of which must have launched
-   on some path;
+4. the kernels' launch counts by path (serve, serve_int8, altkeys,
+   serve_host, gram_ab, train, train_factored, cli, train_cached,
+   train_sharded, train_butterfly, serve_sharded, train_cached_sharded,
+   export, tools, train_mlperf) and one JSON line describing every kernel
+   (K1-K6 and K7, which replaces no TPU kernel), each of which must have
+   launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
@@ -253,6 +274,13 @@ removed.
 
 `--only 3j` runs phases 0-2 and 3j alone, a quicker check of the MLPerf
 shape, and prints neither the kernels line nor the result line.
+`--only altkeys [--query-rows A:B]` runs phases 0-2 and then the C3
+tier's full kNN: query rows A:B (all by default) of the seeded Kaggle
+tables against all their 33,762,577 rows through K7 (the whole range
+through `gen_altkeys.generate_altkeys`), with its seconds, rows/s,
+TFLOP/s, peak device memory and certified share, every alt key checked
+to name a row and 2,048 sampled rows held to the plain version by the
+rule; it has its own budget (3,000 s) and no kernels or result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -271,15 +299,16 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 495e12}
 PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
-                  "2 kernels vs plain": 150, "2b grouped widths": 90,
-                  "3 main path": 200, "3c three tiers int8": 200,
+                  "2 kernels vs plain": 210, "2b grouped widths": 90,
+                  "3 main path": 200, "3c three tiers int8": 300,
                   "3d host tiers": 240, "3b train": 240,
                   "3e train factored": 240, "3f cli": 420,
                   "3g cached training": 300, "3h mesh": 300,
                   "3i sharded cache and tools": 420,
-                  "3j mlperf shape": 420, "4 kernels line": 30}
+                  "3j mlperf shape": 420, "4 kernels line": 30,
+                  "altkeys full kNN": 3000}
 
 
 class Phase:
@@ -506,6 +535,45 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
                                        else "operations")
 
 
+def knn_rule(torch, keys, qids, got, ref, k: int, label: str):
+    """The correctness rule of the kNN (PERF.md §2): `got` [Q, k] (K7's
+    neighbours of the rows keys[qids], or of queries) must hold the plain
+    version's set on every row whose k-th and k+1-th float64 distances
+    differ by more than 1e-5 relative, and its nearest on every row whose
+    1st and 2nd do (ref [Q, k + 1], the plain version's).  `qids` may be a
+    [Q, D] tensor of the query rows themselves.  Raises on a miss; ->
+    (rows whose sets were held, rows whose nearest was)."""
+    q64 = (keys[qids] if qids.dim() == 1 else qids).double()
+
+    def dist(j):
+        return ((q64 - keys[ref[:, j]].double()) ** 2).sum(1)
+
+    dk, dk1, d1, d2 = dist(k - 1), dist(k), dist(0), dist(1)
+    sep, sep1 = dk1 - dk > 1e-5 * dk, d2 - d1 > 1e-5 * d1
+    sets = (torch.sort(got, 1).values != torch.sort(ref[:, :k], 1).values
+            ).any(1)
+    off = int((sep & sets).sum())
+    off1 = int((sep1 & (got[:, 0] != ref[:, 0])).sum())
+    if off or off1:
+        raise AssertionError(f"knn_topk {label}: {off} of {int(sep.sum())} "
+                             f"separated rows' neighbour sets and {off1} of "
+                             f"{int(sep1.sum())} nearest keys differ from "
+                             f"the plain version's")
+    return int(sep.sum()), int(sep1.sum())
+
+
+def knn_plain(torch, knn_topk_ref, keys, qids, k: int, block: int,
+              queries=None):
+    """The plain version's k nearest over all keys, `block` query rows at
+    a time (its [block, N] distances fit the card)."""
+    outs = []
+    for s in range(0, len(qids), block):
+        ids = qids[s:s + block]
+        q = keys[ids] if queries is None else queries[s:s + block]
+        outs.append(knn_topk_ref(q.contiguous(), ids, keys, k))
+    return torch.cat(outs)
+
+
 def profile_steps(torch, run, n: int):
     """`run()` n times under torch.profiler: (wall ms, {kernel or copy name:
     (count, device ms)}).  Busy time counts kernels and copies only, not
@@ -624,9 +692,13 @@ def by_kernel(on_card, n: int, kernels=TRAIN_KERNELS) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["3j"], default=None,
+    ap.add_argument("--only", choices=["3j", "altkeys"], default=None,
                     help="run phases 0-2 and this phase alone (a quick "
-                         "check; no kernels line and no result line)")
+                         "check; no kernels line and no result line); "
+                         "altkeys: the full kNN over the Kaggle tables")
+    ap.add_argument("--query-rows", default=None, metavar="A:B",
+                    help="with --only altkeys: the query rows A:B of the "
+                         "33,762,577 (all by default)")
     args = ap.parse_args()
 
     import copy
@@ -664,6 +736,8 @@ def main() -> int:
     from evstore_tpu_torch.ops.cuda_gather import (
         gather_rows, gather_rows_dequant_int8, gather_rows_dequant_int8_ref,
         gather_rows_grouped, gather_rows_grouped_ref, gather_rows_ref)
+    from evstore_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_ref
+    from evstore_tpu_torch.tools import gen_altkeys
     from evstore_tpu_torch.ops.cuda_interaction import (
         DotInteraction, DotInteractionGram, dot_interaction_bwd_kernel,
         dot_interaction_bwd_ref, dot_interaction_gram_kernel,
@@ -748,7 +822,8 @@ def main() -> int:
                 "gather_rows": gather_rows,
                 "gather_rows_grouped": gather_rows_grouped,
                 "gather_rows_dequant_int8": gather_rows_dequant_int8,
-                "scatter_sub_sorted": scatter_sub_sorted}
+                "scatter_sub_sorted": scatter_sub_sorted,
+                "knn_topk": knn_topk}
 
     def reset_counts():
         for w in wrappers.values():
@@ -2291,13 +2366,14 @@ def main() -> int:
         over 3f's exported .bin files (`from_files`), bit for bit, `save`'s
         files byte-equal, steps/s and device memory; (b)
         `run_cached_training(mesh=)` beside the one-device driver with a
-        periodic eval, bit for bit; (c) `gen_altkeys` on the card over the
-        first 1,000,000 rows, held to its CPU run on 20,000 of them; (d)
+        periodic eval, bit for bit; (c) `gen_altkeys` on the card (K7)
+        over the first 1,000,000 rows, held to its CPU run on 20,000 of
+        them by the rule (`knn_rule`); (d)
         the export of the model with its tables cut to 100,000 rows, saved,
         loaded and scoring one batch against `DLRM.predict`; (e) the CLIs
         of `reduce_precision`, `visualize` and `plot_cdf` over 3f's files.
-        Returns the launch counts of the paths train_cached_sharded and
-        export."""
+        Returns the launch counts of the paths train_cached_sharded,
+        export and tools."""
         import contextlib
         import filecmp
 
@@ -2313,7 +2389,7 @@ def main() -> int:
                                              plot_cdf, reduce_precision,
                                              visualize)
         paths = {p: dict.fromkeys(wrappers, 0) for p in (
-            "train_cached_sharded", "export")}
+            "train_cached_sharded", "export", "tools")}
 
         def counted(path, fn):
             """fn() with every count set to 0 just before; its launches go
@@ -2537,7 +2613,7 @@ def main() -> int:
                   f"{rate[32][1]:.2f}: {s2 / rate[32][1]:.3f}x)", flush=True)
             del runs, r1, r2, w1, w2, work
 
-            # (c) the alt-key kNN on the card
+            # (c) the alt-key kNN on the card, through K7
             sub, n_rows = [], 0
             for t in base:
                 k = min(len(t), KNN_ROWS - n_rows)
@@ -2546,68 +2622,41 @@ def main() -> int:
                 if n_rows == KNN_ROWS:
                     break
             torch.cuda.synchronize()
+            knn_topk.rows = knn_topk.swept = 0
             t1 = time.perf_counter()
-            alts = gen_altkeys.generate_altkeys(sub, n_neighbors=10,
-                                                device=dev)
+            alts = counted("tools", lambda: gen_altkeys.generate_altkeys(
+                sub, n_neighbors=10, device=dev))
             secs = time.perf_counter() - t1
-            # where a block's time goes: one block of 2048 queries timed by
-            # CUDA events, its parts as `_topk_neighbors_blocked` runs them
-            x = torch.from_numpy(np.concatenate(sub)).to(dev)
-            sq = torch.sum(x * x, dim=1)
-            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            marks[0].record()
-            dd = torch.addmm(sq[:2048, None] + sq[None, :], x[:2048], x.t(),
-                             alpha=-2.0)
-            marks[1].record()
-            nn_ = torch.arange(2048, device=dev)
-            dd[nn_, nn_] = float("inf")
-            marks[2].record()
-            torch.topk(dd, 10, dim=1, largest=False)
-            marks[3].record()
-            torch.cuda.synchronize()
-            part = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
-            blk_bms, blk_by = bound_ms(2048 * KNN_ROWS * 4 + KNN_ROWS * D * 4,
-                                       2.0 * 2048 * KNN_ROWS * D, "float32")
-            del x, sq, dd
-            for t, a_ in enumerate(alts):
-                tab = (a_ % 100).astype(np.int64) - 1
-                row = (a_ // 100).astype(np.int64)
-                lens = np.asarray([len(x) for x in sub])
-                if len(a_) != len(sub[t]) or tab.min() < 0 or \
-                        tab.max() >= len(sub) or (row >= lens[tab]).any():
-                    raise AssertionError(f"3i(c) alt keys of table {t} "
-                                         f"name no row")
+            swept, n_q = knn_topk.swept, knn_topk.rows
+            lens = [len(x) for x in sub]
+            if [len(a_) for a_ in alts] != lens or (gen_altkeys.altkey_rows(
+                    np.concatenate(alts), lens) < 0).any():
+                raise AssertionError("3i(c) an alt key names no row")
+            # 20,000 of the rows against the CPU run of the tool (the
+            # plain version), by the rule
             rows20 = np.concatenate(sub)[:KNN_CPU_ROWS]
             cpu = gen_altkeys._topk_neighbors_blocked(rows20, 11,
                                                       device="cpu")
-            gpu = gen_altkeys._topk_neighbors_blocked(rows20, 10, device=dev)
-            r64 = rows20.astype(np.float64)
-            ii = np.arange(len(r64))
-            dk = ((r64 - r64[cpu[:, 9]]) ** 2).sum(1)
-            dk1 = ((r64 - r64[cpu[:, 10]]) ** 2).sum(1)
-            sep = dk1 - dk > 1e-5 * dk
-            off = [i for i in ii[sep] if set(gpu[i]) != set(cpu[i, :10])]
-            if off:
-                raise AssertionError(f"3i(c) {len(off)} rows' neighbour "
-                                     f"sets differ from the CPU's")
+            gpu = counted("tools", lambda: gen_altkeys._topk_neighbors_blocked(
+                rows20, 10, device=dev))
+            r20 = torch.from_numpy(rows20)
+            n_sep, n_sep1 = knn_rule(torch, r20, torch.arange(len(r20)),
+                                     torch.from_numpy(gpu),
+                                     torch.from_numpy(cpu), 10, "3i(c)")
             full = sum(sizes)
-            flop = float(full) ** 2 * D * 2
-            print(f"3i(c) gen_altkeys on the card [{card}]: {KNN_ROWS} rows "
-                  f"of the first {len(sub)} tables, k=10, in {secs:.2f} s "
-                  f"({KNN_ROWS / secs:.0f} rows/s); one block of 2048 "
-                  f"queries: distances (the broadcast add and addmm) "
-                  f"{part[0]:.3f} ms, the self mask {part[1]:.3f} ms, topk "
-                  f"{part[2]:.3f} ms, against a bound of {blk_bms:.3f} ms "
-                  f"({blk_by}: the [2048, {KNN_ROWS}] distances written once)"
-                  f"; {KNN_CPU_ROWS} of them "
-                  f"against the CPU run: neighbour sets equal on all "
-                  f"{int(sep.sum())} rows whose 10th and 11th distances "
-                  f"differ by more than 1e-5 relative. The full kNN over "
-                  f"{full} rows is {full}^2 x {D} x 2 = {flop:.2e} flop, "
-                  f"{flop / PEAK_OPS_PER_S['float32'] / 60:.1f} min at the "
-                  f"f32 peak (not run): phase 3c keeps uniform alt keys",
-                  flush=True)
-            del sub, alts, rows20, cpu, gpu, r64
+            flop = 2.0 * KNN_ROWS * KNN_ROWS * D
+            print(f"3i(c) gen_altkeys on the card through K7 [{card}]: "
+                  f"{KNN_ROWS} rows of the first {len(sub)} tables, k=10, in "
+                  f"{secs:.2f} s ({KNN_ROWS / secs:.0f} rows/s, "
+                  f"{flop / secs / 1e12:.1f} TFLOP/s; the plain addmm and "
+                  f"topk path took 21.1 s); {swept} of {n_q} rows swept "
+                  f"exactly; "
+                  f"{KNN_CPU_ROWS} of them against the CPU run: neighbour "
+                  f"sets equal on all {n_sep} rows whose 10th and 11th "
+                  f"distances differ by more than 1e-5 relative, the nearest "
+                  f"on all {n_sep1} whose 1st and 2nd do. The full kNN over "
+                  f"{full} rows runs under --only altkeys", flush=True)
+            del sub, alts, rows20, cpu, gpu, r20
 
             # (d) the export
             torch.cuda.empty_cache()
@@ -2712,7 +2761,7 @@ def main() -> int:
             wanted = {"train_cached_sharded": (
                 "interaction_fwd", "interaction_bwd", "gather_rows",
                 "gather_rows_dequant_int8", "scatter_sub_sorted"),
-                "export": ("interaction_fwd",)}
+                "export": ("interaction_fwd",), "tools": ("knn_topk",)}
             out = {}
             for p, names in wanted.items():
                 out[p] = {k: paths[p][k] for k in names}
@@ -3666,6 +3715,118 @@ def main() -> int:
                   f"sgd and two under adagrad and rwsadagrad, as expected)")
             return launches
 
+    def phase_altkeys():
+        """The C3 tier's offline kNN at its real size: query rows A:B (all by
+        default) of the seeded Kaggle tables (33,762,577 rows, dim 36)
+        against all their rows, k = 10, through `gen_altkeys` and K7 on the
+        card: the whole range through `generate_altkeys`, a part through
+        `knn_neighbours`.  Prints the seconds, rows/s, effective TFLOP/s,
+        peak device memory and the share of rows certified (not swept);
+        checks that every alt key names a row and holds 2,048 sampled rows
+        to the plain version over all rows by the rule."""
+        kcfg = kaggle_dlrm_config()
+        n_all = sum(kcfg.table_sizes)
+        a, b = ((0, n_all) if args.query_rows is None else
+                tuple(int(v) for v in args.query_rows.split(":")))
+        if not 0 <= a < b <= n_all:
+            raise ValueError(f"--query-rows {args.query_rows}: not within "
+                             f"0:{n_all}")
+        with Phase("altkeys full kNN"):
+            t0 = time.perf_counter()
+            tabs = init_embedding_tables(kcfg.table_sizes,
+                                         kcfg.embedding_dim,
+                                         np.random.default_rng(args.seed))
+            gb = n_all * kcfg.embedding_dim * 4 / 1e9
+            print(f"set-up: {len(tabs)} tables, {n_all} rows x "
+                  f"{kcfg.embedding_dim}, {gb:.2f} GB, in "
+                  f"{time.perf_counter() - t0:.2f} s; query rows {a}:{b}",
+                  flush=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            knn_topk.launches = knn_topk.rows = knn_topk.swept = 0
+            t0 = time.perf_counter()
+            if (a, b) == (0, n_all):
+                alts = gen_altkeys.generate_altkeys(tabs, n_neighbors=10,
+                                                    device=dev)
+                secs = time.perf_counter() - t0
+                if [len(a_) for a_ in alts] != list(kcfg.table_sizes):
+                    raise AssertionError("alt keys: a table's count differs")
+                nearest = gen_altkeys.altkey_rows(np.concatenate(alts),
+                                                  kcfg.table_sizes)
+                if (nearest < 0).any():
+                    raise AssertionError("an alt key names no row")
+            else:
+                x = torch.from_numpy(np.concatenate(tabs)).to(dev)
+                nearest = gen_altkeys.knn_neighbours(
+                    x, torch.arange(a, b, device=dev), 10)[:, 0]
+                secs = time.perf_counter() - t0
+                del x
+                if nearest.min() < 0 or nearest.max() >= n_all:
+                    raise AssertionError("a neighbour names no row")
+                nearest = np.concatenate([np.zeros(a, np.int64), nearest])
+            peak = torch.cuda.max_memory_allocated() - mem0
+            n_q, swept = knn_topk.rows, knn_topk.swept
+            if knn_topk.launches < 1 or n_q != b - a:
+                raise AssertionError(f"K7 ran {knn_topk.launches} times over "
+                                     f"{n_q} of {b - a} rows")
+            flop = 2.0 * (b - a) * n_all * kcfg.embedding_dim
+            print(f"altkeys [{card}]: the kNN (k=10) of rows {a}:{b} over all "
+                  f"{n_all} rows in {secs:.2f} s ({secs / 60:.2f} min; "
+                  f"{(b - a) / secs:.0f} rows/s; {flop / secs / 1e12:.1f} "
+                  f"TFLOP/s at 2 x 36 flop a pair); peak device memory "
+                  f"{peak / 2**30:.3f} GiB; {n_q - swept} of {n_q} rows "
+                  f"certified ({100.0 * (n_q - swept) / n_q:.4f}%), {swept} "
+                  f"swept exactly", flush=True)
+            # 2,048 sampled rows: K7's neighbours against the plain version
+            # over all rows (the nearest is the alt key)
+            x = torch.from_numpy(np.concatenate(tabs)).to(dev)
+            del tabs
+            srng = np.random.default_rng(args.seed + 8)
+            ids = torch.from_numpy(np.sort(srng.choice(
+                np.arange(a, b), min(2048, b - a), replace=False))).to(dev)
+            got = torch.from_numpy(gen_altkeys.knn_neighbours(x, ids, 10)
+                                   ).to(dev)
+            if not torch.equal(got[:, 0].cpu(), torch.from_numpy(
+                    nearest[ids.cpu().numpy()])):
+                raise AssertionError("the sampled rows' nearest differ from "
+                                     "the run's alt keys")
+            ref = knn_plain(torch, knn_topk_ref, x, ids, 11, 64)
+            n_sep, n_sep1 = knn_rule(torch, x, ids, got, ref, 10, "altkeys")
+            print(f"altkeys check: every alt key names a row; {len(ids)} "
+                  f"sampled rows against the plain version over all rows: "
+                  f"neighbour sets equal on all {n_sep} separated rows, the "
+                  f"nearest (the alt key) on all {n_sep1}", flush=True)
+            del got, ref
+            # where a block of the run's time goes: one K7 call over
+            # gen_altkeys' block of query rows, by kernel (profiler)
+            nq = min(gen_altkeys.CARD_BLOCK, b - a)
+            qi = torch.arange(a, a + nq, device=dev)
+            qx = x[a:a + nq].contiguous()
+            knn_topk(qx, qi, x, 10)
+            torch.cuda.synchronize()
+            cuda = torch.autograd.DeviceType.CUDA
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                knn_topk(qx, qi, x, 10)
+                torch.cuda.synchronize()
+            parts = {}
+            for e in prof.key_averages():
+                if e.device_type == cuda and e.device_time_total > 0:
+                    m_ = re.search(r"knn_\w+", e.key)
+                    name = m_.group(0) if m_ else "the wrapper's other ops"
+                    parts[name] = parts.get(name, 0.0) + \
+                        e.device_time_total / 1e3
+            total = sum(parts.values())
+            print(f"altkeys: one K7 call of {nq} query rows over all {n_all} "
+                  f"rows [{card}]: {total:.2f} device ms, " + ", ".join(
+                      f"{k_} {v:.3f} ms" for k_, v in sorted(
+                          parts.items(), key=lambda kv: -kv[1])[:4]),
+                  flush=True)
+            del x, qx, qi
+            torch.cuda.empty_cache()
+
     with Phase("2 kernels vs plain"):
         # K1: f32 |d| <= 1e-5 (1 + |ref|) (summation order); bf16: one
         # bf16 ulp of ref plus that f32 allowance.  Bit for bit with K6 on
@@ -4396,10 +4557,169 @@ def main() -> int:
         del cells
         torch.cuda.empty_cache()
 
+        # K7, the alt-key kNN: held to its plain version by the
+        # correctness rule (knn_rule), every case launched twice, bit for
+        # bit.  The timed case is the tool's call on the card: CARD_BLOCK
+        # (131,072) queries (every 8th row, with their ids) against the
+        # first 1,048,576 rows of the Kaggle tables at their init scales,
+        # k = 10; the plain version runs in blocks of 2,048 queries so that
+        # its [2048, N] distances fit
+        def kaggle_keys(n, dim=36, tables=None):
+            """n rows at the Kaggle init's scales, the tables in order
+            (or, given `tables`, rows of those tables in turn)."""
+            sizes = kcfg.table_sizes
+            if tables is None:
+                counts, left = [], n
+                for sz in sizes:
+                    counts.append(min(sz, left))
+                    left -= counts[-1]
+                scale = torch.cat([torch.full((c,), float(np.sqrt(1.0 / sz)),
+                                              device=dev)
+                                   for c, sz in zip(counts, sizes) if c])
+            else:
+                scale = torch.tensor([float(np.sqrt(1.0 / sizes[t]))
+                                      for t in tables], device=dev)[
+                    torch.arange(n, device=dev) % len(tables)]
+            return (torch.rand(n, dim, generator=gen, device=dev) * 2 - 1) \
+                * scale[:, None]
+
+        def k7_case(q, qids, keys, k, label, swept_all=False):
+            """Two launches bitwise equal, the rule against the plain
+            version; -> (rows the rule held, swept rows)."""
+            knn_topk.swept = 0
+            got = knn_topk(q, qids, keys, k)
+            again = knn_topk(q, qids, keys, k)
+            torch.cuda.synchronize()
+            swept = knn_topk.swept // 2
+            if not torch.equal(got, again):
+                raise AssertionError(f"knn_topk is not deterministic at "
+                                     f"{label}")
+            ref = knn_plain(torch, knn_topk_ref, keys, qids, k + 1, 2048,
+                            queries=q)
+            held = knn_rule(torch, keys, q, got, ref, k, label)
+            if swept_all and swept < len(q):
+                raise AssertionError(f"knn_topk {label}: {swept} of "
+                                     f"{len(q)} near-tie rows failed the "
+                                     f"certificate")
+            return held, swept
+
+        K7_Q, K7_N, K7_K = gen_altkeys.CARD_BLOCK, 1 << 20, 10
+        keys7 = kaggle_keys(K7_N)
+        ids7 = torch.arange(0, K7_N, K7_N // K7_Q, device=dev)
+        q7 = keys7[ids7].contiguous()
+        (n_sep, n_sep1), swept = k7_case(q7, ids7, keys7, K7_K,
+                                         f"{K7_Q} x 1M Kaggle rows")
+        # each input read once (queries, their ids, keys), the ids written
+        # once; the function's two operations a pair and dimension (D =
+        # 36), at the TF32 tensor-core peak and at the f32 FMA peak
+        nbytes = 4 * (K7_Q + K7_N) * 36 + 8 * K7_Q * (1 + K7_K)
+        flop = 2.0 * K7_Q * K7_N * 36
+        bms, by = bound_ms(nbytes, flop, "float32")
+        bms_tc, by_tc = bound_ms(nbytes, flop, "tfloat32")
+        call = lambda: knn_topk(q7, ids7, keys7, K7_K)  # noqa: E731
+        k_ms = time_ms(torch, call, reps=10, warmup=2)
+        split, dev_ms = on_device(*device_host_us(torch, call, reps=5,
+                                                  calls=10), bms_tc)
+        # one call: each takes seconds, and k7_case's has warmed it up
+        p_ms = time_ms(torch, lambda: knn_plain(
+            torch, knn_topk_ref, keys7, ids7, K7_K, 2048), reps=1, warmup=0)
+        print(f"knn_topk Q={K7_Q} N={K7_N} D=36 k={K7_K} (the first 1M rows "
+              f"of the Kaggle tables at their init scales): neighbour sets "
+              f"equal to the plain version's on all {n_sep} separated rows, "
+              f"nearest on {n_sep1}; {swept} rows swept exactly; two "
+              f"launches bitwise equal; kernel_ms {k_ms:.4f}{split} "
+              f"plain_ms {p_ms:.4f} (blocks of 2048) bound_us "
+              f"{bms_tc * 1e3:.2f} ({by_tc}, the TF32 peak) and "
+              f"{bms * 1e3:.2f} ({by}, the f32 FMA peak); "
+              f"{flop / k_ms / 1e9:.1f} TFLOP/s; library_ms none (no single "
+              f"PyTorch call computes it) [{card}]", flush=True)
+        report["knn_topk"] = dict(max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
+                                  plain_ms=p_ms, bound_ms=bms_tc,
+                                  bound_by=by_tc, library_ms=None)
+        del keys7, q7, ids7
+        torch.cuda.empty_cache()
+
+        # the cases that break K7's design, checked and not timed
+        def uniform(n, dim):
+            return torch.rand(n, dim, generator=gen, device=dev) * 2 - 1
+
+        def own(keys, n):
+            ids = torch.randperm(len(keys), generator=gen, device=dev)[:n]
+            return keys[ids].contiguous(), ids
+
+        cases = []
+        for N, label in ((1013, "N = 1013, not a multiple of the key tile"),
+                         (37, "N = 37 < k + m")):
+            keys = uniform(N, 36)
+            cases.append((*own(keys, 64), keys, 10, label))
+        keys = kaggle_keys(100_000)
+        for Q in (1, 3, 2049):
+            cases.append((*own(keys, Q), keys, 10, f"Q = {Q}"))
+        for D in (7, 36, 64, 128):
+            keys = uniform(20_000, D)
+            cases.append((*own(keys, 300), keys, 10, f"D = {D}"))
+        keys = kaggle_keys(50_000)
+        for k in (1, 10, 11, 32):
+            cases.append((*own(keys, 300), keys, k, f"k = {k}"))
+        keys = uniform(50_000, 36)
+        keys[100:110] = keys[7]         # copies of row 7
+        keys[200:240] = keys[8]         # more copies than k + m
+        keys[300:320] = 0.0             # zero rows
+        ids = torch.cat([torch.tensor([7, 8, 100, 200, 239, 300, 319],
+                                      device=dev),
+                         torch.randperm(50_000, generator=gen,
+                                        device=dev)[:250]])
+        cases.append((keys[ids].contiguous(), ids, keys, 10,
+                       "duplicate and zero rows"))
+        keys = uniform(50_000, 36)
+        cases.append((uniform(512, 36), torch.full((512,), -1, device=dev),
+                      keys, 10, "query ids of -1"))
+        keys = kaggle_keys(60_000, tables=[8, 2])   # |x| about 1.0 and 1e-3
+        cases.append((*own(keys, 512), keys, 10,
+                      "the init's extreme scales side by side (3 and "
+                      "10,131,227 rows)"))
+        keys = kaggle_keys(60_000, tables=list(range(26)))
+        cases.append((*own(keys, 512), keys, 10, "all 26 scales side by side"))
+        rows = []
+        for label_args in cases:
+            (n_sep, n_sep1), swept = k7_case(*label_args)
+            rows.append(f"{label_args[4]}: {n_sep} and {n_sep1} rows held, "
+                        f"{swept} swept")
+        # near-ties: each query's own cluster, k keys at squared distance
+        # 1 and 2k + m more at 1 + 2e-5 (each spread 1e-7), inside TF32's
+        # band, so every row fails the certificate, while its k-th and
+        # k+1-th distances stay separated by 2e-5
+        nq, per = 64, 3 * 10 + 32
+        qn = torch.randn(nq, 36, generator=gen, device=dev,
+                         dtype=torch.float64)
+        qn /= qn.norm(dim=1, keepdim=True)
+        u = torch.randn(nq, per, 36, generator=gen, device=dev,
+                        dtype=torch.float64)
+        u /= u.norm(dim=2, keepdim=True)
+        r2 = torch.where(torch.arange(per, device=dev) < 10, 1.0, 1.0 + 2e-5) \
+            + 1e-7 * torch.rand(nq, per, generator=gen, device=dev,
+                                dtype=torch.float64)
+        keys = torch.cat([(qn[:, None] + r2.sqrt()[..., None] * u).reshape(
+            -1, 36), 3.0 + torch.randn(10_000, 36, generator=gen, device=dev,
+                                       dtype=torch.float64)]).float()
+        (n_sep, _), swept = k7_case(qn.float(), torch.full(
+            (nq,), -1, device=dev), keys, 10, "near-ties", swept_all=True)
+        rows.append(f"near-ties: {n_sep} rows held, {swept} of {nq} swept")
+        print(f"knn_topk: {len(rows)} edge cases, each launched twice bit "
+              f"for bit and held to the plain version by the rule: "
+              + "; ".join(rows), flush=True)
+        del keys, cases
+        torch.cuda.empty_cache()
+
     if args.only == "3j":
         phase_3j()
         print(f"total: {time.perf_counter() - t_all:.2f} s (phases 0-2 "
               f"and 3j)")
+        return 0
+    if args.only == "altkeys":
+        phase_altkeys()
+        print(f"total: {time.perf_counter() - t_all:.2f} s (phases 0-2 "
+              f"and the full kNN)")
         return 0
     phase_2b()
 
@@ -4435,11 +4755,12 @@ def main() -> int:
             seed=args.seed + 1, distribution="grouped_zipf", zipf_alpha=1.05,
             group_noise=0.1))
 
-    def warm_up(cache, full, n_scored=N_SCORED):
+    def warm_up(cache, full, n_scored=N_SCORED, cap=WARM_CAP):
         """run_inference's warm-up pass, done here on the stream until
-        `full(cache.stats())` holds, so that the scored batches see the
-        tiers in steady state and the host split counts them only.
-        Returns the warm-up batches, the scored ones and one more."""
+        `full(cache.stats())` holds (within `cap` batches), so that the
+        scored batches see the tiers in steady state and the host split
+        counts them only.  Returns the warm-up batches, the scored ones and
+        one more."""
         it = serve_stream()
         warm = []
         look = getattr(cache, "lookup_batch", None) or cache.request_batch
@@ -4449,9 +4770,9 @@ def main() -> int:
                 warm.append(b)
                 if full(cache.stats()):
                     break
-                if len(warm) == WARM_CAP:
+                if len(warm) == cap:
                     raise AssertionError(f"the tiers were not full after "
-                                         f"{WARM_CAP} warm-up batches: "
+                                         f"{cap} warm-up batches: "
                                          f"{cache.stats()}")
         torch.cuda.synchronize()
         if hasattr(cache, "host_s"):
@@ -4598,86 +4919,185 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ------------------------------------------ 3c three tiers, int8
+    ALT_W = 60              # warm-up cap of 3c and 3d(b) (they fill in ~30)
+    ALT_SAMPLE = 2048       # query rows held to the plain version
     with Phase("3c three tiers int8"):
         # bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh: int8 C1, 4-bit C2,
-        # alt-key C3, 48-48-4, 75,425 entries.  The alt keys are a listed
-        # cut: one uniform row of the same table for each row, from --seed
-        # (the reference's come from an offline kNN).
+        # alt-key C3, 48-48-4, 75,425 entries.  First the alt keys the
+        # reference's offline kNN gives C3 (gen_altkeys: each row's 10
+        # nearest rows over all 26 tables, the most accessed of them by the
+        # workload's counts), for every row the serving stream reaches in
+        # its first ALT_W + N_SCORED + 1 batches, which hold every key C3
+        # is asked about; the other rows keep one uniform row of their
+        # table, from --seed.  The configuration is served with the
+        # uniform keys first (as before the kNN existed), then with the
+        # kNN's.
         ccfg3 = CacheConfig(policy="evlfu", n_caching_layers=3,
                             total_size=75425, main_precision=8,
                             secondary_precision=4, size_proportion=(48, 48, 4))
-        t0 = time.perf_counter()
-        resolver = AltKeyResolver(seeded_altkeys())
-        cache = build_cache(ccfg3, cfg, storage, resolver,
-                            use_device_cache=True, device=dev)
-        print(f"set-up: tiers {ccfg3.tier_capacities()}, alt keys and "
-              f"engine in {time.perf_counter() - t0:.2f} s")
         caps = ccfg3.tier_capacities()
-        warmup3, scored3, extra3 = warm_up(
-            cache, lambda s: (s["size"] >= caps[0] and s["c2"]["size"] >= caps[1]
-                              and s["c3"]["size"] >= caps[2]))
-        s_start = cache.stats()
-        print(f"warm-up: {len(warmup3)} batches of 2048 until C1, C2 and "
-              f"C3 were full: {s_start}; {N_SCORED} scored batches follow")
-        reset_counts()
-        res3 = run_inference(model, cfg, ccfg3, scored3, storage,
-                             altkey_resolver=resolver, use_device_cache=True,
-                             pipeline_depth=2, cache=cache, device=dev)
-        int8_launches = read_counts()
-        split3 = dict(cache.host_s)
-        int8_launches = {k: int8_launches[k] for k in
-                         ("interaction_fwd", "gather_rows_dequant_int8")}
-        if min(int8_launches.values()) < 1:
-            raise AssertionError(f"a kernel of the path never ran: "
-                                 f"{int8_launches}")
-        s3 = res3.cache_stats
-        if not (s3["c2"]["hit_rate"] > 0 and s3["c3"]["size"] > 0):
-            raise AssertionError(f"C2 or C3 is not live: {s3}")
-        if res3.scores is None or res3.scores.shape != (N_SCORED * 2048,) or \
-                not np.isfinite(res3.scores).all():
-            raise AssertionError("scores missing, misshapen or not finite")
+        int8_launches = dict.fromkeys(("interaction_fwd",
+                                       "gather_rows_dequant_int8"), 0)
+        c3_side = {}
 
-        # one more batch: the int8 apply's rows against the plain version
-        # on the same cache state and miss buffer (not counted above)
-        _, idx, _ = extra3
-        assign = cache.assigner.assign_batch(idx)
-        with torch.inference_mode():
-            rows = cache._apply_assign(assign)
-            slots, _, _, buf = assign
-            bk = cache.insert_bucket
-            buf_q = np.zeros((max(bk, -(-len(buf) // bk) * bk),
-                              cfg.embedding_dim), np.float32)
-            buf_q[:len(buf)] = buf
-            ref = gather_rows_dequant_int8_ref(
-                cache.cache_values, torch.from_numpy(slots).to(dev),
-                torch.from_numpy(np_quantize_int8(buf_q)).to(dev))
-            grid = dequantize_int8(torch.arange(256, device=dev,
-                                                dtype=torch.uint8))
-            if not torch.equal(rows.view(torch.int32), ref.view(torch.int32)):
-                raise AssertionError("the int8 apply's rows differ from the "
-                                     "plain version's")
-            if not bool(torch.isin(rows, grid).all()):
-                raise AssertionError("an int8 row value is off the grid")
-        serve_line("three tiers, NativeDeviceC1Cache int8, pipeline_depth 2",
-                   res3, split3)
-        n_req = s3["requests"] - s_start["requests"]
-        c1_hr = (s3["hit_rate"] * s3["requests"] - s_start["hit_rate"]
-                 * s_start["requests"]) / n_req
-        print(f"cache [{card}]: over the {n_req} scored requests (every "
-              f"tier full at their start): C1 hit_rate {c1_hr:.6f}, C3 "
-              f"hits {s3['c3']['hits'] - s_start['c3']['hits']}; C2 "
-              f"cumulative hit_rate {s_start['c2']['hit_rate']:.6f} at the "
-              f"start, {s3['c2']['hit_rate']:.6f} at the end; at the end: "
-              f"C1 {s3['size']} of {s3['capacity']}, C2 {s3['c2']}, C3 "
-              f"{s3['c3']}, perfect_hits {s3['perfect_hits']}, "
-              f"bytes_shipped {s3['bytes_shipped']}, requests "
-              f"{s3['requests']} (warm-up included)")
-        print(f"check: the extra batch's int8 rows bit-exact vs the plain "
-              f"version on the same state and buffer, all on the int8 grid;"
-              f" auc {res3.metrics['auc']:.4f} (random weights and labels)")
-        cache.close()
-        del cache, rows, ref, resolver, warmup3, scored3
+        def serve_3c(keys_label, alts3):
+            """The published configuration with these alt keys, warmed up
+            until every tier is full and scored: its checks, its lines, and
+            its C3 stats kept for the side-by-side line."""
+            t0 = time.perf_counter()
+            resolver = AltKeyResolver(alts3)
+            cache = build_cache(ccfg3, cfg, storage, resolver,
+                                use_device_cache=True, device=dev)
+            print(f"set-up ({keys_label} alt keys): tiers {caps}, alt keys "
+                  f"and engine in {time.perf_counter() - t0:.2f} s")
+            warmup3, scored3, extra3 = warm_up(
+                cache, lambda s: (s["size"] >= caps[0]
+                                  and s["c2"]["size"] >= caps[1]
+                                  and s["c3"]["size"] >= caps[2]),
+                cap=ALT_W)
+            s_start = cache.stats()
+            print(f"warm-up: {len(warmup3)} batches of 2048 until C1, C2 and "
+                  f"C3 were full: {s_start}; {N_SCORED} scored batches follow")
+            reset_counts()
+            res3 = run_inference(model, cfg, ccfg3, scored3, storage,
+                                 altkey_resolver=resolver,
+                                 use_device_cache=True, pipeline_depth=2,
+                                 cache=cache, device=dev)
+            run_launches = read_counts()
+            split3 = dict(cache.host_s)
+            for k_ in int8_launches:
+                int8_launches[k_] += run_launches[k_]
+            if min(run_launches[k_] for k_ in int8_launches) < 1:
+                raise AssertionError(f"a kernel of the path never ran: "
+                                     f"{run_launches}")
+            s3 = res3.cache_stats
+            if not (s3["c2"]["hit_rate"] > 0 and s3["c3"]["size"] > 0):
+                raise AssertionError(f"C2 or C3 is not live: {s3}")
+            if res3.scores is None or \
+                    res3.scores.shape != (N_SCORED * 2048,) or \
+                    not np.isfinite(res3.scores).all():
+                raise AssertionError("scores missing, misshapen or not "
+                                     "finite")
+
+            # one more batch: the int8 apply's rows against the plain
+            # version on the same cache state and miss buffer (not counted
+            # above)
+            _, idx, _ = extra3
+            assign = cache.assigner.assign_batch(idx)
+            with torch.inference_mode():
+                rows = cache._apply_assign(assign)
+                slots, _, _, buf = assign
+                bk = cache.insert_bucket
+                buf_q = np.zeros((max(bk, -(-len(buf) // bk) * bk),
+                                  cfg.embedding_dim), np.float32)
+                buf_q[:len(buf)] = buf
+                ref = gather_rows_dequant_int8_ref(
+                    cache.cache_values, torch.from_numpy(slots).to(dev),
+                    torch.from_numpy(np_quantize_int8(buf_q)).to(dev))
+                grid = dequantize_int8(torch.arange(256, device=dev,
+                                                    dtype=torch.uint8))
+                if not torch.equal(rows.view(torch.int32),
+                                   ref.view(torch.int32)):
+                    raise AssertionError("the int8 apply's rows differ from "
+                                         "the plain version's")
+                if not bool(torch.isin(rows, grid).all()):
+                    raise AssertionError("an int8 row value is off the grid")
+            serve_line(f"three tiers, NativeDeviceC1Cache int8, {keys_label} "
+                       f"alt keys, pipeline_depth 2", res3, split3)
+            n_req = s3["requests"] - s_start["requests"]
+            c1_hr = (s3["hit_rate"] * s3["requests"] - s_start["hit_rate"]
+                     * s_start["requests"]) / n_req
+            c3_hits = s3["c3"]["hits"] - s_start["c3"]["hits"]
+            c3_side[keys_label] = (c1_hr, c3_hits, c3_hits / n_req,
+                                   s3["c2"]["hit_rate"], s3["c3"],
+                                   res3.requests / res3.elapsed_s)
+            print(f"cache [{card}]: over the {n_req} scored requests (every "
+                  f"tier full at their start): C1 hit_rate {c1_hr:.6f}, C3 "
+                  f"hits {c3_hits}; C2 cumulative hit_rate "
+                  f"{s_start['c2']['hit_rate']:.6f} at the start, "
+                  f"{s3['c2']['hit_rate']:.6f} at the end; at the end: C1 "
+                  f"{s3['size']} of {s3['capacity']}, C2 {s3['c2']}, C3 "
+                  f"{s3['c3']}, perfect_hits {s3['perfect_hits']}, "
+                  f"bytes_shipped {s3['bytes_shipped']}, requests "
+                  f"{s3['requests']} (warm-up included)")
+            print(f"check: the extra batch's int8 rows bit-exact vs the "
+                  f"plain version on the same state and buffer, all on the "
+                  f"int8 grid; auc {res3.metrics['auc']:.4f} (random weights "
+                  f"and labels)")
+            cache.close()
+            del cache, rows, ref, resolver, warmup3, scored3
+            torch.cuda.empty_cache()
+
+        serve_3c("uniform", seeded_altkeys())
+
+        # the kNN's alt keys, for the rows the stream reaches
+        t0 = time.perf_counter()
+        offs = np.concatenate([[0], np.cumsum(cfg.table_sizes)])
+        seen = np.concatenate([
+            (b[1].astype(np.int64) + offs[:-1]).reshape(-1)
+            for _, b in zip(range(ALT_W + N_SCORED + 1), serve_stream())])
+        q_ids, counts = np.unique(seen, return_counts=True)
+        x = torch.empty(int(offs[-1]), cfg.embedding_dim, device=dev)
+        for t, tab in enumerate(tables):
+            x[offs[t]:offs[t + 1]] = torch.from_numpy(tab).to(dev)
+        torch.cuda.synchronize()
+        t_up = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        knn_topk.rows = knn_topk.swept = 0
+        t1 = time.perf_counter()
+        neigh = gen_altkeys.knn_neighbours(x, torch.from_numpy(q_ids).to(dev),
+                                           10)
+        t_knn = time.perf_counter() - t1
+        altkeys_launches = {"knn_topk": read_counts()["knn_topk"]}
+        peak = torch.cuda.max_memory_allocated()
+        if altkeys_launches["knn_topk"] < 1:
+            raise AssertionError("3c: K7 never ran")
+        # the most accessed of the 10 by the stream's counts (ties: the
+        # nearer), as generate_altkeys picks with workload frequencies
+        freq = np.zeros(int(offs[-1]), np.int64)
+        freq[q_ids] = counts
+        alt = gen_altkeys.pick_altkeys(neigh, cfg.table_sizes, freq)
+        knn_alts = seeded_altkeys()
+        q_tbl = np.searchsorted(offs, q_ids, side="right") - 1
+        for t in range(cfg.num_tables):
+            sel = q_tbl == t
+            knn_alts[t][q_ids[sel] - offs[t]] = alt[sel]
+        # ALT_SAMPLE query rows against the plain version over all keys
+        srng = np.random.default_rng(args.seed + 7)
+        pick = np.sort(srng.choice(len(q_ids), ALT_SAMPLE, replace=False))
+        ids_s = torch.from_numpy(q_ids[pick]).to(dev)
+        t1 = time.perf_counter()
+        ref = knn_plain(torch, knn_topk_ref, x, ids_s, 11, 64)
+        t_ref = time.perf_counter() - t1
+        n_sep, n_sep1 = knn_rule(torch, x, ids_s,
+                                 torch.from_numpy(neigh[pick]).to(dev), ref,
+                                 10, "3c")
+        n_all = int(offs[-1])
+        tflop = 2.0 * len(q_ids) * n_all * cfg.embedding_dim / 1e12
+        print(f"3c alt keys [{card}]: the kNN (k=10) of the {len(q_ids)} rows "
+              f"the stream's first {ALT_W + N_SCORED + 1} batches reach, over "
+              f"all {n_all} rows, through K7 in {t_knn:.2f} s "
+              f"({tflop / t_knn:.1f} TFLOP/s; {knn_topk.swept} rows swept "
+              f"exactly; peak device "
+              f"memory {peak / 2**30:.2f} GiB with the keys' "
+              f"{x.numel() * 4 / 2**30:.2f}), the keys' upload {t_up:.2f} s; "
+              f"{ALT_SAMPLE} sampled rows against the plain version over all "
+              f"rows (blocks of 64, {t_ref:.2f} s): neighbour sets equal on "
+              f"all {n_sep} separated rows, the nearest on all {n_sep1}; each "
+              f"row's alt key the most accessed of its 10; the other "
+              f"{n_all - len(q_ids)} rows keep uniform alt keys (no request "
+              f"reaches them)", flush=True)
+        del x, ref, neigh
         torch.cuda.empty_cache()
+
+        serve_3c("kNN", knn_alts)
+        print("3c C3 side by side [" + card + "] (random tables: not a "
+              "quality number): " + "; ".join(
+                  f"{k_} alt keys: C3 hits {v[1]} ({v[2]:.6f} a scored "
+                  f"request), C1 hit_rate {v[0]:.6f}, C2 cumulative hit_rate "
+                  f"{v[3]:.6f}, C3 at the end {v[4]}, {v[5]:.1f} requests/s"
+                  for k_, v in c3_side.items()), flush=True)
 
     # ------------------------------------------------- 3d host tiers
     def host_line(label, res, n_batches, B=2048):
@@ -4742,7 +5162,7 @@ def main() -> int:
               f"{host_gb:.2f} GB", flush=True)
         t0 = time.perf_counter()
         write_ev_tables_binary(tables, bins)
-        alts = seeded_altkeys()
+        alts = knn_alts         # 3c's: the kNN's keys where a request reaches
         write_altkeys_binary(alts, bins)
         print(f"wrote 26 ev-table-<t>.bin and alt-keys-<t>.bin files in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -4790,7 +5210,7 @@ def main() -> int:
         warm_b, scored_b, extra_b = warm_up(
             eng, lambda s: (s["c1"]["size"] >= caps[0]
                             and s["c2"]["size"] >= caps[1]
-                            and s["c3"]["size"] >= caps[2]))
+                            and s["c3"]["size"] >= caps[2]), cap=ALT_W)
         s_start = eng.stats()
 
         class Recorder:
@@ -5049,7 +5469,7 @@ def main() -> int:
 
     # ------------------------------------------------------ 3b train
     with Phase("3b train"):
-        del res, res2, res3, model, storage
+        del res, res2, model, storage
         torch.cuda.empty_cache()
         B = 128                 # the reference recipe's batch and lr
         tcfg = TrainConfig(learning_rate=0.1, optimizer="rwsadagrad")
@@ -5220,7 +5640,8 @@ def main() -> int:
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
         print(f"kernels: serve {json.dumps(serve_launches)}; serve_int8 "
-              f"{json.dumps(int8_launches)}; serve_host "
+              f"{json.dumps(int8_launches)}; altkeys "
+              f"{json.dumps(altkeys_launches)}; serve_host "
               f"{json.dumps(host_launches)}; gram_ab "
               f"{json.dumps(gram_launches)}; train "
               f"{json.dumps(train_launches)}; train_factored "
@@ -5246,8 +5667,13 @@ def main() -> int:
                 "evstore_tpu/ops/pallas_interaction.py:41"),
             "scatter_sub_sorted": ("evstore_tpu_torch/csrc/row_update.cu",
                                    "evstore_tpu/ops/pallas_update.py:60"),
+            # no TPU kernel: the JAX package's kNN block is XLA
+            "knn_topk": ("evstore_tpu_torch/csrc/knn_topk.cu",
+                         "evstore_tpu/tools/gen_altkeys.py:36::block_topk "
+                         "(XLA)"),
         }
         paths = {"serve": serve_launches, "serve_int8": int8_launches,
+                 "altkeys": altkeys_launches,
                  "serve_host": host_launches, "gram_ab": gram_launches,
                  "train": train_launches,
                  "train_factored": factored_launches, "cli": cli_launches,

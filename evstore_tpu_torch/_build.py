@@ -38,6 +38,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     # x, ly, out, B, T, D, self_interaction, is_bf16, samples/group, blocks,
@@ -62,6 +63,15 @@ SIGNATURES = {
     # desc, T, D, rows, vals, K, scratch, scratch_chunks, is_bf16, device,
     # stream
     "scatter_sub_sorted": (_P, _I, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
+    # keys, N, D, -(1 - c2) / 2, c1 / 2, aux, device, stream
+    "knn_prep": (_P, _I64, _I, _F, _F, _P, _I, _P),
+    # queries, query ids, Q, keys, aux, N, D, L, exact, 1 - c2, list values,
+    # list ids, list maxima, device, stream
+    "knn_candidates": (_P, _P, _I64, _P, _P, _I64, _I, _I, _I, _F, _P, _P,
+                       _P, _I, _P),
+    # queries, Q, keys, D, k, L, list ids, list maxima, certify, margin,
+    # out, ok, device, stream
+    "knn_merge": (_P, _I64, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _I, _P),
 }
 
 

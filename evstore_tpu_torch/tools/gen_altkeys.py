@@ -8,11 +8,15 @@ then per row the neighbour with the highest workload frequency
 as big-endian uint32 alt keys, altKey = (table + 1) + 100 * row
 (convert_altkeys_to_binary.py).
 
-The kNN is blocked: per block of query rows the squared distances to every
-row, ||a||² + ||b||² − 2abᵀ, from one `torch.addmm` (float32, TF32 off),
-self masked, then `torch.topk`.  It runs on `device`: the card unless the
-caller passes `device="cpu"`.  No TPU kernel computes it (the JAX package
-jits it as XLA), so it is plain PyTorch.
+The kNN is blocked, each block of query rows against every row through
+`ops/cuda_knn.py::knn_topk`.  On the card that is the kernel K7
+(`csrc/knn_topk.cu`): the keys are uploaded once and no [block, N] distance
+matrix is written, so the 33,762,577 rows of the Criteo Kaggle tables fit;
+the blocks are at least `CARD_BLOCK` rows, enough to fill the card.  On the
+CPU it is the plain version, per block the squared distances to every
+row, ||a||² + ||b||² − 2abᵀ, from one `torch.addmm` (float32), self
+masked, then `torch.topk`, as the JAX package's XLA computes them.  It
+runs on `device`: the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -23,25 +27,32 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from evstore_tpu_torch.ops.cuda_knn import knn_topk
 from evstore_tpu_torch.utils.device import resolve_device
+
+CARD_BLOCK = 1 << 17    # query rows a K7 call on the card, at least
 
 
 def _topk_neighbors_blocked(rows: np.ndarray, k: int, block: int = 2048,
                             device=None) -> np.ndarray:
     """[N, D] -> [N, k] neighbour indices (self excluded), nearest first."""
     dev = resolve_device(device)
-    N = rows.shape[0]
     x = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(dev)
-    sq = torch.sum(x * x, dim=1)
-    out = np.empty((N, k), np.int64)
-    for s in range(0, N, block):
-        e = min(s + block, N)
-        q = x[s:e]
-        # (||q||² + ||b||²) − 2 q·b, the JAX package's order of operations
-        d = torch.addmm(sq[s:e, None] + sq[None, :], q, x.t(), alpha=-2.0)
-        n = torch.arange(e - s, device=dev)
-        d[n, s + n] = float("inf")
-        out[s:e] = torch.topk(d, k, dim=1, largest=False).indices.cpu()
+    return knn_neighbours(x, torch.arange(len(rows), device=dev), k, block)
+
+
+def knn_neighbours(keys: torch.Tensor, query_ids: torch.Tensor, k: int,
+                   block: int = 2048) -> np.ndarray:
+    """The k nearest rows of `keys` [N, D] (float32, on the device that
+    computes) to each row `query_ids` [Q] (int64) names, the row itself
+    excluded: [Q, k] int64, nearest first, in blocks of `block` query rows
+    (of at least CARD_BLOCK on the card)."""
+    step = block if keys.device.type == "cpu" else max(block, CARD_BLOCK)
+    out = np.empty((len(query_ids), k), np.int64)
+    for s in range(0, len(query_ids), step):
+        ids = query_ids[s:s + step]
+        out[s:s + len(ids)] = knn_topk(keys.index_select(0, ids), ids, keys,
+                                       k).cpu().numpy()
     return out
 
 
@@ -58,20 +69,40 @@ def generate_altkeys(tables: Sequence[np.ndarray],
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     allrows = np.concatenate([np.asarray(t, np.float32) for t in tables])
     neigh = _topk_neighbors_blocked(allrows, n_neighbors, block, device)
+    freq_all = None if workload_freq is None else np.concatenate(
+        [np.asarray(f, np.float64) for f in workload_freq])
+    alt_all = pick_altkeys(neigh, sizes, freq_all)
+    return [alt_all[offsets[t]:offsets[t + 1]] for t in range(len(tables))]
 
-    if workload_freq is not None:
-        freq_all = np.concatenate([np.asarray(f, np.float64)
-                                   for f in workload_freq])
-        choice = np.argmax(freq_all[neigh], axis=1)
-        picked = neigh[np.arange(len(neigh)), choice]
+
+def pick_altkeys(neigh: np.ndarray, sizes: Sequence[int],
+                 freq_all: Optional[np.ndarray] = None) -> np.ndarray:
+    """[Q, k] neighbours (global rows over tables of `sizes` rows, nearest
+    first) -> [Q] uint32 alt keys: the nearest, or with `freq_all` (a count
+    for each global row) the most accessed (ties: the nearer)."""
+    if freq_all is not None:
+        picked = neigh[np.arange(len(neigh)),
+                       np.argmax(freq_all[neigh], axis=1)]
     else:
         picked = neigh[:, 0]
-
     # global row id -> (table, row) -> altKey = (t+1) + 100*row
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
     tbl_of = np.searchsorted(offsets, picked, side="right") - 1
     row_of = picked - offsets[tbl_of]
-    alt_all = ((tbl_of + 1) + 100 * row_of).astype(np.uint32)
-    return [alt_all[offsets[t]:offsets[t + 1]] for t in range(len(tables))]
+    return ((tbl_of + 1) + 100 * row_of).astype(np.uint32)
+
+
+def altkey_rows(alts: np.ndarray, sizes: Sequence[int]) -> np.ndarray:
+    """uint32 alt keys -> the global rows they name over tables of `sizes`
+    rows, -1 where a key names no row."""
+    a = np.asarray(alts, np.int64)
+    tbl, row = a % 100 - 1, a // 100
+    n = np.asarray(sizes, np.int64)
+    ok = (tbl >= 0) & (tbl < len(n))
+    t = np.where(ok, tbl, 0)
+    ok &= row < n[t]
+    offsets = np.concatenate([[0], np.cumsum(n)])
+    return np.where(ok, offsets[t] + row, -1)
 
 
 def write_altkeys_binary(alt_tables: Sequence[np.ndarray], out_dir: str

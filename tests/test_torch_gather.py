@@ -438,7 +438,7 @@ def test_library_name_follows_the_sources():
     assert srcs == ["common.cuh", "gather_rows.cu",
                     "gather_rows_dequant_int8.cu", "interaction_bwd.cu",
                     "interaction_fwd.cu", "interaction_gram.cu",
-                    "row_update.cu"]
+                    "knn_topk.cu", "row_update.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
@@ -446,13 +446,17 @@ def test_library_name_follows_the_sources():
     assert set(_build.SIGNATURES) == {
         "interaction_fwd", "interaction_bwd", "interaction_gram",
         "gather_rows", "gather_rows_grouped", "gather_rows_dequant_int8",
-        "scatter_sub_sorted"}
+        "scatter_sub_sorted", "knn_prep", "knn_candidates", "knn_merge"}
     # x, ly, pair table, out: four pointers, then B as a 64-bit int; then
     # T, D, P, is_bf16, samples a group, blocks, device as ints and the
     # stream
     assert _build.SIGNATURES["interaction_gram"] == (
         (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) + (ctypes.c_int,) * 7
         + (ctypes.c_void_p,))
+    # K7's bound terms and margin are floats: ctypes passes them as c_float
+    assert _build.SIGNATURES["knn_prep"][3:5] == (ctypes.c_float,) * 2
+    assert _build.SIGNATURES["knn_candidates"][9] == ctypes.c_float
+    assert _build.SIGNATURES["knn_merge"][9] == ctypes.c_float
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 
@@ -487,7 +491,7 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     cus = [s for s in _build.sources() if s.endswith(".cu")]
     compiles = [ln for ln in lines if " -c " in ln]
     links = [ln for ln in lines if "-shared" in ln]
-    assert len(compiles) == len(cus) == 6 and len(links) == 1
+    assert len(compiles) == len(cus) == 7 and len(links) == 1
     assert sorted(ln.split()[-1] for ln in compiles) == sorted(cus)
     assert all("sm_90a" in ln for ln in lines)
     assert "0 spills" in open(path[:-3] + ".log").read()
