@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of evstore_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed N] [--only 3j | --only altkeys
-                                          [--query-rows a:b]]
+    python3 chip_smoke.py [--seed N] [--only 3j | --only 3k |
+                           --only altkeys [--query-rows a:b]]
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
@@ -258,10 +258,41 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    steps of `train` after 5.  K1, K2,
    K4 and K5 must launch in every part (`train_mlperf`), K3 in the int8
    cell; the phase's directory is removed at its end;
+3k. the MLPerf shape served through EVStore's tiers, with its 104.5 GB of
+   tables in memory files on the host and only the cache on the card, by
+   a model that holds no tables (`DLRM(tables=False)`): (0) the room, the
+   distinct rows one grouped_zipf stream (alpha 1.05, group noise 0.1,
+   B = 2048, 60 + 64 + 1 batches) reaches in each table, a seeded float32
+   row written into each of them (one pwrite a run of rows, table by
+   table in row order) and nothing else, the seconds of the write and the
+   pages the files took, held within a quarter of the smaller of free RAM
+   and disk; (a) the device C1 of bench/dlrm_s_criteo_kaggle_C1.sh
+   (EvLFU, 64,000 fp32 entries) through `NativeDeviceC1Cache.
+   open_table_files` and `run_inference`, warmed up until full and scored
+   over 64 batches at `pipeline_depth` 0 and 2 (equal scores and stats),
+   every row in C1's slots bit for bit the files', the scores within
+   1e-5·(1+|ref|) of `DLRM.predict` with every kernel off on rows read
+   through a np.memmap of the files; (b) the published three-tier
+   configuration (bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh: int8 C1, 4-bit
+   C2, alt-key C3 at 48-48-4, 75,425 entries), each row's alt key a
+   uniform row of its own table among those the stream reaches (204M
+   uint32 keys in the engine), warmed up until every tier is full (at
+   most 60 batches) and scored over 64 at depth 2, C2 and C3 live, one
+   more batch's int8 rows bit for bit the plain version's and on the
+   grid; (c) `cli.main` with run_and_time.sh's model flags, the C1
+   script's serving flags and `--use-device-cache True --ev-table-path
+   <files> --data-generation random`, 10-16 uniform batches cut by the
+   room, ending `inference done` with a model that holds no table; with
+   requests/s, p50/p99, the host split, C1's hit rate over the scored
+   window, the C2/C3 stats and the card's peak allocated memory after
+   (a), (b) and (c), held under 2 GiB; K1, K2 and K3 must launch
+   (`serve_mlperf`); every cache, engine and memory file is closed at the
+   phase's end;
 4. the kernels' launch counts by path (serve, serve_int8, altkeys,
    serve_host, gram_ab, train, train_factored, cli, train_cached,
    train_sharded, train_butterfly, serve_sharded, train_cached_sharded,
-   export, tools, train_mlperf) and one JSON line describing every kernel
+   export, tools, train_mlperf, serve_mlperf) and one JSON line describing
+   every kernel
    (K1-K6 and K7, which replaces no TPU kernel), each of which must have
    launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
@@ -273,7 +304,8 @@ data, exported tables and latency CSV to 3g and 3i, after which they are
 removed.
 
 `--only 3j` runs phases 0-2 and 3j alone, a quicker check of the MLPerf
-shape, and prints neither the kernels line nor the result line.
+shape, and prints neither the kernels line nor the result line; `--only
+3k` does the same for 3k.
 `--only altkeys [--query-rows A:B]` runs phases 0-2 and then the C3
 tier's full kNN: query rows A:B (all by default) of the seeded Kaggle
 tables against all their 33,762,577 rows through K7 (the whole range
@@ -307,7 +339,8 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "3e train factored": 240, "3f cli": 420,
                   "3g cached training": 300, "3h mesh": 300,
                   "3i sharded cache and tools": 420,
-                  "3j mlperf shape": 420, "4 kernels line": 30,
+                  "3j mlperf shape": 420, "3k mlperf serving": 240,
+                  "4 kernels line": 30,
                   "altkeys full kNN": 3000}
 
 
@@ -692,7 +725,7 @@ def by_kernel(on_card, n: int, kernels=TRAIN_KERNELS) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["3j", "altkeys"], default=None,
+    ap.add_argument("--only", choices=["3j", "3k", "altkeys"], default=None,
                     help="run phases 0-2 and this phase alone (a quick "
                          "check; no kernels line and no result line); "
                          "altkeys: the full kNN over the Kaggle tables")
@@ -2786,6 +2819,17 @@ def main() -> int:
                    "--print-freq": 1, "--test-freq": 1,
                    "--mlperf-logging": 0, "--mlperf-auc-threshold": 1}
 
+    def recipe_flags():
+        """bench/run_and_time.sh's model, loss and schedule flags."""
+        flags, out, k = bench_flags("run_and_time.sh"), [], 0
+        while k < len(flags):
+            if flags[k] in RECIPE_DROP:
+                k += 1 + RECIPE_DROP[flags[k]]
+                continue
+            out.append(flags[k])
+            k += 1
+        return out
+
     def phase_3j():
         """The MLPerf recipe's shape (bench/run_and_time.sh: dim 128, the
         26 Terabyte tables capped at 40M rows, 204,184,588 rows or 104.5
@@ -2833,16 +2877,6 @@ def main() -> int:
             if idle:
                 raise AssertionError(f"3j {what}: {idle} never launched: "
                                      f"{got}")
-            return out
-
-        def recipe_flags():
-            flags, out, k = bench_flags("run_and_time.sh"), [], 0
-            while k < len(flags):
-                if flags[k] in RECIPE_DROP:
-                    k += 1 + RECIPE_DROP[flags[k]]
-                    continue
-                out.append(flags[k])
-                k += 1
             return out
 
         def ids_of(batches, t):
@@ -3382,6 +3416,560 @@ def main() -> int:
                 "gather_rows_grouped", "gather_rows_dequant_int8",
                 "scatter_sub_sorted")}
             print(f"train_mlperf path launches: {json.dumps(path)}",
+                  flush=True)
+            return path
+
+    # ------------------------------------------- 3k the MLPerf shape served
+    SERVE_C1 = "dlrm_s_criteo_kaggle_C1.sh"
+    SERVE_C3 = "dlrm_s_criteo_kaggle_C1_C2_C3.sh"
+    MLPERF_SERVE_W = 60     # warm-up batches allowed for the tiers to fill
+    MLPERF_SERVE_N = 64     # scored batches of 2048 a run
+    MLPERF_SERVE_CLI = 16   # the CLI's test batches at most (at least 10)
+    GIB = 1 << 30
+
+    def serve_line(label, res, split):
+        """Rates, latency and the host time per scored batch."""
+        n_b = res.latency["count"] // 2048
+        per = {k: 1e3 * v / n_b for k, v in split.items()}
+        batch_ms = 1e3 * res.elapsed_s / n_b
+        print(f"{label} [{card}]: {res.requests} requests in "
+              f"{res.elapsed_s:.3f} s = {res.requests / res.elapsed_s:.1f} "
+              f"requests/s; p50 {res.latency['p50_s'] * 1e6:.2f} us, p99 "
+              f"{res.latency['p99_s'] * 1e6:.2f} us per request (fenced "
+              f"batch time / 2048)", flush=True)
+        print(f"  host ms per batch of 2048: {batch_ms:.3f} in all; engine "
+              f"assign {per['assign']:.3f}; pad and quantise "
+              f"{per['pack']:.3f}; wait for the stream's queued work "
+              f"{per['wait']:.3f}; H2D copies and the apply's launches "
+              f"{per['copy']:.3f}; the rest (forward launches and the "
+              f"fenced wait for the device) "
+              f"{batch_ms - sum(per.values()):.3f}"
+              + (" (the lookups ran on the prefetch thread, beside the "
+                 "rest)" if label.endswith("depth 2") else ""))
+
+    def int8_apply_held(cache, idx, what):
+        """One more batch through an int8 device cache: the apply's rows
+        bit for bit the plain version's on the same cache state and miss
+        buffer, and every value on the int8 grid."""
+        assign = cache.assigner.assign_batch(idx)
+        with torch.inference_mode():
+            rows = cache._apply_assign(assign)
+            slots, _, _, buf = assign
+            bk = cache.insert_bucket
+            buf_q = np.zeros((max(bk, -(-len(buf) // bk) * bk), cache.dim),
+                             np.float32)
+            buf_q[:len(buf)] = buf
+            ref = gather_rows_dequant_int8_ref(
+                cache.cache_values, torch.from_numpy(slots).to(dev),
+                torch.from_numpy(np_quantize_int8(buf_q)).to(dev))
+            grid = dequantize_int8(torch.arange(256, device=dev,
+                                                dtype=torch.uint8))
+            if not torch.equal(rows.view(torch.int32),
+                               ref.view(torch.int32)):
+                raise AssertionError(f"{what}: the int8 apply's rows differ "
+                                     f"from the plain version's")
+            if not bool(torch.isin(rows, grid).all()):
+                raise AssertionError(f"{what}: an int8 row value is off the "
+                                     f"grid")
+
+    def window_rates(s0, s1):
+        """C1's hit rate and C3's hits over the requests between two
+        stats."""
+        n = s1["requests"] - s0["requests"]
+        hr = (s1["hit_rate"] * s1["requests"]
+              - s0["hit_rate"] * s0["requests"]) / n
+        c3 = (s1["c3"]["hits"] - s0["c3"]["hits"]) if "c3" in s1 else None
+        return n, hr, c3
+
+    def serve_flags(script):
+        """A bench/ serving script's cache and store flags: its model, its
+        data and its CDF path left out."""
+        flags, out, k = bench_flags(script), [], 0
+        while k < len(flags):
+            if flags[k].startswith("--arch-") or flags[k] in (
+                    "--data-generation", "--write-cdf-file"):
+                k += 2
+                continue
+            out.append(flags[k])
+            k += 1
+        return out
+
+    def phase_3k():
+        """The MLPerf recipe's shape (bench/run_and_time.sh: dim 128, the 26
+        Terabyte tables capped at 40M rows, 204,184,588 rows, 104.5 GB at
+        float32; top 1024-1024-512-256-1) served through EVStore's tiers
+        with the tables in memory files on the host (`MemoryFiles`) and
+        only the cache on the card, by a model that holds no tables: (0)
+        the room, and a seeded float32 row written into every row that one
+        grouped_zipf stream (alpha 1.05, group noise 0.1, B = 2048, 60 + 64
+        + 1 batches) reaches, and nothing else; (a) the device C1 at fp32
+        with the C1 script's cache (EvLFU, 64,000 entries) through
+        `NativeDeviceC1Cache.open_table_files` and `run_inference`, warmed
+        up until full and scored over 64 batches at `pipeline_depth` 0 and
+        2 (equal scores and stats), C1's rows bit for bit against the
+        files, the scores against `DLRM.predict` with every kernel off on
+        rows read from a np.memmap of the files; (b) the published
+        three-tier configuration (int8 C1, 4-bit C2, alt-key C3 at
+        48-48-4, 75,425 entries) over the same files, each row's alt key a
+        uniform row of its table among those the stream reaches, warmed up
+        until every tier is full and scored at depth 2, C2 and C3 live,
+        one more batch's int8 rows against the plain version; (c) `cli.
+        main` with run_and_time.sh's model flags, the C1 script's serving
+        flags and `--use-device-cache True --ev-table-path <files>` on
+        random data, whose model must hold no table.  The card's peak
+        allocated memory stays under 2 GiB.  K1, K2 and K3 must launch.
+        Returns the path's launch counts (`serve_mlperf`)."""
+        import contextlib
+
+        from evstore_tpu_torch import cli
+        from evstore_tpu_torch.cache.device_cache import NativeDeviceC1Cache
+        from evstore_tpu_torch.models import dlrm as dlrm_mod
+        launches = dict.fromkeys(wrappers, 0)
+
+        def counted(fn, what, need):
+            """fn() with every count set to 0 just before; its launches go
+            to the path's, and the kernels `need` must each have
+            launched."""
+            reset_counts()
+            out = fn()
+            got = read_counts()
+            for k, v in got.items():
+                launches[k] += v
+            idle = [k for k in need if got[k] < 1]
+            if idle:
+                raise AssertionError(f"3k {what}: {idle} never launched: "
+                                     f"{got}")
+            return out
+
+        def peak(after):
+            p = torch.cuda.max_memory_allocated()
+            print(f"3k device memory after {after} [{card}]: peak "
+                  f"{p / GIB:.3f} GiB allocated (the phase began with "
+                  f"{mem0 / GIB:.3f}) beside {gb:.1f} GB of tables in the "
+                  f"files", flush=True)
+            if p >= 2 * GIB:
+                raise AssertionError(f"3k {after}: {p} bytes on the card")
+
+        with Phase("3k mlperf serving"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            d = tempfile.mkdtemp(prefix="mlperf-serve-")
+            live = []       # caches and MemoryFiles to close
+            try:
+                parse = cli.build_parser().parse_args
+                flags = recipe_flags()
+                rcfg, _, _ = cli.configs_from_args(parse(flags))
+                if rcfg.embedding_dim != 128 or sum(rcfg.table_sizes) != \
+                        204_184_588 or tuple(rcfg.mlp_top[1:]) != \
+                        (1024, 1024, 512, 256, 1):
+                    raise AssertionError(f"run_and_time.sh's flags gave "
+                                         f"{rcfg}")
+                cfg = dataclasses.replace(rcfg, compute_dtype="float32")
+                sizes, D, T = cfg.table_sizes, cfg.embedding_dim, \
+                    cfg.num_tables
+                gb = sum(sizes) * D * 4 / 1e9
+                _, _, ccfg1 = cli.configs_from_args(parse(
+                    flags + serve_flags(SERVE_C1)))
+                _, _, ccfg3 = cli.configs_from_args(parse(
+                    flags + serve_flags(SERVE_C3)))
+                if (ccfg1.policy, ccfg1.total_size, ccfg1.n_caching_layers,
+                        ccfg1.main_precision) != ("evlfu", 64000, 1, 32) or \
+                        (ccfg3.total_size, ccfg3.main_precision,
+                         ccfg3.secondary_precision,
+                         tuple(ccfg3.size_proportion)) != \
+                        (75425, 8, 4, (48, 48, 4)):
+                    raise AssertionError(f"the serving scripts gave "
+                                         f"{ccfg1}, {ccfg3}")
+
+                # (0) the room and the rows the stream reaches
+                ram = meminfo_kb("MemAvailable") * 1024
+                disk = shutil.disk_usage(d).free
+                room = min(ram, disk) / 4
+                t0 = time.perf_counter()
+                stream = list(random_batches(RandomDataConfig(
+                    num_dense=13, table_sizes=sizes, batch_size=2048,
+                    num_batches=MLPERF_SERVE_W + MLPERF_SERVE_N + 1,
+                    seed=args.seed + 71, distribution="grouped_zipf",
+                    zipf_alpha=1.05, group_noise=0.1)))
+                reach = [np.unique(np.concatenate(
+                    [b[1][:, t] for b in stream])).astype(np.int64)
+                    for t in range(T)]
+                per = 4096 // (D * 4)
+                n_pages = sum(len(np.unique(r // per)) for r in reach)
+                cli_argv = flags + serve_flags(SERVE_C1) + [
+                    "--use-device-cache", "True", "--data-generation",
+                    "random", "--device", "cuda", "--nbatches-test",
+                    str(MLPERF_SERVE_CLI), "--write-cdf-file",
+                    os.path.join(d, "cdf.csv")]
+                cli_test = list(cli._make_data(parse(cli_argv), rcfg)[1]())
+                n_cli = len(cli_test)
+
+                def cli_pages(n):
+                    return sum(len(np.unique(np.concatenate(
+                        [b[1][:, t] for b in cli_test[:n]]) // per))
+                        for t in range(T))
+
+                while n_cli > 10 and (n_pages + cli_pages(n_cli)) * 4096 \
+                        > room:
+                    n_cli -= 2
+                worst = n_pages + cli_pages(n_cli)
+                if worst * 4096 > room:
+                    raise AssertionError(f"3k: {worst} pages over the room "
+                                         f"of {room / 1e9:.1f} GB")
+                cli_argv[cli_argv.index("--nbatches-test") + 1] = str(n_cli)
+                print(f"3k(0) room [{card}]: {ram / 1e9:.1f} GB of host "
+                      f"RAM available, {disk / 1e9:.1f} GB of disk free "
+                      f"under {d}; the stream's {len(stream)} grouped_zipf "
+                      f"batches reach {sum(len(r) for r in reach)} distinct "
+                      f"rows on {n_pages} pages of 4 KB, the CLI's {n_cli} "
+                      f"uniform batches at most {worst - n_pages} more: "
+                      f"{worst * 4096 / 1e9:.2f} GB within a quarter of the "
+                      f"smaller, {room / 1e9:.1f} GB (stream made in "
+                      f"{time.perf_counter() - t0:.2f} s)", flush=True)
+                print("3k(0) distinct rows per table: " + ", ".join(
+                    f"{t + 1}: {len(r)} of {n}"
+                    for t, (r, n) in enumerate(zip(reach, sizes))),
+                    flush=True)
+
+                mf = MemoryFiles(os.path.join(d, "ev"), sizes, D)
+                live.append(mf)
+                # a seeded row at the init's scale into every reached row,
+                # table by table in row order, one pwrite a run of rows
+                wrng = np.random.default_rng(args.seed + 72)
+                t0 = time.perf_counter()
+                n_runs = 0
+                for t, rows in enumerate(reach):
+                    b = np.sqrt(1.0 / sizes[t])
+                    vals = wrng.uniform(-b, b, (len(rows), D)).astype(
+                        np.float32)
+                    cut = np.flatnonzero(np.diff(rows) != 1) + 1
+                    starts = np.concatenate([[0], cut])
+                    ends = np.concatenate([cut, [len(rows)]])
+                    fd = mf.fds[2 * t]
+                    for a, e in zip(starts.tolist(), ends.tolist()):
+                        os.pwrite(fd, vals[a:e], int(rows[a]) * D * 4)
+                    n_runs += len(starts)
+                t_write = time.perf_counter() - t0
+                written = sum(len(r) for r in reach)
+                print(f"3k(0) memory files [{card}]: {len(mf.fds)} files "
+                      f"({gb:.1f} GB of tables and their untouched sums); "
+                      f"{written} rows written in {n_runs} runs in "
+                      f"{t_write:.2f} s ({t_write / written * 1e6:.2f} us a "
+                      f"row); the files took {mf.touched_mb():.1f} MB of "
+                      f"pages ({n_pages * 4096 / 2**20:.1f} MB of 4 KB "
+                      f"pages reached)", flush=True)
+                if mf.touched_mb() * 2**20 > room:
+                    raise AssertionError("3k(0): the files took more than "
+                                         "the room")
+                maps = [np.memmap(os.path.join(mf.dir,
+                                               f"ev-table-{t + 1}.bin"),
+                                  np.float32, mode="r", shape=(n, D))
+                        for t, n in enumerate(sizes)]
+
+                def file_rows(idx):
+                    """[B, T] -> the files' rows [B, T, D], through the
+                    np.memmaps."""
+                    return np.stack([maps[t][idx[:, t]] for t in range(T)],
+                                    axis=1)
+
+                # a read of a written row through the mapping, first touch
+                n_probe = min(20_000, len(reach[0]))
+                probe_rows = np.sort(reach[0][np.random.default_rng(
+                    args.seed).choice(len(reach[0]), n_probe,
+                                      replace=False)])
+                t0 = time.perf_counter()
+                maps[0][probe_rows].sum()
+                print(f"3k(0) a written row's first read through np.memmap: "
+                      f"{(time.perf_counter() - t0) / n_probe * 1e6:.2f} us "
+                      f"({n_probe} rows of table 1)", flush=True)
+
+                def open_cache(ccfg_, alts=None):
+                    c = NativeDeviceC1Cache(ccfg_, T, D, device=dev)
+                    live.append(c)
+                    c.open_table_files(mf.dir, sizes, 32)
+                    if alts is not None:
+                        c.load_altkeys(alts)
+                    return c
+
+                def release(c):
+                    c.close()
+                    live.remove(c)
+
+                def warm_up_k(cache, full):
+                    """Lookups over the stream until `full(stats)` (within
+                    MLPERF_SERVE_W batches) -> (warm-up, scored, one
+                    more)."""
+                    n = 0
+                    with torch.inference_mode():
+                        while not full(cache.stats()):
+                            if n == MLPERF_SERVE_W:
+                                raise AssertionError(
+                                    f"3k: the tiers were not full after "
+                                    f"{n} warm-up batches: {cache.stats()}")
+                            cache.lookup_batch(stream[n][1])
+                            n += 1
+                    torch.cuda.synchronize()
+                    cache.host_s = dict.fromkeys(cache.host_s, 0.0)
+                    return (stream[:n], stream[n:n + MLPERF_SERVE_N],
+                            stream[n + MLPERF_SERVE_N])
+
+                # (a) the device C1, fp32, at depth 0 and 2
+                torch.cuda.synchronize()
+                mem0 = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                model = DLRM(cfg, device=dev, seed=args.seed, tables=False)
+                if model.has_sparse():
+                    raise AssertionError("3k: the serving model holds "
+                                         "tables")
+                runs = {}
+                for depth in (0, 2):
+                    t0 = time.perf_counter()
+                    cache = open_cache(ccfg1)
+                    warm, scored, extra = warm_up_k(
+                        cache, lambda s: s["size"] >= s["capacity"])
+                    t_warm = time.perf_counter() - t0
+                    s0 = cache.stats()
+                    res = counted(lambda: run_inference(
+                        model, cfg, ccfg1, scored, None,
+                        use_device_cache=True, pipeline_depth=depth,
+                        cache=cache, device=dev),
+                        f"(a) depth {depth}",
+                        ("interaction_fwd", "gather_rows"))
+                    runs[depth] = (res, dict(cache.host_s), len(warm), s0,
+                                   t_warm)
+                    if depth == 0:
+                        # every row C1 holds against the files, bit for bit
+                        keys, slots = cache.assigner.resident_keys()
+                        tk, rk = keys >> 40, keys & ((1 << 40) - 1)
+                        want = np.empty((len(keys), D), np.float32)
+                        for t in range(T):
+                            sel = tk == t
+                            want[sel] = maps[t][rk[sel]]
+                        got = cache.cache_values[torch.from_numpy(
+                            slots.astype(np.int64)).to(dev)].cpu().numpy()
+                        # (the policy's entries without a slot are served
+                        # from the batch's buffer alone)
+                        n_held, n_size = len(keys), cache.stats()["size"]
+                        if n_held < 0.9 * n_size or not \
+                                np.array_equal(got.view(np.int32),
+                                               want.view(np.int32)):
+                            raise AssertionError(
+                                f"3k(a): C1 holds {n_held} rows (stats "
+                                f"{n_size}), "
+                                f"{int((got != want).any(1).sum())} of "
+                                f"them differ from the files'")
+                        n_nonzero = int((np.abs(want).sum(1) > 0).sum())
+                        # what a miss read costs the engine: one more
+                        # batch's 53,248 rows read on its pool of 4, pread
+                        # by pread
+                        fidx = extra[1].astype(np.int64)
+                        t1 = time.perf_counter()
+                        fetched = cache.assigner.fetch_rows_arrays(
+                            np.tile(np.arange(T, dtype=np.int32),
+                                    len(fidx)), fidx.reshape(-1))
+                        t_fetch = time.perf_counter() - t1
+                        if not np.array_equal(
+                                fetched.reshape(fidx.shape + (D,)).view(
+                                    np.int32),
+                                file_rows(fidx).view(np.int32)):
+                            raise AssertionError("3k(a): the engine's reads "
+                                                 "differ from the files'")
+                    release(cache)
+                    del cache
+                (res0, split0, w0, s00, tw0), (res2, split2, _, _, tw2) = \
+                    runs[0], runs[2]
+                if not np.array_equal(res2.scores, res0.scores):
+                    raise AssertionError("3k(a): pipeline_depth 2 changed "
+                                         "the scores")
+                if res2.cache_stats != res0.cache_stats:
+                    raise AssertionError(f"3k(a): pipeline_depth 2 changed "
+                                         f"the stats: {res2.cache_stats} "
+                                         f"!= {res0.cache_stats}")
+                if res0.scores is None or res0.scores.shape != (
+                        MLPERF_SERVE_N * 2048,) or \
+                        not np.isfinite(res0.scores).all():
+                    raise AssertionError("3k(a): scores missing, misshapen "
+                                         "or not finite")
+                # the plain version: DLRM.predict, every kernel off, on the
+                # files' rows through np.memmap
+                plain = DLRM(dataclasses.replace(
+                    cfg, use_interaction_kernel=False,
+                    use_gather_kernel=False), device=dev, seed=args.seed,
+                    tables=False)
+                t0 = time.perf_counter()
+                t_read = 0.0
+                ref = []
+                with torch.inference_mode():
+                    for dense, idx, _ in scored:
+                        t1 = time.perf_counter()
+                        rows = torch.from_numpy(file_rows(idx)).to(dev)
+                        t_read += time.perf_counter() - t1
+                        ref.append(plain.predict(
+                            torch.from_numpy(dense).to(dev), emb_rows=rows))
+                ref = torch.cat(ref).cpu().numpy()
+                t_plain = time.perf_counter() - t0
+                sdiff = float(np.abs(res0.scores - ref).max())
+                if not bool((np.abs(res0.scores - ref)
+                             <= 1e-5 * (1 + np.abs(ref))).all()):
+                    raise AssertionError(f"3k(a): scores differ from the "
+                                         f"plain version's: max|d| {sdiff}")
+                del plain, ref
+                serve_line("3k(a) MLPerf shape, NativeDeviceC1Cache fp32 "
+                           "over memory files, pipeline_depth 0", res0,
+                           split0)
+                serve_line("3k(a) MLPerf shape, NativeDeviceC1Cache fp32 "
+                           "over memory files, pipeline_depth 2", res2,
+                           split2)
+                n_req, hr, _ = window_rates(s00, res0.cache_stats)
+                s = res0.cache_stats
+                print(f"3k(a) cache [{card}]: {w0} warm-up batches until C1 "
+                      f"held {ccfg1.total_size} rows ({tw0:.2f} s with the "
+                      f"engine's set-up; {tw2:.2f} s the second time); over "
+                      f"the {n_req} scored requests C1 hit_rate {hr:.6f}; "
+                      f"at the end hit_rate {s['hit_rate']:.6f} perfect_hits "
+                      f"{s['perfect_hits']} bytes_shipped "
+                      f"{s['bytes_shipped']} requests {s['requests']}; "
+                      f"depth 2's scores and stats equal depth 0's",
+                      flush=True)
+                print(f"3k(a) check: the {n_held} rows in C1's slots after "
+                      f"depth 0's run ({n_size} entries) bit for bit the "
+                      f"files' ({n_nonzero} of them nonzero); scores against DLRM.predict with every "
+                      f"kernel off on the files' rows max|d| {sdiff:.3e} "
+                      f"(plain pass {t_plain:.2f} s, of it the np.memmap "
+                      f"reads {t_read:.2f} s); auc "
+                      f"{res0.metrics['auc']:.4f} (random weights and "
+                      f"labels)", flush=True)
+                print(f"3k(a) the engine's reads [{card}]: one batch's "
+                      f"{fidx.size} rows (every lookup a read) in "
+                      f"{t_fetch * 1e3:.3f} ms on its pool of 4, "
+                      f"{t_fetch / fidx.size * 1e6:.3f} us a row, bit for "
+                      f"bit the files'", flush=True)
+                peak("(a)")
+                del res0, res2
+
+                # (b) the published three tiers, int8 C1
+                t0 = time.perf_counter()
+                arng = np.random.default_rng(args.seed + 73)
+                alts = [altkey_encode(t, r[arng.integers(0, len(r), n)]
+                                      ).astype(np.uint32)
+                        for t, (r, n) in enumerate(zip(reach, sizes))]
+                t_alts = time.perf_counter() - t0
+                caps = ccfg3.tier_capacities()
+                t0 = time.perf_counter()
+                cache = open_cache(ccfg3, alts)
+                alt_mb = sum(a.nbytes for a in alts) / 1e6
+                del alts
+                t_load = time.perf_counter() - t0
+                warm3, scored3, extra3 = warm_up_k(
+                    cache, lambda s: (s["size"] >= caps[0]
+                                      and s["c2"]["size"] >= caps[1]
+                                      and s["c3"]["size"] >= caps[2]))
+                s_start = cache.stats()
+                res3 = counted(lambda: run_inference(
+                    model, cfg, ccfg3, scored3, None, use_device_cache=True,
+                    pipeline_depth=2, cache=cache, device=dev),
+                    "(b) three tiers",
+                    ("interaction_fwd", "gather_rows_dequant_int8"))
+                split3 = dict(cache.host_s)
+                s3 = res3.cache_stats
+                if not (s3["c2"]["hit_rate"] > 0 and s3["c3"]["size"] > 0):
+                    raise AssertionError(f"3k(b): C2 or C3 is not live: "
+                                         f"{s3}")
+                if res3.scores is None or res3.scores.shape != (
+                        MLPERF_SERVE_N * 2048,) or \
+                        not np.isfinite(res3.scores).all():
+                    raise AssertionError("3k(b): scores missing, misshapen "
+                                         "or not finite")
+                # one more batch (not counted above)
+                int8_apply_held(cache, extra3[1], "3k(b)")
+                release(cache)
+                del cache
+                serve_line("3k(b) MLPerf shape, three tiers, "
+                           "NativeDeviceC1Cache int8, uniform alt keys, "
+                           "pipeline_depth 2", res3, split3)
+                n_req, hr, c3_hits = window_rates(s_start, s3)
+                print(f"3k(b) cache [{card}]: tiers {caps}; alt keys "
+                      f"({alt_mb:.1f} MB of uint32) drawn in {t_alts:.2f} s, "
+                      f"engine and keys loaded in {t_load:.2f} s; "
+                      f"{len(warm3)} warm-up batches until C1, C2 and C3 "
+                      f"were full; over the {n_req} scored requests C1 "
+                      f"hit_rate {hr:.6f}, C3 hits {c3_hits}; C2 cumulative "
+                      f"hit_rate {s_start['c2']['hit_rate']:.6f} at the "
+                      f"start, {s3['c2']['hit_rate']:.6f} at the end; at "
+                      f"the end: C1 {s3['size']} of {s3['capacity']}, C2 "
+                      f"{s3['c2']}, C3 {s3['c3']}, perfect_hits "
+                      f"{s3['perfect_hits']}, bytes_shipped "
+                      f"{s3['bytes_shipped']}", flush=True)
+                print(f"3k(b) check: the extra batch's int8 rows bit for "
+                      f"bit the plain version's on the same state and "
+                      f"buffer, all on the int8 grid; auc "
+                      f"{res3.metrics['auc']:.4f} (random weights and "
+                      f"labels)", flush=True)
+                peak("(b)")
+                del res3, model
+                torch.cuda.empty_cache()
+
+                # (c) the CLI
+                built = []
+                real_dlrm = dlrm_mod.DLRM
+
+                def spy(*a, **kw):
+                    built.append(real_dlrm(*a, **kw))
+                    return built[-1]
+
+                tee = Tee(sys.stdout)
+                dlrm_mod.DLRM = spy
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(tee):
+                        rc = counted(
+                            lambda: cli.main(cli_argv + [
+                                "--ev-table-path", mf.dir]), "(c) the CLI",
+                            ("interaction_fwd", "gather_rows"))
+                finally:
+                    dlrm_mod.DLRM = real_dlrm
+                secs = time.perf_counter() - t0
+                out = "\n".join(tee.text)
+                done = re.search(r"inference done: metrics=(\{.*?\}) "
+                                 r"perfect_hits=(\S+)", out)
+                rate = re.search(r"inference: (\d+) requests in [\d.]+s "
+                                 r"\((\d+) req/s\)", out)
+                if rc != 0 or done is None or rate is None:
+                    raise AssertionError(f"3k(c) the CLI: rc {rc}")
+                if len(built) != 1 or built[0].has_sparse():
+                    raise AssertionError(f"3k(c): the CLI's model holds "
+                                         f"tables ({len(built)} built)")
+                del built
+                m = metrics_of(done.group(1))
+                if not all(np.isfinite(v) for k, v in m.items()
+                           if k != "auc"):
+                    raise AssertionError(f"3k(c): metrics {m}")
+                print(f"3k(c) cli [{card}]: run_and_time.sh's model flags + "
+                      f"{SERVE_C1}'s serving flags + --use-device-cache "
+                      f"True --ev-table-path <memory files> "
+                      f"--data-generation random: {n_cli} uniform batches "
+                      f"of 2048, {rate.group(1)} requests scored after the "
+                      f"warm-up pass at {rate.group(2)} requests/s; the run "
+                      f"took {secs:.2f} s; the model holds no table; "
+                      f"perfect_hits {done.group(2)}; host RSS "
+                      f"{rss_gb():.2f} GB; the files took "
+                      f"{mf.touched_mb():.1f} MB", flush=True)
+                peak("(c)")
+                if mf.touched_mb() * 2**20 > room:
+                    raise AssertionError("3k(c): the files took more than "
+                                         "the room")
+                del maps
+            finally:
+                # the engines first, then the memory files
+                for c in reversed(live):
+                    c.close()
+                shutil.rmtree(d, ignore_errors=True)
+            if os.path.exists(d):
+                raise AssertionError(f"3k: {d} is still there")
+            path = {k: launches[k] for k in ("interaction_fwd",
+                                             "gather_rows",
+                                             "gather_rows_dequant_int8")}
+            print(f"serve_mlperf path launches: {json.dumps(path)}",
                   flush=True)
             return path
 
@@ -4711,10 +5299,10 @@ def main() -> int:
         del keys, cases
         torch.cuda.empty_cache()
 
-    if args.only == "3j":
-        phase_3j()
+    if args.only in ("3j", "3k"):
+        {"3j": phase_3j, "3k": phase_3k}[args.only]()
         print(f"total: {time.perf_counter() - t_all:.2f} s (phases 0-2 "
-              f"and 3j)")
+              f"and {args.only})")
         return 0
     if args.only == "altkeys":
         phase_altkeys()
@@ -4726,26 +5314,6 @@ def main() -> int:
     # ------------------------------------------------------- 3 main path
     N_SCORED = 64           # scored batches of 2048 per serving run
     WARM_CAP = 200          # warm-up batches allowed for the tiers to fill
-
-    def serve_line(label, res, split):
-        """Rates, latency and the host time per scored batch."""
-        n_b = res.latency["count"] // 2048
-        per = {k: 1e3 * v / n_b for k, v in split.items()}
-        batch_ms = 1e3 * res.elapsed_s / n_b
-        print(f"{label} [{card}]: {res.requests} requests in "
-              f"{res.elapsed_s:.3f} s = {res.requests / res.elapsed_s:.1f} "
-              f"requests/s; p50 {res.latency['p50_s'] * 1e6:.2f} us, p99 "
-              f"{res.latency['p99_s'] * 1e6:.2f} us per request (fenced "
-              f"batch time / 2048)", flush=True)
-        print(f"  host ms per batch of 2048: {batch_ms:.3f} in all; engine "
-              f"assign {per['assign']:.3f}; pad and quantise "
-              f"{per['pack']:.3f}; wait for the stream's queued work "
-              f"{per['wait']:.3f}; H2D copies and the apply's launches "
-              f"{per['copy']:.3f}; the rest (forward launches and the "
-              f"fenced wait for the device) "
-              f"{batch_ms - sum(per.values()):.3f}"
-              + (" (the lookups ran on the prefetch thread, beside the "
-                 "rest)" if label.endswith("depth 2") else ""))
 
     def serve_stream():
         """The request stream of the serving phases, from --seed."""
@@ -4979,29 +5547,8 @@ def main() -> int:
                 raise AssertionError("scores missing, misshapen or not "
                                      "finite")
 
-            # one more batch: the int8 apply's rows against the plain
-            # version on the same cache state and miss buffer (not counted
-            # above)
-            _, idx, _ = extra3
-            assign = cache.assigner.assign_batch(idx)
-            with torch.inference_mode():
-                rows = cache._apply_assign(assign)
-                slots, _, _, buf = assign
-                bk = cache.insert_bucket
-                buf_q = np.zeros((max(bk, -(-len(buf) // bk) * bk),
-                                  cfg.embedding_dim), np.float32)
-                buf_q[:len(buf)] = buf
-                ref = gather_rows_dequant_int8_ref(
-                    cache.cache_values, torch.from_numpy(slots).to(dev),
-                    torch.from_numpy(np_quantize_int8(buf_q)).to(dev))
-                grid = dequantize_int8(torch.arange(256, device=dev,
-                                                    dtype=torch.uint8))
-                if not torch.equal(rows.view(torch.int32),
-                                   ref.view(torch.int32)):
-                    raise AssertionError("the int8 apply's rows differ from "
-                                         "the plain version's")
-                if not bool(torch.isin(rows, grid).all()):
-                    raise AssertionError("an int8 row value is off the grid")
+            # one more batch (not counted above)
+            int8_apply_held(cache, extra3[1], "3c")
             serve_line(f"three tiers, NativeDeviceC1Cache int8, {keys_label} "
                        f"alt keys, pipeline_depth 2", res3, split3)
             n_req = s3["requests"] - s_start["requests"]
@@ -5025,7 +5572,7 @@ def main() -> int:
                   f"int8 grid; auc {res3.metrics['auc']:.4f} (random weights "
                   f"and labels)")
             cache.close()
-            del cache, rows, ref, resolver, warmup3, scored3
+            del cache, resolver, warmup3, scored3
             torch.cuda.empty_cache()
 
         serve_3c("uniform", seeded_altkeys())
@@ -5636,6 +6183,7 @@ def main() -> int:
     finally:
         work_dir.cleanup()
     mlperf_launches = phase_3j()
+    serve_mlperf_launches = phase_3k()
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -5649,7 +6197,8 @@ def main() -> int:
               f"{json.dumps(cli_launches)}; train_cached "
               f"{json.dumps(cached_launches)}; " + "; ".join(
                   f"{p} {json.dumps(c)}" for p, c in mesh_launches.items())
-              + f"; train_mlperf {json.dumps(mlperf_launches)}")
+              + f"; train_mlperf {json.dumps(mlperf_launches)}; "
+              f"serve_mlperf {json.dumps(serve_mlperf_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -5678,7 +6227,8 @@ def main() -> int:
                  "train": train_launches,
                  "train_factored": factored_launches, "cli": cli_launches,
                  "train_cached": cached_launches, **mesh_launches,
-                 "train_mlperf": mlperf_launches}
+                 "train_mlperf": mlperf_launches,
+                 "serve_mlperf": serve_mlperf_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

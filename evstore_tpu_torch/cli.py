@@ -26,6 +26,16 @@ Where the port departs from the JAX CLI:
   on the .bin files (`open_table_files`); the JAX CLI raises there.
 - A checkpoint is the port's own (`utils/checkpoint.py`); a JAX
   checkpoint (orbax) cannot be read.  The EV tables are shared.
+- Serving from a store (`--use-evstore True --ev-table-path`: the engine,
+  the device cache or the Python store over the .bin files) builds a
+  model that holds no tables (`DLRM(tables=False)`), whose MLPs are the
+  same draws, and `--load-model` restores the checkpoint's MLPs alone
+  (`restore_mlps`), so 104.5 GB of MLPerf tables are neither drawn nor
+  copied to the card.  The JAX CLI draws tables that this route never
+  reads.  `--quantize-embedding-with-bit` then changes nothing, as in the
+  JAX CLI, whose quantised tables this route never reads.  The plain eval
+  (`--use-evstore False`) and the dummy store (no `--ev-table-path`) read
+  the model's tables and still draw them.
 - The mesh flags (`--mesh-data`, `--mesh-model`, `--dedup-exchange`,
   `--alltoall-impl`) keep the JAX meanings over one process per rank:
 
@@ -461,14 +471,20 @@ def _serve(args, cfg, tcfg, ccfg, make_test, dev, mesh, say) -> int:
     from evstore_tpu_torch.utils.checkpoint import (latest_step,
                                                     quantize_embeddings,
                                                     quantize_mlps,
-                                                    restore_checkpoint)
+                                                    restore_checkpoint,
+                                                    restore_mlps)
     if args.extra_mem_load > 0:
         from evstore_tpu_torch.utils.memory import HBMBallast
         _ballast = HBMBallast(args.extra_mem_load, device=dev)  # noqa: F841
-    model = DLRM(cfg, device=dev, seed=args.numpy_rand_seed)
+    # the store serves every row: the model holds no tables
+    from_store = bool(args.use_evstore and args.ev_table_path)
+    model = DLRM(cfg, device=dev, seed=args.numpy_rand_seed,
+                 tables=not from_store)
     if args.load_model:
         s = latest_step(args.load_model)
-        if s is not None:
+        if s is not None and from_store:
+            restore_mlps(args.load_model, s, model)
+        elif s is not None:
             restore_checkpoint(args.load_model, s, model,
                                init_opt_state(model, tcfg))
     if args.quantize_embedding_with_bit < 32:

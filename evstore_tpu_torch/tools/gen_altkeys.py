@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from evstore_tpu_torch.cache.tiers import altkey_encode
 from evstore_tpu_torch.ops.cuda_knn import knn_topk
 from evstore_tpu_torch.utils.device import resolve_device
 
@@ -79,7 +80,9 @@ def pick_altkeys(neigh: np.ndarray, sizes: Sequence[int],
                  freq_all: Optional[np.ndarray] = None) -> np.ndarray:
     """[Q, k] neighbours (global rows over tables of `sizes` rows, nearest
     first) -> [Q] uint32 alt keys: the nearest, or with `freq_all` (a count
-    for each global row) the most accessed (ties: the nearer)."""
+    for each global row) the most accessed (ties: the nearer).  ValueError
+    where a picked row's key would wrap a uint32 (`cache/tiers.py::
+    altkey_encode`)."""
     if freq_all is not None:
         picked = neigh[np.arange(len(neigh)),
                        np.argmax(freq_all[neigh], axis=1)]
@@ -88,8 +91,7 @@ def pick_altkeys(neigh: np.ndarray, sizes: Sequence[int],
     # global row id -> (table, row) -> altKey = (t+1) + 100*row
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     tbl_of = np.searchsorted(offsets, picked, side="right") - 1
-    row_of = picked - offsets[tbl_of]
-    return ((tbl_of + 1) + 100 * row_of).astype(np.uint32)
+    return altkey_encode(tbl_of, picked - offsets[tbl_of]).astype(np.uint32)
 
 
 def altkey_rows(alts: np.ndarray, sizes: Sequence[int]) -> np.ndarray:

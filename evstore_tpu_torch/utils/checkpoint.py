@@ -96,6 +96,25 @@ def restore_checkpoint(ckpt_dir: str, step: int, model: DLRM,
     return model, opt_state, meta.get("extra", {})
 
 
+def _mlps(state: dict) -> dict:
+    return {k: v for k, v in state.items() if k.split(".")[0] in ("bot",
+                                                                   "top")}
+
+
+@torch.no_grad()
+def restore_mlps(ckpt_dir: str, step: int, model: DLRM) -> DLRM:
+    """Copy step `step`'s MLPs alone into `model` in place: the serving
+    model of a store that holds the rows (`DLRM(tables=False)`).  The file
+    is memory-mapped and its tables and optimizer state are never read, so
+    no sparse optimizer state is built (under adagrad it is as large as the
+    tables).  ValueError where the checkpoint's MLPs are not the model's.
+    Returns the model."""
+    state = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu",
+                       mmap=True, weights_only=True)
+    _copy_into(_mlps(model.state_dict()), _mlps(state["model"]), "MLPs")
+    return model
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     if not os.path.isdir(ckpt_dir):
         return None

@@ -18,6 +18,12 @@ package's (`evstore_tpu.cli`), on the CPU (`--device cpu`).
   C1+C2+C3 in the engine; C1 on the device cache), metrics within atol
   1e-6 and perfect hits equal.  Where the JAX CLI raises on a file-backed
   store behind the engine, it serves the same tables from its checkpoint.
+- The table-free serving model: the three file-backed routes again with
+  the port's table draw (`models/dlrm.py::init_sparse_arch`) made to
+  raise, held to the JAX CLI the same way, their one model holding no
+  table; the plain eval and the dummy store drawing the tables once;
+  `restore_mlps` equal to a full `restore_checkpoint`'s MLPs, and raising
+  ValueError on a checkpoint of other MLP widths or layer counts.
 - The mesh flags over 4 gloo ranks in torchrun's environment
   (`--mesh-data 2 --mesh-model 2 --dedup-exchange True`, `--alltoall-impl
   butterfly`, and serving with `--use-device-cache True --mesh-model 4`),
@@ -500,22 +506,16 @@ def _metrics(text):
             int(m.group(2)))
 
 
-@pytest.mark.parametrize("flags", ["plain", "c1", "c1c2c3", "device_c1"])
-def test_serve_matches_jax(capsys, served, tmp_path, flags):
+def _serve_base(npz):
+    return (_dataset_arch() + f" --inference-only --processed-data-file "
+            f"{npz} --percent-data-for-inference 0.5 --numpy-rand-seed 77")
+
+
+def _serve_both(capsys, served, tmp_path, flags):
+    """The JAX CLI's and the port's output for one of the bench/ serving
+    flag sets over the JAX export (the port from its own checkpoint)."""
     d, npz = served
-    base = (_dataset_arch() + f" --inference-only --processed-data-file {npz}"
-            " --percent-data-for-inference 0.5 --numpy-rand-seed 77")
-    if flags == "plain":
-        ref = _out(capsys, jcli.main, (base + f" --load-model {d / 'jck'}"
-                                       ).split())
-        got = _out(capsys, cli.main, (base + f" --load-model {d / 'pck'} "
-                                      "--device cpu").split())
-        g = ast.literal_eval(got.split("inference done: ")[1].strip())
-        r = ast.literal_eval(ref.split("inference done: ")[1].strip())
-        assert g.keys() == r.keys()
-        for k in r:
-            assert abs(g[k] - r[k]) <= 1e-6, k
-        return
+    base = _serve_base(npz)
     served_flags = {"c1": C1, "c1c2c3": C1C2C3, "device_c1": DEVICE_C1}[flags]
     ev = f" --ev-table-path {d / 'ev'}"
     cdf = f" --write-cdf-file {tmp_path / 'cdf.csv'}"
@@ -536,13 +536,139 @@ def test_serve_matches_jax(capsys, served, tmp_path, flags):
     got = _out(capsys, cli.main, (base + " " + served_flags + ev + cdf
                                   + f" --load-model {d / 'pck'} "
                                   "--device cpu").split())
+    return got, ref
+
+
+def _same_serving(got, ref):
+    """Metrics within atol 1e-6 and the perfect hits equal; -> the port's
+    cache stats."""
     (gm, gp), (rm, rp) = _metrics(got), _metrics(ref)
     assert gm.keys() == rm.keys()
     for k in rm:
         assert abs(gm[k] - rm[k]) <= 1e-6, (k, gm[k], rm[k])
     assert gp == rp
-    stats = ast.literal_eval(re.search(r"cache stats: (\{.*\})", got)
-                             .group(1).replace("true", "True"))
+    return ast.literal_eval(re.search(r"cache stats: (\{.*\})", got)
+                            .group(1).replace("true", "True"))
+
+
+@pytest.mark.parametrize("flags", ["plain", "c1", "c1c2c3", "device_c1"])
+def test_serve_matches_jax(capsys, served, tmp_path, flags):
+    d, npz = served
+    base = _serve_base(npz)
+    if flags == "plain":
+        ref = _out(capsys, jcli.main, (base + f" --load-model {d / 'jck'}"
+                                       ).split())
+        got = _out(capsys, cli.main, (base + f" --load-model {d / 'pck'} "
+                                      "--device cpu").split())
+        g = ast.literal_eval(got.split("inference done: ")[1].strip())
+        r = ast.literal_eval(ref.split("inference done: ")[1].strip())
+        assert g.keys() == r.keys()
+        for k in r:
+            assert abs(g[k] - r[k]) <= 1e-6, k
+        return
+    stats = _same_serving(*_serve_both(capsys, served, tmp_path, flags))
     if flags == "c1c2c3":
         assert stats["c2"]["size"] > 0 and stats["c2"]["hit_rate"] > 0
     assert (tmp_path / "cdf.csv").exists()
+
+
+def _built_models(monkeypatch):
+    """The port's DLRMs the CLI builds, in order."""
+    built = []
+
+    def spy(*a, **kw):
+        built.append(RealDLRM(*a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(pdlrm, "DLRM", spy)
+    return built
+
+
+@pytest.mark.parametrize("flags", ["c1", "c1c2c3", "device_c1"])
+def test_serving_from_the_store_draws_no_table(capsys, served, tmp_path,
+                                               monkeypatch, flags):
+    """The routes that read every row from the .bin files (the Python store
+    over mmap, the engine, the device cache) build a model that holds no
+    tables and restore the checkpoint's MLPs alone: with the port's table
+    draw made to raise, the CLI still gives the JAX CLI's metrics within
+    1e-6 and its perfect hits."""
+    def no_draw(*_):
+        raise AssertionError("the serving model drew its tables")
+
+    monkeypatch.setattr(pdlrm, "init_sparse_arch", no_draw)
+    built = _built_models(monkeypatch)
+    stats = _same_serving(*_serve_both(capsys, served, tmp_path, flags))
+    assert len(built) == 1 and not built[0].has_sparse()
+    if flags == "c1c2c3":
+        assert stats["c2"]["size"] > 0 and stats["c2"]["hit_rate"] > 0
+
+
+@pytest.mark.parametrize("route", ["plain", "dummy_store"])
+def test_routes_that_read_the_models_tables_still_draw_them(
+        capsys, served, monkeypatch, route):
+    """The plain eval (`--use-evstore False`) and the dummy store (no
+    `--ev-table-path`) read the model's tables: the CLI draws them once and
+    restores the whole checkpoint, and serves as the JAX CLI does."""
+    d, npz = served
+    draws = []
+
+    def counted(cfg, rng):
+        draws.append(cfg.num_tables)
+        return pdlrm_init(cfg, rng)
+
+    pdlrm_init = pdlrm.init_sparse_arch
+    monkeypatch.setattr(pdlrm, "init_sparse_arch", counted)
+    built = _built_models(monkeypatch)
+    argv = _serve_base(npz) + ("" if route == "plain" else " " + C1.replace(
+        "--emb-stor mmap", ""))
+    ref = _out(capsys, jcli.main, (argv + f" --load-model {d / 'jck'}"
+                                   ).split())
+    got = _out(capsys, cli.main, (argv + f" --load-model {d / 'pck'} "
+                                  "--device cpu").split())
+    assert draws == [26] and len(built) == 1 and built[0].has_sparse()
+    if route == "plain":
+        g = ast.literal_eval(got.split("inference done: ")[1].strip())
+        r = ast.literal_eval(ref.split("inference done: ")[1].strip())
+        assert g.keys() == r.keys()
+        for k in r:
+            assert abs(g[k] - r[k]) <= 1e-6, k
+    else:
+        _same_serving(got, ref)
+
+
+def _dataset_cfg(arch=None):
+    argv = (arch or _dataset_arch()).split()
+    return cli.configs_from_args(cli.build_parser().parse_args(argv))[:2]
+
+
+def test_restore_mlps_equals_a_full_restore(served):
+    """`--load-model` into the table-free model: the MLPs a full
+    `restore_checkpoint` gives, and no table."""
+    d, _ = served
+    cfg, tcfg = _dataset_cfg()
+    full = RealDLRM(cfg, device="cpu", seed=3)
+    pck.restore_checkpoint(str(d / "pck"), 5, full,
+                           init_opt_state(full, tcfg))
+    bare = RealDLRM(cfg, device="cpu", seed=3, tables=False)
+    assert pck.restore_mlps(str(d / "pck"), 5, bare) is bare
+    assert not bare.has_sparse()
+    want = full.state_dict()
+    got = bare.state_dict()
+    assert set(got) == {k for k in want if k.startswith(("bot.", "top."))}
+    for k, v in got.items():
+        assert torch.equal(v, want[k]), k
+    # a seed of its own: the restored weights are the checkpoint's
+    fresh = RealDLRM(cfg, device="cpu", seed=4, tables=False)
+    assert not torch.equal(fresh.bot[0].weight, got["bot.0.weight"])
+
+
+@pytest.mark.parametrize("old,new", [("13-8-4", "13-6-4"),
+                                     ("16-1", "16-8-1")])
+def test_restore_mlps_of_other_widths_raises(served, old, new):
+    """A checkpoint whose MLPs have another width or another layer count
+    than the model's raises ValueError."""
+    d, _ = served
+    cfg, _ = _dataset_cfg(_dataset_arch().replace(old, new))
+    bare = RealDLRM(cfg, device="cpu", seed=3, tables=False)
+    with pytest.raises(ValueError, match="MLPs"):
+        pck.restore_mlps(str(d / "pck"), 5, bare)

@@ -408,3 +408,48 @@ def test_altkey_rows_inverts_the_encoding(rng):
     np.testing.assert_array_equal(
         pgen.altkey_rows(np.asarray([2 + 100 * 2, 3 + 100 * 110], np.uint32),
                          sizes), [42, 153])
+
+
+def test_alt_keys_round_trip_at_the_mlperf_cap():
+    """The MLPerf recipe's tables, capped at 40M rows (204,184,588 rows):
+    the first and last row of every table keep their alt key through
+    `pick_altkeys` and `altkey_encode`, and `altkey_rows` reads them back
+    (the largest key, table 22's row 39,999,999, is 3,999,999,922)."""
+    from evstore_tpu_torch.cache.tiers import altkey_encode
+    from evstore_tpu_torch.config import mlperf_dlrm_config
+    sizes = np.asarray(mlperf_dlrm_config().table_sizes, np.int64)
+    assert sizes.max() == 40_000_000 and sizes.sum() == 204_184_588
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    rows = np.stack([offsets[:-1], offsets[1:] - 1], axis=1).reshape(-1)
+    alts = pgen.pick_altkeys(rows[:, None], sizes)
+    np.testing.assert_array_equal(pgen.altkey_rows(alts, sizes), rows)
+    enc = np.concatenate([altkey_encode(t, np.asarray([0, n - 1]))
+                          for t, n in enumerate(sizes)]).astype(np.uint32)
+    np.testing.assert_array_equal(enc, alts)
+    assert int(alts.max()) == 3_999_999_922 == 22 + 100 * 39_999_999
+
+
+@pytest.mark.parametrize("via", ["altkey_encode", "pick_altkeys"])
+def test_a_row_whose_alt_key_wraps_raises(via):
+    """(t + 1) + 100 row wraps a uint32 from row 42,949,672 on: both
+    encoders raise there, where the JAX package wraps silently, and take
+    the row before it."""
+    from evstore_tpu_torch.cache.tiers import ALTKEY_ROW_LIMIT, altkey_encode
+    assert ALTKEY_ROW_LIMIT == 42_949_672
+    sizes = [3, 50_000_000]
+    if via == "altkey_encode":
+        def enc(r):
+            return np.asarray(altkey_encode(1, r), np.int64)
+    else:
+        def enc(r):
+            return pgen.pick_altkeys(np.asarray([[3 + r]]), sizes)[0]
+    last = ALTKEY_ROW_LIMIT - 1
+    assert int(enc(last)) == 2 + 100 * last < 2 ** 32
+    assert pgen.altkey_rows(np.asarray([enc(last)], np.uint32),
+                            sizes)[0] == 3 + last
+    for r in (ALTKEY_ROW_LIMIT, 49_999_999):
+        with pytest.raises(ValueError, match="wraps a uint32"):
+            enc(r)
+    if via == "altkey_encode":
+        with pytest.raises(ValueError, match="wraps a uint32"):
+            altkey_encode(0, np.asarray([5, ALTKEY_ROW_LIMIT]))

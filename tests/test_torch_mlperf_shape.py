@@ -35,6 +35,15 @@ drawn: holes read as zero, and only the rows a batch lands take pages.
 - One step at dim 128 with the 1024-wide top MLP on the 1M-capped cut
   (`mlperf_dlrm_config(max_ind_range=1_000_000)`, 7,116,632 rows) through
   the cache, held to the full-table `make_train_step`.
+- Serving at the MLPerf width with the tables cut to 3,000 rows
+  (`mlperf_dlrm_config(max_ind_range=3000)`: dim 128, the same MLPs):
+  the tables `init_dlrm` draws, written as .bin files, behind the port's
+  `NativeDeviceC1Cache.open_table_files` at fp32 and in the published
+  three-tier configuration (int8 C1, 4-bit C2, alt-key C3, 48-48-4),
+  through `run_inference` with a `DLRM(tables=False)`, against the JAX
+  package's `NativeDeviceC1Cache` over the same tables in memory (its
+  engine refuses a file-backed store) and its forward on the rows it
+  serves: scores within 1e-5·(1 + |ref|), cache stats equal.
 """
 
 import os
@@ -44,19 +53,27 @@ import shutil
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from evstore_tpu import cli as jcli
 from evstore_tpu import config as jcfg
 from evstore_tpu.cache import trainable as jtr
+from evstore_tpu.cache.storage import StorageManager as JaxStorageManager
+from evstore_tpu.cache.tiers import AltKeyResolver as JaxAltKeyResolver
 from evstore_tpu.data import synthetic as jsyn
 from evstore_tpu.drivers import train as jtrain
-from evstore_tpu.models.dlrm import init_dlrm
+from evstore_tpu.drivers.infer import build_cache as jax_build_cache
+from evstore_tpu.models.dlrm import dlrm_forward, init_dlrm
 from evstore_tpu_torch import cli
 from evstore_tpu_torch import config as pcfg
 from evstore_tpu_torch.cache import trainable as ptr
+from evstore_tpu_torch.cache.device_cache import NativeDeviceC1Cache
+from evstore_tpu_torch.cache.storage import write_ev_tables_binary
+from evstore_tpu_torch.cache.tiers import altkey_encode
 from evstore_tpu_torch.convert import mlps_from_jax
 from evstore_tpu_torch.drivers import train as ptrain
+from evstore_tpu_torch.drivers.infer import run_inference
 from evstore_tpu_torch.models.dlrm import DLRM
 from evstore_tpu_torch.train.train_loop import (init_opt_state,
                                                 make_train_step)
@@ -389,3 +406,70 @@ def test_one_dim128_step_on_the_1m_cut_matches_the_full_table_step():
             **TOL, err_msg=f"sums {t}")
     assert moved > 0
     tc.close()
+
+
+SERVE = {
+    "fp32": dict(n_caching_layers=1, total_size=2000, main_precision=32),
+    # bench/dlrm_s_criteo_kaggle_C1_C2_C3.sh's shape at a smaller budget
+    "c1c2c3": dict(n_caching_layers=3, total_size=3000, main_precision=8,
+                   secondary_precision=4, size_proportion=(48, 48, 4),
+                   c3_io_batch=10),
+}
+
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_serving_at_the_mlperf_width_from_files_matches_jax(tmp_path, name):
+    cj = jcfg.mlperf_dlrm_config(max_ind_range=3000)
+    cp = pcfg.mlperf_dlrm_config(max_ind_range=3000)
+    sizes, D = cp.table_sizes, cp.embedding_dim
+    assert D == 128 and cp.mlp_bot == (13, 512, 256, 128) and \
+        cp.mlp_top[1:] == (1024, 1024, 512, 256, 1) and \
+        sizes == cj.table_sizes and max(sizes) == 3000
+    params = jax.tree_util.tree_map(np.asarray,
+                                    init_dlrm(jax.random.PRNGKey(2), cj))
+    tables = [params.sparse[f"table_{t}"]["kind_plain"]
+              for t in range(cp.num_tables)]
+    write_ev_tables_binary(tables, str(tmp_path))
+    rng = np.random.default_rng(12)
+    alts = [altkey_encode(t, rng.integers(0, n, n)).astype(np.uint32)
+            for t, n in enumerate(sizes)]
+    stream = list(jsyn.random_batches(jsyn.RandomDataConfig(
+        num_dense=13, table_sizes=sizes, batch_size=128, num_batches=6,
+        seed=5, distribution="grouped_zipf", zipf_alpha=1.05,
+        group_noise=0.1)))
+    warm, scored = stream[:2], stream[2:]
+
+    kw = dict(policy="evlfu", **SERVE[name])
+    jc = jax_build_cache(
+        jcfg.CacheConfig(**kw), cj,
+        JaxStorageManager("dummy", dim=D).load(tables=tables),
+        JaxAltKeyResolver(alts), use_device_cache=True)
+    for _, idx, _ in warm:
+        jc.lookup_batch(idx)
+    ref = np.concatenate([np.asarray(jax.nn.sigmoid(dlrm_forward(
+        params, jnp.asarray(dense), jnp.asarray(idx), cj,
+        emb_rows=jc.lookup_batch(idx)))) for dense, idx, _ in scored])
+    stats_j = jc.stats()
+
+    model = DLRM(cp, device="cpu", tables=False)
+    model.load_state_dict(mlps_from_jax(params.dense, cp,
+                                        torch.device("cpu")))
+    cache = NativeDeviceC1Cache(pcfg.CacheConfig(**kw), cp.num_tables, D,
+                                device="cpu")
+    cache.open_table_files(str(tmp_path), sizes, 32)
+    cache.load_altkeys(alts)
+    try:
+        got = run_inference(model, cp, pcfg.CacheConfig(**kw), scored, None,
+                            warmup_batches=warm, use_device_cache=True,
+                            cache=cache, device="cpu",
+                            log_fn=lambda *_: None)
+    finally:
+        cache.close()
+    assert not model.has_sparse()
+    assert got.requests == 4 * 128
+    _bound(got.scores, ref, "scores")
+    assert got.cache_stats == stats_j
+    s = got.cache_stats
+    assert 0 < s["hit_rate"] < 1 and s["size"] == s["capacity"]
+    if name == "c1c2c3":
+        assert s["c2"]["hit_rate"] > 0 and s["c3"]["size"] > 0
