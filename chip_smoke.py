@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of evstore_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed N] [--only 3j | --only 3k |
+    python3 chip_smoke.py [--seed N] [--only 3j | --only 3k | --only 3l |
                            --only altkeys [--query-rows a:b]]
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
@@ -279,22 +279,53 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    uint32 keys in the engine), warmed up until every tier is full (at
    most 60 batches) and scored over 64 at depth 2, C2 and C3 live, one
    more batch's int8 rows bit for bit the plain version's and on the
-   grid; (c) `cli.main` with run_and_time.sh's model flags, the C1
-   script's serving flags and `--use-device-cache True --ev-table-path
-   <files> --data-generation random`, 10-16 uniform batches cut by the
-   room, ending `inference done` with a model that holds no table; with
-   requests/s, p50/p99, the host split, C1's hit rate over the scored
-   window, the C2/C3 stats and the card's peak allocated memory after
-   (a), (b) and (c), held under 2 GiB; K1, K2 and K3 must launch
+   grid; with requests/s, p50/p99, the host split, C1's hit rate over
+   the scored window, the C2/C3 stats and the card's peak allocated
+   memory after (a) and (b), held under 2 GiB; K1, K2 and K3 must launch
    (`serve_mlperf`); every cache, engine and memory file is closed at the
    phase's end;
+3l. the MLPerf shape from training to serving: (0) the room, fresh
+   memory-file masters (every row zero) and the pages the runs can
+   touch, held within a quarter of the smaller of free RAM and disk; (a)
+   `cli.main` with run_and_time.sh's model, loss and schedule flags plus
+   `--data-generation synthetic --use-evstore True --optimizer rwsadagrad
+   --emb-cache-size 64000 --ev-table-path <masters> --save-model <ck>
+   --test-freq -1`, 32 batches of 2048 (zipf 1.05): it must end `training
+   done` with every loss finite and under 2 ln 2 and leave
+   `dense_params.npz` in <ck>, whose MLPs differ from the seed's; with
+   steps/s, the host split (assign, fetch, land, step), the C1 hit rate,
+   the rows landed during the run and flushed at its end, the rows of the
+   files that training wrote and the pages the files took; (b) a
+   `DLRM(tables=False)` with the MLPs `restore_npz_mlps` reads from <ck>,
+   served through the C1 script's device C1 (EvLFU, 64,000 fp32) over
+   the trained files on the CLI's own test batches (seed + 1, 10-16 of
+   2048, cut by the room) after a warm-up pass over them, at
+   `pipeline_depth` 0 and 2 (equal scores and stats), every row in C1's
+   slots bit for bit the files', the scores within 1e-5·(1+|ref|) of
+   `DLRM.predict` with every kernel off on the files' rows through
+   np.memmap, at least half the lookups reading a row training wrote,
+   and the seed's MLPs on the same rows outside that bound (the
+   witness); (c) the published three tiers over the same files, alt keys
+   uniform among the rows training wrote, warmed up on the CLI's stream
+   until every tier is full (at most 120 batches), scored at depth 2, C2
+   and C3 live, one more batch's int8 rows bit for bit the plain
+   version's; (d) `cli.main` with run_and_time.sh's model flags, the C1
+   script's serving flags and `--use-device-cache True --ev-table-path
+   <masters> --load-model <ck> --data-generation synthetic
+   --compute-dtype float32`: it must end `inference done` with a model
+   that holds no table and metrics equal to the plain eval of (b)'s
+   batches (atol 1e-6, AUC within one tied pair); requests/s, p50/p99,
+   the host split and C1's hit rate for (b)-(d), the card's peak
+   allocated memory after (b), (c) and (d) held under 2 GiB beside (a)'s;
+   K1, K2, K4 and K5 must launch in (a), K1 and K2 in (b) and (d), K1 and
+   K3 in (c) (`handoff_mlperf`); every cache, engine and memory file is
+   closed at the phase's end;
 4. the kernels' launch counts by path (serve, serve_int8, altkeys,
    serve_host, gram_ab, train, train_factored, cli, train_cached,
    train_sharded, train_butterfly, serve_sharded, train_cached_sharded,
-   export, tools, train_mlperf, serve_mlperf) and one JSON line describing
-   every kernel
-   (K1-K6 and K7, which replaces no TPU kernel), each of which must have
-   launched on some path;
+   export, tools, train_mlperf, serve_mlperf, handoff_mlperf) and one
+   JSON line describing every kernel (K1-K6 and K7, which replaces no TPU
+   kernel), each of which must have launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
@@ -305,7 +336,7 @@ removed.
 
 `--only 3j` runs phases 0-2 and 3j alone, a quicker check of the MLPerf
 shape, and prints neither the kernels line nor the result line; `--only
-3k` does the same for 3k.
+3k` and `--only 3l` do the same for 3k and 3l.
 `--only altkeys [--query-rows A:B]` runs phases 0-2 and then the C3
 tier's full kNN: query rows A:B (all by default) of the seeded Kaggle
 tables against all their 33,762,577 rows through K7 (the whole range
@@ -340,6 +371,7 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "3g cached training": 300, "3h mesh": 300,
                   "3i sharded cache and tools": 420,
                   "3j mlperf shape": 420, "3k mlperf serving": 240,
+                  "3l mlperf train to serve": 240,
                   "4 kernels line": 30,
                   "altkeys full kNN": 3000}
 
@@ -725,7 +757,8 @@ def by_kernel(on_card, n: int, kernels=TRAIN_KERNELS) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["3j", "3k", "altkeys"], default=None,
+    ap.add_argument("--only", choices=["3j", "3k", "3l", "altkeys"],
+                    default=None,
                     help="run phases 0-2 and this phase alone (a quick "
                          "check; no kernels line and no result line); "
                          "altkeys: the full kNN over the Kaggle tables")
@@ -3424,7 +3457,6 @@ def main() -> int:
     SERVE_C3 = "dlrm_s_criteo_kaggle_C1_C2_C3.sh"
     MLPERF_SERVE_W = 60     # warm-up batches allowed for the tiers to fill
     MLPERF_SERVE_N = 64     # scored batches of 2048 a run
-    MLPERF_SERVE_CLI = 16   # the CLI's test batches at most (at least 10)
     GIB = 1 << 30
 
     def serve_line(label, res, split):
@@ -3481,6 +3513,45 @@ def main() -> int:
         c3 = (s1["c3"]["hits"] - s0["c3"]["hits"]) if "c3" in s1 else None
         return n, hr, c3
 
+    def path_counter(launches, phase):
+        """counted(fn, what, need) for a phase: fn() with every count set
+        to 0 just before, its launches added to `launches`, and the kernels
+        `need` must each have launched."""
+        def counted(fn, what, need):
+            reset_counts()
+            out = fn()
+            got = read_counts()
+            for k, v in got.items():
+                launches[k] += v
+            idle = [k for k in need if got[k] < 1]
+            if idle:
+                raise AssertionError(f"{phase} {what}: {idle} never "
+                                     f"launched: {got}")
+            return out
+        return counted
+
+    def c1_held_to_files(cache, maps, what):
+        """Every row in an fp32 device C1's slots bit for bit the files'
+        (np.memmaps [N, D] a table) -> (rows held, entries, nonzero rows).
+        The policy's entries without a slot are served from the batch's
+        buffer alone, so at least 90% of the entries must hold a slot."""
+        keys, slots = cache.assigner.resident_keys()
+        tk, rk = keys >> 40, keys & ((1 << 40) - 1)
+        want = np.empty((len(keys), cache.dim), np.float32)
+        for t in range(len(maps)):
+            sel = tk == t
+            want[sel] = maps[t][rk[sel]]
+        got = cache.cache_values[torch.from_numpy(
+            slots.astype(np.int64)).to(dev)].cpu().numpy()
+        n_held, n_size = len(keys), cache.stats()["size"]
+        if n_held < 0.9 * n_size or not np.array_equal(
+                got.view(np.int32), want.view(np.int32)):
+            raise AssertionError(f"{what}: C1 holds {n_held} rows (stats "
+                                 f"{n_size}), "
+                                 f"{int((got != want).any(1).sum())} of "
+                                 f"them differ from the files'")
+        return n_held, n_size, int((np.abs(want).sum(1) > 0).sum())
+
     def serve_flags(script):
         """A bench/ serving script's cache and store flags: its model, its
         data and its CDF path left out."""
@@ -3513,33 +3584,14 @@ def main() -> int:
         48-48-4, 75,425 entries) over the same files, each row's alt key a
         uniform row of its table among those the stream reaches, warmed up
         until every tier is full and scored at depth 2, C2 and C3 live,
-        one more batch's int8 rows against the plain version; (c) `cli.
-        main` with run_and_time.sh's model flags, the C1 script's serving
-        flags and `--use-device-cache True --ev-table-path <files>` on
-        random data, whose model must hold no table.  The card's peak
-        allocated memory stays under 2 GiB.  K1, K2 and K3 must launch.
-        Returns the path's launch counts (`serve_mlperf`)."""
-        import contextlib
-
+        one more batch's int8 rows against the plain version.  (The CLI
+        serves this shape in 3l, with the model 3l trains.)  The card's
+        peak allocated memory stays under 2 GiB.  K1, K2 and K3 must
+        launch.  Returns the path's launch counts (`serve_mlperf`)."""
         from evstore_tpu_torch import cli
         from evstore_tpu_torch.cache.device_cache import NativeDeviceC1Cache
-        from evstore_tpu_torch.models import dlrm as dlrm_mod
         launches = dict.fromkeys(wrappers, 0)
-
-        def counted(fn, what, need):
-            """fn() with every count set to 0 just before; its launches go
-            to the path's, and the kernels `need` must each have
-            launched."""
-            reset_counts()
-            out = fn()
-            got = read_counts()
-            for k, v in got.items():
-                launches[k] += v
-            idle = [k for k in need if got[k] < 1]
-            if idle:
-                raise AssertionError(f"3k {what}: {idle} never launched: "
-                                     f"{got}")
-            return out
+        counted = path_counter(launches, "3k")
 
         def peak(after):
             p = torch.cuda.max_memory_allocated()
@@ -3596,35 +3648,16 @@ def main() -> int:
                     for t in range(T)]
                 per = 4096 // (D * 4)
                 n_pages = sum(len(np.unique(r // per)) for r in reach)
-                cli_argv = flags + serve_flags(SERVE_C1) + [
-                    "--use-device-cache", "True", "--data-generation",
-                    "random", "--device", "cuda", "--nbatches-test",
-                    str(MLPERF_SERVE_CLI), "--write-cdf-file",
-                    os.path.join(d, "cdf.csv")]
-                cli_test = list(cli._make_data(parse(cli_argv), rcfg)[1]())
-                n_cli = len(cli_test)
-
-                def cli_pages(n):
-                    return sum(len(np.unique(np.concatenate(
-                        [b[1][:, t] for b in cli_test[:n]]) // per))
-                        for t in range(T))
-
-                while n_cli > 10 and (n_pages + cli_pages(n_cli)) * 4096 \
-                        > room:
-                    n_cli -= 2
-                worst = n_pages + cli_pages(n_cli)
-                if worst * 4096 > room:
-                    raise AssertionError(f"3k: {worst} pages over the room "
-                                         f"of {room / 1e9:.1f} GB")
-                cli_argv[cli_argv.index("--nbatches-test") + 1] = str(n_cli)
+                if n_pages * 4096 > room:
+                    raise AssertionError(f"3k: {n_pages} pages over the "
+                                         f"room of {room / 1e9:.1f} GB")
                 print(f"3k(0) room [{card}]: {ram / 1e9:.1f} GB of host "
                       f"RAM available, {disk / 1e9:.1f} GB of disk free "
                       f"under {d}; the stream's {len(stream)} grouped_zipf "
                       f"batches reach {sum(len(r) for r in reach)} distinct "
-                      f"rows on {n_pages} pages of 4 KB, the CLI's {n_cli} "
-                      f"uniform batches at most {worst - n_pages} more: "
-                      f"{worst * 4096 / 1e9:.2f} GB within a quarter of the "
-                      f"smaller, {room / 1e9:.1f} GB (stream made in "
+                      f"rows on {n_pages} pages of 4 KB: "
+                      f"{n_pages * 4096 / 1e9:.2f} GB within a quarter of "
+                      f"the smaller, {room / 1e9:.1f} GB (stream made in "
                       f"{time.perf_counter() - t0:.2f} s)", flush=True)
                 print("3k(0) distinct rows per table: " + ", ".join(
                     f"{t + 1}: {len(r)} of {n}"
@@ -3738,27 +3771,8 @@ def main() -> int:
                     runs[depth] = (res, dict(cache.host_s), len(warm), s0,
                                    t_warm)
                     if depth == 0:
-                        # every row C1 holds against the files, bit for bit
-                        keys, slots = cache.assigner.resident_keys()
-                        tk, rk = keys >> 40, keys & ((1 << 40) - 1)
-                        want = np.empty((len(keys), D), np.float32)
-                        for t in range(T):
-                            sel = tk == t
-                            want[sel] = maps[t][rk[sel]]
-                        got = cache.cache_values[torch.from_numpy(
-                            slots.astype(np.int64)).to(dev)].cpu().numpy()
-                        # (the policy's entries without a slot are served
-                        # from the batch's buffer alone)
-                        n_held, n_size = len(keys), cache.stats()["size"]
-                        if n_held < 0.9 * n_size or not \
-                                np.array_equal(got.view(np.int32),
-                                               want.view(np.int32)):
-                            raise AssertionError(
-                                f"3k(a): C1 holds {n_held} rows (stats "
-                                f"{n_size}), "
-                                f"{int((got != want).any(1).sum())} of "
-                                f"them differ from the files'")
-                        n_nonzero = int((np.abs(want).sum(1) > 0).sum())
+                        n_held, n_size, n_nonzero = c1_held_to_files(
+                            cache, maps, "3k(a)")
                         # what a miss read costs the engine: one more
                         # batch's 53,248 rows read on its pool of 4, pread
                         # by pread
@@ -3906,59 +3920,8 @@ def main() -> int:
                       f"{res3.metrics['auc']:.4f} (random weights and "
                       f"labels)", flush=True)
                 peak("(b)")
-                del res3, model
+                del res3, model, maps
                 torch.cuda.empty_cache()
-
-                # (c) the CLI
-                built = []
-                real_dlrm = dlrm_mod.DLRM
-
-                def spy(*a, **kw):
-                    built.append(real_dlrm(*a, **kw))
-                    return built[-1]
-
-                tee = Tee(sys.stdout)
-                dlrm_mod.DLRM = spy
-                t0 = time.perf_counter()
-                try:
-                    with contextlib.redirect_stdout(tee):
-                        rc = counted(
-                            lambda: cli.main(cli_argv + [
-                                "--ev-table-path", mf.dir]), "(c) the CLI",
-                            ("interaction_fwd", "gather_rows"))
-                finally:
-                    dlrm_mod.DLRM = real_dlrm
-                secs = time.perf_counter() - t0
-                out = "\n".join(tee.text)
-                done = re.search(r"inference done: metrics=(\{.*?\}) "
-                                 r"perfect_hits=(\S+)", out)
-                rate = re.search(r"inference: (\d+) requests in [\d.]+s "
-                                 r"\((\d+) req/s\)", out)
-                if rc != 0 or done is None or rate is None:
-                    raise AssertionError(f"3k(c) the CLI: rc {rc}")
-                if len(built) != 1 or built[0].has_sparse():
-                    raise AssertionError(f"3k(c): the CLI's model holds "
-                                         f"tables ({len(built)} built)")
-                del built
-                m = metrics_of(done.group(1))
-                if not all(np.isfinite(v) for k, v in m.items()
-                           if k != "auc"):
-                    raise AssertionError(f"3k(c): metrics {m}")
-                print(f"3k(c) cli [{card}]: run_and_time.sh's model flags + "
-                      f"{SERVE_C1}'s serving flags + --use-device-cache "
-                      f"True --ev-table-path <memory files> "
-                      f"--data-generation random: {n_cli} uniform batches "
-                      f"of 2048, {rate.group(1)} requests scored after the "
-                      f"warm-up pass at {rate.group(2)} requests/s; the run "
-                      f"took {secs:.2f} s; the model holds no table; "
-                      f"perfect_hits {done.group(2)}; host RSS "
-                      f"{rss_gb():.2f} GB; the files took "
-                      f"{mf.touched_mb():.1f} MB", flush=True)
-                peak("(c)")
-                if mf.touched_mb() * 2**20 > room:
-                    raise AssertionError("3k(c): the files took more than "
-                                         "the room")
-                del maps
             finally:
                 # the engines first, then the memory files
                 for c in reversed(live):
@@ -3970,6 +3933,553 @@ def main() -> int:
                                              "gather_rows",
                                              "gather_rows_dequant_int8")}
             print(f"serve_mlperf path launches: {json.dumps(path)}",
+                  flush=True)
+            return path
+
+    # ------------------------------ 3l the MLPerf shape, trained then served
+    HANDOFF_N = 32          # the CLI's synthetic training batches
+    HANDOFF_TEST = 16       # its test batches at most (it makes at least 10)
+    HANDOFF_W = 120         # warm-up batches allowed for (c)'s tiers to fill
+
+    def phase_3l():
+        """The MLPerf recipe's shape (bench/run_and_time.sh: dim 128, the 26
+        Terabyte tables capped at 40M rows, 204,184,588 rows, 104.5 GB at
+        float32) trained through the CLI and the trainable cache over
+        memory-file masters, then served from what it saved: (0) the room,
+        fresh `MemoryFiles` masters (the rows zero) and the pages the runs
+        can touch, held to a quarter of the smaller of free RAM and disk;
+        (a) `cli.main` with the recipe's model, loss and schedule flags plus
+        `--data-generation synthetic --use-evstore True --optimizer
+        rwsadagrad --emb-cache-size 64000 --ev-table-path <masters>
+        --save-model <ck> --test-freq -1`, 32 batches: it must end
+        `training done` with every loss finite and under 2 ln 2 and leave
+        `dense_params.npz` in <ck>, whose MLPs differ from the seed's; (b) a
+        `DLRM(tables=False)` with the MLPs `restore_npz_mlps` reads from
+        <ck>, served through the C1 script's device C1 (EvLFU, 64,000 fp32)
+        over the trained files on the CLI's own test batches (seed + 1,
+        10-16 of 2048) after a warm-up pass over them, at `pipeline_depth` 0
+        and 2 (equal scores and stats), C1's rows bit for bit the files',
+        the scores within 1e-5·(1+|ref|) of `DLRM.predict` with every
+        kernel off on rows read through np.memmap, at least half the
+        lookups reading a row training wrote, and the seed's MLPs on the
+        same rows scoring outside that bound (the witness); (c) the
+        published three tiers (int8 C1, 4-bit C2, alt-key C3, 48-48-4,
+        75,425) over the same files, each row's alt key a uniform row of
+        its table among those training wrote, warmed up until every tier is
+        full on the CLI's synthetic stream (the training batches, then the
+        batches that follow them) and scored at depth 2, C2 and C3 live,
+        one more batch's int8 rows the plain version's bit for bit;
+        (d) `cli.main` with the recipe's flags, the C1 script's serving
+        flags and `--use-device-cache True --ev-table-path <masters>
+        --load-model <ck> --data-generation synthetic --compute-dtype
+        float32` on the same test batches: it must end `inference done`
+        with a model that holds no table and metrics equal to the plain
+        eval of (b)'s batches by 3f's rule.  The card's peak allocated
+        memory after (b), (c) and (d) stays under 2 GiB.  K1, K2, K4 and K5
+        must launch in (a), K1 and K2 in (b) and (d), K1 and K3 in (c).
+        Returns the path's launch counts (`handoff_mlperf`)."""
+        import contextlib
+
+        from evstore_tpu_torch import cli
+        from evstore_tpu_torch.cache import device_cache as dc_mod
+        from evstore_tpu_torch.cache import trainable as trn
+        from evstore_tpu_torch.drivers import infer as infer_mod
+        from evstore_tpu_torch.models import dlrm as dlrm_mod
+        from evstore_tpu_torch.train.metrics import binary_metrics
+        from evstore_tpu_torch.utils.checkpoint import restore_npz_mlps
+        launches = dict.fromkeys(wrappers, 0)
+        counted = path_counter(launches, "3l")
+
+        def peak(after):
+            p = torch.cuda.max_memory_allocated()
+            print(f"3l device memory after {after} [{card}]: peak "
+                  f"{p / GIB:.3f} GiB allocated since (b) began ((a) "
+                  f"training: {peak_a / GIB:.3f} GiB) beside {gb:.1f} GB of "
+                  f"tables in the files", flush=True)
+            if p >= 2 * GIB:
+                raise AssertionError(f"3l {after}: {p} bytes on the card")
+
+        with Phase("3l mlperf train to serve"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            d = tempfile.mkdtemp(prefix="mlperf-handoff-")
+            live = []       # caches and MemoryFiles to close
+            try:
+                parse = cli.build_parser().parse_args
+                flags = recipe_flags()
+                rcfg, rt, _ = cli.configs_from_args(parse(flags))
+                if rcfg.embedding_dim != 128 or sum(rcfg.table_sizes) != \
+                        204_184_588 or rt.lr_num_warmup_steps != 2750:
+                    raise AssertionError(f"run_and_time.sh's flags gave "
+                                         f"{rcfg}, {rt}")
+                cfg = dataclasses.replace(rcfg, compute_dtype="float32")
+                sizes, D, T = cfg.table_sizes, cfg.embedding_dim, \
+                    cfg.num_tables
+                gb = sum(sizes) * D * 4 / 1e9
+                _, _, ccfg1 = cli.configs_from_args(parse(
+                    flags + serve_flags(SERVE_C1)))
+                _, _, ccfg3 = cli.configs_from_args(parse(
+                    flags + serve_flags(SERVE_C3)))
+                ck = os.path.join(d, "ck")
+                train_argv = flags + [
+                    "--data-generation", "synthetic", "--num-batches",
+                    str(HANDOFF_N), "--print-freq", str(HANDOFF_N // 8),
+                    "--use-evstore", "True", "--optimizer", "rwsadagrad",
+                    "--emb-cache-size", str(ccfg1.total_size),
+                    "--save-model", ck, "--test-freq", "-1"]
+                serve_argv = flags + serve_flags(SERVE_C1) + [
+                    "--use-device-cache", "True", "--data-generation",
+                    "synthetic", "--nbatches-test", str(HANDOFF_TEST),
+                    "--compute-dtype", "float32", "--load-model", ck,
+                    "--write-cdf-file", os.path.join(d, "cdf.csv")]
+                seed = parse(train_argv).numpy_rand_seed
+
+                # (0) the room and the rows the streams reach
+                ram = meminfo_kb("MemAvailable") * 1024
+                disk = shutil.disk_usage(d).free
+                room = min(ram, disk) / 4
+                t0 = time.perf_counter()
+                train_b = list(cli._make_data(parse(train_argv), rcfg)[0]())
+                test_b = list(cli._make_data(parse(serve_argv), rcfg)[1]())
+                per = 4096 // (D * 4)
+
+                def pages(batches, sums):
+                    """The table pages (and sum pages) `batches` reach."""
+                    n = 0
+                    for t in range(T):
+                        r = np.unique(np.concatenate(
+                            [b[1][:, t] for b in batches]))
+                        n += len(np.unique(r // per))
+                        n += len(np.unique(r // 1024)) if sums else 0
+                    return n
+
+                n_test = len(test_b)
+                p_train = pages(train_b, True)
+                while n_test > 10 and (p_train + pages(
+                        test_b[:n_test], False)) * 4096 > room:
+                    n_test -= 2
+                worst = p_train + pages(test_b[:n_test], False)
+                if worst * 4096 > room:
+                    raise AssertionError(f"3l: {worst} pages over the room "
+                                         f"of {room / 1e9:.1f} GB")
+                test_b = test_b[:n_test]
+                serve_argv[serve_argv.index("--nbatches-test") + 1] = \
+                    str(n_test)
+                reach = [np.unique(np.concatenate(
+                    [b[1][:, t] for b in train_b])).astype(np.int64)
+                    for t in range(T)]
+                print(f"3l(0) room [{card}]: {ram / 1e9:.1f} GB of host RAM "
+                      f"available, {disk / 1e9:.1f} GB of disk free under "
+                      f"{d}; the CLI's {len(train_b)} synthetic (zipf 1.05) "
+                      f"training batches of 2048 reach "
+                      f"{sum(len(r) for r in reach)} distinct rows, and "
+                      f"with their sums and its {n_test} test batches at "
+                      f"most {worst} pages of 4 KB ({worst * 4096 / 1e9:.2f}"
+                      f" GB) within a quarter of the smaller, "
+                      f"{room / 1e9:.1f} GB (streams made in "
+                      f"{time.perf_counter() - t0:.2f} s)", flush=True)
+                mf = MemoryFiles(os.path.join(d, "ev"), sizes, D)
+                live.append(mf)
+                print(f"3l(0) fresh masters: {len(mf.fds)} memory files, "
+                      f"{mf.virtual / 1e9:.1f} GB ({gb:.1f} GB of tables, "
+                      f"every row zero), {mf.touched_mb():.1f} MB of pages",
+                      flush=True)
+
+                # (a) train through the CLI, the cache's counters read
+                # through a spy on the instance the driver makes
+                made = []
+                real_ff = trn.TrainableDeviceCache.__dict__["from_files"]
+
+                def spied_ff(cls, *a, **kw):
+                    tc = real_ff.__func__(cls, *a, **kw)
+                    rec = {"land writes": 0, "flush writes": 0,
+                           "flushing": False}
+                    write, flush, close = (tc._write_masters,
+                                           tc.flush_files, tc.close)
+
+                    def spy_write(ts, *rest):
+                        rec["flush writes" if rec["flushing"]
+                            else "land writes"] += len(ts)
+                        write(ts, *rest)
+
+                    def spy_flush():
+                        rec["flushing"] = True
+                        t1 = time.perf_counter()
+                        flush()
+                        rec["flush_s"] = time.perf_counter() - t1
+
+                    def spy_close():
+                        rec["stats"], rec["host_s"] = tc.stats(), \
+                            dict(tc.host_s)
+                        close()
+
+                    tc._write_masters, tc.flush_files, tc.close = \
+                        spy_write, spy_flush, spy_close
+                    made.append(rec)
+                    return tc
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                tee = Tee(sys.stdout)
+                trn.TrainableDeviceCache.from_files = classmethod(spied_ff)
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(tee):
+                        rc = counted(lambda: cli.main(train_argv + [
+                            "--ev-table-path", mf.dir]), "(a) training",
+                            ("interaction_fwd", "interaction_bwd",
+                             "gather_rows", "scatter_sub_sorted"))
+                finally:
+                    trn.TrainableDeviceCache.from_files = real_ff
+                secs = time.perf_counter() - t0
+                peak_a = torch.cuda.max_memory_allocated()
+                lines = [x for x in tee.text if x.strip()]
+                out = "\n".join(lines)
+                trained = re.search(r"trained (\d+) steps in ([\d.]+) s "
+                                    r"\(([\d.]+) steps/s\)", out)
+                losses = [float(x) for x in re.findall(
+                    r"step \d+: loss ([-\d.naif]+)", out)]
+                if rc != 0 or not lines or \
+                        not lines[-1].startswith("training done") or \
+                        trained is None or \
+                        int(trained.group(1)) != len(train_b) or \
+                        not losses or not np.isfinite(losses).all() or \
+                        max(losses) >= 2 * np.log(2) or len(made) != 1:
+                    raise AssertionError(f"3l(a) the CLI: rc {rc}, losses "
+                                         f"{losses}, last line "
+                                         f"{lines[-1:]}")
+                if not os.path.exists(os.path.join(ck, "dense_params.npz")):
+                    raise AssertionError(f"3l(a): no dense_params.npz in "
+                                         f"{os.listdir(ck)}")
+                rec = made[0]
+                n_steps = int(trained.group(1))
+                # the rows training wrote: the masters started at zero
+                maps = [np.memmap(os.path.join(mf.dir,
+                                               f"ev-table-{t + 1}.bin"),
+                                  np.float32, mode="r", shape=(n, D))
+                        for t, n in enumerate(sizes)]
+                t0 = time.perf_counter()
+                wrote = [r[np.abs(maps[t][r]).sum(1) > 0]
+                         for t, r in enumerate(reach)]
+                t_scan = time.perf_counter() - t0
+                n_wrote = sum(len(w) for w in wrote)
+                if n_wrote < 0.9 * sum(len(r) for r in reach):
+                    raise AssertionError(f"3l(a): {n_wrote} rows written of "
+                                         f"the {sum(len(r) for r in reach)}"
+                                         f" reached")
+                split = ", ".join(f"{k} {v / n_steps * 1e3:.2f}"
+                                  for k, v in rec["host_s"].items())
+                st = rec["stats"]
+                print(f"3l(a) cli [{card}]: run_and_time.sh's model, loss "
+                      f"and schedule flags + --data-generation synthetic "
+                      f"--use-evstore True --optimizer rwsadagrad "
+                      f"--emb-cache-size {ccfg1.total_size} --ev-table-path "
+                      f"<fresh masters> --save-model <ck> --test-freq -1 "
+                      f"(bf16 compute, the CLI's default): {n_steps} steps "
+                      f"at {trained.group(3)} steps/s "
+                      f"({float(trained.group(3)) * 2048:.0f} samples/s); "
+                      f"host ms a step: {split}; flush_files "
+                      f"{rec['flush_s']:.2f} s; the run took {secs:.2f} s; "
+                      f"C1 hit rate {st['hit_rate']:.4f} over "
+                      f"{st['requests']} requests, {st['size']} of "
+                      f"{st['capacity']} cells; row write-backs: "
+                      f"{rec['land writes']} landed during the run, "
+                      f"{rec['flush writes']} flushed at its end; "
+                      f"{n_wrote} rows of the files nonzero (scanned in "
+                      f"{t_scan:.2f} s); losses "
+                      f"{', '.join(f'{x:.4f}' for x in losses)} (finite, "
+                      f"under 2 ln 2); the files took {mf.touched_mb():.1f} "
+                      f"MB; peak device memory {peak_a / GIB:.3f} GiB; "
+                      f"host RSS {rss_gb():.2f} GB", flush=True)
+
+                # (b) the trained files and MLPs through the device C1
+                model = DLRM(cfg, device=dev, seed=seed, tables=False)
+                step = restore_npz_mlps(ck, model)
+                seed_model = DLRM(cfg, device=dev, seed=seed, tables=False)
+                moved = max(float((a - b).abs().max()) for a, b in zip(
+                    model.state_dict().values(),
+                    seed_model.state_dict().values()))
+                if step != n_steps or moved == 0.0:
+                    raise AssertionError(f"3l(a): best.json's step {step}, "
+                                         f"the MLPs moved {moved}")
+                del seed_model
+                print(f"3l(a) dense_params.npz: step {step}; its MLPs differ "
+                      f"from the seed's by max|d| {moved:.4e}", flush=True)
+
+                def file_rows(idx):
+                    return np.stack([maps[t][idx[:, t]] for t in range(T)],
+                                    axis=1)
+
+                def open_cache(ccfg_, alts=None):
+                    c = dc_mod.NativeDeviceC1Cache(ccfg_, T, D, device=dev)
+                    live.append(c)
+                    c.open_table_files(mf.dir, sizes, 32)
+                    if alts is not None:
+                        c.load_altkeys(alts)
+                    return c
+
+                def release(c):
+                    c.close()
+                    live.remove(c)
+
+                def warm(cache, batches):
+                    """The CLI's warm-up pass: lookups without scoring."""
+                    with torch.inference_mode():
+                        for b in batches:
+                            cache.lookup_batch(b[1])
+                    torch.cuda.synchronize()
+                    cache.host_s = dict.fromkeys(cache.host_s, 0.0)
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                runs = {}
+                for depth in (0, 2):
+                    cache = open_cache(ccfg1)
+                    warm(cache, test_b)
+                    s0 = cache.stats()
+                    res = counted(lambda: run_inference(
+                        model, cfg, ccfg1, test_b, None,
+                        use_device_cache=True, pipeline_depth=depth,
+                        cache=cache, device=dev), f"(b) depth {depth}",
+                        ("interaction_fwd", "gather_rows"))
+                    runs[depth] = (res, dict(cache.host_s), s0)
+                    if depth == 0:
+                        n_held, n_size, n_nonzero = c1_held_to_files(
+                            cache, maps, "3l(b)")
+                    release(cache)
+                    del cache
+                (res0, split0, s00), (res2, split2, _) = runs[0], runs[2]
+                if not np.array_equal(res2.scores, res0.scores) or \
+                        res2.cache_stats != res0.cache_stats:
+                    raise AssertionError("3l(b): pipeline_depth 2 changed "
+                                         "the scores or the stats")
+                if res0.scores is None or res0.scores.shape != (
+                        n_test * 2048,) or not np.isfinite(res0.scores).all():
+                    raise AssertionError("3l(b): scores missing, misshapen "
+                                         "or not finite")
+                # the plain version with the loaded MLPs, and the witness
+                # with the seed's, on the files' rows through np.memmap
+                off = dataclasses.replace(cfg, use_interaction_kernel=False,
+                                          use_gather_kernel=False)
+                plain = DLRM(off, device=dev, tables=False)
+                plain.load_state_dict(model.state_dict())
+                witness = DLRM(off, device=dev, seed=seed, tables=False)
+                t0 = time.perf_counter()
+                ref, wit, labels = [], [], []
+                n_trained = n_hit = 0
+                with torch.inference_mode():
+                    for dense, idx, y in test_b:
+                        rows_np = file_rows(idx)
+                        n_trained += int((np.abs(rows_np).sum(-1) > 0).sum())
+                        n_hit += sum(int(np.isin(idx[:, t], reach[t]).sum())
+                                     for t in range(T))
+                        rows = torch.from_numpy(rows_np).to(dev)
+                        dense_t = torch.from_numpy(dense).to(dev)
+                        ref.append(plain.predict(dense_t, emb_rows=rows))
+                        wit.append(witness.predict(dense_t, emb_rows=rows))
+                        labels.append(y)
+                ref = torch.cat(ref).cpu().numpy()
+                wit = torch.cat(wit).cpu().numpy()
+                labels = np.concatenate(labels)
+                t_plain = time.perf_counter() - t0
+                n_look = n_test * 2048 * T
+                sdiff = float(np.abs(res0.scores - ref).max())
+                wdiff = float(np.abs(wit - res0.scores).max())
+                if not bool((np.abs(res0.scores - ref)
+                             <= 1e-5 * (1 + np.abs(ref))).all()):
+                    raise AssertionError(f"3l(b): scores differ from the "
+                                         f"plain version's: max|d| {sdiff}")
+                if bool((np.abs(wit - res0.scores)
+                         <= 1e-5 * (1 + np.abs(res0.scores))).all()):
+                    raise AssertionError(f"3l(b): the seed's MLPs score "
+                                         f"within the bound (max|d| "
+                                         f"{wdiff}): the check cannot tell "
+                                         f"them from the trained ones")
+                if n_trained < 0.5 * n_look:
+                    raise AssertionError(f"3l(b): {n_trained} of {n_look} "
+                                         f"lookups read a trained row")
+                plain_m = binary_metrics(ref, labels)
+                del plain, witness, wit
+                serve_line("3l(b) MLPerf shape trained by (a), "
+                           "NativeDeviceC1Cache fp32 over its files, "
+                           "pipeline_depth 0", res0, split0)
+                serve_line("3l(b) MLPerf shape trained by (a), "
+                           "NativeDeviceC1Cache fp32 over its files, "
+                           "pipeline_depth 2", res2, split2)
+                n_req, hr, _ = window_rates(s00, res0.cache_stats)
+                print(f"3l(b) cache [{card}]: a warm-up pass over the "
+                      f"{n_test} test batches, then over the {n_req} scored "
+                      f"requests C1 hit_rate {hr:.6f}; at the end "
+                      f"{json.dumps(res0.cache_stats)}; depth 2's scores and "
+                      f"stats equal depth 0's", flush=True)
+                print(f"3l(b) check: the {n_held} rows in C1's slots "
+                      f"({n_size} entries, {n_nonzero} nonzero) bit for bit "
+                      f"the trained files'; scores against DLRM.predict "
+                      f"with every kernel off on the files' rows max|d| "
+                      f"{sdiff:.3e} (plain pass {t_plain:.2f} s); "
+                      f"{n_trained} of {n_look} lookups "
+                      f"({n_trained / n_look:.4f}) read a row training "
+                      f"wrote ({n_hit / n_look:.4f} an id its stream "
+                      f"reached); the seed's MLPs on the same rows max|d| "
+                      f"{wdiff:.4e} from the served scores; auc "
+                      f"{res0.metrics['auc']:.4f} (random labels)",
+                      flush=True)
+                peak("(b)")
+                del res2
+
+                # (c) the published three tiers over the trained files
+                t0 = time.perf_counter()
+                arng = np.random.default_rng(seed + 3)
+                alts = [altkey_encode(t, w[arng.integers(0, len(w), n)]
+                                      ).astype(np.uint32)
+                        for t, (w, n) in enumerate(zip(wrote, sizes))]
+                t_alts = time.perf_counter() - t0
+                caps = ccfg3.tier_capacities()
+                cache = open_cache(ccfg3, alts)
+                del alts
+                # the CLI's stream run on: its first batches are (a)'s
+                more = train_argv[:]
+                more[more.index("--num-batches") + 1] = str(HANDOFF_W + 1)
+                stream = cli._make_data(parse(more), rcfg)[0]()
+                n_warm = 0
+                with torch.inference_mode():
+                    for b in stream:
+                        s = cache.stats()
+                        if s["size"] >= caps[0] and \
+                                s["c2"]["size"] >= caps[1] and \
+                                s["c3"]["size"] >= caps[2]:
+                            break
+                        if n_warm < len(train_b) and not np.array_equal(
+                                b[1], train_b[n_warm][1]):
+                            raise AssertionError("3l(c): the stream does "
+                                                 "not begin with (a)'s")
+                        cache.lookup_batch(b[1])
+                        n_warm += 1
+                    else:
+                        raise AssertionError(
+                            f"3l(c): the tiers were not full after "
+                            f"{n_warm} warm-up batches: {s}")
+                torch.cuda.synchronize()
+                cache.host_s = dict.fromkeys(cache.host_s, 0.0)
+                s_start = cache.stats()
+                res3 = counted(lambda: run_inference(
+                    model, cfg, ccfg3, test_b, None, use_device_cache=True,
+                    pipeline_depth=2, cache=cache, device=dev),
+                    "(c) three tiers",
+                    ("interaction_fwd", "gather_rows_dequant_int8"))
+                split3 = dict(cache.host_s)
+                s3 = res3.cache_stats
+                if not (s3["c2"]["hit_rate"] > 0 and s3["c3"]["size"] > 0):
+                    raise AssertionError(f"3l(c): C2 or C3 is not live: "
+                                         f"{s3}")
+                if res3.scores is None or res3.scores.shape != (
+                        n_test * 2048,) or \
+                        not np.isfinite(res3.scores).all():
+                    raise AssertionError("3l(c): scores missing, misshapen "
+                                         "or not finite")
+                int8_apply_held(cache, b[1], "3l(c)")
+                release(cache)
+                del cache
+                serve_line("3l(c) MLPerf shape trained by (a), three tiers, "
+                           "NativeDeviceC1Cache int8, pipeline_depth 2",
+                           res3, split3)
+                n_req, hr, c3_hits = window_rates(s_start, s3)
+                print(f"3l(c) cache [{card}]: tiers {caps}; alt keys among "
+                      f"the {n_wrote} trained rows drawn in {t_alts:.2f} s; "
+                      f"{n_warm} warm-up batches of the CLI's stream "
+                      f"until C1, C2 and C3 were full; over the {n_req} "
+                      f"scored requests C1 hit_rate {hr:.6f}, C3 hits "
+                      f"{c3_hits}; at the end C2 {s3['c2']}, C3 {s3['c3']}; "
+                      f"one more batch's int8 rows bit for bit the plain "
+                      f"version's on the same state and buffer, on the "
+                      f"grid", flush=True)
+                peak("(c)")
+                del res3, model
+                torch.cuda.empty_cache()
+
+                # (d) the CLI serves what (a) saved
+                built, served = [], []
+                real_dlrm, real_ri = dlrm_mod.DLRM, infer_mod.run_inference
+
+                def spy_dlrm(*a, **kw):
+                    built.append(real_dlrm(*a, **kw))
+                    return built[-1]
+
+                def spy_ri(*a, **kw):
+                    res_ = real_ri(*a, **kw)
+                    served.append((res_, dict(kw["cache"].host_s)
+                                   if isinstance(kw.get("cache"),
+                                                 dc_mod.NativeDeviceC1Cache)
+                                   else None))
+                    return res_
+
+                tee = Tee(sys.stdout)
+                dlrm_mod.DLRM, infer_mod.run_inference = spy_dlrm, spy_ri
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(tee):
+                        rc = counted(lambda: cli.main(serve_argv + [
+                            "--ev-table-path", mf.dir]), "(d) the CLI",
+                            ("interaction_fwd", "gather_rows"))
+                finally:
+                    dlrm_mod.DLRM, infer_mod.run_inference = real_dlrm, \
+                        real_ri
+                secs = time.perf_counter() - t0
+                out = "\n".join(tee.text)
+                done = re.search(r"inference done: metrics=(\{.*?\}) "
+                                 r"perfect_hits=(\S+)", out)
+                if rc != 0 or done is None or len(served) != 1 or \
+                        served[0][1] is None or \
+                        f"cached training's step {n_steps} " not in out:
+                    raise AssertionError(f"3l(d) the CLI: rc {rc}")
+                if len(built) != 1 or built[0].has_sparse():
+                    raise AssertionError(f"3l(d): the CLI's model holds "
+                                         f"tables ({len(built)} built)")
+                del built
+                m = metrics_of(done.group(1))
+                n_pos = int(labels.sum())
+                tie = 1.0 / max(n_pos * (len(labels) - n_pos), 1)
+                if m.keys() != plain_m.keys() or any(
+                        abs(m[k] - v) > (tie + 1e-12 if k == "auc"
+                                         else 1e-6)
+                        for k, v in plain_m.items()):
+                    raise AssertionError(f"3l(d): the CLI's metrics {m} "
+                                         f"against the plain eval's "
+                                         f"{plain_m}")
+                res_d, split_d = served[0]
+                n_b = 2 * n_test       # the warm-up pass and the scored
+                lat = res_d.latency
+                print(f"3l(d) cli [{card}]: run_and_time.sh's model flags + "
+                      f"{SERVE_C1}'s serving flags + --use-device-cache "
+                      f"True --ev-table-path <trained files> --load-model "
+                      f"<ck> --data-generation synthetic --compute-dtype "
+                      f"float32: {res_d.requests} requests of {n_test} "
+                      f"batches scored after the warm-up pass, "
+                      f"{res_d.requests / res_d.elapsed_s:.1f} requests/s; "
+                      f"p50 {lat['p50_s'] * 1e6:.2f} us, p99 "
+                      f"{lat['p99_s'] * 1e6:.2f} us per request; host ms a "
+                      f"batch over both passes: " + ", ".join(
+                          f"{k} {v / n_b * 1e3:.3f}"
+                          for k, v in split_d.items())
+                      + f"; C1 hit_rate {res_d.cache_stats['hit_rate']:.6f} "
+                      f"(cumulative); the run took {secs:.2f} s; the model "
+                      f"holds no table; metrics equal the plain eval of (b)'s"
+                      f" batches (atol 1e-6, auc within one tied pair): auc "
+                      f"{m['auc']:.6f}, accuracy {m['accuracy']:.6f}; the "
+                      f"files took {mf.touched_mb():.1f} MB", flush=True)
+                peak("(d)")
+                del maps, res_d, served
+            finally:
+                # the engines first, then the memory files
+                for c in reversed(live):
+                    c.close()
+                shutil.rmtree(d, ignore_errors=True)
+            if os.path.exists(d):
+                raise AssertionError(f"3l: {d} is still there")
+            path = {k: launches[k] for k in (
+                "interaction_fwd", "interaction_bwd", "gather_rows",
+                "gather_rows_dequant_int8", "scatter_sub_sorted")}
+            print(f"handoff_mlperf path launches: {json.dumps(path)}",
                   flush=True)
             return path
 
@@ -5299,8 +5809,8 @@ def main() -> int:
         del keys, cases
         torch.cuda.empty_cache()
 
-    if args.only in ("3j", "3k"):
-        {"3j": phase_3j, "3k": phase_3k}[args.only]()
+    if args.only in ("3j", "3k", "3l"):
+        {"3j": phase_3j, "3k": phase_3k, "3l": phase_3l}[args.only]()
         print(f"total: {time.perf_counter() - t_all:.2f} s (phases 0-2 "
               f"and {args.only})")
         return 0
@@ -6184,6 +6694,7 @@ def main() -> int:
         work_dir.cleanup()
     mlperf_launches = phase_3j()
     serve_mlperf_launches = phase_3k()
+    handoff_launches = phase_3l()
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -6198,7 +6709,8 @@ def main() -> int:
               f"{json.dumps(cached_launches)}; " + "; ".join(
                   f"{p} {json.dumps(c)}" for p, c in mesh_launches.items())
               + f"; train_mlperf {json.dumps(mlperf_launches)}; "
-              f"serve_mlperf {json.dumps(serve_mlperf_launches)}")
+              f"serve_mlperf {json.dumps(serve_mlperf_launches)}; "
+              f"handoff_mlperf {json.dumps(handoff_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -6228,7 +6740,8 @@ def main() -> int:
                  "train_factored": factored_launches, "cli": cli_launches,
                  "train_cached": cached_launches, **mesh_launches,
                  "train_mlperf": mlperf_launches,
-                 "serve_mlperf": serve_mlperf_launches}
+                 "serve_mlperf": serve_mlperf_launches,
+                 "handoff_mlperf": handoff_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

@@ -12,7 +12,10 @@ with `--use-evstore True` runs through the device-memory-bounded cache
 (`drivers/train.py::run_cached_training`: `--emb-cache-size` entries at
 `--main-precision` 32, 16 or 8, `--train-window` batches a device call,
 masters mapped from `--ev-table-path`'s .bin files when it holds them,
-the checkpoint on a new best eval into `--save-model`).
+the checkpoint on a new best eval into `--save-model`, or at the run's end
+where no eval runs: `--test-freq -1` leaves the trained masters in the
+.bin files and the MLPs in `--save-model`, which `--load-model` then
+serves through the tiers).
 
     python -m evstore_tpu_torch.cli --arch-mlp-bot 13-512-256-64-36 ...
 
@@ -36,6 +39,15 @@ Where the port departs from the JAX CLI:
   JAX CLI, whose quantised tables this route never reads.  The plain eval
   (`--use-evstore False`) and the dummy store (no `--ev-table-path`) read
   the model's tables and still draw them.
+- `--load-model` serves the weights its directory gives, or raises
+  ValueError.  A checkpoint (`step_<n>.meta.json`) serves on every route.
+  Cached training's `dense_params.npz` (its MLPs, beside the trained .bin
+  files) serves on the store routes (`restore_npz_mlps`, bit for bit).  A
+  directory with neither, or with the npz alone on a route that reads the
+  model's tables, raises.  The JAX CLI serves the seed's MLPs there
+  without a word.  On the cached training route (`--use-evstore True`
+  without `--inference-only`) `--load-model` raises: that route does not
+  resume, and the JAX CLI ignores the flag.
 - The mesh flags (`--mesh-data`, `--mesh-model`, `--dedup-exchange`,
   `--alltoall-impl`) keep the JAX meanings over one process per rank:
 
@@ -412,6 +424,10 @@ def _mesh(args, dev):
 def _run(args) -> int:
     import torch
     from evstore_tpu_torch.utils.device import resolve_device
+    if args.load_model and args.use_evstore and not args.inference_only:
+        raise ValueError("--load-model: cached training (--use-evstore "
+                         "True) does not resume; it trains from "
+                         "--ev-table-path's masters and the seed's MLPs")
     dev = resolve_device(args.device)
     cfg, tcfg, ccfg = configs_from_args(args)
     mesh = _mesh(args, dev)
@@ -468,11 +484,12 @@ def _serve(args, cfg, tcfg, ccfg, make_test, dev, mesh, say) -> int:
     from evstore_tpu_torch.models.dlrm import DLRM
     from evstore_tpu_torch.train.train_loop import (evaluate,
                                                     init_opt_state)
-    from evstore_tpu_torch.utils.checkpoint import (latest_step,
+    from evstore_tpu_torch.utils.checkpoint import (DENSE_NPZ, latest_step,
                                                     quantize_embeddings,
                                                     quantize_mlps,
                                                     restore_checkpoint,
-                                                    restore_mlps)
+                                                    restore_mlps,
+                                                    restore_npz_mlps)
     if args.extra_mem_load > 0:
         from evstore_tpu_torch.utils.memory import HBMBallast
         _ballast = HBMBallast(args.extra_mem_load, device=dev)  # noqa: F841
@@ -481,12 +498,28 @@ def _serve(args, cfg, tcfg, ccfg, make_test, dev, mesh, say) -> int:
     model = DLRM(cfg, device=dev, seed=args.numpy_rand_seed,
                  tables=not from_store)
     if args.load_model:
+        # serve the weights the directory gives, or raise: never the seed's
         s = latest_step(args.load_model)
+        npz = os.path.join(args.load_model, DENSE_NPZ)
         if s is not None and from_store:
             restore_mlps(args.load_model, s, model)
         elif s is not None:
             restore_checkpoint(args.load_model, s, model,
                                init_opt_state(model, tcfg))
+        elif from_store and os.path.exists(npz):
+            step = restore_npz_mlps(args.load_model, model)
+            say(f"restored the MLPs of cached training's step {step} from "
+                f"{npz}")
+        elif os.path.exists(npz):
+            raise ValueError(f"--load-model {args.load_model} holds cached "
+                             f"training's MLPs alone ({DENSE_NPZ}); this "
+                             f"route reads the model's tables: serve from "
+                             f"the trained files with --use-evstore True "
+                             f"--ev-table-path")
+        else:
+            raise ValueError(f"--load-model {args.load_model} holds no "
+                             f"checkpoint (step_<n>.meta.json) and no "
+                             f"{DENSE_NPZ}")
     if args.quantize_embedding_with_bit < 32:
         quantize_embeddings(model, args.quantize_embedding_with_bit)
     if args.quantize_mlp_with_bit < 32:

@@ -32,7 +32,10 @@ from the EV .bin files), and the card holds the cache's cells and the
 MLPs.  Its checkpoint on a new best eval is the cache's `table_<t>.npy` /
 `mom_<t>.npy` files beside `dense_params.npz` (the MLPs and their sums
 under the JAX package's `p...` / `s...` keys, weights [in, out]) and
-`best.json`, the JAX package's files, which either package restores.
+`best.json`, the JAX package's files, which either package restores.  A
+run with no eval writes `dense_params.npz` and `best.json` at its end
+(the JAX driver writes no MLPs there), beside the table files where the
+masters are in memory; mapped masters are the flushed .bin files.
 With a mesh it trains through `ShardedTrainableDeviceCache`, one batch at
 a time as the JAX driver drives its sharded class; rank 0 holds the
 masters, scores the evals and broadcasts their metrics, and alone writes
@@ -65,10 +68,11 @@ from evstore_tpu_torch.train.train_loop import (evaluate, init_opt_state,
                                                 make_eval_step,
                                                 make_train_step,
                                                 unpack_batch)
-from evstore_tpu_torch.utils.checkpoint import (checkpoint_path,
+from evstore_tpu_torch.utils.checkpoint import (DENSE_NPZ,
+                                                checkpoint_path,
                                                 export_ev_tables,
-                                                latest_step,
-                                                restore_checkpoint,
+                                                latest_step, npz_dense_tree,
+                                                npz_key, restore_checkpoint,
                                                 save_checkpoint)
 from evstore_tpu_torch.utils.device import resolve_device
 from evstore_tpu_torch.utils.logging import MLPerfLogger, quiet
@@ -355,16 +359,11 @@ def _score_from_masters(tc, cfg: DLRMConfig, model: DLRM,
     return binary_metrics(np.concatenate(scores), np.concatenate(labels))
 
 
-def _npz_key(prefix: str, part: str, layer: int, leaf: str) -> str:
-    """A dense leaf's key in `dense_params.npz`: "p" (weights) or "s"
-    (sums) + `jax.tree_util.keystr` of its path in the JAX dense pytree."""
-    return f"{prefix}['{part}']['layer_{layer}']['{leaf}']"
-
-
 def _save_dense_npz(model: DLRM, dstate: Dict[str, torch.Tensor],
                     out_dir: str, step: int, metrics) -> None:
     """`dense_params.npz` and `best.json` beside the cache's `save` files:
-    with them, the whole state of cached training at its best eval."""
+    with them, the whole state of cached training at its best eval, or at
+    its end (`metrics` None) where no eval ran."""
     os.makedirs(out_dir, exist_ok=True)
     flat = {}
     for prefix, state in (("p", dict(model.named_parameters())),
@@ -372,8 +371,8 @@ def _save_dense_npz(model: DLRM, dstate: Dict[str, torch.Tensor],
         for part, layers in mlps_to_numpy(state, model.cfg).items():
             for name, leaves in layers.items():
                 for leaf, arr in leaves.items():
-                    flat[_npz_key(prefix, part, int(name[6:]), leaf)] = arr
-    np.savez(os.path.join(out_dir, "dense_params.npz"), **flat)
+                    flat[npz_key(prefix, part, int(name[6:]), leaf)] = arr
+    np.savez(os.path.join(out_dir, DENSE_NPZ), **flat)
     with open(os.path.join(out_dir, "best.json"), "w") as f:
         json.dump({"step": step, "metrics": metrics}, f)
 
@@ -381,18 +380,15 @@ def _save_dense_npz(model: DLRM, dstate: Dict[str, torch.Tensor],
 def restore_dense_npz(model: DLRM, dstate: Dict[str, torch.Tensor],
                       out_dir: str):
     """The inverse of `_save_dense_npz`, in place: -> (model, dstate)."""
-    z = np.load(os.path.join(out_dir, "dense_params.npz"))
     cfg = model.cfg
     dev = next(model.parameters()).device
-    for prefix, state in (("p", dict(model.named_parameters())),
-                          ("s", dstate)):
-        tree = {part: {f"layer_{i}": {
-            leaf: z[_npz_key(prefix, part, i, leaf)] for leaf in ("w", "b")}
-            for i in range(len(dims) - 1)}
-            for part, dims in (("bot", cfg.mlp_bot), ("top", cfg.mlp_top))}
-        with torch.no_grad():
-            for name, value in mlps_from_jax(tree, cfg, dev).items():
-                state[name].copy_(value)
+    with np.load(os.path.join(out_dir, DENSE_NPZ)) as z:
+        for prefix, state in (("p", dict(model.named_parameters())),
+                              ("s", dstate)):
+            tree = npz_dense_tree(z, cfg, prefix)
+            with torch.no_grad():
+                for name, value in mlps_from_jax(tree, cfg, dev).items():
+                    state[name].copy_(value)
     return model, dstate
 
 
@@ -423,8 +419,11 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
     and tcfg.test_freq > 0 the stream is cut every test_freq batches for an
     eval through the cache, and a new best writes the cache's files and the
     dense npz into `save_dir` and the EV tables into `ev_export_dir`; a
-    last eval follows the loop.  The model is trained in place; the result
-    holds its dense sums as `opt_state.dense`.
+    last eval follows the loop.  Without an eval the run's end writes the
+    dense npz and `best.json` (the last step, no metrics) into `save_dir`,
+    beside the cache's files (masters in memory) or with the tables in the
+    flushed `ev_table_dir` files.  The model is trained in place; the
+    result holds its dense sums as `opt_state.dense`.
 
     With a `mesh` (`parallel/mesh.py`; every rank calls with the same
     arguments and batches) the cells shard over its model axis
@@ -556,6 +555,10 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
         tc.save(save_dir)
     else:
         tc.flush_to_host()
+    if save_dir and not do_eval and host:
+        # no eval wrote the MLPs: the run's end does (the JAX driver drops
+        # them, ROADMAP queue 3)
+        _save_dense_npz(model, dstate, save_dir, step, None)
     stats = tc.stats()
     tc.close()
     best = best if best > -float("inf") else float("nan")

@@ -19,6 +19,11 @@ views of one flat buffer per update group (`train/optim.py`);
 `torch.save` keeps that sharing, and `restore_checkpoint` copies into the
 caller's tensors in place, so the restored state is the same flat buffers.
 
+Cached training (`drivers/train.py::run_cached_training`) writes no such
+checkpoint: its MLPs and their sums go to `<dir>/dense_params.npz` (the
+JAX package's file) beside `best.json`, and `restore_npz_mlps` reads the
+MLPs into a serving model.
+
 The EV tables are the JAX package's binary files (`ev-table-<t>.bin`,
 `cache/storage.py::write_ev_tables_binary`), byte for byte: either package
 reads the other's.
@@ -36,6 +41,7 @@ import torch
 from evstore_tpu_torch.cache.storage import (_decode_rows, row_nbytes,
                                              table_path,
                                              write_ev_tables_binary)
+from evstore_tpu_torch.convert import mlps_from_jax
 from evstore_tpu_torch.models.dlrm import DLRM
 from evstore_tpu_torch.ops import quant as qlib
 from evstore_tpu_torch.train.optim import OptState
@@ -113,6 +119,54 @@ def restore_mlps(ckpt_dir: str, step: int, model: DLRM) -> DLRM:
                        mmap=True, weights_only=True)
     _copy_into(_mlps(model.state_dict()), _mlps(state["model"]), "MLPs")
     return model
+
+
+DENSE_NPZ = "dense_params.npz"
+
+
+def npz_key(prefix: str, part: str, layer: int, leaf: str) -> str:
+    """A dense leaf's key in cached training's `dense_params.npz`: "p"
+    (weights) or "s" (sums) + `jax.tree_util.keystr` of its path in the
+    JAX dense pytree."""
+    return f"{prefix}['{part}']['layer_{layer}']['{leaf}']"
+
+
+def npz_dense_tree(z, cfg, prefix: str) -> dict:
+    """The "p" (weights) or "s" (sums) leaves of a `dense_params.npz` as
+    the JAX dense pytree ({"bot"|"top": {"layer_i": {"w": [in, out],
+    "b"}}}) of `cfg`'s MLPs.  ValueError where the file holds other layers
+    than the config's."""
+    want = {npz_key(prefix, part, i, leaf)
+            for part, dims in (("bot", cfg.mlp_bot), ("top", cfg.mlp_top))
+            for i in range(len(dims) - 1) for leaf in ("w", "b")}
+    have = {k for k in z.files if k.startswith(prefix + "[")}
+    if have != want:
+        raise ValueError(f"the dense npz holds {sorted(have)}; the config's "
+                         f"MLPs need {sorted(want)}")
+    return {part: {f"layer_{i}": {leaf: z[npz_key(prefix, part, i, leaf)]
+                                  for leaf in ("w", "b")}
+                   for i in range(len(dims) - 1)}
+            for part, dims in (("bot", cfg.mlp_bot), ("top", cfg.mlp_top))}
+
+
+@torch.no_grad()
+def restore_npz_mlps(ckpt_dir: str, model: DLRM) -> int:
+    """Copy the MLPs of cached training's `dense_params.npz` (weights
+    [in, out], the JAX package's layout) into `model` in place, bit for
+    bit: the serving model of a store that holds the rows.  Only the "p"
+    weights are read; no dense sums are built and no table is read.
+    ValueError where the file's MLPs are not the model's.  -> the step
+    `best.json` names (-1 where it is absent)."""
+    with np.load(os.path.join(ckpt_dir, DENSE_NPZ)) as z:
+        tree = npz_dense_tree(z, model.cfg, "p")
+    dev = next(model.parameters()).device
+    _copy_into(_mlps(model.state_dict()),
+               mlps_from_jax(tree, model.cfg, dev), "MLPs")
+    path = os.path.join(ckpt_dir, "best.json")
+    if not os.path.exists(path):
+        return -1
+    with open(path) as f:
+        return int(json.load(f)["step"])
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

@@ -22,10 +22,26 @@ on the CPU.
   keeps n_model² times the row sums, ROADMAP queue 3).  `mesh=` other than a `parallel.mesh.Mesh` raises
   TypeError; the rest of cached training over a mesh is held in
   tests/test_torch_sharded_trainable_cache.py.
+- The handoff from cached training to serving: both CLIs train over .bin
+  masters of the same initial tables with `--save-model` and an eval
+  every 8 steps, then serve the trained files with `--load-model` on the
+  device cache.  The trained files and dense npz agree within 1e-5·(1 +
+  |ref|); the JAX CLI serves the seed's MLPs (it looks for `step_*`
+  alone), the port the trained ones, each held to the plain eval of those
+  MLPs on the trained rows by chip_smoke.py 3f's rule (atol 1e-6, the AUC
+  within one tied pair).  With no eval the port's driver writes the dense
+  npz at the run's end, its MLPs and sums the trained ones bit for bit
+  (masters in files and in memory); `restore_npz_mlps` refuses other MLP
+  shapes; `--load-model` raises ValueError where the directory holds no
+  checkpoint, where it holds the npz alone on a route that reads the
+  model's tables, and on the cached training route.
 """
 
+import ast
+import dataclasses
 import os
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -42,9 +58,11 @@ from evstore_tpu.models.dlrm import init_dlrm
 from evstore_tpu_torch import cli
 from evstore_tpu_torch import config as pcfg
 from evstore_tpu_torch.cache.trainable import init_dense_state
-from evstore_tpu_torch.convert import params_from_jax
+from evstore_tpu_torch.convert import mlps_from_jax, params_from_jax
 from evstore_tpu_torch.drivers import train as ptrain
 from evstore_tpu_torch.models import dlrm as pdlrm
+from evstore_tpu_torch.train.metrics import binary_metrics
+from evstore_tpu_torch.utils import checkpoint as pck
 
 RealDLRM = pdlrm.DLRM
 
@@ -349,3 +367,236 @@ def test_cli_cached_training_refuses_bags(capsys):
     assert cli.main(argv + ["--device", "cpu"]) == 2
     got = capsys.readouterr().err
     assert got == ref and "bag size 1" in got
+
+
+# ------------------------------------------- the handoff to serving
+
+needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="no g++")
+
+HANDOFF_ARCH = ("--arch-sparse-feature-size 8 --arch-embedding-size "
+                "1200-900-600-3000 --arch-mlp-bot 4-16-8 --arch-mlp-top 16-1 "
+                "--compute-dtype float32 --mini-batch-size 32 "
+                "--data-generation synthetic --learning-rate 0.1 "
+                "--nbatches-test 10")
+HANDOFF_TRAIN = (" --num-batches 24 --print-freq 4 --use-evstore True "
+                 "--optimizer rwsadagrad --emb-cache-size 300")
+HANDOFF_SERVE = (" --inference-only --use-evstore True --use-device-cache True"
+                 " --emb-cache-size 300")
+
+
+def _handoff_cfg():
+    args = cli.build_parser().parse_args(HANDOFF_ARCH.split())
+    cfg = cli.configs_from_args(args)[0]
+    return cfg, args.numpy_rand_seed, cli._make_data(args, cfg)
+
+
+def _jax_mlps(cfg, seed=0):
+    """`init_dlrm(PRNGKey(seed))`'s MLPs and tables for a port config."""
+    params = jax.tree_util.tree_map(
+        np.asarray, init_dlrm(jax.random.PRNGKey(seed), _jax_cfg(cfg)))
+    return params, mlps_from_jax(params.dense, cfg, torch.device("cpu"))
+
+
+def _mlps_of_jax_init(cfg, *, device=None, seed=0, tables=True):
+    """The port's DLRM with `init_dlrm(PRNGKey(seed))`'s MLPs and, where
+    `tables` is True, its tables."""
+    params, mlps = _jax_mlps(cfg, seed)
+    model = RealDLRM(cfg, device=device, seed=seed, tables=(
+        [params.sparse[f"table_{t}"]["kind_plain"]
+         for t in range(cfg.num_tables)] if tables is True else tables))
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k in mlps:
+                v.copy_(mlps[k])
+    return model
+
+
+def _served_metrics(text):
+    m = re.search(r"inference done: metrics=(\{.*?\}) perfect_hits", text)
+    return ast.literal_eval(m.group(1).replace("nan", "None"))
+
+
+def _plain_eval(cfg, mlps, ev_dir, batches):
+    """The metrics of `mlps` (MLP state-dict entries) on the rows of
+    `ev_dir`'s .bin files: the plain forward, no cache, no kernel."""
+    model = RealDLRM(dataclasses.replace(cfg, use_gather_kernel=False,
+                                         use_interaction_kernel=False),
+                     device="cpu", tables=False)
+    model.load_state_dict(mlps)
+    tabs = [np.fromfile(os.path.join(ev_dir, f"ev-table-{t + 1}.bin"),
+                        np.float32).reshape(n, cfg.embedding_dim)
+            for t, n in enumerate(cfg.table_sizes)]
+    scores, labels = [], []
+    with torch.no_grad():
+        for dense, idx, y in batches:
+            rows = np.stack([tabs[t][idx[:, t]]
+                             for t in range(cfg.num_tables)], axis=1)
+            scores.append(torch.sigmoid(model(
+                torch.from_numpy(dense), None,
+                emb_rows=torch.from_numpy(rows))).numpy())
+            labels.append(y)
+    return binary_metrics(np.concatenate(scores), np.concatenate(labels)), \
+        np.concatenate(labels)
+
+
+def _same_metrics(got, ref, labels):
+    """chip_smoke.py 3f's rule: atol 1e-6, the AUC within one tied pair."""
+    n_pos = int(labels.sum())
+    tie = 1.0 / max(n_pos * (len(labels) - n_pos), 1)
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        assert abs(got[k] - v) <= (tie + 1e-12 if k == "auc" else 1e-6), \
+            (k, got[k], v)
+
+
+@needs_gxx
+def test_trained_masters_and_mlps_handed_to_serving(capsys, monkeypatch,
+                                                    tmp_path):
+    """Both CLIs train through the cache over .bin masters of the same
+    initial tables, from the same MLPs and synthetic batches, with an eval
+    every 8 steps and `--save-model`; then both serve the trained files
+    with `--load-model` on the device cache.  The trained files and MLPs
+    agree within 1e-5·(1 + |ref|).  The JAX CLI serves the seed's MLPs on
+    the trained rows (its `--load-model` looks for `step_*` alone: the
+    fault the port repairs); the port serves the trained MLPs, read from
+    `dense_params.npz` bit for bit."""
+    cfg, seed, (_, make_test) = _handoff_cfg()
+    params, seed_mlps = _jax_mlps(cfg, seed)
+    monkeypatch.setattr(ptrain, "DLRM", _mlps_of_jax_init)
+    tables = [params.sparse[f"table_{t}"]["kind_plain"]
+              for t in range(cfg.num_tables)]
+    argv = (HANDOFF_ARCH + HANDOFF_TRAIN + " --test-freq 8").split()
+    for side, fn, more in (("j", jcli.main, []),
+                           ("p", cli.main, ["--device", "cpu"])):
+        write_ev_tables_binary(tables, str(tmp_path / side / "ev"), 32)
+        assert fn(argv + ["--ev-table-path", str(tmp_path / side / "ev"),
+                          "--save-model", str(tmp_path / side / "ck")]
+                  + more) == 0
+        assert "training done: steps=24" in capsys.readouterr().out
+    for t in range(cfg.num_tables):
+        for name in (f"ev-table-{t + 1}.bin", f"mom-{t + 1}.bin"):
+            got = np.fromfile(tmp_path / "p" / "ev" / name, np.float32)
+            ref = np.fromfile(tmp_path / "j" / "ev" / name, np.float32)
+            if name.startswith("mom"):
+                np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+            else:
+                bound(got, ref, what=name)
+        assert not np.array_equal(
+            np.fromfile(tmp_path / "p" / "ev" / f"ev-table-{t + 1}.bin",
+                        np.float32), tables[t].ravel())
+    zp = np.load(tmp_path / "p" / "ck" / "dense_params.npz")
+    zj = np.load(tmp_path / "j" / "ck" / "dense_params.npz")
+    assert sorted(zp.files) == sorted(zj.files)
+    for k in zj.files:
+        bound(zp[k], zj[k], what=k)
+    trained = RealDLRM(cfg, device="cpu", tables=False)
+    pck.restore_npz_mlps(str(tmp_path / "p" / "ck"), trained)
+    trained = trained.state_dict()
+    assert not torch.equal(trained["top.0.weight"], seed_mlps["top.0.weight"])
+
+    served = {}
+    for side, fn, more in (("j", jcli.main, []),
+                           ("p", cli.main, ["--device", "cpu"])):
+        assert fn((HANDOFF_ARCH + HANDOFF_SERVE).split() + [
+            "--ev-table-path", str(tmp_path / side / "ev"),
+            "--load-model", str(tmp_path / side / "ck")] + more) == 0
+        served[side] = capsys.readouterr().out
+    assert "restored the MLPs of cached training's step" in served["p"]
+    seed_m, labels = _plain_eval(cfg, seed_mlps, tmp_path / "j" / "ev",
+                                 make_test())
+    trained_m, _ = _plain_eval(cfg, trained, tmp_path / "p" / "ev",
+                               make_test())
+    _same_metrics(_served_metrics(served["j"]), seed_m, labels)
+    _same_metrics(_served_metrics(served["p"]), trained_m, labels)
+    assert max(abs(seed_m[k] - trained_m[k]) for k in seed_m) > 1e-3
+
+
+@needs_gxx
+@pytest.mark.parametrize("masters", ["files", "memory"])
+def test_no_eval_saves_the_mlps_at_the_end(tmp_path, masters):
+    """With `save_dir` and no eval, the run's end writes `dense_params.npz`
+    and `best.json` (the last step, no metrics), whose MLPs are the
+    trained model's bit for bit; beside them the cache's table files where
+    the masters are in memory, the flushed .bin files where they are
+    mapped."""
+    _, cp, _, tp, params, make_train, _ = _setup(n_train=12)
+    tables = [params.sparse[f"table_{t}"]["kind_plain"] for t in range(3)]
+    model, _ = _port_model(cp, params)
+    kw = dict(tables=tables)
+    if masters == "files":
+        write_ev_tables_binary(tables, str(tmp_path / "ev"), 32)
+        kw = dict(ev_table_dir=str(tmp_path / "ev"),
+                  table_sizes=list(cp.table_sizes))
+    res = ptrain.run_cached_training(
+        cp, tp, pcfg.CacheConfig(policy="evlfu", total_size=16), make_train,
+        save_dir=str(tmp_path / "ck"), model=model, device="cpu",
+        log_fn=lambda *a: None, **kw)
+    assert res.steps == 12
+    with open(tmp_path / "ck" / "best.json") as f:
+        assert __import__("json").load(f) == {"step": 12, "metrics": None}
+    bare = RealDLRM(cp, device="cpu", seed=5, tables=False)
+    assert pck.restore_npz_mlps(str(tmp_path / "ck"), bare) == 12
+    want = res.model.state_dict()
+    for k, v in bare.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    assert not torch.equal(bare.top[0].weight,
+                           _port_model(cp, params)[0].top[0].weight)
+    saved = sorted(os.listdir(tmp_path / "ck"))
+    if masters == "files":
+        assert saved == ["best.json", "dense_params.npz"]
+        assert not np.array_equal(np.fromfile(
+            tmp_path / "ev" / "ev-table-1.bin", np.float32),
+            tables[0].ravel())
+    else:
+        assert {"table_0.npy", "mom_2.npy"} <= set(saved)
+    # the sums restore too, through the driver's reader
+    dstate = init_dense_state(bare)
+    ptrain.restore_dense_npz(bare, dstate, str(tmp_path / "ck"))
+    for k, v in res.opt_state.dense.items():
+        assert torch.equal(dstate[k], v), k
+
+
+@pytest.mark.parametrize("mlp_top", [(10, 6, 1), (10, 8, 4, 1)])
+def test_restore_npz_mlps_of_other_layers_raises(tmp_path, mlp_top):
+    """An npz whose MLPs have another width or another layer count than
+    the model's raises ValueError."""
+    _, cp, _, tp, params, make_train, _ = _setup(n_train=2)
+    model, tables = _port_model(cp, params)
+    ptrain.run_cached_training(
+        cp, tp, pcfg.CacheConfig(total_size=16), make_train, tables=tables,
+        save_dir=str(tmp_path), model=model, device="cpu",
+        log_fn=lambda *a: None)
+    other = RealDLRM(dataclasses.replace(cp, mlp_top=mlp_top), device="cpu",
+                     tables=False)
+    with pytest.raises(ValueError, match="MLPs"):
+        pck.restore_npz_mlps(str(tmp_path), other)
+
+
+@pytest.mark.parametrize("route,holds", [
+    ("device_c1", "nothing"), ("c1_mmap", "nothing"), ("plain", "nothing"),
+    ("dummy_store", "nothing"), ("plain", "npz"), ("dummy_store", "npz"),
+    ("cached_training", "npz")])
+def test_load_model_without_a_usable_checkpoint_raises(tmp_path, route,
+                                                       holds):
+    """`--load-model` never serves the seed's weights: a directory with no
+    checkpoint raises ValueError on every serving route, one with cached
+    training's `dense_params.npz` alone on the routes that read the
+    model's tables; on the cached training route, which does not resume,
+    `--load-model` raises."""
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    if holds == "npz":
+        np.savez(ck / "dense_params.npz", x=np.zeros(1))
+    flags = {
+        "device_c1": HANDOFF_SERVE + f" --ev-table-path {tmp_path}",
+        "c1_mmap": (" --inference-only --use-evstore True --emb-stor mmap "
+                    f"--ev-table-path {tmp_path}"),
+        "plain": " --inference-only",
+        "dummy_store": " --inference-only --use-evstore True",
+        "cached_training": HANDOFF_TRAIN}[route]
+    match = {"nothing": "holds no checkpoint", "npz": "MLPs alone"}[holds]
+    if route == "cached_training":
+        match = "does not resume"
+    with pytest.raises(ValueError, match=match):
+        cli.main((HANDOFF_ARCH + flags + f" --load-model {ck} --device cpu"
+                  ).split())
