@@ -45,8 +45,7 @@ from evstore_tpu_torch.train.optim import (OptState, dense_parameters,
                                            flat_row_state, lr_schedule,
                                            make_optimizer, row_update,
                                            update_groups)
-
-span = torch.profiler.record_function
+from evstore_tpu_torch.utils.profiling import span
 
 
 def init_opt_state(model: DLRM, tcfg: TrainConfig) -> OptState:
@@ -78,10 +77,10 @@ def _tensor(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return a.to(device=dev, dtype=dtype)
 
 
-def _ids(idx, cfg: DLRMConfig, dev: torch.device) -> torch.Tensor:
-    """Ids [B, T] or bags [B, T, L] as an int32 tensor.  Ids still on the
-    host are checked there (`check_ids`: ValueError outside [0, N)); a
-    tensor is taken as it is."""
+def _checked_ids(idx, cfg: DLRMConfig):
+    """Ids [B, T] or bags [B, T, L] where they lie.  Ids still on the host
+    are checked there (`check_ids`: ValueError outside [0, N)); a tensor
+    is taken as it is."""
     if not isinstance(idx, torch.Tensor):
         idx = np.asarray(idx)
     if idx.ndim not in (2, 3):
@@ -89,7 +88,18 @@ def _ids(idx, cfg: DLRMConfig, dev: torch.device) -> torch.Tensor:
                          f"{tuple(idx.shape)}")
     if isinstance(idx, np.ndarray):
         check_ids(idx, cfg.table_sizes)
-    return _tensor(idx, dev, torch.int32)
+    return idx
+
+
+def _ids(idx, cfg: DLRMConfig, dev: torch.device) -> torch.Tensor:
+    """Ids [B, T] or bags [B, T, L], checked, as an int32 tensor."""
+    return _tensor(_checked_ids(idx, cfg), dev, torch.int32)
+
+
+def _copy(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`_tensor` in the train step's span for its host-to-device copies."""
+    with span("train_step.inputs.copy"):
+        return _tensor(a, dev, dtype)
 
 
 def _bag_weights(w, idx: torch.Tensor, dev: torch.device):
@@ -108,8 +118,11 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
 
     The inputs are numpy arrays or tensors.  The step updates the model's
     parameters and `opt_state` in place and returns the loss as a 0-d tensor
-    on the model's device (reading it waits for the device).  Its four
-    stages are `torch.profiler` spans named `train_step.<stage>`.  With the
+    on the model's device (reading it waits for the device).  While a
+    profiler runs, the step is the span `train_step`; inside it
+    `train_step.inputs` brings the batch to the device (its host id check
+    `train_step.inputs.check` and each copy `train_step.inputs.copy`), and
+    the four stages are `train_step.<stage>`.  With the
     kernels on, the gather is one launch per width and the row update one
     call per update group (for a one-hot batch over plain tables, one each
     for all tables), a launch of the row-update kernel under sgd and two
@@ -126,11 +139,20 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
 
     def train_step(model: DLRM, opt_state: OptState, dense_x, idx,
                    labels, bag_weights=None) -> torch.Tensor:
+        with span("train_step"):
+            return step(model, opt_state, dense_x, idx, labels, bag_weights)
+
+    def step(model, opt_state, dense_x, idx, labels, bag_weights):
         dev = _check(model, cfg)
-        dense_x = _tensor(dense_x, dev, torch.float32)
-        idx = _ids(idx, cfg, dev)
-        labels = _tensor(labels, dev, torch.float32)
-        bw = _bag_weights(bag_weights, idx, dev)
+        with span("train_step.inputs"):
+            dense_x = _copy(dense_x, dev, torch.float32)
+            with span("train_step.inputs.check"):
+                idx = _checked_ids(idx, cfg)
+            idx = _copy(idx, dev, torch.int32)
+            labels = _copy(labels, dev, torch.float32)
+            if bag_weights is not None:
+                bag_weights = _copy(bag_weights, dev, torch.float32)
+            bw = _bag_weights(bag_weights, idx, dev)
         sources = model.row_sources()
         groups = gather_groups(sources)
         updates = [u for u in update_groups(sources, name)

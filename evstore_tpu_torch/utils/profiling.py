@@ -11,10 +11,10 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Optional
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -33,28 +33,9 @@ def profile_trace(log_dir: str, enabled: bool = True):
 
 
 def span(name: str):
-    """A named span in the trace (record_function)."""
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Wall-clock step timing, fenced by the card (≙ time_wrap's cuda
-    sync, dlrm_s_pytorch.py:126-129)."""
-
-    def __init__(self):
-        self.times = []
-        self._t0: Optional[float] = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, *sync_tensors):
-        """Ends a step once the card has finished its queued work, when any
-        of `sync_tensors` lies on it."""
-        if any(t.is_cuda for t in sync_tensors):
-            torch.cuda.synchronize()
-        self.times.append(time.perf_counter() - self._t0)
-
-    def mean_ms(self) -> float:
-        return (1000.0 * sum(self.times) / len(self.times)
-                if self.times else 0.0)
+    """A named span in the trace (record_function) while a profiler runs;
+    otherwise a shared null context, so an untraced step pays no
+    `record_function` call."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
