@@ -61,14 +61,65 @@ def init_embedding_tables(table_sizes: Sequence[int], dim: int,
     return [_uniform(rng, (n, dim), np.sqrt(1.0 / n)) for n in table_sizes]
 
 
+# the ids a regrouped row of `_unsigned_in_range` holds, about: numpy's
+# reduction then runs along a long inner loop
+_RUN = 2048
+
+
+def _unsigned_in_range(idx: np.ndarray, sizes: np.ndarray) -> bool:
+    """True if idx [B, T, ...] is int32 or int64 and every id, viewed as
+    the unsigned type of its width, is below its table's size; False
+    otherwise (an id outside its table, or another dtype).
+
+    A negative id viewed unsigned is at least 2^31 (2^63), above every size
+    of that width, so one unsigned compare covers both ends of [0, N).  A
+    size is clamped at 0 and, for int32 ids, at 2^31 (a larger table holds
+    every int32 id).  A C-contiguous array is read as rows of about `_RUN`
+    ids (k of its rows each; the last B mod k rows apart), and its column
+    maxima, folded to the T·L ids of one of its rows, meet the sizes in
+    that compare: numpy's reduction runs along long rows, reads the ids
+    once and writes no temporary of their size.  Any other layout is
+    compared elementwise with the sizes broadcast."""
+    if idx.dtype == np.int32:
+        utype, lim = np.uint32, np.clip(sizes, 0, 2 ** 31)
+    elif idx.dtype == np.int64:
+        utype, lim = np.uint64, np.maximum(sizes, 0)
+    else:
+        return False
+    if idx.size == 0:
+        return True
+    u, lim = idx.view(utype), lim.astype(utype)
+    if not u.flags.c_contiguous:
+        shape = (1, -1) + (1,) * (idx.ndim - 2)
+        return bool(np.less(u, lim.reshape(shape)).all())
+    B = u.shape[0]
+    rows = u.reshape(B, -1)
+    r = rows.shape[1]
+    k = max(1, min(B, _RUN // r))
+    m = B // k
+    top = rows[:m * k].reshape(m, k * r).max(axis=0)
+    top = top.reshape(k, r).max(axis=0)
+    if m * k < B:
+        np.maximum(top, rows[m * k:].max(axis=0), out=top)
+    return bool(np.less(top, np.repeat(lim, r // lim.size)).all())
+
+
 def check_ids(idx: np.ndarray, table_sizes: Sequence[int]) -> None:
     """Raise ValueError unless every id of idx [B, T, ...] (host numpy)
-    lies in [0, table_sizes[t]) for its table t."""
+    lies in [0, table_sizes[t]) for its table t.
+
+    Signed 32- and 64-bit ids take one unsigned compare against the sizes
+    (`_unsigned_in_range`), at about the speed of reading them.  Where that
+    finds an id outside its table, and for every other dtype, the signed
+    test `(idx < 0) | (idx >= N)` over every id finds the first one in C
+    order, for the message."""
     idx = np.asarray(idx)
     sizes = np.asarray(table_sizes, np.int64)
     if idx.ndim < 2 or idx.shape[1] != sizes.size:
         raise ValueError(f"ids of shape {idx.shape} do not match "
                          f"{sizes.size} tables")
+    if _unsigned_in_range(idx, sizes):
+        return
     sizes = sizes.reshape(1, -1, *([1] * (idx.ndim - 2)))
     bad = (idx < 0) | (idx >= sizes)
     if bad.any():

@@ -79,8 +79,10 @@ def _tensor(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 def _checked_ids(idx, cfg: DLRMConfig):
     """Ids [B, T] or bags [B, T, L] where they lie.  Ids still on the host
-    are checked there (`check_ids`: ValueError outside [0, N)); a tensor
-    is taken as it is."""
+    are checked there (`check_ids`: ValueError outside [0, N), one
+    unsigned compare for int32 and int64 ids); a tensor is taken as it
+    is.  Nothing waits for the device, so the train step runs it before
+    its first copy."""
     if not isinstance(idx, torch.Tensor):
         idx = np.asarray(idx)
     if idx.ndim not in (2, 3):
@@ -122,7 +124,10 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     profiler runs, the step is the span `train_step`; inside it
     `train_step.inputs` brings the batch to the device (its host id check
     `train_step.inputs.check` and each copy `train_step.inputs.copy`), and
-    the four stages are `train_step.<stage>`.  With the
+    the four stages are `train_step.<stage>`.  The prologue checks the
+    host ids before its first copy: a copy from pageable memory waits for
+    the device's previous step, so the check runs while the device still
+    works, and a bad id raises before any copy or update.  With the
     kernels on, the gather is one launch per width and the row update one
     call per update group (for a one-hot batch over plain tables, one each
     for all tables), a launch of the row-update kernel under sgd and two
@@ -145,9 +150,9 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     def step(model, opt_state, dense_x, idx, labels, bag_weights):
         dev = _check(model, cfg)
         with span("train_step.inputs"):
-            dense_x = _copy(dense_x, dev, torch.float32)
             with span("train_step.inputs.check"):
                 idx = _checked_ids(idx, cfg)
+            dense_x = _copy(dense_x, dev, torch.float32)
             idx = _copy(idx, dev, torch.int32)
             labels = _copy(labels, dev, torch.float32)
             if bag_weights is not None:

@@ -81,6 +81,47 @@ def test_train_exports_the_step_spans_nested(tmp_path, L, copies):
             assert _inside(iv, spans[parent]), (child, iv)
 
 
+@pytest.mark.parametrize("L", [None, 2], ids=["one-hot", "bag-weights"])
+def test_the_id_check_ends_before_the_first_copy(tmp_path, L):
+    cfg, model = _model()
+    with profile_trace(str(tmp_path)):
+        train(model, cfg, TrainConfig(batch_size=8, learning_rate=0.1),
+              _batches(3, L=L), log_fn=lambda *_: None)
+    spans = _spans(tmp_path / "trace.json")
+    for step in spans["train_step"]:
+        (check,) = [iv for iv in spans["train_step.inputs.check"]
+                    if _inside(iv, [step])]
+        copies = [iv for iv in spans["train_step.inputs.copy"]
+                  if _inside(iv, [step])]
+        assert copies and check[1] <= min(a for a, _ in copies), step
+
+
+@pytest.mark.parametrize("bad", [-1, 35], ids=["negative", "size"])
+def test_a_bad_id_raises_before_any_copy_or_update(monkeypatch, bad):
+    from evstore_tpu_torch.train import train_loop
+    cfg, model = _model()
+    tcfg = TrainConfig(batch_size=8, learning_rate=0.1)
+    step = make_train_step(cfg, tcfg)
+    opt_state = init_opt_state(model, tcfg)
+    dense, idx, y = _batches(1)[0]
+    idx[5, 1] = bad
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    copies = []
+    real = train_loop._tensor
+
+    def tensor(*args):
+        copies.append(args)
+        return real(*args)
+    monkeypatch.setattr(train_loop, "_tensor", tensor)
+    with pytest.raises(ValueError, match=f"row id {bad} of table 1 is "
+                       r"outside \[0, 35\)"):
+        step(model, opt_state, dense, idx, y)
+    assert copies == []
+    assert opt_state.step == 0
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
 def test_run_training_steps_through_the_same_spans(tmp_path):
     from evstore_tpu_torch.drivers.train import run_training
     cfg, _ = _model()
