@@ -2,7 +2,7 @@
 """On-card check of evstore_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N] [--only 3j | --only 3k | --only 3l |
-                           --only altkeys [--query-rows a:b]]
+                           --only 3m | --only altkeys [--query-rows a:b]]
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
@@ -320,10 +320,19 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    K1, K2, K4 and K5 must launch in (a), K1 and K2 in (b) and (d), K1 and
    K3 in (c) (`handoff_mlperf`); every cache, engine and memory file is
    closed at the phase's end;
+3m. MLPerf's DLRM-DCNv2 (`config.py::mlperf_dcnv2_config`): K8 against
+   its plain version at the cell's shape and at the shapes that break its
+   design, timed; the bags' pooling; the cross network with K8 against the
+   plain one; K2 over the cell's 214-column descriptor and K5's grouped
+   row-wise update with `columns=` against their plain versions on the
+   same ids [16,384, 214] and rows; six `make_train_step` steps of the
+   cell's model on host batches, with the launches of K2, K5 and K8 a
+   step counted from zero (`train_dcnv2`);
 4. the kernels' launch counts by path (serve, serve_int8, altkeys,
    serve_host, gram_ab, train, train_factored, cli, train_cached,
    train_sharded, train_butterfly, serve_sharded, train_cached_sharded,
-   export, tools, train_mlperf, serve_mlperf, handoff_mlperf) and one
+   export, tools, train_mlperf, serve_mlperf, handoff_mlperf,
+   train_dcnv2) and one
    JSON line describing every kernel (K1-K6 and K7, which replaces no TPU
    kernel), each of which must have launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
@@ -336,7 +345,13 @@ removed.
 
 `--only 3j` runs phases 0-2 and 3j alone, a quicker check of the MLPerf
 shape, and prints neither the kernels line nor the result line; `--only
-3k` and `--only 3l` do the same for 3k and 3l.
+3k` and `--only 3l` do the same for 3k and 3l.  `--only 3m` runs phases
+0-1 and 3m alone: K8, the cross layer's elementwise kernel of MLPerf's
+DLRM-DCNv2, against its plain version and timed, the bags' pooling, the
+cross network with K8 against the plain one, K2 and K5 at the cell's
+shape against their plain versions, and six `make_train_step` steps of
+the cell's model with their launches (the cell itself is `python3 -m
+evbench --workload mlperf-dcnv2.train.rwsadagrad-b16384`).
 `--only altkeys [--query-rows A:B]` runs phases 0-2 and then the C3
 tier's full kNN: query rows A:B (all by default) of the seeded Kaggle
 tables against all their 33,762,577 rows through K7 (the whole range
@@ -372,7 +387,7 @@ PHASE_BUDGET_S = {"0 environment": 30, "1 build": 180,
                   "3i sharded cache and tools": 420,
                   "3j mlperf shape": 420, "3k mlperf serving": 240,
                   "3l mlperf train to serve": 240,
-                  "4 kernels line": 30,
+                  "3m dlrm-dcnv2": 420, "4 kernels line": 30,
                   "altkeys full kNN": 3000}
 
 
@@ -757,7 +772,7 @@ def by_kernel(on_card, n: int, kernels=TRAIN_KERNELS) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["3j", "3k", "3l", "altkeys"],
+    ap.add_argument("--only", choices=["3j", "3k", "3l", "3m", "altkeys"],
                     default=None,
                     help="run phases 0-2 and this phase alone (a quick "
                          "check; no kernels line and no result line); "
@@ -878,6 +893,334 @@ def main() -> int:
                     if "Compiling entry" in line or "registers" in line \
                             or "spill" in line:
                         print("  ptxas:", line.strip())
+
+    # ---------------------------------------------- 3m DLRM-DCNv2 and K8
+    def phase_3m():
+        """K8 (`ops/cuda_cross.py`) against its plain version at the
+        DLRM-DCNv2 cell's shape (B = 16,384, N = 27 x 128) and at the
+        cases that break its design (B = 1, 3, 257; N = 3,455, which takes
+        the scalar path; inputs one float off a 16-byte boundary), each
+        launched twice and bit for bit; timed beside its bound and the
+        plain version; the bags' pooling (`torch.segment_reduce`) against
+        `index_add`; the cross network's Function with K8 against the
+        plain one, forward and backward.  Then the benchmark cell's model
+        (one chip's share of the recipe's tables, 54,184,588 rows drawn on
+        the card) and ids [16,384, 214], each column skewed over its
+        table: K2 over the 214-entry descriptor bit for bit the plain
+        gather's; K5's grouped row-wise update with `columns=` against the
+        plain dedup path table by table from the same rows and state
+        (rows' change and state within 1e-4 of their own size, two K5
+        launches a call); both timed beside the plain versions.  Last, the
+        counts zeroed and six `make_train_step` steps of
+        `mlperf_dcnv2_config` on host batches of the cell's shape: one K2
+        launch, two K5 and three K8 forwards and backwards a step, no K1
+        or K4, B x 214 gathered rows a step.  Returns those steps'
+        launches (`train_dcnv2`)."""
+        from evstore_tpu_torch.models.embedding import pool_columns
+        from evstore_tpu_torch.ops.cuda_cross import (
+            LowRankCross, cross_layer_bwd, cross_layer_bwd_ref,
+            cross_layer_fwd, cross_layer_fwd_ref)
+        from evstore_tpu_torch.ops.cuda_update import rwsadagrad_row_update
+        from evstore_tpu_torch.config import (MLPERF_MULTI_HOT_SIZES,
+                                              mlperf_dcnv2_config)
+        from evstore_tpu_torch.train.optim import row_state_views, row_update
+        with Phase("3m dlrm-dcnv2"):
+            cross_layer_fwd.launches = cross_layer_bwd.launches = 0
+            g3 = torch.Generator(device=dev).manual_seed(args.seed + 3)
+
+            def arrays(B, N, off=0):
+                x = torch.randn(5 * B * N + N + off, generator=g3,
+                                device=dev)[off:]
+                return [x[k * B * N:(k + 1) * B * N].view(B, N)
+                        for k in range(5)] + [x[5 * B * N:5 * B * N + N]]
+
+            def case(B, N, off=0):
+                x0, u, xl, g, acc, b = arrays(B, N, off)
+                y = cross_layer_fwd(x0, u, b, xl)
+                y2 = cross_layer_fwd(x0, u, b, xl)
+                ref = cross_layer_fwd_ref(x0.double(), u.double(),
+                                          b.double(), xl.double())
+                ok_f, d_f = within(y.double(), ref, 1e-6)
+                res = []
+                for accumulate, residual in ((False, False), (True, True)):
+                    a1 = acc.clone() if accumulate else None
+                    a2 = acc.clone() if accumulate else None
+                    gu, gb, gx = cross_layer_bwd(g, x0, u, b, a1, residual)
+                    gu2, gb2, gx2 = cross_layer_bwd(g, x0, u, b, a2,
+                                                    residual)
+                    rgu, rgb, rgx = cross_layer_bwd_ref(
+                        g.double(), x0.double(), u.double(), b.double(),
+                        acc.double() if accumulate else None, residual)
+                    same = torch.equal(gu, gu2) and torch.equal(gb, gb2) \
+                        and torch.equal(gx, gx2)
+                    ok_u, _ = within(gu.double(), rgu, 1e-6)
+                    ok_x, d_x = within(gx.double(), rgx, 1e-6)
+                    # a column sum of B float32 values: its error scales
+                    # with the sum of their magnitudes
+                    d_b = float(((gb.double() - rgb).abs()
+                                 / (g * x0).abs().sum(0).double()
+                                 .clamp_min(1e-30)).max())
+                    res.append((same, ok_u and ok_x and d_b <= 1e-6,
+                                d_x, d_b))
+                same_f = torch.equal(y, y2)
+                good = ok_f and same_f and all(s and o for s, o, _, _ in res)
+                print(f"  K8 B={B} N={N} off={off}: forward max|d| {d_f:.3g}"
+                      f", twice equal {same_f}; backward (write, "
+                      f"accumulate+residual): " + "; ".join(
+                          f"twice equal {s}, gx max|d| {dx:.3g}, gb rel "
+                          f"{db:.3g}" for s, _, dx, db in res), flush=True)
+                if not good:
+                    raise AssertionError(f"K8 at B={B} N={N} off={off}")
+
+            for B, N, off in ((16384, 3456, 0), (1, 3456, 0), (3, 3456, 0),
+                              (257, 3456, 0), (257, 3455, 0), (64, 3456, 1),
+                              (300000, 8, 0)):
+                case(B, N, off)
+
+            B, N = 16384, 3456
+            x0, u, xl, g, acc, b = arrays(B, N)
+            fwd_ms = time_ms(torch, lambda: cross_layer_fwd(x0, u, b, xl))
+            bwd_ms = time_ms(torch, lambda: cross_layer_bwd(g, x0, u, b,
+                                                            acc, False))
+            fwd_dev, fwd_host = device_host_us(
+                torch, lambda: cross_layer_fwd(x0, u, b, xl))
+            bwd_dev, bwd_host = device_host_us(
+                torch, lambda: cross_layer_bwd(g, x0, u, b, acc, False))
+            fwd_plain = time_ms(torch, lambda: cross_layer_fwd_ref(
+                x0, u, b, xl))
+            bwd_plain = time_ms(torch, lambda: cross_layer_bwd_ref(
+                g, x0, u, b, acc, False))
+            fb, _ = bound_ms(4 * (4 * B * N + N), 3 * B * N, "float32")
+            bb, _ = bound_ms(4 * (6 * B * N + 2 * N), 5 * B * N, "float32")
+            print(f"  K8 at [{B}, {N}] f32: forward {fwd_ms:.4f} ms, "
+                  f"device {fwd_dev:.2f} us ({100 * fb * 1e3 / fwd_dev:.0f}%"
+                  f" of the bound {fb:.4f} ms), host {fwd_host:.2f} us, "
+                  f"plain {fwd_plain:.4f} ms; backward (accumulating) "
+                  f"{bwd_ms:.4f} ms, device {bwd_dev:.2f} us "
+                  f"({100 * bb * 1e3 / bwd_dev:.0f}% of the bound "
+                  f"{bb:.4f} ms), host {bwd_host:.2f} us, plain "
+                  f"{bwd_plain:.4f} ms", flush=True)
+            del x0, u, xl, g, acc, b
+
+            # the bags' pooling at the cell's shape
+            L = MLPERF_MULTI_HOT_SIZES
+            rows = torch.randn(B, sum(L), 128, generator=g3, device=dev)
+            cols = torch.tensor([t for t, n in enumerate(L)
+                                 for _ in range(n)], device=dev)
+            got = pool_columns(rows, L)
+            ref = torch.zeros(B, len(L), 128, device=dev,
+                              dtype=torch.float64).index_add_(
+                1, cols, rows.double())
+            ok_p, d_p = within(got.double(), ref, 1e-5)
+            same_p = torch.equal(got, pool_columns(rows, L))
+            pool_ms = time_ms(torch, lambda: pool_columns(rows, L))
+            print(f"  pooling [{B}, {sum(L)}, 128] -> [{B}, {len(L)}, 128]:"
+                  f" max|d| {d_p:.3g} against float64, twice equal "
+                  f"{same_p}, {pool_ms:.4f} ms (bytes bound "
+                  f"{4 * B * (sum(L) + len(L)) * 128 / HBM_BYTES_PER_S * 1e3:.4f}"
+                  f" ms)", flush=True)
+            if not (ok_p and same_p):
+                raise AssertionError("the bags' pooling")
+            del rows, got, ref
+
+            # the whole network, K8 against the plain version
+            r = 512
+            x0 = torch.randn(B, N, generator=g3, device=dev) * 0.3
+            ps = []
+            for _ in range(3):
+                s = (2.0 / (N + r)) ** 0.5
+                ps += [torch.randn(r, N, generator=g3, device=dev) * s,
+                       torch.randn(N, r, generator=g3, device=dev) * s,
+                       torch.randn(N, generator=g3, device=dev) * 0.02]
+            gy = torch.randn(B, N, generator=g3, device=dev)
+            outs = []
+            for use_kernel in (True, False):
+                xs = x0.clone().requires_grad_(True)
+                pp = [p.clone().requires_grad_(True) for p in ps]
+                y = LowRankCross.apply(xs, torch.float32, use_kernel, *pp)
+                y.backward(gy)
+                outs.append([y.detach(), xs.grad] + [p.grad for p in pp])
+            gaps = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    for a, b in zip(*outs)]
+            print(f"  cross network [{B}, {N}] x 3 layers, rank {r}: K8 "
+                  f"against the plain version, relative norm gaps: output "
+                  f"{gaps[0]:.3g}, x0's gradient {gaps[1]:.3g}, V/W/b's "
+                  f"worst {max(gaps[2:]):.3g}", flush=True)
+            if max(gaps) > 1e-5:
+                raise AssertionError("the cross network with K8")
+            print(f"  launches of these checks: cross_layer_fwd "
+                  f"{cross_layer_fwd.launches}, cross_layer_bwd "
+                  f"{cross_layer_bwd.launches}", flush=True)
+            del x0, ps, gy, outs
+            torch.cuda.empty_cache()
+
+            # the cell's model: one chip's share of the recipe's tables
+            # (the five 40M-row tables quartered), drawn on the card
+            sizes = [n // 4 if n == 40_000_000 else n
+                     for n in mlperf_dlrm_config().table_sizes]
+            cfg_c = mlperf_dcnv2_config(table_sizes=sizes)
+            cols, C, D = cfg_c.bag_columns(), len(cfg_c.bag_columns()), 128
+
+            class Drawn:
+                def __len__(self):
+                    return len(sizes)
+
+                def __iter__(self):
+                    for n in sizes:
+                        yield torch.rand(n, D, generator=g3, device=dev) \
+                            .mul_(2).sub_(1).mul_((1.0 / n) ** 0.5)
+
+            t0 = time.perf_counter()
+            model = DLRM(cfg_c, device=dev, seed=args.seed, tables=Drawn())
+            tabs = list(model.tables)
+            lim = torch.tensor([sizes[t] for t in cols], device=dev)
+            offs = torch.tensor([0] + sizes[:-1], device=dev).cumsum(0)[
+                torch.tensor(cols, device=dev)]
+
+            def draw_ids():
+                """ids [B, 214]: each column skewed over its table's rows
+                (u^4), so hot rows repeat within and across bags."""
+                u = torch.rand(B, C, generator=g3, device=dev,
+                               dtype=torch.float64)
+                return torch.minimum((u ** 4 * lim).long(), lim - 1).to(
+                    torch.int32).contiguous()
+
+            idx = draw_ids()
+            U = torch.unique(idx.long() + offs).numel()
+            print(f"  model: {sum(sizes):,} rows x {D} "
+                  f"({4 * D * sum(sizes) / 1e9:.2f} GB) drawn in "
+                  f"{time.perf_counter() - t0:.2f} s; ids [{B}, {C}], "
+                  f"{U:,} distinct (table, row) keys", flush=True)
+
+            # K2 over the 214-entry descriptor (a table once a column)
+            desc = [tabs[t] for t in cols]
+            gather_rows_grouped.launches = 0
+            got = gather_rows_grouped(desc, idx)
+            same2 = torch.equal(got, gather_rows_grouped(desc, idx))
+            ok2 = torch.equal(got, gather_rows_grouped_ref(desc, idx))
+            del got
+            k2_ms = time_ms(torch, lambda: gather_rows_grouped(desc, idx))
+            k2_plain = time_ms(torch, lambda: gather_rows_grouped_ref(
+                desc, idx), reps=5, warmup=1)
+            k2b, _ = bound_ms(4 * B * C + 4 * D * (B * C + U), 0, "float32")
+            print(f"  K2 grouped [{B}, {C}] x {D} over the 214-column "
+                  f"descriptor: equal to the plain version {ok2}, twice "
+                  f"equal {same2}; {k2_ms:.4f} ms ({100 * k2b / k2_ms:.0f}%"
+                  f" of the bound {k2b:.4f} ms), plain {k2_plain:.4f} ms",
+                  flush=True)
+            if not (ok2 and same2):
+                raise AssertionError("K2 over the bags' descriptor")
+
+            # K5: the grouped row-wise update with `columns=` against the
+            # plain dedup path table by table, from the same rows and state
+            lr = 0.005
+            grads = torch.randn(B, C, D, generator=g3, device=dev)
+            sel = [[c for c, t in enumerate(cols) if t == j]
+                   for j in range(len(sizes))]
+            touched = [torch.unique(idx[:, s].reshape(-1).long())
+                       for s in sel]
+            rows0 = [tab[u].clone() for tab, u in zip(tabs, touched)]
+            flat = torch.zeros(sum(sizes), device=dev)
+            views = list(row_state_views(flat, sizes).values())
+
+            def plain_update():
+                for j, s in enumerate(sel):
+                    row_update("rwsadagrad", views[j], tabs[j],
+                               idx[:, s].reshape(-1),
+                               grads[:, s].reshape(-1, D), lr,
+                               use_kernel=False)
+
+            def kernel_update():
+                rwsadagrad_row_update(flat, tabs, idx, grads, lr,
+                                      columns=cols)
+
+            def run_from_start(update):
+                with torch.no_grad():
+                    for tab, u, r0 in zip(tabs, touched, rows0):
+                        tab[u] = r0
+                    flat.zero_()
+                    update()
+                    return ([tab[u] - r0 for tab, u, r0 in
+                             zip(tabs, touched, rows0)],
+                            [v[u] for v, u in zip(views, touched)])
+
+            dp, sp = run_from_start(plain_update)
+            scatter_sub_sorted.launches = 0
+            dk, sk = run_from_start(kernel_update)
+            k5_calls = scatter_sub_sorted.launches
+            ok_d, d_d = within_own(torch.cat(dk), torch.cat(dp), 1e-4)
+            ok_s, d_s = within_own(torch.cat(sk), torch.cat(sp), 1e-4)
+            del dp, sp, dk, sk
+            k5_ms = time_ms(torch, kernel_update, reps=5, warmup=1)
+            k5_plain = time_ms(torch, plain_update, reps=5, warmup=1)
+            print(f"  K5 rwsadagrad, K = {B * C:,} entries over 26 tables "
+                  f"(columns=), {sum(u.numel() for u in touched):,} rows: "
+                  f"against the plain dedup path, the rows' change max|d|/"
+                  f"(|ref| + mean |ref|) {d_d:.3e}, the row state "
+                  f"{d_s:.3e} (limit 1e-4); {k5_calls} K5 launches a call; "
+                  f"{k5_ms:.4f} ms a call with the sort, plain "
+                  f"{k5_plain:.4f} ms", flush=True)
+            if not (ok_d and ok_s and k5_calls == 2):
+                raise AssertionError("K5's grouped update over the bags")
+            del grads, rows0, flat, views, touched, desc, idx
+
+            # the main path: make_train_step at the cell's batch and bags,
+            # host batches as the cell feeds them, counts zeroed just before
+            tcfg = TrainConfig(batch_size=B, learning_rate=lr,
+                               optimizer="rwsadagrad")
+            st = init_opt_state(model, tcfg)
+            step = make_train_step(cfg_c, tcfg)
+            batches = [(torch.rand(B, 13, generator=g3, device=dev)
+                        .cpu().numpy(), draw_ids().cpu().numpy(),
+                        torch.randint(0, 2, (B,), generator=g3, device=dev)
+                        .float().cpu().numpy()) for _ in range(3)]
+            float(step(model, st, *batches[0]))
+            counted = {"gather_rows_grouped": gather_rows_grouped,
+                       "scatter_sub_sorted": scatter_sub_sorted,
+                       "cross_layer_fwd": cross_layer_fwd,
+                       "cross_layer_bwd": cross_layer_bwd,
+                       "interaction_fwd": dot_interaction_kernel,
+                       "interaction_bwd": dot_interaction_bwd_kernel}
+            for w in counted.values():
+                w.launches = 0
+            gather_rows_grouped.rows = 0
+            n_steps = 6
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step(model, st, *batches[k % 3])
+                      for k in range(n_steps)]
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+            losses = [float(x) for x in losses]
+            launches = {k: w.launches for k, w in counted.items()}
+            rows = gather_rows_grouped.rows
+            want = {"gather_rows_grouped": n_steps,
+                    "scatter_sub_sorted": 2 * n_steps,
+                    "cross_layer_fwd": 3 * n_steps,
+                    "cross_layer_bwd": 3 * n_steps,
+                    "interaction_fwd": 0, "interaction_bwd": 0}
+            print(f"  make_train_step, mlperf_dcnv2_config, B={B}, 214 ids "
+                  f"a sample, rwsadagrad lr {lr}: {n_steps} steps "
+                  f"{step_ms:.2f} ms a step ({B / step_ms * 1e3:,.0f} "
+                  f"samples/s, host batches), losses "
+                  f"{[round(x, 5) for x in losses]}; launches "
+                  f"{json.dumps(launches)}; gathered rows {rows:,} "
+                  f"({rows // n_steps:,} a step = {B} x {C}); peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+                  flush=True)
+            if launches != want or rows != n_steps * B * C or \
+                    not all(np.isfinite(losses)):
+                raise AssertionError(f"the DLRM-DCNv2 train step: launches "
+                                     f"{launches}, want {want}; rows {rows}")
+            del model, st, step, batches, tabs
+            torch.cuda.empty_cache()
+            return launches
+
+    if args.only == "3m":
+        phase_3m()
+        print(f"total: {time.perf_counter() - t_all:.2f} s (phases 0-1 "
+              f"and 3m)")
+        return 0
 
     # ----------------------------------------------- 2 kernels vs plain
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -6696,6 +7039,8 @@ def main() -> int:
     serve_mlperf_launches = phase_3k()
     handoff_launches = phase_3l()
 
+    dcnv2_launches = phase_3m()
+
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
         print(f"kernels: serve {json.dumps(serve_launches)}; serve_int8 "
@@ -6710,7 +7055,8 @@ def main() -> int:
                   f"{p} {json.dumps(c)}" for p, c in mesh_launches.items())
               + f"; train_mlperf {json.dumps(mlperf_launches)}; "
               f"serve_mlperf {json.dumps(serve_mlperf_launches)}; "
-              f"handoff_mlperf {json.dumps(handoff_launches)}")
+              f"handoff_mlperf {json.dumps(handoff_launches)}; "
+              f"train_dcnv2 {json.dumps(dcnv2_launches)}")
         sources = {
             "interaction_fwd": ("evstore_tpu_torch/csrc/interaction_fwd.cu",
                                 "evstore_tpu/ops/pallas_interaction.py:178"),
@@ -6741,7 +7087,8 @@ def main() -> int:
                  "train_cached": cached_launches, **mesh_launches,
                  "train_mlperf": mlperf_launches,
                  "serve_mlperf": serve_mlperf_launches,
-                 "handoff_mlperf": handoff_launches}
+                 "handoff_mlperf": handoff_launches,
+                 "train_dcnv2": dcnv2_launches}
         by_path = {name: {path: counts.get(name, 0)
                           for path, counts in paths.items()}
                    for name in sources}

@@ -63,6 +63,12 @@ SIGNATURES = {
     # desc, T, D, rows, vals, K, scratch, scratch_chunks, is_bf16, device,
     # stream
     "scatter_sub_sorted": (_P, _I, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
+    # x0, u, b, xl, y, B, N, row blocks, device, stream
+    "dcn_cross_fwd": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    # g, x0, u, b, gu, gx0, partial, gb, B, N, row blocks, accumulate,
+    # residual, device, stream
+    "dcn_cross_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                      _I, _P),
     # keys, N, D, -(1 - c2) / 2, c1 / 2, aux, device, stream
     "knn_prep": (_P, _I64, _I, _F, _F, _P, _I, _P),
     # queries, query ids, Q, keys, aux, N, D, L, exact, 1 - c2, list values,

@@ -188,9 +188,11 @@ class TrainableDeviceCache:
             raise ValueError("trainable cache rows are fp32, bf16 or int8 "
                              "(main_precision 32/16/8); the int4 codec is "
                              "inference-tier only")
-        if cfg.qr_flag or cfg.md_flag or cfg.weighted_pooling:
+        if cfg.qr_flag or cfg.md_flag or cfg.weighted_pooling or \
+                cfg.multi_hot_sizes:
             raise ValueError("cached training takes plain one-hot tables "
-                             "(no qr, md or weighted pooling)")
+                             "(no qr, md, weighted pooling or bags of a "
+                             "length per table)")
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)

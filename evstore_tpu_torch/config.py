@@ -16,6 +16,7 @@ optimizer through the grouped kernel path (`ops/cuda_update.py`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from typing import Optional, Sequence, Tuple
 
@@ -32,8 +33,16 @@ class DLRMConfig:
     table_sizes: Tuple[int, ...] = (4, 3, 2)
     mlp_bot: Tuple[int, ...] = (4, 3, 2)     # input dim first
     mlp_top: Tuple[int, ...] = (8, 4, 2, 1)  # output dim last
-    interaction_op: str = "dot"              # dot | cat
+    interaction_op: str = "dot"              # dot | cat | dcn
     interaction_itself: bool = False
+    # the low-rank cross network of DCN V2 (interaction_op "dcn"; torchrec's
+    # LowRankCrossNet): its layers and the rank of each layer's V and W
+    dcn_num_layers: int = 3
+    dcn_low_rank_dim: int = 512
+    # per-table bag lengths L_t: a batch's ids are [B, sum L_t], table t's
+    # bag in its L_t consecutive columns, in table order; () for one id a
+    # table ([B, T]) or bags padded to one L ([B, T, L])
+    multi_hot_sizes: Tuple[int, ...] = ()
     # md/qr compressed-table tricks (tricks/{md,qr}_embedding_bag.py)
     qr_flag: bool = False
     qr_operation: str = "mult"               # mult | add | concat
@@ -69,9 +78,14 @@ class DLRMConfig:
             ni = n + 1
             offset = 1 if self.interaction_itself else 0
             return d + (ni * (ni - 1)) // 2 + offset * ni
-        if self.interaction_op == "cat":
+        if self.interaction_op in ("cat", "dcn"):
             return d * (n + 1)
         raise ValueError(f"unsupported interaction op {self.interaction_op}")
+
+    def bag_columns(self) -> Tuple[int, ...]:
+        """The table of each column of a [B, sum L_t] batch under
+        `multi_hot_sizes`, () without them."""
+        return _bag_columns(tuple(self.multi_hot_sizes))
 
     def validate(self) -> None:
         if self.mlp_bot[-1] != self.embedding_dim and not self.md_flag:
@@ -83,6 +97,26 @@ class DLRMConfig:
             raise ValueError(
                 f"top MLP input dim {self.mlp_top[0]} != interaction output "
                 f"{self.top_mlp_input_dim()}")
+        if self.interaction_op == "dcn" and (self.dcn_num_layers < 1
+                                             or self.dcn_low_rank_dim < 1):
+            raise ValueError(f"the cross network needs at least one layer "
+                             f"of rank at least 1, got "
+                             f"{self.dcn_num_layers} layers of rank "
+                             f"{self.dcn_low_rank_dim}")
+        if self.multi_hot_sizes:
+            if len(self.multi_hot_sizes) != self.num_tables or \
+                    min(self.multi_hot_sizes) < 1:
+                raise ValueError(f"multi_hot_sizes {self.multi_hot_sizes} "
+                                 f"must give a bag length of at least 1 to "
+                                 f"each of the {self.num_tables} tables")
+            if self.qr_flag or self.md_flag or self.weighted_pooling:
+                raise ValueError("bags of a length per table take plain "
+                                 "tables without pooling weights")
+
+
+@functools.lru_cache(maxsize=None)
+def _bag_columns(sizes: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(t for t, n in enumerate(sizes) for _ in range(n))
 
 
 def make_dlrm_config(embedding_dim: int, table_sizes: Sequence[int],
@@ -139,6 +173,29 @@ def mlperf_dlrm_config(max_ind_range: int = 40_000_000, **kw) -> DLRMConfig:
     sizes = tuple(min(s, max_ind_range) for s in TERABYTE_TABLE_SIZES)
     return make_dlrm_config(128, sizes, (512, 256), (1024, 1024, 512, 256),
                             **kw)
+
+
+# the MLPerf DLRM-DCNv2 recipe's bag lengths (mlcommons/training,
+# recommendation_v2/torchrec_dlrm README: --multi_hot_sizes): 214 ids a sample
+MLPERF_MULTI_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1,
+                          1, 1, 12, 100, 27, 10, 3, 1, 1)
+
+
+def mlperf_dcnv2_config(max_ind_range: int = 40_000_000,
+                        table_sizes: Optional[Sequence[int]] = None,
+                        **kw) -> DLRMConfig:
+    """MLPerf Training's DLRM-DCNv2 (mlcommons/training,
+    recommendation_v2/torchrec_dlrm): emb dim 128, bot 13-512-256-128, three
+    low-rank cross layers of rank 512 over the 27 x 128 features, top
+    3456-1024-1024-512-256-1, the recipe's multi-hot bag lengths; tables
+    capped at max_ind_range, or the rows a chip holds (`table_sizes`)."""
+    sizes = (tuple(min(s, max_ind_range) for s in TERABYTE_TABLE_SIZES)
+             if table_sizes is None else table_sizes)
+    kw["multi_hot_sizes"] = _tuple(kw.get("multi_hot_sizes",
+                                          MLPERF_MULTI_HOT_SIZES))
+    return make_dlrm_config(128, sizes, (512, 256), (1024, 1024, 512, 256),
+                            interaction_op="dcn", dcn_num_layers=3,
+                            dcn_low_rank_dim=512, **kw)
 
 
 def tiny_dlrm_config(**kw) -> DLRMConfig:

@@ -2,7 +2,11 @@
 
 Port of `evstore_tpu/models/dlrm.py`: bottom MLP (a ReLU after every layer)
 -> embedding rows -> pairwise interaction -> top MLP (linear last layer) ->
-logits.  `forward` takes pre-looked-up rows (`emb_rows`), which is how the
+logits.  Beyond the JAX package, the interaction may be DCN V2's low-rank
+cross network (`interaction_op="dcn"`, MLPerf's DLRM-DCNv2): the dense
+vector and the T pooled rows concatenated into x0 [B, (T + 1) D], then
+`dcn_num_layers` cross layers (`LowRankCrossNet`, K8 in
+`ops/cuda_cross.py`).  `forward` takes pre-looked-up rows (`emb_rows`), which is how the
 device C1 cache and the train step splice into the model, as in the JAX
 package; it is differentiable with respect to `emb_rows` and the MLPs.
 The MLPs are `nn.Linear` layers, whose weight is [out, in]; the JAX package
@@ -23,10 +27,12 @@ from evstore_tpu_torch.models.embedding import (MDTable, QRTable, RowSource,
                                                 init_sparse_arch, row_sources,
                                                 sparse_arch_lookup,
                                                 table_kinds)
+from evstore_tpu_torch.ops.cuda_cross import LowRankCross
 from evstore_tpu_torch.ops.cuda_interaction import DotInteraction
 from evstore_tpu_torch.ops.interaction import cat_interaction, dot_interaction
 from evstore_tpu_torch.parallel.mesh import shard_rows
 from evstore_tpu_torch.utils.device import resolve_device
+from evstore_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -51,6 +57,49 @@ def _mlp(dims, rng: np.random.Generator, dtype) -> nn.ModuleList:
             lin.bias.copy_(torch.from_numpy(b))
         layers.append(lin)
     return layers
+
+
+def _cross_draws(cfg: DLRMConfig, rng: np.random.Generator):
+    """The cross network's init as torchrec's `LowRankCrossNet` draws it:
+    V [r, N] and W [N, r] xavier-normal, N(0, sqrt(2 / (N + r))), b [N]
+    zero; as (V, W, b) a layer."""
+    N, r = cfg.top_mlp_input_dim(), cfg.dcn_low_rank_dim
+    std = np.sqrt(2.0 / (N + r))
+    return [(rng.normal(0.0, std, (r, N)), rng.normal(0.0, std, (N, r)),
+             np.zeros(N)) for _ in range(cfg.dcn_num_layers)]
+
+
+class LowRankCrossNet(nn.Module):
+    """DCN V2's low-rank cross network (torchrec's `LowRankCrossNet`):
+    x_{l+1} = x0 * (W_l (V_l x_l) + b_l) + x_l, V_l [r, N] with no bias,
+    W_l [N, r] with bias b_l [N].  The products follow `_apply_mlp`'s
+    compute-dtype rule; the elementwise part is K8 (`ops/cuda_cross.py`),
+    or its plain version with `use_kernel` off.  The forward is the span
+    `dlrm.cross` (every layer, products included)."""
+
+    def __init__(self, draws, dtype, compute_dtype, use_kernel: bool):
+        super().__init__()
+
+        def param(a):
+            return nn.Parameter(torch.as_tensor(a, dtype=dtype))
+
+        self.V = nn.ParameterList(param(V) for V, _, _ in draws)
+        self.W = nn.ParameterList(param(W) for _, W, _ in draws)
+        self.b = nn.ParameterList(param(b) for _, _, b in draws)
+        self.compute_dtype = compute_dtype
+        self.use_kernel = use_kernel
+
+    def layers(self):
+        """[(V, W, b)] a layer."""
+        return list(zip(self.V, self.W, self.b))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        """x0 [B, N] -> [B, N], float32."""
+        with span("dlrm.cross"):
+            params = [p for layer in self.layers() for p in layer]
+            return LowRankCross.apply(x0.float().contiguous(),
+                                      self.compute_dtype, self.use_kernel,
+                                      *params)
 
 
 def _flat_entry(entry: Dict) -> Dict[str, np.ndarray]:
@@ -84,6 +133,8 @@ def init_host_tables(cfg: DLRMConfig, seed: int = 0) -> List[np.ndarray]:
     rng = np.random.default_rng(seed)
     _mlp_draws(cfg.mlp_bot, rng)
     _mlp_draws(cfg.mlp_top, rng)
+    if cfg.interaction_op == "dcn":
+        _cross_draws(cfg, rng)
     return [e["kind_plain"] for e in init_sparse_arch(cfg, rng)]
 
 
@@ -119,7 +170,7 @@ class DLRM(nn.Module):
                  row_shard: Tuple[int, int] = (0, 1)):
         super().__init__()
         cfg.validate()
-        if cfg.interaction_op not in ("dot", "cat"):
+        if cfg.interaction_op not in ("dot", "cat", "dcn"):
             raise ValueError(f"unsupported interaction op "
                              f"{cfg.interaction_op}")
         self.cfg = cfg
@@ -129,6 +180,10 @@ class DLRM(nn.Module):
         rng = np.random.default_rng(seed)
         self.bot = _mlp(cfg.mlp_bot, rng, dtype)
         self.top = _mlp(cfg.mlp_top, rng, dtype)
+        self.cross = (LowRankCrossNet(_cross_draws(cfg, rng), dtype,
+                                      self.compute_dtype,
+                                      cfg.use_interaction_kernel)
+                      if cfg.interaction_op == "dcn" else None)
         self.tables = nn.ParameterList()
         self.qr = nn.ModuleDict()
         self.md = nn.ModuleDict()
@@ -223,6 +278,8 @@ class DLRM(nn.Module):
     def interact(self, x: torch.Tensor, ly: torch.Tensor) -> torch.Tensor:
         if self.cfg.interaction_op == "cat":
             return cat_interaction(x, ly)
+        if self.cfg.interaction_op == "dcn":
+            return self.cross(cat_interaction(x, ly))
         dot = (DotInteraction.apply if self.cfg.use_interaction_kernel
                else dot_interaction)
         return dot(x.contiguous(), ly.contiguous(),
@@ -236,8 +293,9 @@ class DLRM(nn.Module):
                 emb_rows: Optional[torch.Tensor] = None,
                 bag_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """dense_x [B, num_dense], idx [B, T] int or [B, T, L] bags with
-        optional bag_weights [B, T, L], or emb_rows [B, T, D] in place of
-        the lookup -> logits [B]."""
+        optional bag_weights [B, T, L] (under `multi_hot_sizes`, [B, sum
+        L_t] bags of a length per table, with weights of that shape), or
+        emb_rows [B, T, D] in place of the lookup -> logits [B]."""
         x = self.bottom_mlp(dense_x)
         if emb_rows is None:
             if not self.has_sparse():

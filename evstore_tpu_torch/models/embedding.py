@@ -10,7 +10,11 @@ q and r) and `kind_md` (`MDTable`, table and an optional proj); a plain
 table may carry per-row pooling weights `pool_w` [n, 1].
 
 A lookup reads ids [B, T] (one-hot) or [B, T, L] (multi-hot bags, padded
-with id 0 and weight 0, sum-pooled with optional bag weights [B, T, L]).
+with id 0 and weight 0, sum-pooled with optional bag weights [B, T, L]),
+or, under a config's `multi_hot_sizes` L_t, [B, sum L_t]: table t's bag
+in its L_t consecutive columns, in table order, with no padded slot
+(MLPerf's DLRM-DCNv2 bags: 214 ids a sample, where padding every table to
+the longest bag would read 2,600).
 Every row it reads comes from a table through the grouped row-gather
 kernel (`ops/cuda_gather.py`): the ids of the bags of every table become
 one [B·L, S] index over the S row sources (a plain table, q, r, an md
@@ -33,6 +37,7 @@ versions alike) and a row update leaves the table alone.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +45,7 @@ import torch
 from torch import nn
 
 from evstore_tpu_torch.ops.cuda_gather import gather_rows_grouped
+from evstore_tpu_torch.ops.table_desc import column_tables
 
 # the parts of a factorised (qr or md) table, which the JAX package
 # updates with its dense branch
@@ -67,19 +73,24 @@ _RUN = 2048
 
 
 def _unsigned_in_range(idx: np.ndarray, sizes: np.ndarray) -> bool:
-    """True if idx [B, T, ...] is int32 or int64 and every id, viewed as
-    the unsigned type of its width, is below its table's size; False
-    otherwise (an id outside its table, or another dtype).
+    """True if idx [B, C, ...] is int32 or int64 and every id, viewed as
+    the unsigned type of its width, is below the limit of its column;
+    False otherwise (an id outside its table, or another dtype).  `sizes`
+    holds one limit per column of idx's second axis: a table's size for
+    one id a table ([B, T]) or bags padded to one L ([B, T, L]), and for
+    bags of a length per table ([B, sum L_t]) the size of the table that
+    owns the column.
 
     A negative id viewed unsigned is at least 2^31 (2^63), above every size
     of that width, so one unsigned compare covers both ends of [0, N).  A
     size is clamped at 0 and, for int32 ids, at 2^31 (a larger table holds
     every int32 id).  A C-contiguous array is read as rows of about `_RUN`
     ids (k of its rows each; the last B mod k rows apart), and its column
-    maxima, folded to the T·L ids of one of its rows, meet the sizes in
-    that compare: numpy's reduction runs along long rows, reads the ids
-    once and writes no temporary of their size.  Any other layout is
-    compared elementwise with the sizes broadcast."""
+    maxima, folded to the r ids of one of its rows, meet the limits in
+    that compare, each column's limit repeated over the r / C ids that the
+    trailing axes give the column: numpy's reduction runs along long rows,
+    reads the ids once and writes no temporary of their size.  Any other
+    layout is compared elementwise with the limits broadcast."""
     if idx.dtype == np.int32:
         utype, lim = np.uint32, np.clip(sizes, 0, 2 ** 31)
     elif idx.dtype == np.int64:
@@ -101,31 +112,47 @@ def _unsigned_in_range(idx: np.ndarray, sizes: np.ndarray) -> bool:
     top = top.reshape(k, r).max(axis=0)
     if m * k < B:
         np.maximum(top, rows[m * k:].max(axis=0), out=top)
+    # the limit of each of a row's r ids: its column's, over the trailing
+    # axes
     return bool(np.less(top, np.repeat(lim, r // lim.size)).all())
 
 
-def check_ids(idx: np.ndarray, table_sizes: Sequence[int]) -> None:
-    """Raise ValueError unless every id of idx [B, T, ...] (host numpy)
-    lies in [0, table_sizes[t]) for its table t.
+def check_ids(idx: np.ndarray, table_sizes: Sequence[int],
+              bag_sizes: Sequence[int] = ()) -> None:
+    """Raise ValueError unless every id of idx (host numpy) lies in
+    [0, table_sizes[t]) for its table t: idx [B, T, ...], or with
+    `bag_sizes` (a length L_t per table) idx [B, sum L_t], whose columns
+    [sum_{s<t} L_s, sum_{s<=t} L_s) hold table t's bag.
 
-    Signed 32- and 64-bit ids take one unsigned compare against the sizes
-    (`_unsigned_in_range`), at about the speed of reading them.  Where that
-    finds an id outside its table, and for every other dtype, the signed
-    test `(idx < 0) | (idx >= N)` over every id finds the first one in C
-    order, for the message."""
+    Signed 32- and 64-bit ids take one unsigned compare against each
+    column's limit (`_unsigned_in_range`), at about the speed of reading
+    them.  Where that finds an id outside its table, and for every other
+    dtype, the signed test `(idx < 0) | (idx >= N)` over every id finds the
+    first one in C order, for the message, which names its table."""
     idx = np.asarray(idx)
     sizes = np.asarray(table_sizes, np.int64)
-    if idx.ndim < 2 or idx.shape[1] != sizes.size:
-        raise ValueError(f"ids of shape {idx.shape} do not match "
-                         f"{sizes.size} tables")
-    if _unsigned_in_range(idx, sizes):
+    if bag_sizes:
+        cols = np.repeat(np.arange(sizes.size), np.asarray(bag_sizes))
+        if idx.ndim != 2 or idx.shape[1] != cols.size or \
+                len(bag_sizes) != sizes.size:
+            raise ValueError(f"ids of shape {idx.shape} do not match "
+                             f"{sizes.size} tables' bags of "
+                             f"{tuple(bag_sizes)}, {cols.size} ids a sample")
+    else:
+        cols = np.arange(sizes.size)
+        if idx.ndim < 2 or idx.shape[1] != sizes.size:
+            raise ValueError(f"ids of shape {idx.shape} do not match "
+                             f"{sizes.size} tables")
+    limits = sizes[cols]
+    if _unsigned_in_range(idx, limits):
         return
-    sizes = sizes.reshape(1, -1, *([1] * (idx.ndim - 2)))
-    bad = (idx < 0) | (idx >= sizes)
+    limits = limits.reshape(1, -1, *([1] * (idx.ndim - 2)))
+    bad = (idx < 0) | (idx >= limits)
     if bad.any():
         pos = tuple(np.argwhere(bad)[0])
-        raise ValueError(f"row id {int(idx[pos])} of table {pos[1]} is "
-                         f"outside [0, {int(sizes.flat[pos[1]])})")
+        t = int(cols[pos[1]])
+        raise ValueError(f"row id {int(idx[pos])} of table {t} is "
+                         f"outside [0, {int(sizes[t])})")
 
 
 def pool_bags(rows: torch.Tensor, weights: Optional[torch.Tensor]
@@ -355,6 +382,18 @@ def gather_groups(sources: Sequence[RowSource]) -> List[List[int]]:
             for m in groups.values()]
 
 
+def bag_columns(cfg, idx) -> Tuple[int, ...]:
+    """The table of each column of idx under bags of a length per table
+    (`cfg.multi_hot_sizes` and a 2-D idx), () otherwise; ValueError for a
+    2-D idx of another width."""
+    cols = cfg.bag_columns() if idx.ndim == 2 else ()
+    if cols and idx.shape[1] != len(cols):
+        raise ValueError(f"ids of shape {tuple(idx.shape)} do not match the "
+                         f"bags of {tuple(cfg.multi_hot_sizes)}, "
+                         f"{len(cols)} ids a sample")
+    return cols
+
+
 def flat_ids(idx: torch.Tensor) -> torch.Tensor:
     """[B, T] ids as they are, or [B, T, L] bags as [B·L, T] (row b·L + l
     holds slot l of sample b), int32 and contiguous."""
@@ -364,10 +403,16 @@ def flat_ids(idx: torch.Tensor) -> torch.Tensor:
 
 
 def group_ids(sources: Sequence[RowSource], members: Sequence[int],
-              flat: torch.Tensor) -> torch.Tensor:
+              flat: torch.Tensor, columns: Sequence[int] = ()
+              ) -> torch.Tensor:
     """The int32 index [R, S] of one gather group.  Each run of members
     that read consecutive columns of `flat` alike (one div and mod) is one
-    slice of it, so a group of every table's plain rows is `flat` itself."""
+    slice of it, so a group of every table's plain rows is `flat` itself.
+    Under bags of a length per table (`columns`, the table of each of
+    flat's columns), the one group of every plain table takes `flat`
+    whole."""
+    if columns:
+        return flat
     runs: List[List[RowSource]] = []
     for s in (sources[i] for i in members):
         p = runs[-1][-1] if runs else None
@@ -392,13 +437,19 @@ def group_ids(sources: Sequence[RowSource], members: Sequence[int],
 def gather_rows_of(sources: Sequence[RowSource],
                    groups: Sequence[Sequence[int]],
                    ids_of: Sequence[torch.Tensor],
-                   use_kernel: bool) -> List[torch.Tensor]:
+                   use_kernel: bool,
+                   columns: Sequence[int] = ()) -> List[torch.Tensor]:
     """One tensor [R, S, width] per gather group, from its index
     (`group_ids`): one launch of the grouped row-gather kernel each, or
-    with `use_kernel` off an `index_select` per source."""
+    with `use_kernel` off an `index_select` per source.  Under bags of a
+    length per table (`columns`), column c of the index reads member
+    columns[c]: the tables' list repeats each table once a column, and
+    the [R, sum L_t] index gathers [R, sum L_t, width] rows, one a slot."""
     out = []
     for members, ids in zip(groups, ids_of):
         params = [sources[i].param for i in members]
+        if columns:
+            params = [params[t] for t in columns]
         if use_kernel:
             out.append(gather_rows_grouped(params, ids))
         else:
@@ -406,6 +457,46 @@ def gather_rows_of(sources: Sequence[RowSource],
                 torch.index_select(p, 0, ids[:, j].long())
                 for j, p in enumerate(params)], dim=1))
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def _bag_lengths(sizes: Tuple[int, ...], B: int, dev: torch.device
+                 ) -> torch.Tensor:
+    """The [B, T] bag lengths `torch.segment_reduce` takes, on `dev`."""
+    return torch.tensor(sizes, dtype=torch.int64,
+                        device=dev).expand(B, -1).contiguous()
+
+
+class _PoolColumns(torch.autograd.Function):
+    """rows [B, sum L_t, D] -> [B, T, D], each table's L_t consecutive
+    rows summed in order (`torch.segment_reduce`, no atomics); the
+    backward hands each slot its table's cotangent."""
+
+    @staticmethod
+    def forward(ctx, rows, sizes):
+        ctx.cols = column_tables(
+            tuple(t for t, n in enumerate(sizes) for _ in range(n)),
+            rows.device)
+        return torch.segment_reduce(
+            rows, "sum", lengths=_bag_lengths(sizes, rows.shape[0],
+                                              rows.device), axis=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.index_select(1, ctx.cols), None
+
+
+def pool_columns(rows: torch.Tensor, sizes: Sequence[int],
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum-pool bags of a length per table: rows [B, sum L_t, D], table
+    t's L_t slots consecutive in table order (+ optional weights
+    [B, sum L_t]) -> [B, T, D].  Bags of one id each are the rows as they
+    are."""
+    if weights is not None:
+        rows = rows * weights[..., None].to(rows.dtype)
+    if rows.shape[1] == len(sizes):
+        return rows
+    return _PoolColumns.apply(rows, tuple(int(n) for n in sizes))
 
 
 def combine_rows(cfg, sources: Sequence[RowSource],
@@ -416,8 +507,12 @@ def combine_rows(cfg, sources: Sequence[RowSource],
                  ) -> torch.Tensor:
     """The gathered rows -> [B, T, D] (`shape` is idx's): pool_w, the qr
     op and the md projection per table, then the bags' weighted sums, as
-    the JAX package's `sparse_arch_lookup` computes them.
+    the JAX package's `sparse_arch_lookup` computes them; under bags of a
+    length per table (an idx [B, sum L_t] and `cfg.multi_hot_sizes`), the
+    one group's [B, sum L_t, D] rows pooled table by table.
     Differentiable in `gathered` and the md projections."""
+    if len(shape) == 2 and cfg.multi_hot_sizes:
+        return pool_columns(gathered[0], cfg.multi_hot_sizes, bag_weights)
     T = cfg.num_tables
     col = {}
     for members, got in zip(groups, gathered):
@@ -453,19 +548,23 @@ def sparse_arch_lookup(tables: Sequence, idx: torch.Tensor, cfg,
                        bag_weights: Optional[torch.Tensor] = None,
                        pool_w: Optional[Dict[int, torch.Tensor]] = None
                        ) -> torch.Tensor:
-    """idx [B, T] (or [B, T, L] bags with optional bag_weights [B, T, L])
-    -> [B, T, D].  `tables` holds per table a tensor [n, D] (plain), a
-    `QRTable` or an `MDTable`; `pool_w` {t: [n, 1]} weighs plain tables'
-    rows.  With `use_gather_kernel` on, one launch of the grouped gather
-    kernel per width; off, an `index_select` per source."""
+    """idx [B, T] (or [B, T, L] bags with optional bag_weights [B, T, L],
+    or under `cfg.multi_hot_sizes` [B, sum L_t] bags of a length per table
+    with optional bag_weights of that shape) -> [B, T, D].  `tables` holds
+    per table a tensor [n, D] (plain), a `QRTable` or an `MDTable`;
+    `pool_w` {t: [n, 1]} weighs plain tables' rows.  With
+    `use_gather_kernel` on, one launch of the grouped gather kernel per
+    width; off, an `index_select` per source."""
     if idx.dim() not in (2, 3):
         raise ValueError(f"idx must be [B, T] or [B, T, L], got "
                          f"{tuple(idx.shape)}")
     sources = row_sources(cfg, tables, pool_w)
     groups = gather_groups(sources)
     flat = flat_ids(idx)
+    cols = bag_columns(cfg, idx)
     gathered = gather_rows_of(sources, groups,
-                              [group_ids(sources, m, flat) for m in groups],
-                              cfg.use_gather_kernel)
+                              [group_ids(sources, m, flat, cols)
+                               for m in groups],
+                              cfg.use_gather_kernel, cols)
     return combine_rows(cfg, sources, groups, gathered, tables,
                         tuple(idx.shape), bag_weights)

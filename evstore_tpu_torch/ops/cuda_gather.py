@@ -158,7 +158,9 @@ def gather_rows_grouped(tables: Sequence[torch.Tensor],
                         idx: torch.Tensor) -> torch.Tensor:
     """T tables [N_t, D] of one type (f32 or bf16, any width) and width,
     idx [B, T] int32 -> rows [B, T, D] with out[b, t] = tables[t][idx[b, t]],
-    bit-exact; an id outside [0, N_t) gives a zero row."""
+    bit-exact; an id outside [0, N_t) gives a zero row.  A table may appear
+    more than once (bags of a length per table: one entry a column).  On
+    the card it counts its launches and the rows it gathers (`rows`)."""
     if idx.device.type == "cpu" and all(t.device.type == "cpu"
                                         for t in tables):
         return gather_rows_grouped_ref(tables, idx)
@@ -183,10 +185,12 @@ def gather_rows_grouped(tables: Sequence[torch.Tensor],
         _build.stream(dev.index))
     _build.check(rc, "gather_rows_grouped")
     gather_rows_grouped.launches += 1
+    gather_rows_grouped.rows += idx.numel()
     return out
 
 
 gather_rows_grouped.launches = 0
+gather_rows_grouped.rows = 0
 
 
 def gather_rows_dequant_int8(primary: torch.Tensor, idx: torch.Tensor,

@@ -40,7 +40,7 @@ import torch
 
 from evstore_tpu_torch import _build
 from evstore_tpu_torch.ops.table_desc import (INT32_MAX, check_global_rows,
-                                              table_group)
+                                              column_tables, table_group)
 
 EPS = 1e-10
 CHUNK = 128     # sorted entries per block of the kernel (csrc/row_update.cu)
@@ -153,21 +153,29 @@ scatter_sub_sorted.launches = 0
 
 def _sorted_entries(name: str, state: Optional[torch.Tensor],
                     tables: Tables, ids: torch.Tensor, grads: torch.Tensor,
-                    state_shape):
+                    state_shape, columns: Sequence[int] = ()):
     """The shared start of the grouped updates: check the shapes, map each
     table's ids to global ids (an id outside [0, N_t) becomes PAD_ROW
     first, so that it cannot land in the next table's rows) and sort them
     once.  Either one table [N, D] with ids [K] and grads [K, D], or T
-    tables with ids [R, T] and grads [R, T, D]; `state_shape(n, D)` is the
-    flat state's shape (None: no state).  Returns (group, global ids
-    sorted int32 [K], the grads in that order, f32 [K, D])."""
+    tables with ids [R, T] and grads [R, T, D], or with `columns` (the
+    table of each column: bags of a length per table) ids [R, C] and
+    grads [R, C, D]; every column of one table maps to the same global
+    rows, so a row's entries from all its bags meet in one run.
+    `state_shape(n, D)` is the flat state's shape (None: no state).
+    Returns (group, global ids sorted int32 [K], the grads in that order,
+    f32 [K, D])."""
     group = _as_list(tables)
     g = table_group(name, group, global_ids=True)
     n, D = g.total_rows, g.dim
     if isinstance(tables, torch.Tensor):
         ids, grads = ids.reshape(-1, 1), grads.reshape(-1, 1, D)
+    columns = tuple(columns)
+    if columns and (max(columns) >= len(group) or min(columns) < 0):
+        raise ValueError(f"{name}: columns {columns} name tables outside "
+                         f"the {len(group)} given")
     want = None if state_shape is None else state_shape(n, D)
-    if ids.dim() != 2 or ids.shape[1] != len(group) or \
+    if ids.dim() != 2 or ids.shape[1] != len(columns or group) or \
             tuple(grads.shape) != (*ids.shape, D) or \
             (want is not None and tuple(state.shape) != want):
         raise ValueError(f"{name}: ids {tuple(ids.shape)}, grads "
@@ -177,9 +185,13 @@ def _sorted_entries(name: str, state: Optional[torch.Tensor],
                          + f" for {len(group)} tables of {n} rows in all, "
                          f"width {D}")
     bases = g.bases.to(ids.device)
+    lo, size = bases[:-1], bases[1:] - bases[:-1]
+    if columns:
+        cols = column_tables(columns, ids.device)
+        lo, size = lo[cols], size[cols]
     ids = ids.long()
-    ok = (ids >= 0) & (ids < bases[1:] - bases[:-1])
-    gid = torch.where(ok, ids + bases[:-1], INT32_MAX).reshape(-1)
+    ok = (ids >= 0) & (ids < size)
+    gid = torch.where(ok, ids + lo, INT32_MAX).reshape(-1)
     K = gid.shape[0]
     rows_sorted, order = torch.sort(gid.to(torch.int32), stable=True)
     return g, rows_sorted, grads.reshape(K, D).float()[order]
@@ -227,32 +239,35 @@ def segment_sums(rows_sorted: torch.Tensor, g_sorted: torch.Tensor,
 
 
 def sgd_row_update(tables: Tables, ids: torch.Tensor, grads: torch.Tensor,
-                   lr) -> Tables:
+                   lr, columns: Sequence[int] = ()) -> Tables:
     """SGD on the rows in `ids`, in place: table[row] -= lr * G_row, with
     G_row the sum of the row's entries, through one sort and one launch of
     the kernel (each entry pre-scaled by lr).  One table [N, D] with ids
     [K] and grads [K, D], or a list of T tables with ids [R, T] and grads
-    [R, T, D].  Ids may repeat and may lie outside their table (PAD_ROW):
-    those are inert.  Returns `tables`."""
+    [R, T, D], or with `columns` ids [R, C] and grads [R, C, D], column c
+    of table columns[c] (`_sorted_entries`).  Ids may repeat and may lie
+    outside their table (PAD_ROW): those are inert.  Returns `tables`."""
     _, rows_sorted, g_sorted = _sorted_entries("sgd_row_update", None,
-                                               tables, ids, grads, None)
+                                               tables, ids, grads, None,
+                                               columns)
     return scatter_sub_sorted(tables, rows_sorted, g_sorted * lr)
 
 
 def adagrad_row_update(state: torch.Tensor, tables: Tables,
                        ids: torch.Tensor, grads: torch.Tensor, lr,
-                       eps: float = EPS):
+                       eps: float = EPS, columns: Sequence[int] = ()):
     """Adagrad on the rows in `ids`, elementwise, in place: state[row] +=
     G_row^2 and table[row] -= lr * G_row / (sqrt(state[row]) + eps), with
     G_row the sum of the row's entries (one sort and two launches of the
     kernel: the segment sums, then the update).  One table [N, D] with ids
     [K], grads [K, D] and state [N, D], or a list of T tables with ids [R, T],
     grads [R, T, D] and `state` the flat [sum N_t, D] buffer, table t's
-    rows at [bases[t], bases[t+1]).  Ids may repeat and may lie outside
-    their table (PAD_ROW): those are inert.  Returns (state, tables)."""
+    rows at [bases[t], bases[t+1]); `columns` as `sgd_row_update`'s.  Ids
+    may repeat and may lie outside their table (PAD_ROW): those are inert.
+    Returns (state, tables)."""
     g, rows_sorted, g_sorted = _sorted_entries(
         "adagrad_row_update", state, tables, ids, grads,
-        lambda n, D: (n, D))
+        lambda n, D: (n, D), columns)
     first, seg, Gc, valid, seg_at = segment_sums(rows_sorted, g_sorted,
                                                  g.total_rows)
     inc = torch.where(valid[:, None], Gc * Gc, 0.0)
@@ -277,18 +292,21 @@ def _apply_runs(tables, rows_sorted, first, seg, upd):
 
 def rwsadagrad_row_update(state: torch.Tensor, tables: Tables,
                           ids: torch.Tensor, grads: torch.Tensor, lr,
-                          eps: float = EPS):
+                          eps: float = EPS, columns: Sequence[int] = ()):
     """Row-wise sparse Adagrad on the rows in `ids` (optim/rwsadagrad.py:
     109-113), in place: state[row] += mean(G_row^2) and table[row] -=
     lr * G_row / (sqrt(state[row]) + eps), with G_row the sum of the row's
     entries.  Either one table [N, D] with ids [K] and grads [K, D], or a
     list of T tables with ids [R, T] and grads [R, T, D]; `state` is the
-    flat [sum N_t] accumulator, table t's rows at [bases[t], bases[t+1]).
-    Ids may repeat and may lie outside their table (PAD_ROW): those are
-    inert.  Returns (state, tables)."""
+    flat [sum N_t] accumulator, table t's rows at [bases[t], bases[t+1]);
+    with `columns` (bags of a length per table) ids [R, C] and grads
+    [R, C, D], column c of table columns[c], so that a row's entries from
+    every bag coalesce before its one state update.  Ids may repeat and
+    may lie outside their table (PAD_ROW): those are inert.  Returns
+    (state, tables)."""
     g, rows_sorted, g_sorted = _sorted_entries(
         "rwsadagrad_row_update", state, tables, ids, grads,
-        lambda n, D: (n,))
+        lambda n, D: (n,), columns)
     return _rwsadagrad_sorted(g, state, tables, rows_sorted, g_sorted, lr,
                               eps)
 

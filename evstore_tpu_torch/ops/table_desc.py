@@ -16,6 +16,7 @@ contiguous) run when it is built.
 
 from __future__ import annotations
 
+import functools
 import weakref
 from collections import OrderedDict
 from typing import NamedTuple, Sequence, Tuple
@@ -106,3 +107,11 @@ def table_group(name: str, tables: Sequence[torch.Tensor],
     if global_ids:
         check_global_rows(name, [group.total_rows])
     return group
+
+
+@functools.lru_cache(maxsize=16)
+def column_tables(columns: Tuple[int, ...], device: torch.device
+                  ) -> torch.Tensor:
+    """int64 [C] on `device`: the table of each column of a batch of bags
+    of a length per table (`DLRMConfig.bag_columns`), built once."""
+    return torch.tensor(columns, dtype=torch.int64, device=device)

@@ -190,8 +190,8 @@ def flat_row_state(sparse: Dict[str, torch.Tensor],
 
 
 def dense_parameters(model) -> Dict[str, torch.nn.Parameter]:
-    """The parameters autograd trains: the MLPs and the md projections
-    (the tables take row updates)."""
+    """The parameters autograd trains: the MLPs, the cross network's V, W
+    and b, and the md projections (the tables take row updates)."""
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
@@ -236,7 +236,8 @@ def make_optimizer(name: str, eps: float = 1e-10):
                 p.copy_(p.float() - lr * g)
                 continue
             # adagrad and rwsadagrad share the dense branch
-            # (rwsadagrad.py:115-118)
+            # (rwsadagrad.py:115-118), the MLPs' and the cross network's
+            # plain Adagrad under MLPerf's DLRM-DCNv2
             s = state[n]
             s.add_(g * g)
             p.copy_(p.float() - lr * g / (torch.sqrt(s) + eps))
@@ -276,23 +277,27 @@ def dedup_rows(idx: torch.Tensor, grads: torch.Tensor, num_rows: int
 @torch.no_grad()
 def row_update(name: str, state, table: torch.Tensor, ids: torch.Tensor,
                grads: torch.Tensor, lr, eps: float = 1e-10,
-               use_kernel: bool = True):
+               use_kernel: bool = True, columns: Sequence[int] = ()):
     """One table's sparse update, in place: coalesce duplicate ids and apply
     the optimizer to the rows in `ids` (PAD_ROW and other ids outside
     [0, N) are inert).  state: None (sgd) | [N, D] (adagrad) | [N]
     (rwsadagrad).  With `use_kernel` on, the sorted path through the
     row-update kernel, which also takes a list of tables with ids [R, T],
-    grads [R, T, D] and their flat state (the grouped update); off,
-    `dedup_rows` and plain torch.  Returns (state, table)."""
+    grads [R, T, D] and their flat state (the grouped update), or with
+    `columns` (the table of each column: bags of a length per table) ids
+    [R, C] and grads [R, C, D]; off, `dedup_rows` and plain torch.
+    Returns (state, table)."""
     name = name.lower()
     if use_kernel:
         if name == "sgd":
-            sgd_row_update(table, ids, grads, lr)
+            sgd_row_update(table, ids, grads, lr, columns)
             return state, table
         if name == "adagrad":
-            return adagrad_row_update(state, table, ids, grads, lr, eps)
+            return adagrad_row_update(state, table, ids, grads, lr, eps,
+                                      columns)
         if name == "rwsadagrad":
-            return rwsadagrad_row_update(state, table, ids, grads, lr, eps)
+            return rwsadagrad_row_update(state, table, ids, grads, lr, eps,
+                                         columns)
     rows, summed = dedup_rows(ids, grads, table.shape[0])
     make_optimizer(name, eps)[2](state, table, rows, summed, lr)
     return state, table

@@ -37,9 +37,10 @@ import torch
 
 from evstore_tpu_torch.config import DLRMConfig, TrainConfig
 from evstore_tpu_torch.models.dlrm import DLRM, dlrm_loss
-from evstore_tpu_torch.models.embedding import (check_ids, combine_rows,
-                                                flat_ids, gather_groups,
-                                                gather_rows_of, group_ids)
+from evstore_tpu_torch.models.embedding import (bag_columns, check_ids,
+                                                combine_rows, flat_ids,
+                                                gather_groups, gather_rows_of,
+                                                group_ids)
 from evstore_tpu_torch.train.metrics import binary_metrics
 from evstore_tpu_torch.train.optim import (OptState, dense_parameters,
                                            flat_row_state, lr_schedule,
@@ -53,9 +54,12 @@ def init_opt_state(model: DLRM, tcfg: TrainConfig) -> OptState:
 
 
 def unpack_batch(batch):
-    """A batch as (dense, idx, labels, bag_weights): 3-tuples are one-hot
-    (dense, idx [B, T], y) with no bag weights; 4-tuples are multi-hot
-    (dense, idx [B, T, L], bag_weights [B, T, L], y)."""
+    """A batch as (dense, idx, labels, bag_weights): 3-tuples are (dense,
+    idx, y) with no bag weights; 4-tuples are (dense, idx, bag_weights of
+    idx's shape, y).  idx is [B, T], one id a table; or [B, T, L], bags
+    padded to one L (id 0, weight 0); or, under the config's
+    `multi_hot_sizes` L_t, [B, sum L_t], table t's bag in its L_t
+    consecutive columns in table order, no slot padded."""
     if len(batch) == 4:
         d, i, w, y = batch
         return d, i, y, w
@@ -78,18 +82,21 @@ def _tensor(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _checked_ids(idx, cfg: DLRMConfig):
-    """Ids [B, T] or bags [B, T, L] where they lie.  Ids still on the host
-    are checked there (`check_ids`: ValueError outside [0, N), one
-    unsigned compare for int32 and int64 ids); a tensor is taken as it
-    is.  Nothing waits for the device, so the train step runs it before
-    its first copy."""
+    """Ids [B, T], bags [B, T, L] or bags of a length per table
+    [B, sum L_t] where they lie.  Ids still on the host are checked there
+    (`check_ids`: ValueError outside [0, N) of the column's table, one
+    unsigned compare for int32 and int64 ids); a tensor's shape alone is
+    checked.  Nothing waits for the device, so the train step runs it
+    before its first copy."""
     if not isinstance(idx, torch.Tensor):
         idx = np.asarray(idx)
     if idx.ndim not in (2, 3):
         raise ValueError(f"idx must be [B, T] or [B, T, L], got "
                          f"{tuple(idx.shape)}")
+    bag_columns(cfg, idx)
     if isinstance(idx, np.ndarray):
-        check_ids(idx, cfg.table_sizes)
+        check_ids(idx, cfg.table_sizes,
+                  cfg.multi_hot_sizes if idx.ndim == 2 else ())
     return idx
 
 
@@ -104,19 +111,23 @@ def _copy(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
         return _tensor(a, dev, dtype)
 
 
-def _bag_weights(w, idx: torch.Tensor, dev: torch.device):
+def _bag_weights(w, idx: torch.Tensor, dev: torch.device,
+                 cfg: DLRMConfig = None):
     if w is None:
         return None
     w = _tensor(w, dev, torch.float32)
-    if idx.dim() != 3 or tuple(w.shape) != tuple(idx.shape):
+    bags = idx.dim() == 3 or (idx.dim() == 2 and cfg is not None
+                              and bool(cfg.multi_hot_sizes))
+    if not bags or tuple(w.shape) != tuple(idx.shape):
         raise ValueError(f"bag weights {tuple(w.shape)} need bags idx of "
                          f"the same shape, got {tuple(idx.shape)}")
     return w
 
 
 def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
-    """Builds the train step: (model, opt_state, dense_x [B, nd], idx [B, T]
-    or [B, T, L], labels [B], bag_weights [B, T, L] or None) -> loss.
+    """Builds the train step: (model, opt_state, dense_x [B, nd], idx [B, T],
+    [B, T, L] or under `multi_hot_sizes` [B, sum L_t] (`unpack_batch`),
+    labels [B], bag_weights of idx's shape or None) -> loss.
 
     The inputs are numpy arrays or tensors.  The step updates the model's
     parameters and `opt_state` in place and returns the loss as a 0-d tensor
@@ -130,7 +141,8 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     works, and a bad id raises before any copy or update.  With the
     kernels on, the gather is one launch per width and the row update one
     call per update group (for a one-hot batch over plain tables, one each
-    for all tables), a launch of the row-update kernel under sgd and two
+    for all tables; bags of a length per table gather B x sum L_t rows and
+    coalesce a row's entries from all its bags in the one sort), a launch of the row-update kernel under sgd and two
     under adagrad and rwsadagrad; the grouped updates need `opt_state`'s
     sums to be the views of one flat buffer a group that `init_opt_state` and
     `opt_state_from_jax` build (ValueError otherwise).  Under
@@ -157,7 +169,7 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
             labels = _copy(labels, dev, torch.float32)
             if bag_weights is not None:
                 bag_weights = _copy(bag_weights, dev, torch.float32)
-            bw = _bag_weights(bag_weights, idx, dev)
+            bw = _bag_weights(bag_weights, idx, dev, cfg)
         sources = model.row_sources()
         groups = gather_groups(sources)
         updates = [u for u in update_groups(sources, name)
@@ -169,10 +181,11 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
                  if tcfg.use_update_kernel and u.rule != "sgd" else None
                  for u in updates]
         flat = flat_ids(idx)
+        cols = bag_columns(cfg, idx)
         with span("train_step.gather"), torch.no_grad():
-            ids_of = [group_ids(sources, m, flat) for m in groups]
+            ids_of = [group_ids(sources, m, flat, cols) for m in groups]
             gathered = gather_rows_of(sources, groups, ids_of,
-                                      cfg.use_gather_kernel)
+                                      cfg.use_gather_kernel, cols)
         for g in {u.gather for u in updates}:
             gathered[g].requires_grad_(True)
         params = dense_parameters(model)
@@ -190,16 +203,20 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
         with span("train_step.row_update"), torch.no_grad():
             for u, st in zip(updates, flats):
                 ids, grads = ids_of[u.gather], gathered[u.gather].grad
-                if (u.lo, u.hi) != (0, ids.shape[1]):
+                if not cols and (u.lo, u.hi) != (0, ids.shape[1]):
                     ids, grads = ids[:, u.lo:u.hi], grads[:, u.lo:u.hi]
                 tabs = [sources[i].param for i in u.members]
                 if tcfg.use_update_kernel:
-                    row_update(u.rule, st, tabs, ids, grads, lr)
+                    row_update(u.rule, st, tabs, ids, grads, lr,
+                               columns=cols)
                     continue
                 for j, i in enumerate(u.members):
+                    # table j's columns: its one, or its bag's L_j
+                    sel = [c for c, t in enumerate(cols) if t == j] or [j]
                     row_update(u.rule, opt_state.sparse.get(sources[i].name),
-                               tabs[j], ids[:, j], grads[:, j], lr,
-                               use_kernel=False)
+                               tabs[j], ids[:, sel].reshape(-1),
+                               grads[:, sel].reshape(-1, grads.shape[-1]),
+                               lr, use_kernel=False)
         opt_state.step += 1
         return loss.detach()
 
@@ -214,7 +231,7 @@ def make_eval_step(cfg: DLRMConfig):
         with torch.inference_mode():
             return torch.sigmoid(model(
                 _tensor(dense_x, dev, torch.float32), idx,
-                bag_weights=_bag_weights(bag_weights, idx, dev)))
+                bag_weights=_bag_weights(bag_weights, idx, dev, cfg)))
     return eval_step
 
 

@@ -435,7 +435,7 @@ def test_ids_outside_the_sources_give_zero_rows():
 
 def test_library_name_follows_the_sources():
     srcs = [os.path.basename(s) for s in _build.sources()]
-    assert srcs == ["common.cuh", "gather_rows.cu",
+    assert srcs == ["common.cuh", "dcn_cross.cu", "gather_rows.cu",
                     "gather_rows_dequant_int8.cu", "interaction_bwd.cu",
                     "interaction_fwd.cu", "interaction_gram.cu",
                     "knn_topk.cu", "row_update.cu"]
@@ -446,7 +446,8 @@ def test_library_name_follows_the_sources():
     assert set(_build.SIGNATURES) == {
         "interaction_fwd", "interaction_bwd", "interaction_gram",
         "gather_rows", "gather_rows_grouped", "gather_rows_dequant_int8",
-        "scatter_sub_sorted", "knn_prep", "knn_candidates", "knn_merge"}
+        "scatter_sub_sorted", "knn_prep", "knn_candidates", "knn_merge",
+        "dcn_cross_fwd", "dcn_cross_bwd"}
     # x, ly, pair table, out: four pointers, then B as a 64-bit int; then
     # T, D, P, is_bf16, samples a group, blocks, device as ints and the
     # stream
@@ -491,7 +492,7 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     cus = [s for s in _build.sources() if s.endswith(".cu")]
     compiles = [ln for ln in lines if " -c " in ln]
     links = [ln for ln in lines if "-shared" in ln]
-    assert len(compiles) == len(cus) == 7 and len(links) == 1
+    assert len(compiles) == len(cus) == 8 and len(links) == 1
     assert sorted(ln.split()[-1] for ln in compiles) == sorted(cus)
     assert all("sm_90a" in ln for ln in lines)
     assert "0 spills" in open(path[:-3] + ".log").read()
