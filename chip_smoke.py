@@ -117,8 +117,8 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    state; then `evaluate`; the device µs a step of K1, K2, K4 and K5;
    the four kernels' launch counts over this phase
    must be above 0, with one grouped gather per train or eval step and
-   two K5 launches per rwsadagrad step (its run sums, then its update)
-   and one per sgd step; kernels and copies per step and
+   one K5 call per step (under rwsadagrad its fused row-wise rule, under
+   sgd its subtract rule); kernels and copies per step and
    the rwsadagrad / sgd rate (both row updates grouped through K5), sgd's
    rate beside its rate when it updated table by table, and the kernels
    and copies of an sgd step;
@@ -134,8 +134,10 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    change held to the plain copy's within 1e-2 of the latter's norm, two 10-step windows (steps/s), one profiled step (kernels and
    copies, device busy share), two steps with every synchronising CUDA
    call an error and torch.unique counted (must be 0); `evaluate` over 2
-   bagged batches; exactly one K2 launch per width group and one K5 launch
-   per update group a step, K1 and K4 at least once;
+   bagged batches; exactly one K2 launch per width group and one K5 call
+   per update group a step (the subtract rule once under sgd and twice
+   under adagrad, the fused row-wise rule once under rwsadagrad), K1 and
+   K4 at least once;
 3f. the CLI end to end at the full Kaggle width, in this process through
    `evstore_tpu_torch.cli.main`: a synthetic train.txt (100,000 lines,
    categories capped by each table's rows) preprocessed and trained with
@@ -323,18 +325,22 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
 3m. MLPerf's DLRM-DCNv2 (`config.py::mlperf_dcnv2_config`): K8 against
    its plain version at the cell's shape and at the shapes that break its
    design, timed; the bags' pooling; the cross network with K8 against the
-   plain one; K2 over the cell's 214-column descriptor and K5's grouped
-   row-wise update with `columns=` against their plain versions on the
-   same ids [16,384, 214] and rows; six `make_train_step` steps of the
-   cell's model on host batches, with the launches of K2, K5 and K8 a
-   step counted from zero (`train_dcnv2`);
+   plain one; K5's fused row-wise rule at the cases that break its design
+   (widths 1 to 444, f32 and bf16, long and edge runs), twice bitwise and
+   against its plain version and the composite path; K2 over the cell's
+   214-column descriptor and K5's grouped row-wise update with `columns=`
+   against their plain versions on the same ids [16,384, 214] and rows,
+   K5 twice bitwise, timed beside the composite path and K5's bound; six
+   `make_train_step` steps of the cell's model on host batches, with the
+   launches of K2, K5 and K8 a step counted from zero (`train_dcnv2`);
 4. the kernels' launch counts by path (serve, serve_int8, altkeys,
    serve_host, gram_ab, train, train_factored, cli, train_cached,
    train_sharded, train_butterfly, serve_sharded, train_cached_sharded,
    export, tools, train_mlperf, serve_mlperf, handoff_mlperf,
    train_dcnv2) and one
-   JSON line describing every kernel (K1-K6 and K7, which replaces no TPU
-   kernel), each of which must have launched on some path;
+   JSON line describing every kernel (K1-K6, K5's fused row-wise rule
+   apart, and K7, which replaces no TPU kernel), each of which must have
+   launched on some path;
 5. as the last line: {"ok": true, "device": {...}}.
 
 Each serving phase closes its caches, and so their engines (each holds a
@@ -348,8 +354,9 @@ shape, and prints neither the kernels line nor the result line; `--only
 3k` and `--only 3l` do the same for 3k and 3l.  `--only 3m` runs phases
 0-1 and 3m alone: K8, the cross layer's elementwise kernel of MLPerf's
 DLRM-DCNv2, against its plain version and timed, the bags' pooling, the
-cross network with K8 against the plain one, K2 and K5 at the cell's
-shape against their plain versions, and six `make_train_step` steps of
+cross network with K8 against the plain one, K5's row-wise rule at its
+edge cases, K2 and K5 at the cell's shape against their plain versions,
+and six `make_train_step` steps of
 the cell's model with their launches (the cell itself is `python3 -m
 evbench --workload mlperf-dcnv2.train.rwsadagrad-b16384`).
 `--only altkeys [--query-rows A:B]` runs phases 0-2 and then the C3
@@ -740,12 +747,13 @@ class MemoryFiles:
         shutil.rmtree(self.dir)
 
 
-# each kernel of the train path by its function's name (K5 is two)
+# each kernel of the train path by its function's name (K5 is two: its
+# chunks and its cross-chunk pass, under either rule)
 TRAIN_KERNELS = {"K1 interaction_fwd": ("interaction_fwd_kernel",),
                  "K2 gather_rows_grouped": ("Grouped<",),
                  "K4 interaction_bwd": ("interaction_bwd_kernel",),
-                 "K5 scatter_sub_sorted": ("chunk_sums_kernel",
-                                           "cross_chunk_kernel")}
+                 "K5 row update": ("chunk_sums_kernel",
+                                   "cross_chunk_kernel")}
 
 
 # the cached train path's: K2's two-source gather, K3 for int8 cells
@@ -753,8 +761,8 @@ CACHED_KERNELS = {"K1 interaction_fwd": ("interaction_fwd_kernel",),
                   "K2 gather_rows": ("gather_kernel",),
                   "K3 gather_rows_dequant_int8": ("gather_dequant_kernel",),
                   "K4 interaction_bwd": ("interaction_bwd_kernel",),
-                  "K5 scatter_sub_sorted": ("chunk_sums_kernel",
-                                            "cross_chunk_kernel")}
+                  "K5 row update": ("chunk_sums_kernel",
+                                    "cross_chunk_kernel")}
 
 
 def by_kernel(on_card, n: int, kernels=TRAIN_KERNELS) -> str:
@@ -825,8 +833,8 @@ def main() -> int:
         dot_interaction_kernel, dot_interaction_ref, gram_geometry,
         interaction_geometry)
     from evstore_tpu_torch.ops.cuda_update import (
-        CHUNK, scatter_sub_sorted, scatter_sub_sorted_grouped_ref,
-        scatter_sub_sorted_ref)
+        CHUNK, rwsadagrad_sorted, scatter_sub_sorted,
+        scatter_sub_sorted_grouped_ref, scatter_sub_sorted_ref)
     from evstore_tpu_torch.ops.interaction import num_pairs
     from evstore_tpu_torch.ops.quant import (dequantize, dequantize_int8,
                                              np_quantize_int8)
@@ -894,6 +902,109 @@ def main() -> int:
                             or "spill" in line:
                         print("  ptxas:", line.strip())
 
+    def rowwise_cases():
+        """K5's fused row-wise rule (`rwsadagrad_sorted`) at the cases that
+        break its design, over a group of three tables (73,000 rows): each
+        run on two copies (rows and state bitwise equal) and held to its
+        plain version (float64 run sums) and to the composite path it
+        replaced (tables within 1e-5 (1 + |ref|), a bf16 table one bf16
+        ulp more; the state within 1e-5 of its own size).  Widths 1, 18,
+        36, 64, 128, 130 and 444 (the widest whose chunk fits), 16-byte
+        and 4-byte staging (grads one float off a 16-byte boundary), f32
+        and bf16, on Zipf ids with PAD_ROW, negative ids and ids past the
+        group; then runs from chunk boundaries, one run of 2,100 entries
+        (its cross-chunk sum over 17 chunks passes the look-ahead of 16),
+        one of all 65,536, K = 1, K = E*m +- 1, all PAD_ROW and inert ids
+        alone, at three widths."""
+        from evstore_tpu_torch.ops import cuda_update as cu
+        from evstore_tpu_torch.ops.table_desc import table_group
+        sizes_ = (20000, 50000, 3000)
+        total, E, lr = sum(sizes_), CHUNK, 0.05
+        g25 = torch.Generator(device=dev).manual_seed(args.seed + 25)
+        rng = np.random.default_rng(args.seed + 25)
+        zipf_ = (rng.zipf(1.05, 65536) - 1) % total
+        odd = rng.random(65536)
+        zipf_[odd < 0.03] = PAD_ROW
+        zipf_[(odd >= 0.03) & (odd < 0.04)] = -1
+        zipf_[(odd >= 0.04) & (odd < 0.05)] = total
+        adversarial = {
+            "one run of 2100 among 500": np.concatenate(
+                [np.full(2100, 777), rng.integers(0, total, 500)]),
+            "one run of all 65536": np.full(65536, 12345),
+            f"runs of {E} from every chunk boundary":
+                np.repeat(rng.choice(total, 64, replace=False), E),
+            f"runs of {E // 2}, {E} and {3 * E} from chunk boundaries":
+                np.concatenate([np.repeat(np.arange(8), E // 2),
+                                np.repeat(np.arange(8, 12), E),
+                                np.repeat(np.arange(12, 15), 3 * E)]),
+            "K=1": np.asarray([7]),
+            f"K={5 * E + 1}": rng.integers(0, 40, 5 * E + 1),
+            f"K={5 * E - 1}": rng.integers(0, 40, 5 * E - 1),
+            "all PAD_ROW": np.full(1000, PAD_ROW),
+            "negative ids and ids past the group alone": np.concatenate(
+                [np.full(300, -1), np.full(10, -5), np.full(200, total),
+                 np.full(10, total + 1000)]),
+        }
+
+        def case(D, dt, ids, label, misalign=False):
+            tdt = getattr(torch, dt)
+            tabs0 = [(torch.rand(n, D, generator=g25, device=dev) * 0.2
+                      - 0.1).to(tdt) for n in sizes_]
+            st0 = torch.rand(total, generator=g25, device=dev) * 0.01
+            gid = torch.from_numpy(rng.permutation(ids).astype(np.int32)
+                                   ).to(dev)
+            rows_s, order = torch.sort(gid, stable=True)
+            K = gid.numel()
+            buf = torch.randn(K * D + 1, generator=g25, device=dev) * 1e-2
+            grads = (buf[1:] if misalign else buf[:-1]).view(K, D)
+            runs = []
+            for fn in (rwsadagrad_sorted, rwsadagrad_sorted,
+                       cu.rwsadagrad_sorted_ref, "composite"):
+                t_, s_ = [t.clone() for t in tabs0], st0.clone()
+                if fn == "composite":   # inert ids as the sort makes them
+                    rows_c, order_c = torch.sort(torch.where(
+                        (gid >= 0) & (gid < total), gid, PAD_ROW),
+                        stable=True)
+                    cu._rwsadagrad_composite(
+                        table_group("composite", t_, True), s_, t_, rows_c,
+                        grads[order_c], lr, cu.EPS)
+                else:
+                    fn(s_, t_, rows_s, order, grads, lr)
+                runs.append((t_, s_))
+            torch.cuda.synchronize()
+            (kt, ks), (kt2, ks2) = runs[:2]
+            ok = all(torch.equal(a, b)
+                     for a, b in zip(kt + [ks], kt2 + [ks2]))
+            errs = []
+            for rt, rs in runs[2:]:
+                e_t = 0.0
+                for a, b in zip(kt, rt):
+                    ok_, e_ = within(a, b, 1e-5, dt == "bfloat16")
+                    ok, e_t = ok and ok_, max(e_t, e_)
+                ok_, e_s = within_own(ks, rs, 1e-5)
+                ok = ok and ok_
+                errs += [e_t, e_s]
+            print(f"  K5 row-wise D={D} {dt}{' (grads off 16 B)' * misalign}"
+                  f" {label}: against the plain version max|d| "
+                  f"{errs[0]:.3g}, state {errs[1]:.3g}; against the "
+                  f"composite path {errs[2]:.3g}, {errs[3]:.3g}; two runs "
+                  f"bitwise equal", flush=True)
+            if not ok:
+                raise AssertionError(f"K5's row-wise rule at D={D} {dt} "
+                                     f"{label}: {errs}")
+
+        label = "zipf(1.05) K=65536, 5% inert"
+        for D, dt, mis in ((128, "float32", False), (128, "bfloat16", False),
+                           (128, "float32", True), (36, "float32", False),
+                           (36, "bfloat16", False), (64, "float32", False),
+                           (1, "float32", False), (18, "bfloat16", False),
+                           (130, "float32", False), (444, "float32", False)):
+            case(D, dt, zipf_, label, mis)
+        for D, dt in ((128, "float32"), (36, "bfloat16"), (130, "float32")):
+            for label, ids in adversarial.items():
+                case(D, dt, ids, label)
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------- 3m DLRM-DCNv2 and K8
     def phase_3m():
         """K8 (`ops/cuda_cross.py`) against its plain version at the
@@ -903,23 +1014,29 @@ def main() -> int:
         launched twice and bit for bit; timed beside its bound and the
         plain version; the bags' pooling (`torch.segment_reduce`) against
         `index_add`; the cross network's Function with K8 against the
-        plain one, forward and backward.  Then the benchmark cell's model
+        plain one, forward and backward; K5's fused row-wise rule at the
+        cases that break its design (`rowwise_cases`).  Then the benchmark
+        cell's model
         (one chip's share of the recipe's tables, 54,184,588 rows drawn on
         the card) and ids [16,384, 214], each column skewed over its
         table: K2 over the 214-entry descriptor bit for bit the plain
         gather's; K5's grouped row-wise update with `columns=` against the
         plain dedup path table by table from the same rows and state
-        (rows' change and state within 1e-4 of their own size, two K5
-        launches a call); both timed beside the plain versions.  Last, the
-        counts zeroed and six `make_train_step` steps of
+        (rows' change and state within 1e-4 of their own size, one call
+        of the fused rule, no subtract launch), run twice (bitwise equal)
+        and against the composite path it replaced; both timed beside the
+        plain versions, K5 also beside the composite path and its bound.
+        Last, the counts zeroed and six `make_train_step` steps of
         `mlperf_dcnv2_config` on host batches of the cell's shape: one K2
-        launch, two K5 and three K8 forwards and backwards a step, no K1
-        or K4, B x 214 gathered rows a step.  Returns those steps'
-        launches (`train_dcnv2`)."""
+        launch, one fused K5 call and three K8 forwards and backwards a
+        step, no K1 or K4, B x 214 gathered rows a step.  Returns those steps'
+        launches (`train_dcnv2`) and the fused rule's kernels-line
+        entry."""
         from evstore_tpu_torch.models.embedding import pool_columns
         from evstore_tpu_torch.ops.cuda_cross import (
             LowRankCross, cross_layer_bwd, cross_layer_bwd_ref,
             cross_layer_fwd, cross_layer_fwd_ref)
+        from evstore_tpu_torch.ops import cuda_update as cu
         from evstore_tpu_torch.ops.cuda_update import rwsadagrad_row_update
         from evstore_tpu_torch.config import (MLPERF_MULTI_HOT_SIZES,
                                               mlperf_dcnv2_config)
@@ -1054,6 +1171,8 @@ def main() -> int:
             del x0, ps, gy, outs
             torch.cuda.empty_cache()
 
+            rowwise_cases()
+
             # the cell's model: one chip's share of the recipe's tables
             # (the five 40M-row tables quartered), drawn on the card
             sizes = [n // 4 if n == 40_000_000 else n
@@ -1111,8 +1230,10 @@ def main() -> int:
             if not (ok2 and same2):
                 raise AssertionError("K2 over the bags' descriptor")
 
-            # K5: the grouped row-wise update with `columns=` against the
-            # plain dedup path table by table, from the same rows and state
+            # K5: the grouped row-wise update with `columns=` (its fused
+            # rule) against the plain dedup path table by table, from the
+            # same rows and state; twice, bitwise; timed beside the
+            # composite path it replaced and K5's bound
             lr = 0.005
             grads = torch.randn(B, C, D, generator=g3, device=dev)
             sel = [[c for c, t in enumerate(cols) if t == j]
@@ -1134,6 +1255,15 @@ def main() -> int:
                 rwsadagrad_row_update(flat, tabs, idx, grads, lr,
                                       columns=cols)
 
+            def composite_update():
+                """The path the fused rule replaced: the sort, the
+                subtract rule's run sums, tensor passes, its update."""
+                g_, rs, order, flat_g = cu._sorted_ids(
+                    "composite", flat, tabs, idx, grads,
+                    lambda n, D_: (n,), cols)
+                cu._rwsadagrad_composite(g_, flat, tabs, rs,
+                                         flat_g.float()[order], lr, cu.EPS)
+
             def run_from_start(update):
                 with torch.no_grad():
                     for tab, u, r0 in zip(tabs, touched, rows0):
@@ -1145,22 +1275,60 @@ def main() -> int:
                             [v[u] for v, u in zip(views, touched)])
 
             dp, sp = run_from_start(plain_update)
-            scatter_sub_sorted.launches = 0
+            scatter_sub_sorted.launches = rwsadagrad_sorted.launches = 0
             dk, sk = run_from_start(kernel_update)
-            k5_calls = scatter_sub_sorted.launches
+            k5_calls = (scatter_sub_sorted.launches,
+                        rwsadagrad_sorted.launches)
+            dk2, sk2 = run_from_start(kernel_update)
+            twice = all(torch.equal(a, b) for a, b in zip(dk + sk,
+                                                          dk2 + sk2))
+            del dk2, sk2
             ok_d, d_d = within_own(torch.cat(dk), torch.cat(dp), 1e-4)
             ok_s, d_s = within_own(torch.cat(sk), torch.cat(sp), 1e-4)
-            del dp, sp, dk, sk
-            k5_ms = time_ms(torch, kernel_update, reps=5, warmup=1)
-            k5_plain = time_ms(torch, plain_update, reps=5, warmup=1)
+            dc, sc = run_from_start(composite_update)
+            _, c_d = within_own(torch.cat(dk), torch.cat(dc), 1e-4)
+            _, c_s = within_own(torch.cat(sk), torch.cat(sc), 1e-4)
+            del dp, sp, dk, sk, dc, sc
+            n_rows = sum(u.numel() for u in touched)
+            k5_ms = time_ms(torch, kernel_update, reps=10, warmup=2)
+            comp_ms = time_ms(torch, composite_update, reps=10, warmup=2)
+            k5_plain = time_ms(torch, plain_update, reps=3, warmup=1)
+            # the fused call alone, from the sorted ids, beside the bound
+            # of the benchmark's K5 reader (evbench/roofline/k5.py: ids,
+            # values and each row read once, each row written once) and
+            # of all it moves (the order and each row's state too)
+            g_, rs, order, flat_g = cu._sorted_ids(
+                "fused", flat, tabs, idx, grads, lambda n, D_: (n,), cols)
+            K_ = rs.numel()
+            call = lambda: rwsadagrad_sorted(  # noqa: E731
+                flat, tabs, rs, order, flat_g, lr)
+            f_ms = time_ms(torch, call, reps=10, warmup=2)
+            f_dev, f_host = device_host_us(torch, call, reps=5, calls=20)
+            kb, _ = bound_ms(4 * K_ + 4 * D * K_ + 8 * D * n_rows, 0,
+                             "float32")
+            fb, fby = bound_ms(12 * K_ + 4 * D * K_ + 8 * D * n_rows
+                               + 8 * n_rows, float(3 * D * n_rows),
+                               "float32")
+            del g_, rs, order, flat_g
             print(f"  K5 rwsadagrad, K = {B * C:,} entries over 26 tables "
-                  f"(columns=), {sum(u.numel() for u in touched):,} rows: "
-                  f"against the plain dedup path, the rows' change max|d|/"
-                  f"(|ref| + mean |ref|) {d_d:.3e}, the row state "
-                  f"{d_s:.3e} (limit 1e-4); {k5_calls} K5 launches a call; "
-                  f"{k5_ms:.4f} ms a call with the sort, plain "
-                  f"{k5_plain:.4f} ms", flush=True)
-            if not (ok_d and ok_s and k5_calls == 2):
+                  f"(columns=), {n_rows:,} rows: against the plain dedup "
+                  f"path, the rows' change max|d|/(|ref| + mean |ref|) "
+                  f"{d_d:.3e}, the row state {d_s:.3e} (limit 1e-4); "
+                  f"against the composite path {c_d:.3e}, {c_s:.3e}; two "
+                  f"runs bitwise equal {twice}; launches a call (subtract "
+                  f"rule, fused rule) {k5_calls}; {k5_ms:.4f} ms a call "
+                  f"with the sort (composite path {comp_ms:.4f} ms, plain "
+                  f"{k5_plain:.4f} ms); the fused call alone {f_ms:.4f} ms,"
+                  f" device {f_dev:.2f} us, host {f_host:.2f} us: "
+                  f"{100 * kb * 1e3 / f_dev:.0f}% of K5's bound "
+                  f"{kb:.4f} ms, {100 * fb * 1e3 / f_dev:.0f}% of the bound"
+                  f" of all it moves {fb:.4f} ms ({fby}) [{card}]",
+                  flush=True)
+            k5_entry = dict(
+                max_abs_err=max(d_d, d_s), ms=f_ms, device_ms=f_dev / 1e3,
+                plain_ms=k5_plain, bound_ms=fb, bound_by=fby,
+                library_ms=None)
+            if not (ok_d and ok_s and twice and k5_calls == (0, 1)):
                 raise AssertionError("K5's grouped update over the bags")
             del grads, rows0, flat, views, touched, desc, idx
 
@@ -1177,6 +1345,7 @@ def main() -> int:
             float(step(model, st, *batches[0]))
             counted = {"gather_rows_grouped": gather_rows_grouped,
                        "scatter_sub_sorted": scatter_sub_sorted,
+                       "rwsadagrad_sorted": rwsadagrad_sorted,
                        "cross_layer_fwd": cross_layer_fwd,
                        "cross_layer_bwd": cross_layer_bwd,
                        "interaction_fwd": dot_interaction_kernel,
@@ -1195,7 +1364,7 @@ def main() -> int:
             launches = {k: w.launches for k, w in counted.items()}
             rows = gather_rows_grouped.rows
             want = {"gather_rows_grouped": n_steps,
-                    "scatter_sub_sorted": 2 * n_steps,
+                    "scatter_sub_sorted": 0, "rwsadagrad_sorted": n_steps,
                     "cross_layer_fwd": 3 * n_steps,
                     "cross_layer_bwd": 3 * n_steps,
                     "interaction_fwd": 0, "interaction_bwd": 0}
@@ -1214,7 +1383,7 @@ def main() -> int:
                                      f"{launches}, want {want}; rows {rows}")
             del model, st, step, batches, tabs
             torch.cuda.empty_cache()
-            return launches
+            return launches, k5_entry
 
     if args.only == "3m":
         phase_3m()
@@ -1232,6 +1401,7 @@ def main() -> int:
                 "gather_rows_grouped": gather_rows_grouped,
                 "gather_rows_dequant_int8": gather_rows_dequant_int8,
                 "scatter_sub_sorted": scatter_sub_sorted,
+                "rwsadagrad_sorted": rwsadagrad_sorted,
                 "knn_topk": knn_topk}
 
     def reset_counts():
@@ -1240,6 +1410,14 @@ def main() -> int:
 
     def read_counts():
         return {name: w.launches for name, w in wrappers.items()}
+
+    def never_launched(got, names):
+        """The kernels of `names` that did not launch in `got`; K5
+        (`scatter_sub_sorted`) launched if either of its rules did, the
+        subtract rule or the fused row-wise rule (`rwsadagrad_sorted`)."""
+        k5 = got["scatter_sub_sorted"] + got["rwsadagrad_sorted"]
+        return [k for k in names
+                if (k5 if k == "scatter_sub_sorted" else got[k]) < 1]
 
     def held_on_off(tcfg_, model, plain, take, label=""):
         """Phase 3b's check: five steps with every kernel on, each held to a
@@ -1816,10 +1994,11 @@ def main() -> int:
             shutil.rmtree(ck)       # 3g needs the data and the export
             path = {k: launches[k] for k in (
                 "interaction_fwd", "interaction_bwd", "gather_rows",
-                "gather_rows_grouped", "scatter_sub_sorted")}
-            if min(path[k] for k in ("interaction_fwd", "interaction_bwd",
+                "gather_rows_grouped", "scatter_sub_sorted",
+                "rwsadagrad_sorted")}
+            if never_launched(path, ("interaction_fwd", "interaction_bwd",
                                      "gather_rows_grouped",
-                                     "scatter_sub_sorted")) < 1:
+                                     "scatter_sub_sorted")):
                 raise AssertionError(f"a kernel of the CLI's path never ran: "
                                      f"{launches}")
             print(f"cli path launches: {json.dumps(path)}", flush=True)
@@ -2292,8 +2471,9 @@ def main() -> int:
             del work, base, stream, moms
             path = {k: launches[k] for k in (
                 "interaction_fwd", "interaction_bwd", "gather_rows",
-                "gather_rows_dequant_int8", "scatter_sub_sorted")}
-            if min(path.values()) < 1:
+                "gather_rows_dequant_int8", "scatter_sub_sorted",
+                "rwsadagrad_sorted")}
+            if never_launched(path, tuple(path)[:-1]):
                 raise AssertionError(f"a kernel of the cached path never "
                                      f"ran: {launches}")
             print(f"train_cached path launches: {json.dumps(path)}",
@@ -2755,8 +2935,9 @@ def main() -> int:
                                         "gather_rows_dequant_int8")}
             out = {}
             for p, names in wanted.items():
-                out[p] = {k: paths[p][k] for k in names}
-                if min(out[p].values()) < 1:
+                k5 = ("rwsadagrad_sorted",) * ("scatter_sub_sorted" in names)
+                out[p] = {k: paths[p][k] for k in names + k5}
+                if never_launched(paths[p], names):
                     raise AssertionError(f"a kernel of {p} never ran: "
                                          f"{paths[p]}")
             print(f"mesh path launches: {json.dumps(out)}", flush=True)
@@ -3173,8 +3354,9 @@ def main() -> int:
                 "export": ("interaction_fwd",), "tools": ("knn_topk",)}
             out = {}
             for p, names in wanted.items():
-                out[p] = {k: paths[p][k] for k in names}
-                if min(out[p].values()) < 1:
+                k5 = ("rwsadagrad_sorted",) * ("scatter_sub_sorted" in names)
+                out[p] = {k: paths[p][k] for k in names + k5}
+                if never_launched(paths[p], names):
                     raise AssertionError(f"a kernel of {p} never ran: "
                                          f"{paths[p]}")
             print(f"3i path launches: {json.dumps(out)}", flush=True)
@@ -3248,8 +3430,7 @@ def main() -> int:
             got = read_counts()
             for k, v in got.items():
                 launches[k] += v
-            idle = [k for k in need + tuple(gather) + tuple(extra)
-                    if got[k] < 1]
+            idle = never_launched(got, need + tuple(gather) + tuple(extra))
             if idle:
                 raise AssertionError(f"3j {what}: {idle} never launched: "
                                      f"{got}")
@@ -3790,7 +3971,7 @@ def main() -> int:
             path = {k: launches[k] for k in (
                 "interaction_fwd", "interaction_bwd", "gather_rows",
                 "gather_rows_grouped", "gather_rows_dequant_int8",
-                "scatter_sub_sorted")}
+                "scatter_sub_sorted", "rwsadagrad_sorted")}
             print(f"train_mlperf path launches: {json.dumps(path)}",
                   flush=True)
             return path
@@ -3866,7 +4047,7 @@ def main() -> int:
             got = read_counts()
             for k, v in got.items():
                 launches[k] += v
-            idle = [k for k in need if got[k] < 1]
+            idle = never_launched(got, need)
             if idle:
                 raise AssertionError(f"{phase} {what}: {idle} never "
                                      f"launched: {got}")
@@ -4821,7 +5002,8 @@ def main() -> int:
                 raise AssertionError(f"3l: {d} is still there")
             path = {k: launches[k] for k in (
                 "interaction_fwd", "interaction_bwd", "gather_rows",
-                "gather_rows_dequant_int8", "scatter_sub_sorted")}
+                "gather_rows_dequant_int8", "scatter_sub_sorted",
+                "rwsadagrad_sorted")}
             print(f"handoff_mlperf path launches: {json.dumps(path)}",
                   flush=True)
             return path
@@ -4893,7 +5075,8 @@ def main() -> int:
                 return calls[0]
 
             rates = {}
-            want = {"gather_rows_grouped": 0, "scatter_sub_sorted": 0}
+            want = {"gather_rows_grouped": 0, "scatter_sub_sorted": 0,
+                    "rwsadagrad_sorted": 0}
             cases = (
                 ("a", "bags, learned pooling", dict(
                     weighted_pooling="learned"),
@@ -5119,10 +5302,15 @@ def main() -> int:
                           f"call raises) with torch.unique counted: 0 "
                           f"calls", flush=True)
                     want["gather_rows_grouped"] += steps * n_gather
-                    # sgd: one K5 launch per update group; adagrad and
-                    # rwsadagrad: two, the run sums and the update
-                    want["scatter_sub_sorted"] += \
-                        steps * n_upd * (1 if opt == "sgd" else 2)
+                    # K5 per update group: sgd one subtract launch;
+                    # adagrad (the factorised tables' rule under
+                    # rwsadagrad too) two, the run sums and the update;
+                    # rwsadagrad's row-wise rule one fused call
+                    for u in updates:
+                        want["scatter_sub_sorted"] += steps * {
+                            "sgd": 1, "adagrad": 2}.get(u.rule, 0)
+                        want["rwsadagrad_sorted"] += \
+                            steps * (u.rule == "rwsadagrad")
                     del st_k
                 metrics = evaluate(model, fcfg, take(2))
                 want["gather_rows_grouped"] += 2 * n_gather
@@ -5138,7 +5326,7 @@ def main() -> int:
             launches = {k: v for k, v in read_counts().items()
                         if k in ("interaction_fwd", "interaction_bwd",
                                  "gather_rows_grouped",
-                                 "scatter_sub_sorted")}
+                                 "scatter_sub_sorted", "rwsadagrad_sorted")}
             got = {k: launches[k] for k in want}
             if min(launches.values()) < 1 or got != want or \
                     read_counts()["gather_rows"] != 0:
@@ -5147,13 +5335,15 @@ def main() -> int:
                                      f"(one grouped gather per width group"
                                      f" and one grouped row update per "
                                      f"update group a step: one K5 launch "
-                                     f"under sgd, two under adagrad and "
-                                     f"rwsadagrad), K1 and K4 at least "
+                                     f"under sgd, two under adagrad, one "
+                                     f"fused call under rwsadagrad's "
+                                     f"row-wise rule), K1 and K4 at least "
                                      f"once and no flat gather")
             print(f"train_factored launches: {json.dumps(launches)} (one "
                   f"grouped gather per width group and one grouped row "
                   f"update per update group a step, one K5 launch under "
-                  f"sgd and two under adagrad and rwsadagrad, as expected)")
+                  f"sgd, two under adagrad and one fused call under "
+                  f"rwsadagrad's row-wise rule, as expected)")
             return launches
 
     def phase_altkeys():
@@ -6941,8 +7131,8 @@ def main() -> int:
             per_kernel = {"K1 interaction_fwd": ("interaction_fwd_kernel",),
                           "K2 gather_rows_grouped": ("Grouped<",),
                           "K4 interaction_bwd": ("interaction_bwd_kernel",),
-                          "K5 scatter_sub_sorted": ("chunk_sums_kernel",
-                                                    "cross_chunk_kernel")}
+                          "K5 row update": ("chunk_sums_kernel",
+                                            "cross_chunk_kernel")}
             print("device us per rwsadagrad step, by kernel: " + ", ".join(
                 f"{label} " + "{:.2f}".format(sum(
                     t for k, (_, t) in on_card.items()
@@ -6998,26 +7188,28 @@ def main() -> int:
         train_launches = {k: v for k, v in read_counts().items()
                           if k in ("interaction_fwd", "interaction_bwd",
                                    "gather_rows_grouped",
-                                   "scatter_sub_sorted")}
+                                   "scatter_sub_sorted", "rwsadagrad_sorted")}
         if min(train_launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{train_launches}")
         # one grouped gather per train or eval step; with the kernels on,
-        # two K5 launches per rwsadagrad step (the run sums, then the
-        # update) and one per sgd step: rwsadagrad 5 + 5 checked, 5
+        # one fused K5 call per rwsadagrad step (its row-wise rule) and
+        # one subtract launch per sgd step: rwsadagrad 5 + 5 checked, 5
         # profiled, 3 + 3 x 20 through train(); sgd 3 + 3 x 20 through
         # train(), 5 profiled; 2 eval
         rws_steps = 5 + 5 + 5 + (3 + 3 * 20)
         sgd_steps = 3 + 3 * 20 + 5
         want = {"gather_rows_grouped": rws_steps + sgd_steps + 2,
-                "scatter_sub_sorted": 2 * rws_steps + sgd_steps}
+                "scatter_sub_sorted": sgd_steps,
+                "rwsadagrad_sorted": rws_steps}
         got = {k: train_launches[k] for k in want}
         if got != want or read_counts()["gather_rows"] != 0:
             raise AssertionError(f"train path launches {read_counts()}, "
                                  f"expected {want} and no flat gather")
         print(f"train path launches: {json.dumps(got)} (one grouped gather "
-              f"per train or eval step; K5 twice per rwsadagrad step, the "
-              f"run sums and the update, and once per sgd step)")
+              f"per train or eval step; K5 once per step: the fused "
+              f"row-wise rule under rwsadagrad, the subtract rule under "
+              f"sgd)")
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"evaluate gave {metrics}")
         print(f"evaluate over 2 batches: auc {metrics['auc']:.4f}, accuracy "
@@ -7039,7 +7231,7 @@ def main() -> int:
     serve_mlperf_launches = phase_3k()
     handoff_launches = phase_3l()
 
-    dcnv2_launches = phase_3m()
+    dcnv2_launches, report["rwsadagrad_sorted"] = phase_3m()
 
     # ---------------------------------------------------- 4 kernels line
     with Phase("4 kernels line"):
@@ -7074,6 +7266,10 @@ def main() -> int:
                 "evstore_tpu/ops/pallas_interaction.py:41"),
             "scatter_sub_sorted": ("evstore_tpu_torch/csrc/row_update.cu",
                                    "evstore_tpu/ops/pallas_update.py:60"),
+            # K5's fused row-wise rule, the rwsadagrad route of the same
+            # TPU kernel (rwsadagrad_row_update_pallas)
+            "rwsadagrad_sorted": ("evstore_tpu_torch/csrc/row_update.cu",
+                                  "evstore_tpu/ops/pallas_update.py:60"),
             # no TPU kernel: the JAX package's kNN block is XLA
             "knn_topk": ("evstore_tpu_torch/csrc/knn_topk.cu",
                          "evstore_tpu/tools/gen_altkeys.py:36::block_topk "

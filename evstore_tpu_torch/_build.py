@@ -63,6 +63,10 @@ SIGNATURES = {
     # desc, T, D, rows, vals, K, scratch, scratch_chunks, is_bf16, device,
     # stream
     "scatter_sub_sorted": (_P, _I, _I, _P, _P, _I64, _P, _I64, _I, _I, _P),
+    # desc, T, D, rows, order, grads, state, K, lr, eps, scratch,
+    # scratch_chunks, is_bf16, vec, device, stream
+    "rwsadagrad_sorted": (_P, _I, _I, _P, _P, _P, _P, _I64, _F, _F, _P, _I64,
+                          _I, _I, _I, _P),
     # x0, u, b, xl, y, B, N, row blocks, device, stream
     "dcn_cross_fwd": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     # g, x0, u, b, gu, gx0, partial, gb, B, N, row blocks, accumulate,

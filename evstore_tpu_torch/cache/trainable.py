@@ -27,8 +27,8 @@ The step reads the rows through the gather kernels (K2 `gather_rows`, its
 two-source form over [cache | buffer] at float32; K3
 `gather_rows_dequant_int8` for uint8 cells), runs the model (K1 and K4 in
 the interaction) and updates the rows through K5 (`ops/cuda_update.py`):
-at float32 one sort and one update (two launches: the run sums, then the
-update) cover the cache and the buffer, whose global ids are the step's
+at float32 one sort and one call of its fused row-wise rule cover the
+cache and the buffer, whose global ids are the step's
 gather indices and whose sums are one flat buffer, [cache_mom | buffer
 sums].  A bfloat16 cache and the float32 buffer
 take one call each.  uint8 cells decode, update in float32 and re-encode

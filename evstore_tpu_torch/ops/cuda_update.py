@@ -16,20 +16,31 @@ table, the kernel touches only the rows in the batch.
 of tables of one width at once (every table of a train step's batch, or
 the rows of its bags): map each table's ids to global ids (an id outside
 [0, N_t) becomes PAD_ROW first, so that it cannot land in the next table's
-rows), sort them, sum each sorted segment, update the row accumulators (one
-flat [sum N_t] buffer) and hand the kernel each run's update
-lr * G / (sqrt(state_row) + eps) on the run's first entry.
-`adagrad_row_update` is the same with an elementwise state (one flat
-[sum N_t, D] buffer); `sgd_row_update` pre-scales each entry by lr and
-needs no segment sum.  The tables' global row ranges are disjoint, so this
-is the per-table math, run once.  None of them waits for the device: every
-buffer is sized by the batch, not by the number of distinct ids.  The
-tables and the state are updated in place.  The segment sums are the
-kernel's too (`segment_sums`: a launch over a zeroed scratch table), so
-the sum that moves a row's accumulator and the one that moves the row are
-one sum, taken in the kernel's fixed order: the updates are bitwise
+rows), sort them, and hand the kernel the sorted ids, the sort's order
+and the grads as they are (`rwsadagrad_sorted`): the kernel's row-wise
+rule sums each run from grads[order[k]] and, at the end of the run,
+moves the row's accumulator (one flat [sum N_t] buffer) and the row
+itself, so the run sums never reach device memory.  Its block keeps all
+D columns of a chunk of sorted entries in shared memory, since the rule
+needs a run's every column before it writes one; the chunk's runs end in
+it or cross into the next chunks, whose partials the chunk where the run
+begins adds in chunk order with one warp, so every row and accumulator
+has one writer and no atomics are needed (an empty run touches nothing).
+A width whose chunk does not fit (`rowwise_fits`: D above 444) takes the
+composite path instead: the kernel's subtract rule sums the runs into a
+scratch table (`segment_sums`), tensor passes make each run's update, and
+a second launch applies it (`_apply_runs`).  `adagrad_row_update` is
+that composite with an elementwise state (one flat [sum N_t, D] buffer);
+`sgd_row_update` pre-scales each entry by lr and needs no segment sum.
+The tables' global row ranges are disjoint, so this is the per-table
+math, run once.  None of them waits for the device: every buffer is
+sized by the batch, not by the number of distinct ids.  The tables and
+the state are updated in place.  Every run sum is taken in the kernel's
+fixed order, the same in both rules, and the sum that moves a row's
+accumulator is the one that moves the row: the updates are bitwise
 repeatable on the card.  `rwsadagrad_row_update_global` is the trainable
-cache's form, over ids that are global already.
+cache's form, over ids that are global already.  On the CPU each wrapper
+takes its plain version (float64 run sums).
 """
 
 from __future__ import annotations
@@ -44,6 +55,9 @@ from evstore_tpu_torch.ops.table_desc import (INT32_MAX, check_global_rows,
 
 EPS = 1e-10
 CHUNK = 128     # sorted entries per block of the kernel (csrc/row_update.cu)
+# the row-wise rule's dynamic shared memory at most: Hopper's 227 KB a
+# block less room for the block's static arrays (the kernel's ROWWISE_SMEM)
+ROWWISE_SMEM = 232448 - 4096
 
 Tables = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -151,9 +165,9 @@ def scatter_sub_sorted(tables: Tables, rows_sorted: torch.Tensor,
 scatter_sub_sorted.launches = 0
 
 
-def _sorted_entries(name: str, state: Optional[torch.Tensor],
-                    tables: Tables, ids: torch.Tensor, grads: torch.Tensor,
-                    state_shape, columns: Sequence[int] = ()):
+def _sorted_ids(name: str, state: Optional[torch.Tensor], tables: Tables,
+                ids: torch.Tensor, grads: torch.Tensor, state_shape,
+                columns: Sequence[int] = ()):
     """The shared start of the grouped updates: check the shapes, map each
     table's ids to global ids (an id outside [0, N_t) becomes PAD_ROW
     first, so that it cannot land in the next table's rows) and sort them
@@ -163,8 +177,8 @@ def _sorted_entries(name: str, state: Optional[torch.Tensor],
     grads [R, C, D]; every column of one table maps to the same global
     rows, so a row's entries from all its bags meet in one run.
     `state_shape(n, D)` is the flat state's shape (None: no state).
-    Returns (group, global ids sorted int32 [K], the grads in that order,
-    f32 [K, D])."""
+    Returns (group, global ids sorted int32 [K], the sort's order int64
+    [K], the grads unsorted [K, D])."""
     group = _as_list(tables)
     g = table_group(name, group, global_ids=True)
     n, D = g.total_rows, g.dim
@@ -194,7 +208,120 @@ def _sorted_entries(name: str, state: Optional[torch.Tensor],
     gid = torch.where(ok, ids + lo, INT32_MAX).reshape(-1)
     K = gid.shape[0]
     rows_sorted, order = torch.sort(gid.to(torch.int32), stable=True)
-    return g, rows_sorted, grads.reshape(K, D).float()[order]
+    return g, rows_sorted, order, grads.reshape(K, D)
+
+
+def _sorted_entries(name: str, state: Optional[torch.Tensor],
+                    tables: Tables, ids: torch.Tensor, grads: torch.Tensor,
+                    state_shape, columns: Sequence[int] = ()):
+    """`_sorted_ids` with the grads in sorted order: (group, global ids
+    sorted int32 [K], their grads f32 [K, D])."""
+    g, rows_sorted, order, flat = _sorted_ids(name, state, tables, ids,
+                                              grads, state_shape, columns)
+    return g, rows_sorted, flat.float()[order]
+
+
+def rowwise_fits(dim: int) -> bool:
+    """Whether the kernel's row-wise rule takes width `dim`: its block
+    keeps a chunk's CHUNK grad rows in shared memory, each padded to an
+    odd number of 16-byte units (or of floats), within ROWWISE_SMEM.  Up
+    to dim 444; a wider group takes the composite path."""
+    words = max(4 * (-(-dim // 4) | 1), dim | 1)
+    return CHUNK * 4 * words <= ROWWISE_SMEM
+
+
+def rwsadagrad_sorted_ref(state: torch.Tensor, tables: Tables,
+                          rows_sorted: torch.Tensor, order: torch.Tensor,
+                          grads: torch.Tensor, lr, eps: float = EPS):
+    """The plain version of `rwsadagrad_sorted`: each run's sum G in
+    float64 (an `index_add_` over the distinct rows), the accumulator and
+    the row moved in float64 and each rounded once to its type."""
+    group = _as_list(tables)
+    bases = [0]
+    for t in group:
+        bases.append(bases[-1] + t.shape[0])
+    keep = (rows_sorted >= 0) & (rows_sorted < bases[-1])
+    uniq, inv = torch.unique(rows_sorted[keep].long(), return_inverse=True)
+    G = torch.zeros((uniq.numel(), grads.shape[1]), dtype=torch.float64,
+                    device=grads.device)
+    G.index_add_(0, inv, grads[order[keep]].double())
+    st = state[uniq].double() + (G * G).mean(dim=1)
+    state[uniq] = st.to(state.dtype)
+    upd = lr * G / (torch.sqrt(st) + eps)[:, None]
+    cuts = torch.searchsorted(
+        uniq, torch.tensor(bases, dtype=torch.int64, device=uniq.device),
+        side="left").tolist()
+    for t, tab in enumerate(group):
+        lo, hi = cuts[t], cuts[t + 1]
+        rows = uniq[lo:hi] - bases[t]
+        tab[rows] = (tab[rows].double() - upd[lo:hi]).to(tab.dtype)
+    return state, tables
+
+
+def rwsadagrad_sorted(state: torch.Tensor, tables: Tables,
+                      rows_sorted: torch.Tensor, order: torch.Tensor,
+                      grads: torch.Tensor, lr, eps: float = EPS):
+    """Row-wise sparse Adagrad over sorted global ids in one call of the
+    kernel's row-wise rule, in place: for each run of equal ids r of the
+    group, with G the sum of its entries' grads, state[r] += mean(G^2) and
+    table[r] -= lr * G / (sqrt(state[r]) + eps).  tables: one [N, D]
+    table or a list of T [N_t, D] tables of one type (f32 or bf16);
+    rows_sorted [K] int32 global ids, ascending; order [K] int64, the
+    sort's permutation (entry k's grads are grads[order[k]]); grads
+    [K, D] f32, unsorted; state the flat [sum N_t] f32 accumulator.  Ids
+    outside the group are inert.  The kernel for CUDA tensors (a width
+    `rowwise_fits` takes), the plain version for CPU tensors.  Returns
+    (state, tables)."""
+    group = _as_list(tables)
+    g = table_group("rwsadagrad_sorted", group, global_ids=True)
+    K, D = rows_sorted.shape[0], g.dim
+    if rows_sorted.dim() != 1 or tuple(order.shape) != (K,) or \
+            tuple(grads.shape) != (K, D) or \
+            tuple(state.shape) != (g.total_rows,):
+        raise ValueError(f"rwsadagrad_sorted: rows {tuple(rows_sorted.shape)}"
+                         f", order {tuple(order.shape)}, grads "
+                         f"{tuple(grads.shape)}, state {tuple(state.shape)}: "
+                         f"expected [K], [K], [K, {D}], [{g.total_rows}]")
+    if rows_sorted.dtype != torch.int32 or order.dtype != torch.int64 or \
+            grads.dtype != torch.float32 or state.dtype != torch.float32:
+        raise TypeError(f"rwsadagrad_sorted takes int32 rows, int64 order "
+                        f"and float32 grads and state, got "
+                        f"{rows_sorted.dtype}, {order.dtype}, {grads.dtype} "
+                        f"and {state.dtype}")
+    tensors = (rows_sorted, order, grads, state, group[0])
+    if all(t.device.type == "cpu" for t in tensors):
+        return rwsadagrad_sorted_ref(state, tables, rows_sorted, order,
+                                     grads, lr, eps)
+    dev = rows_sorted.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("rwsadagrad_sorted: all tensors must be on one "
+                         "CUDA device (or all on the CPU), got "
+                         + ", ".join(str(t.device) for t in tensors))
+    if not all(t.is_contiguous() for t in tensors[:4]):
+        raise ValueError("rwsadagrad_sorted takes contiguous tensors")
+    if not rowwise_fits(D):
+        raise ValueError(f"rwsadagrad_sorted: width {D} does not fit the "
+                         f"kernel's shared memory (rowwise_fits)")
+    if K == 0:
+        return state, tables
+    n_chunks = -(-K // CHUNK)
+    stream = _build.stream(dev.index)
+    # [n_chunks, 2, D] partials of runs that cross chunks (one leaves none)
+    scratch = _scratch_for(dev, stream, n_chunks * 2 * D).data_ptr() \
+        if n_chunks > 1 else None
+    es = 2 if g.dtype == torch.bfloat16 else 4
+    vec = D % 4 == 0 and grads.data_ptr() % 16 == 0 and g.align >= 4 * es
+    rc = _build.library().rwsadagrad_sorted(
+        g.desc.data_ptr(), len(group), D, rows_sorted.data_ptr(),
+        order.data_ptr(), grads.data_ptr(), state.data_ptr(), K, float(lr),
+        float(eps), scratch, n_chunks if scratch else 0, int(es == 2),
+        int(vec), dev.index, stream)
+    _build.check(rc, "rwsadagrad_sorted")
+    rwsadagrad_sorted.launches += 1
+    return state, tables
+
+
+rwsadagrad_sorted.launches = 0
 
 
 def _sums_for(dev: torch.device, stream: int, k: int,
@@ -302,12 +429,13 @@ def rwsadagrad_row_update(state: torch.Tensor, tables: Tables,
     with `columns` (bags of a length per table) ids [R, C] and grads
     [R, C, D], column c of table columns[c], so that a row's entries from
     every bag coalesce before its one state update.  Ids may repeat and
-    may lie outside their table (PAD_ROW): those are inert.  Returns
-    (state, tables)."""
-    g, rows_sorted, g_sorted = _sorted_entries(
+    may lie outside their table (PAD_ROW): those are inert.  One sort and
+    one call of the kernel's row-wise rule (`_rwsadagrad_sorted`).
+    Returns (state, tables)."""
+    g, rows_sorted, order, flat = _sorted_ids(
         "rwsadagrad_row_update", state, tables, ids, grads,
         lambda n, D: (n,), columns)
-    return _rwsadagrad_sorted(g, state, tables, rows_sorted, g_sorted, lr,
+    return _rwsadagrad_sorted(g, state, tables, rows_sorted, order, flat, lr,
                               eps)
 
 
@@ -334,14 +462,28 @@ def rwsadagrad_row_update_global(state: torch.Tensor,
     ok = (rows >= 0) & (rows < g.total_rows)
     gid = torch.where(ok, rows, INT32_MAX).to(torch.int32)
     rows_sorted, order = torch.sort(gid, stable=True)
-    return _rwsadagrad_sorted(g, state, list(tables), rows_sorted,
-                              grads.float()[order], lr, eps)
+    return _rwsadagrad_sorted(g, state, list(tables), rows_sorted, order,
+                              grads, lr, eps)
 
 
-def _rwsadagrad_sorted(g, state, tables, rows_sorted, g_sorted, lr, eps):
-    """rwsadagrad's update from the sorted global ids and their grads: the
-    row's accumulator and the row move by the same run sum G, as in the
-    JAX step's dense form."""
+def _rwsadagrad_sorted(g, state, tables, rows_sorted, order, grads, lr,
+                       eps):
+    """rwsadagrad from the sorted global ids, the sort's order and the
+    grads [K, D] unsorted: the kernel's row-wise rule in one call where
+    the group's width fits it (`rowwise_fits`), else the composite path."""
+    grads = grads.float()
+    if rowwise_fits(g.dim):
+        return rwsadagrad_sorted(state, tables, rows_sorted, order,
+                                 grads.contiguous(), lr, eps)
+    return _rwsadagrad_composite(g, state, tables, rows_sorted,
+                                 grads[order], lr, eps)
+
+
+def _rwsadagrad_composite(g, state, tables, rows_sorted, g_sorted, lr, eps):
+    """rwsadagrad from the sorted global ids and their grads through the
+    subtract rule twice (`segment_sums`, then `_apply_runs`) and tensor
+    passes between them: the row's accumulator and the row move by the
+    same run sum G, as in the JAX step's dense form."""
     first, seg, Gc, valid, seg_at = segment_sums(rows_sorted, g_sorted,
                                                  g.total_rows)
     inc = torch.where(valid, (Gc * Gc).mean(dim=1), 0.0)

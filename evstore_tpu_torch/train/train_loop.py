@@ -12,8 +12,8 @@ grouped row-gather kernel, one launch per width (`models/embedding.py`:
 plain tables, q and r, md tables, pooling weights; a multi-hot batch
 [B, T, L] is B·L lookups per table), and every row update through the
 row-update kernel, one sort per update group (the sources of one width
-under one row rule, `train/optim.py::update_groups`) and one launch of
-it, two under adagrad and rwsadagrad (the run sums, then the update), with
+under one row rule, `train/optim.py::update_groups`) and one call of
+it (under adagrad two: the run sums, then the update), with
 the optimizer state as one flat buffer a group.  The q, r and md tables
 take the JAX package's dense branch (elementwise adagrad under adagrad
 and rwsadagrad) on the rows the batch touched, which equals the dense

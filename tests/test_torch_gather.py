@@ -446,8 +446,8 @@ def test_library_name_follows_the_sources():
     assert set(_build.SIGNATURES) == {
         "interaction_fwd", "interaction_bwd", "interaction_gram",
         "gather_rows", "gather_rows_grouped", "gather_rows_dequant_int8",
-        "scatter_sub_sorted", "knn_prep", "knn_candidates", "knn_merge",
-        "dcn_cross_fwd", "dcn_cross_bwd"}
+        "scatter_sub_sorted", "rwsadagrad_sorted", "knn_prep",
+        "knn_candidates", "knn_merge", "dcn_cross_fwd", "dcn_cross_bwd"}
     # x, ly, pair table, out: four pointers, then B as a 64-bit int; then
     # T, D, P, is_bf16, samples a group, blocks, device as ints and the
     # stream
@@ -458,6 +458,9 @@ def test_library_name_follows_the_sources():
     assert _build.SIGNATURES["knn_prep"][3:5] == (ctypes.c_float,) * 2
     assert _build.SIGNATURES["knn_candidates"][9] == ctypes.c_float
     assert _build.SIGNATURES["knn_merge"][9] == ctypes.c_float
+    # the row-wise rule's lr and eps
+    assert _build.SIGNATURES["rwsadagrad_sorted"][8:10] == \
+        (ctypes.c_float,) * 2
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 

@@ -26,8 +26,11 @@ import torch
 
 from evstore_tpu.ops.pallas_update import rwsadagrad_row_update_pallas
 from evstore_tpu.train import optim as jopt
+from evstore_tpu_torch.ops import cuda_update
 from evstore_tpu_torch.ops.cuda_update import (adagrad_row_update,
+                                               rowwise_fits,
                                                rwsadagrad_row_update,
+                                               rwsadagrad_sorted,
                                                scatter_sub_sorted,
                                                scatter_sub_sorted_ref,
                                                sgd_row_update)
@@ -55,7 +58,11 @@ def _port(table, state, ids, g, dtype):
             torch.from_numpy(ids), torch.from_numpy(g))
 
 
-def _assert_table(got: torch.Tensor, ref, dtype):
+def _assert_table(got: torch.Tensor, ref, dtype, old=None):
+    """`old`, the table before the update: a bf16 row whose update nearly
+    cancels it is also allowed two f32 ulps of its old value, the rounding
+    of the f32 subtraction on either side, which one bf16 ulp of the small
+    result does not cover."""
     got = got.float().numpy()
     ref = np.asarray(jnp.asarray(ref, jnp.float32))
     if dtype == "float32":
@@ -64,6 +71,8 @@ def _assert_table(got: torch.Tensor, ref, dtype):
         mag = np.maximum(np.abs(ref), np.float32(2.0 ** -126))
         ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
         excess = np.abs(got - ref) - (ulp + 1e-4 * np.abs(ref))
+        if old is not None:
+            excess -= 2.0 ** -22 * np.abs(old)
         assert np.all(excess <= 0), float(np.max(excess))
 
 
@@ -482,3 +491,155 @@ def test_grouped_updates_check_shapes():
         sgd_row_update([torch.empty((2 ** 30, 4), device="meta")] * 2,
                        torch.zeros((2, 2), dtype=torch.int32, device="meta"),
                        torch.zeros((2, 2, 4), device="meta"), 0.1)
+
+
+# ---- rwsadagrad: the kernel's fused row-wise rule and the composite path ----
+
+def _rowwise_setup(layout, D, dtype, seed=11):
+    """Tables, a flat state, ids, grads and `columns` for one of three
+    layouts: "one" table (ids [K]), a "group" of 26 tables (ids [R, 26]),
+    or "bags" (3 tables, bags of 2, 1 and 3 ids: ids [R, 6]).  Ids hold
+    PAD_ROW, negative ids, ids one past their table, and one id repeated
+    2,100 times (a run over more than 16 chunks of the kernel).  Returns
+    numpy arrays, the columns and, per table, its ids with every inert id
+    made PAD_ROW (the JAX reference wraps negative ids)."""
+    rng = np.random.default_rng(seed)
+    if layout == "one":
+        sizes, cols, R = (3000,), (), 2600
+    elif layout == "group":
+        sizes, cols, R = tuple(40 + 37 * t for t in range(26)), (), 2200
+    else:
+        sizes, cols, R = (500, 90, 1200), (0, 0, 1, 2, 2, 2), 720
+    tcol = cols or tuple(range(len(sizes)))
+    tables = []
+    for n in sizes:
+        tab = rng.uniform(-0.1, 0.1, (n, D)).astype(np.float32)
+        if dtype == "bfloat16":
+            tab = np.asarray(jnp.asarray(tab, jnp.bfloat16), np.float32)
+        tables.append(tab)
+    state = rng.uniform(0, 0.01, sum(sizes)).astype(np.float32)
+    ids = np.stack([rng.integers(0, sizes[t], R) for t in tcol], 1)
+    ids[rng.random(ids.shape) < 0.2] = 3                 # a heavy run
+    odd = rng.random(ids.shape)
+    ids[odd < 0.03] = jopt.PAD_ROW
+    ids[(odd >= 0.03) & (odd < 0.04)] = -1
+    ids[(odd >= 0.04) & (odd < 0.05)] = -7
+    beyond = (odd >= 0.05) & (odd < 0.06)
+    ids[beyond] = np.asarray(sizes)[list(tcol)][None, :].repeat(R, 0)[beyond]
+    last = [c for c, t in enumerate(tcol) if t == tcol[-1]]
+    ids[:, last] = np.where(np.arange(R)[:, None] < 2100 // len(last) + 1,
+                            sizes[tcol[-1]] // 2, ids[:, last])
+    g = rng.normal(0, 1e-2, (R, len(tcol), D)).astype(np.float32)
+    ids = ids.astype(np.int32)
+    if layout == "one":
+        ids, g = ids[:, 0], g[:, 0]
+    per_table = []
+    for t, n in enumerate(sizes):
+        sel = [c for c, tc in enumerate(tcol) if tc == t]
+        it = (ids if layout == "one" else ids[:, sel]).reshape(-1)
+        gt = (g if layout == "one" else g[:, sel]).reshape(-1, D)
+        per_table.append((np.where((it >= 0) & (it < n), it,
+                                   jopt.PAD_ROW).astype(np.int32), gt))
+    assert max(np.unique(i[i < jopt.PAD_ROW], return_counts=True)[1].max()
+               for i, _ in per_table) >= 2100
+    return tables, state, ids, g, cols, per_table
+
+
+@pytest.mark.parametrize("path", ["fused", "composite"])
+@pytest.mark.parametrize("layout,D,dtype", [
+    ("one", 36, "float32"), ("one", 128, "bfloat16"),
+    ("group", 36, "bfloat16"), ("group", 64, "float32"),
+    ("group", 128, "float32"), ("bags", 36, "float32"),
+    ("bags", 64, "bfloat16"), ("bags", 128, "float32")])
+def test_rwsadagrad_paths_match_jax(path, layout, D, dtype, monkeypatch):
+    """The row-wise update through either path of `rwsadagrad_row_update`
+    (on the CPU: the fused rule's plain version, or the composite path,
+    taken here by refusing every width) against JAX's per table: the
+    Pallas sweep (interpret mode) for one table, `optim.row_update` for
+    each table of a group or of bags on its own entries.  Inert ids are
+    PAD_ROW on the JAX side."""
+    if path == "composite":
+        monkeypatch.setattr(cuda_update, "rowwise_fits", lambda dim: False)
+    fused = []
+    real = cuda_update.rwsadagrad_sorted
+    monkeypatch.setattr(cuda_update, "rwsadagrad_sorted",
+                        lambda *a: fused.append(1) or real(*a))
+    tables, state, ids, g, cols, per_table = _rowwise_setup(layout, D, dtype)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tabs = [torch.from_numpy(t.copy()).to(tdt) for t in tables]
+    flat = torch.from_numpy(state.copy())
+    arg = tabs[0] if layout == "one" else tabs
+    new_s, new_t = rwsadagrad_row_update(flat, arg, torch.from_numpy(ids),
+                                         torch.from_numpy(g), 0.1,
+                                         columns=cols)
+    assert new_s is flat and new_t is arg
+    assert len(fused) == (path == "fused")
+    off = 0
+    for t, (tab, (jid, jg)) in enumerate(zip(tables, per_table)):
+        n = tab.shape[0]
+        args = (jnp.asarray(state[off:off + n]), jnp.asarray(tab, jdt),
+                jnp.asarray(jid), jnp.asarray(jg), 0.1)
+        if layout == "one":
+            ref_s, ref_t = rwsadagrad_row_update_pallas(
+                *args, tile_rows=512, interpret=True)
+        else:
+            ref_s, ref_t = jopt.row_update("rwsadagrad", *args)
+        np.testing.assert_allclose(flat[off:off + n].numpy(),
+                                   np.asarray(ref_s), rtol=1e-5, atol=1e-7,
+                                   err_msg=f"state of table {t}")
+        _assert_table(tabs[t], ref_t, dtype, old=tab)
+        off += n
+
+
+def test_rowwise_width_beyond_shared_memory_takes_the_composite_path(
+        monkeypatch):
+    """A width whose chunk of grad rows does not fit the kernel's shared
+    memory takes the composite path, and the result is the same update."""
+    assert rowwise_fits(1) and rowwise_fits(36) and rowwise_fits(128)
+    assert rowwise_fits(444) and not rowwise_fits(445)
+    assert not rowwise_fits(512)
+    composite = []
+    real = cuda_update._rwsadagrad_composite
+    monkeypatch.setattr(cuda_update, "_rwsadagrad_composite",
+                        lambda *a: composite.append(a[0].dim) or real(*a))
+    for D in (448, 128):
+        table, state, ids, g = _setup(N=300, D=D, B=600, seed=12, n_pad=5)
+        ref_s, ref_t = jopt.row_update("rwsadagrad", jnp.asarray(state),
+                                       jnp.asarray(table), jnp.asarray(ids),
+                                       jnp.asarray(g), 0.1)
+        t, s, i, gr = _port(table, state, ids, g, "float32")
+        rwsadagrad_row_update(s, t, i, gr, 0.1)
+        np.testing.assert_allclose(s.numpy(), np.asarray(ref_s), rtol=1e-5,
+                                   atol=1e-7)
+        _assert_table(t, ref_t, "float32")
+    assert composite == [448]
+
+
+def test_rwsadagrad_sorted_refuses_what_it_cannot_take():
+    """The fused rule's wrapper raises for shapes, types and devices it
+    cannot take, on the CPU as on the card."""
+    tabs = [torch.zeros(5, 4), torch.zeros(7, 4)]
+    rows = torch.tensor([0, 3, 3], dtype=torch.int32)
+    order = torch.tensor([2, 0, 1])
+    grads, state = torch.zeros(3, 4), torch.zeros(12)
+    good = (state, tabs, rows, order, grads)
+    rwsadagrad_sorted(*good, 0.1)
+    for k, bad in ((3, order[:2]), (4, torch.zeros(3, 5)),
+                   (0, torch.zeros(11)), (2, rows.reshape(1, 3))):
+        args = list(good)
+        args[k] = bad
+        with pytest.raises(ValueError, match="expected"):
+            rwsadagrad_sorted(*args, 0.1)
+    for k, bad in ((2, rows.long()), (3, order.int()), (4, grads.double()),
+                   (0, state.double())):
+        args = list(good)
+        args[k] = bad
+        with pytest.raises(TypeError, match="takes int32 rows"):
+            rwsadagrad_sorted(*args, 0.1)
+    meta = [t.to("meta") for t in good[2:]]
+    with pytest.raises(ValueError, match="CUDA device"):
+        rwsadagrad_sorted(state.to("meta"), [t.to("meta") for t in tabs],
+                          *meta, 0.1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rwsadagrad_sorted(state, [t.to("meta") for t in tabs], rows, order,
+                          grads, 0.1)
