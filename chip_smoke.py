@@ -158,19 +158,17 @@ CUDA toolkit's nvcc.  It runs phase by phase, each under a time budget
    26 tables' 4.86 GB of masters in host memory, B=128, rwsadagrad, lr
    0.1): (1) `cli.main` with bench/dlrm_s_criteo_kaggle.sh's flags plus
    `--use-evstore True --optimizer rwsadagrad --emb-cache-size 64000` on
-   3f's preprocessed data, pipelined and with `--train-window 16` (two
-   evals and a save each), the two runs' printed losses, saved tables and
-   dense files bit for bit or, where a sum taken in any order parts them,
-   within the step-change rule (printed); then in float32 compute, (7)
-   steps/s, samples/s and the host split (assign, fetch, land, step) of
-   the per-batch, pipelined and windowed (16) drivers at fp32 and (4) the
+   3f's preprocessed data (two evals and a save); then in float32
+   compute, (7) steps/s, samples/s and the host split (assign, fetch,
+   land, step) of the per-batch and pipelined drivers at fp32 and (4) the
    pipelined driver with bf16 and int8 cells over 200 batches (the loss
    must fall, `hbm_bytes` is checked, and one int8 step must keep every
    untouched cell's bytes with each touched code within one of the
-   deterministic encode), a profiled window (device busy share, kernels
-   by name); (6) the device memory runs 1, 4 and 7 add, at most 256 MiB;
-   (5) the masters mapped from 3f's exported .bin files, 100 steps, then
-   `flush_files`, the files equal to `host_tables`; (2) 20 batches with
+   deterministic encode), a profiled window of 16 pipelined steps at fp32
+   (device busy share, kernels by name); (6) the device memory runs 1, 4
+   and 7 add, at most 256 MiB; (5) the masters mapped from 3f's exported
+   .bin files, 100 steps, then `flush_files`, the files equal to
+   `host_tables`; (2) 20 batches with
    every key cached against `make_train_step` on the full tables, both
    from the full-table step's state after 20 steps (losses within
    1e-4·(1+|ref|), the changed rows by the step-change rule), and from
@@ -2017,13 +2015,11 @@ def main() -> int:
         the tables in host memory and C1 of 64,000 entries on the card:
         (1) `cli.main` with bench/dlrm_s_criteo_kaggle.sh's flags plus
         `--use-evstore True --optimizer rwsadagrad --emb-cache-size 64000`
-        on 3f's preprocessed data, pipelined and with `--train-window 16`,
-        the two runs' losses, saved tables and dense files held to each
-        other; (4) bf16 and int8 cells, 200 batches each (the loss falls,
-        `hbm_bytes`, int8's untouched cells keep their bytes); (5) the
-        masters mapped from 3f's exported .bin files, 100 batches, then
-        `flush_files`; (7) steps/s of the three drivers at fp32, the host
-        split and a profiled window; all of them counted on the
+        on 3f's preprocessed data; (4) bf16 and int8 cells, 200 batches
+        each (the loss falls, `hbm_bytes`, int8's untouched cells keep
+        their bytes); (5) the masters mapped from 3f's exported .bin files,
+        100 batches, then `flush_files`; (7) steps/s of the two drivers at
+        fp32, the host split and a profiled window; all of them counted on the
         `train_cached` path, and the device memory they add held to 256
         MiB (runs 1 and 4); then (2) the cache against the full-table step
         where nothing is evicted, with a witness from zero row sums, and
@@ -2065,100 +2061,42 @@ def main() -> int:
             train_flags = bench_flags("dlrm_s_criteo_kaggle.sh")
             parsed = cli.build_parser().parse_args(train_flags)
             kcfg, _, _ = cli.configs_from_args(parsed)
-            cli_seed = parsed.numpy_rand_seed
             sizes = kcfg.table_sizes
             D = kcfg.embedding_dim
             gb = sum(sizes) * D * 4 / 1e9
             pf = os.path.join(d, "out", "processed", "kaggle_processed.npz")
             n_train = CriteoDataset.load(pf).splits()[0][1] // CACHED_B
 
-            # (1) the CLI, pipelined and windowed
-            cli_runs = {}
-            for w in (0, 16):
-                save = os.path.join(d, f"cached_w{w}")
-                argv = train_flags + [
-                    "--processed-data-file", pf, "--use-evstore", "True",
-                    "--optimizer", "rwsadagrad", "--emb-cache-size",
-                    str(CACHED_C1), "--train-window", str(w), "--test-freq",
-                    str(n_train), "--print-freq", "10", "--save-model", save]
-                t0 = time.perf_counter()
-                out = counted(lambda: run_cli(argv))
-                secs = time.perf_counter() - t0
-                trained = re.search(r"trained (\d+) steps in ([\d.]+) s "
-                                    r"\(([\d.]+) steps/s\)", out)
-                done = re.search(r"cached training done: steps=(\d+) "
-                                 r"cache=(\{.*\}) best=([-\d.na]+)", out)
-                if trained is None or done is None or \
-                        int(trained.group(1)) != n_train:
-                    raise AssertionError(f"the cached CLI run (window {w}) "
-                                         f"did not train {n_train} steps")
-                losses = [float(x) for x in re.findall(
-                    r"step \d+: loss ([-\d.]+)", out)]
-                evals = re.findall(r"eval @ (\d+): auc ([-\d.na]+)", out)
-                if len(evals) != 2 or not os.path.exists(
-                        os.path.join(save, "dense_params.npz")):
-                    raise AssertionError(f"window {w}: evals {evals}")
-                cli_runs[w] = (losses, evals, save)
-                print(f"3g(1) cli --train-window {w} [{card}]: "
-                      f"{n_train} steps at {trained.group(3)} steps/s "
-                      f"({float(trained.group(3)) * CACHED_B:.0f} samples/s;"
-                      f" the run took {secs:.2f} s with 2 evals and one save"
-                      f" of {gb:.3f} GB); best auc {done.group(3)}; cache "
-                      f"{done.group(2)}; device memory added so far "
-                      f"{grown() / 2**20:.1f} MiB", flush=True)
-            (la, ea, sa), (lb, eb, sb) = cli_runs[0], cli_runs[16]
-            names = [f"{k}_{t}.npy" for t in range(len(sizes))
-                     for k in ("table", "mom")]
-            za = np.load(os.path.join(sa, "dense_params.npz"))
-            zb = np.load(os.path.join(sb, "dense_params.npz"))
-            bitwise = la == lb and ea == eb and all(
-                np.array_equal(za[k], zb[k]) for k in za.files) and all(
-                np.array_equal(np.load(os.path.join(sa, n), mmap_mode="r"),
-                               np.load(os.path.join(sb, n), mmap_mode="r"))
-                for n in names)
-            if bitwise:
-                rule = "bit for bit"
-            else:
-                # the step-change rule against the seed's initial weights
-                t0_tabs = init_host_tables(kcfg, cli_seed)
-                init = DLRM(kcfg, device="cpu", seed=cli_seed, tables=False)
-                init_mlp = {f"p['{part}']['layer_{i}']['{leaf}']":
-                            (lin.weight.detach().numpy().T if leaf == "w"
-                             else lin.bias.detach().numpy())
-                            for part, layers in (("bot", init.bot),
-                                                 ("top", init.top))
-                            for i, lin in enumerate(layers)
-                            for leaf in ("w", "b")}
-                worst = 0.0
-                for t in range(len(sizes)):
-                    ta = np.load(os.path.join(sa, f"table_{t}.npy"),
-                                 mmap_mode="r")
-                    tb = np.load(os.path.join(sb, f"table_{t}.npy"),
-                                 mmap_mode="r")
-                    rows = np.flatnonzero((ta != t0_tabs[t]).any(1)
-                                          | (tb != t0_tabs[t]).any(1))
-                    worst = max(worst, step_change(ta[rows], tb[rows],
-                                                   t0_tabs[t][rows]))
-                for k, v in init_mlp.items():
-                    worst = max(worst, step_change(za[k], zb[k], v))
-                del t0_tabs
-                dl = max(abs(a - b) / (1 + abs(b)) for a, b in zip(la, lb))
-                if not worst <= 1e-2 or not dl <= 1e-3 or \
-                        len(la) != len(lb):
-                    raise AssertionError(
-                        f"the pipelined and windowed CLI runs part: step "
-                        f"change {worst} (limit 1e-2), losses {dl} (limit "
-                        f"1e-3)")
-                rule = (f"the step-change rule: |d_a - d_b| / |d_b| "
-                        f"{worst:.3e} over the changed rows of every table "
-                        f"and every MLP leaf (limit 1e-2), losses "
-                        f"{dl:.3e} (limit 1e-3 of 1 + |ref|)")
-            print(f"3g(1) window 0 against window 16: {len(la)} printed "
-                  f"losses, 2 evals, {len(names)} saved arrays and "
-                  f"{len(za.files)} dense leaves: {rule}", flush=True)
-            del za, zb
-            for w in cli_runs:
-                shutil.rmtree(cli_runs[w][2])
+            # (1) the CLI
+            save = os.path.join(d, "cached")
+            argv = train_flags + [
+                "--processed-data-file", pf, "--use-evstore", "True",
+                "--optimizer", "rwsadagrad", "--emb-cache-size",
+                str(CACHED_C1), "--test-freq", str(n_train),
+                "--print-freq", "10", "--save-model", save]
+            t0 = time.perf_counter()
+            out = counted(lambda: run_cli(argv))
+            secs = time.perf_counter() - t0
+            trained = re.search(r"trained (\d+) steps in ([\d.]+) s "
+                                r"\(([\d.]+) steps/s\)", out)
+            done = re.search(r"cached training done: steps=(\d+) "
+                             r"cache=(\{.*\}) best=([-\d.na]+)", out)
+            if trained is None or done is None or \
+                    int(trained.group(1)) != n_train:
+                raise AssertionError(f"the cached CLI run did not train "
+                                     f"{n_train} steps")
+            evals = re.findall(r"eval @ (\d+): auc ([-\d.na]+)", out)
+            if len(evals) != 2 or not os.path.exists(
+                    os.path.join(save, "dense_params.npz")):
+                raise AssertionError(f"the cached CLI run: evals {evals}")
+            print(f"3g(1) cli [{card}]: {n_train} steps at "
+                  f"{trained.group(3)} steps/s "
+                  f"({float(trained.group(3)) * CACHED_B:.0f} samples/s;"
+                  f" the run took {secs:.2f} s with 2 evals and one save"
+                  f" of {gb:.3f} GB); best auc {done.group(3)}; cache "
+                  f"{done.group(2)}; device memory added so far "
+                  f"{grown() / 2**20:.1f} MiB", flush=True)
+            shutil.rmtree(save)
 
             # runs 2-7 compute in float32, as phase 3b does (the CLI's
             # default is bfloat16); their masters are the seed's tables and
@@ -2194,21 +2132,16 @@ def main() -> int:
                 model = DLRM(cfg, device=dev, seed=args.seed, tables=False)
                 return tc, model, trn.init_dense_state(model)
 
-            def drive(tc, model, dst, batches, how, window=16):
+            def drive(tc, model, dst, batches, how):
                 if how == "batch":
                     return [tc.train_batch(model, dst, k + 1, *b)[2]
                             for k, b in enumerate(batches)]
-                if how == "pipelined":
-                    return [x[2] for x in tc.train_batches(model, dst,
-                                                           batches)]
-                return [x[2] for x in tc.train_batches_windowed(
-                    model, dst, batches, window=window)]
+                return [x[2] for x in tc.train_batches(model, dst, batches)]
 
-            # (7) the three drivers at fp32, then (4) bf16 and int8
+            # (7) the two drivers at fp32, then (4) bf16 and int8
             rates = {}
             for how, precision, n in (("batch", 32, 100),
                                       ("pipelined", 32, 100),
-                                      ("windowed", 32, 112),
                                       ("pipelined", 16, CACHED_N),
                                       ("pipelined", 8, CACHED_N)):
                 tc, model, dst = trainer(precision)
@@ -2299,7 +2232,7 @@ def main() -> int:
                           f"{off} code of the deterministic encode; "
                           f"{int(inserted.sum())} inserted", flush=True)
                     del before, seen, det
-                if how == "windowed":
+                if (how, precision) == ("pipelined", 32):
                     # a profiled window: device-busy share
                     it = iter(stream[n:n + 16])
                     wall, on_card = profile_steps(

@@ -38,14 +38,12 @@ and misses are inserted with the deterministic encode.  The cfg's
 `use_gather_kernel` and `use_interaction_kernel` and the tcfg's
 `use_update_kernel` switch the kernels to their plain versions.
 
-Three drivers give the same trajectory bit for bit:
+Two drivers give the same trajectory bit for bit:
 - `train_batch`, one batch per call, synchronous;
 - `train_batches`, pipelined: one pinned upload and one non-blocking
   download a batch; batch k's write-backs land before batch k+1's misses
   are read, and a key evicted and missed again within a batch takes its
-  row from the dying cell on the card;
-- `train_batches_windowed`, K batches per upload and download, a window
-  ahead on the host.
+  row from the dying cell on the card.
 
 `ShardedTrainableDeviceCache` shards the cells over a mesh's model axis,
 one process per rank (its docstring).
@@ -509,7 +507,7 @@ class TrainableDeviceCache:
             self.host_mom[t][rs[sel]] = moms[sel]
 
     def _upload(self, ints, floats):
-        """Every input of a batch or window in one host buffer and one copy
+        """Every input of a batch in one host buffer and one copy
         to the card: -> (the int32 parts, the float32 parts) as tensors on
         the card, in order."""
         io = _offsets(ints)
@@ -706,263 +704,6 @@ class TrainableDeviceCache:
         if pending is not None:
             land(pending)
 
-    # ------------------------------------------------------- windowed mode
-
-    # key states of the window tracker, packed in one int: kind << 48 |
-    # payload (payloads are below 2^48)
-    _ST_RES = 0 << 48
-    _ST_BUF = 1 << 48
-    _ST_EV = 2 << 48
-    _ST_MASK = (1 << 48) - 1
-
-    def _build_window(self, batch_list, start_step):
-        """The assigner over K batches and the window's plan: per batch its
-        index arrays, the window's fetch list (one buffer row u per key
-        missed anywhere in it, shared by its batches), the fill lists and
-        each key's final authority in the window.  Keys are packed table
-        << 40 | row; the loop runs once per unique miss."""
-        RES, BUF, EV, PAY = (self._ST_RES, self._ST_BUF, self._ST_EV,
-                             self._ST_MASK)
-        C = self.capacity
-        per = []
-        U_map = {}                 # packed key -> window buffer row u
-        state = {}                 # packed key -> kind << 48 | payload
-        fetch_k, fetch_u = [], []
-        n_u = 0
-        n_e = 0
-        for k, (dense_x, idx, labels) in enumerate(batch_list):
-            idx = np.asarray(idx)
-            (gather, scat_slots, scat_m, M, ev_keys, ev_slots, buf_t,
-             buf_r) = self._assign(idx)
-            pk = ((buf_t.astype(np.int64) << 40) | buf_r).tolist()
-            # (1) evictions -> snapshot rows; this batch's ones are kept
-            # apart for the same-batch fill
-            ekl = ev_keys.tolist()
-            e0 = n_e
-            n_e += len(ekl)
-            ev_dst = np.arange(e0, n_e, dtype=np.int32)
-            state.update(zip(ekl, range(EV | e0, EV | n_e)))
-            batch_ev = dict(zip(ekl, zip(range(e0, n_e),
-                                         ev_slots.tolist())))
-            # (2) buffer rows -> shared window rows and fills
-            mu_l = []
-            fc_slot, fc_dst, fe_src, fe_dst = [], [], [], []
-            uget = U_map.get
-            sget = state.get
-            for key in pk:
-                u = uget(key)
-                st = sget(key)
-                if u is None:
-                    u = n_u
-                    n_u += 1
-                    U_map[key] = u
-                    if st is None or st < EV:
-                        fetch_k.append(key)
-                        fetch_u.append(u)
-                        mu_l.append(u)
-                        continue
-                elif st is None or st < EV:
-                    mu_l.append(u)
-                    continue
-                # the key's row went stale while it was cached: refill it
-                # from its eviction snapshot, or from the dying cell when
-                # the eviction is this batch's
-                e = st & PAY
-                be = batch_ev.get(key)
-                if be is not None and be[0] == e:
-                    fc_slot.append(be[1])
-                    fc_dst.append(u)
-                else:
-                    fe_src.append(e)
-                    fe_dst.append(u)
-                mu_l.append(u)
-            state.update(zip(pk, [BUF | u for u in mu_l]))
-            mu = np.asarray(mu_l, np.int64)
-            # (3) insertions -> cache-resident
-            state.update((pk[m], RES) for m in scat_m.tolist())
-            gather = gather.astype(np.int64)
-            over = gather >= C
-            gather[over] = C + mu[gather[over] - C]
-            per.append({
-                "gather": gather.astype(np.int32),
-                "scat_slots": scat_slots.astype(np.int32),
-                "scat_u": mu[scat_m].astype(np.int32),
-                "fc_slot": np.asarray(fc_slot, np.int32),
-                "fc_dst": np.asarray(fc_dst, np.int32),
-                "fe_src": np.asarray(fe_src, np.int32),
-                "fe_dst": np.asarray(fe_dst, np.int32),
-                "ev_slots": np.asarray(ev_slots, np.int32),
-                "ev_dst": ev_dst,
-                "dense_x": np.asarray(dense_x, np.float32),
-                "labels": np.asarray(labels, np.float32),
-                "lr": float(self.lr_fn(start_step + k)),
-                "seed": start_step + k,
-            })
-        return per, state, (fetch_k, fetch_u), n_u, n_e
-
-    def _plan_window(self, batch_list, step_idx, prev_state):
-        """One window's plan: the assigner and the tracker, the landing
-        list, and U0/Um0 with the clean misses read (keys whose master is
-        current).  Dirty keys, whose authority is still on the card in the
-        window in flight, wait for its landing."""
-        per, state, (fk, fu), n_u, n_e = self._build_window(batch_list,
-                                                            step_idx)
-        land_k = np.fromiter(state.keys(), np.int64, len(state))
-        land_s = np.fromiter(state.values(), np.int64, len(state))
-        kind = land_s >> 48
-        keep = kind != 0                       # cached keys do not land
-        land_k = land_k[keep]
-        ev_sel = kind[keep] == 2
-        land_pay = (land_s[keep] & self._ST_MASK).astype(np.int64)
-        p = {"per": per, "state": state, "K": len(batch_list),
-             "land_k": land_k, "ev_sel": ev_sel, "land_pay": land_pay,
-             "out_u": land_pay[~ev_sel], "Up": n_u, "Ew": n_e}
-        U0 = np.zeros((n_u, self.dim), np.float32)
-        Um0 = np.zeros((n_u,), np.float32)
-        dirty_k, dirty_u, clean_k, clean_u = [], [], [], []
-        for key, u in zip(fk, fu):
-            if key in prev_state:
-                dirty_k.append(key)
-                dirty_u.append(u)
-            else:
-                clean_k.append(key)
-                clean_u.append(u)
-        if clean_k:
-            self._fetch_into(U0, Um0, clean_k, clean_u)
-        p["U0"], p["Um0"] = U0, Um0
-        p["dirty"] = (dirty_k, dirty_u)
-        return p
-
-    def _fetch_into(self, U0, Um0, keys, us):
-        kk = np.asarray(keys, np.int64)
-        uu = np.asarray(us, np.int64)
-        rows, moms = self._fetch((kk >> 40).astype(np.int32), kk & KEY_ROW)
-        U0[uu] = rows
-        Um0[uu] = moms
-
-    def _land_window(self, pend):
-        """Write one window's download into the masters; -> its losses."""
-        t0 = time.perf_counter()
-        self._down.wait()
-        Ew, n_out = pend["Ew"], len(pend["out_u"])
-        flat = pend["host"].numpy()
-        arr = flat[:(Ew + n_out) * (self.dim + 1)].reshape(Ew + n_out,
-                                                           self.dim + 1)
-        losses = flat[(Ew + n_out) * (self.dim + 1):].copy()
-        land_k, ev_sel = pend["land_k"], pend["ev_sel"]
-        if len(land_k):
-            src = np.empty(len(land_k), np.int64)
-            src[ev_sel] = pend["land_pay"][ev_sel]
-            src[~ev_sel] = Ew + np.arange(n_out)
-            self._write_masters((land_k >> 40).astype(np.int32),
-                                land_k & KEY_ROW, arr[src, :-1],
-                                arr[src, -1])
-        self.host_s["land"] += time.perf_counter() - t0
-        return losses
-
-    def _dispatch_window(self, p, model, dstate):
-        """One upload, the window's K steps queued on the card, one
-        download of the eviction snapshots, the buffer rows that land and
-        the losses."""
-        t0 = time.perf_counter()
-        per, K = p["per"], p["K"]
-        Up, Ew = p["Up"], p["Ew"]
-        names = ("gather", "scat_slots", "scat_u", "fc_slot", "fc_dst",
-                 "fe_src", "fe_dst", "ev_slots", "ev_dst")
-        ints = [q[n] for q in per for n in names] + [p["out_u"]]
-        floats = [p["U0"], p["Um0"]] + [a for q in per
-                                         for a in (q["dense_x"],
-                                                   q["labels"])]
-        di, df = self._upload(ints, floats)
-        C, D = self.capacity, self.dim
-        self._reserve(Up)
-        losses = []
-        with torch.no_grad():
-            self._buf[:Up] = df[0].view(Up, D)
-            self._mom[C:C + Up] = df[1]
-            evbuf = torch.zeros((Ew, D + 1), dtype=torch.float32,
-                                device=self.device)
-        for k, q in enumerate(per):
-            (gi, ss, su, fcs, fcd, fes, fed, es, ed) = \
-                di[k * len(names):(k + 1) * len(names)]
-            dx, lb = df[2 + 2 * k], df[3 + 2 * k]
-            with torch.no_grad():
-                # same-batch evict and miss: the dying cell before the step
-                if fcs.numel():
-                    self._fill_from_cells(fcs, fcd)
-                # evicted in an earlier batch of the window: its snapshot
-                if fes.numel():
-                    er = evbuf[fes.long()]
-                    self._buf[fed.long()] = er[:, :D]
-                    self._mom[C + fed.long()] = er[:, D]
-            losses.append(self._step(
-                model, dstate, gi.view(q["gather"].shape), ss, su,
-                dx.view(q["dense_x"].shape), lb.view(q["labels"].shape),
-                q["lr"], q["seed"]))
-            # the dying cells after the step, before a later scatter can
-            # reuse their slots
-            if es.numel():
-                with torch.no_grad():
-                    evbuf[ed.long()] = torch.cat(
-                        [self._read_slots(es),
-                         self.cache_mom[es.long()][:, None]], dim=1)
-        with torch.no_grad():
-            out = di[-1].long()
-            host = self._download([
-                evbuf, torch.cat([self._buf[out],
-                                  self._mom[C + out][:, None]], dim=1),
-                torch.stack(losses)])
-        self.host_s["step"] += time.perf_counter() - t0
-        return {"host": host, "K": K, "land_k": p["land_k"],
-                "ev_sel": p["ev_sel"], "land_pay": p["land_pay"],
-                "out_u": p["out_u"], "Ew": Ew}
-
-    def train_batches_windowed(self, model, dstate, batches,
-                               window: int = 16, start_step: int = 1):
-        """K = `window` batches per upload and download, the trajectory of
-        `train_batch` bit for bit.  The window's batches share one miss
-        buffer (a key missed in several gets one row, which later batches
-        read as the per-batch path reads it back from the masters); a key
-        evicted and missed again is refilled on the card from its eviction
-        snapshot, or from its dying cell within one batch; each step ends
-        by snapshotting its dying cells.  The host plans window w+1 while
-        w runs; only the misses whose authority is still on the card wait
-        for w's landing.  Yields (model, dstate, loss) per batch."""
-        self._check_model(model)
-        step_idx = start_step
-        batch_it = iter(batches)
-        pending = None
-        prev_state = {}
-        while True:
-            batch_list = []
-            for _ in range(window):
-                try:
-                    batch_list.append(next(batch_it))
-                except StopIteration:
-                    break
-            plan = None
-            if batch_list:
-                plan = self._plan_window(batch_list, step_idx, prev_state)
-            if pending is not None:
-                losses = self._land_window(pending)
-                if plan is not None and plan["dirty"][0]:
-                    # the masters are current now: read the deferred rows
-                    self._fetch_into(plan["U0"], plan["Um0"], *plan["dirty"])
-                new_pending = None
-                if plan is not None:
-                    new_pending = self._dispatch_window(plan, model, dstate)
-                for k in range(pending["K"]):
-                    yield model, dstate, losses[k]
-                if plan is None:
-                    return
-                pending = new_pending
-            else:
-                if plan is None:
-                    return
-                pending = self._dispatch_window(plan, model, dstate)
-            prev_state = plan["state"]
-            step_idx += plan["K"]
-
     # ------------------------------------------------------------ the rest
 
     # The files below are written by the process that holds the masters
@@ -1055,10 +796,10 @@ class ShardedTrainableDeviceCache(TrainableDeviceCache):
       from rank 0's copy.  `flush_to_host` lands the resident cells the
       same way, at most Cl at a time; `save`, `export_ev_tables` and
       `flush_files` then write the one-device class's files on rank 0.
-    - Drivers: `train_batch`.  `train_batches` and `train_batches_windowed`
-      yield its per-batch stream, which is the pipelined and windowed
-      trajectory (JAX's `run_cached_training` drives its sharded class
-      one batch at a time too).
+    - Drivers: `train_batch`.  `train_batches` yields its per-batch
+      stream, which is the pipelined trajectory (JAX's
+      `run_cached_training` drives its sharded class one batch at a time
+      too).
 
     At world 1 it equals `TrainableDeviceCache` bit for bit."""
 
@@ -1221,13 +962,6 @@ class ShardedTrainableDeviceCache(TrainableDeviceCache):
         for k, (dense_x, idx, labels) in enumerate(batches):
             yield self.train_batch(model, dstate, start_step + k, dense_x,
                                    idx, labels)
-
-    def train_batches_windowed(self, model, dstate, batches,
-                               window: int = 16, start_step: int = 1):
-        """The per-batch stream (`train_batches`): the windowed driver's
-        trajectory is the per-batch one."""
-        del window
-        return self.train_batches(model, dstate, batches, start_step)
 
     def flush_to_host(self):
         """Land every resident cell in rank 0's masters, at most Cl cells

@@ -10,16 +10,18 @@ training, and with `--inference-only`, `--use-evstore` and
 `--n-caching-layers {1,2,3}` the C1, C1+C2 and C1+C2+C3 servers.  Training
 with `--use-evstore True` runs through the device-memory-bounded cache
 (`drivers/train.py::run_cached_training`: `--emb-cache-size` entries at
-`--main-precision` 32, 16 or 8, `--train-window` batches a device call,
-masters mapped from `--ev-table-path`'s .bin files when it holds them,
-the checkpoint on a new best eval into `--save-model`, or at the run's end
-where no eval runs: `--test-freq -1` leaves the trained masters in the
-.bin files and the MLPs in `--save-model`, which `--load-model` then
-serves through the tiers).
+`--main-precision` 32, 16 or 8, masters mapped from `--ev-table-path`'s
+.bin files when it holds them, the checkpoint on a new best eval into
+`--save-model`, or at the run's end where no eval runs: `--test-freq -1`
+leaves the trained masters in the .bin files and the MLPs in
+`--save-model`, which `--load-model` then serves through the tiers).
 
     python -m evstore_tpu_torch.cli --arch-mlp-bot 13-512-256-64-36 ...
 
 Where the port departs from the JAX CLI:
+- `--train-window` is accepted and changes nothing: the port's cached
+  trainer has one driver, the pipelined one, whose trajectory every
+  window gave bit for bit.
 - `--use-pallas-gather` and `--use-pallas-interaction` switch the port's
   CUDA kernels (`use_gather_kernel`, `use_interaction_kernel`).  Unset,
   the kernels run; only an explicit `False` turns one off.
@@ -197,7 +199,9 @@ def build_parser() -> argparse.ArgumentParser:
     # EVStore flags (dlrm_s_pytorch_C1.py:1248-1268)
     p.add_argument("--use-evstore", type=_str_bool, default=False)
     p.add_argument("--train-window", type=int, default=0,
-                   help="cached training: batches per device call")
+                   help="accepted and ignored: the port's cached trainer "
+                        "has one driver, and every window gave the same "
+                        "trajectory")
     p.add_argument("--use-emb-cache", type=_str_bool, default=True)
     p.add_argument("--cache-algo", type=str, default="evlfu",
                    choices=["evlfu", "lfu", "lru", "native"])
@@ -457,7 +461,6 @@ def _run(args) -> int:
                 table_sizes=list(cfg.table_sizes),
                 save_dir=args.save_model or None,
                 seed=args.numpy_rand_seed,
-                window=args.train_window,
                 make_test_batches=(make_test if args.test_freq > 0
                                    else None),
                 mesh=mesh, device=dev)

@@ -399,7 +399,6 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
                         save_dir: Optional[str] = None,
                         mesh=None,
                         seed: int = 0,
-                        window: int = 0,
                         make_test_batches: Optional[Callable] = None,
                         ev_export_dir: Optional[str] = None,
                         log_fn=print,
@@ -414,24 +413,24 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
     weights through `convert.py`; its tables, if any, are the masters when
     `tables` is None) or from the same seed.
 
-    Batches stream through `TrainableDeviceCache.train_batches` (pipelined)
-    or, with window > 1, `train_batches_windowed`.  With make_test_batches
-    and tcfg.test_freq > 0 the stream is cut every test_freq batches for an
-    eval through the cache, and a new best writes the cache's files and the
-    dense npz into `save_dir` and the EV tables into `ev_export_dir`; a
-    last eval follows the loop.  Without an eval the run's end writes the
-    dense npz and `best.json` (the last step, no metrics) into `save_dir`,
-    beside the cache's files (masters in memory) or with the tables in the
-    flushed `ev_table_dir` files.  The model is trained in place; the
+    Batches stream through `TrainableDeviceCache.train_batches`, the
+    pipelined driver.  With make_test_batches and tcfg.test_freq > 0 the
+    stream is cut every test_freq batches for an eval through the cache,
+    and a new best writes the cache's files and the dense npz into
+    `save_dir` and the EV tables into `ev_export_dir`; a last eval follows
+    the loop.  Without an eval the run's end writes the dense npz and
+    `best.json` (the last step, no metrics) into `save_dir`, beside the
+    cache's files (masters in memory) or with the tables in the flushed
+    `ev_table_dir` files.  The model is trained in place; the
     result holds its dense sums as `opt_state.dense`.
 
     With a `mesh` (`parallel/mesh.py`; every rank calls with the same
     arguments and batches) the cells shard over its model axis
     (`ShardedTrainableDeviceCache`), which trains one batch at a time, as
-    the JAX driver drives it: `window` is ignored and the eval comes every
-    test_freq steps.  Rank 0 holds the masters (`tables` and the files are
-    read there), scores the evals and broadcasts their metrics, so every
-    rank takes the same decisions; only rank 0 logs and writes."""
+    the JAX driver drives it, and the eval comes every test_freq steps.
+    Rank 0 holds the masters (`tables` and the files are read there),
+    scores the evals and broadcasts their metrics, so every rank takes the
+    same decisions; only rank 0 logs and writes."""
     from evstore_tpu_torch.cache.trainable import (
         ShardedTrainableDeviceCache, TrainableDeviceCache, init_dense_state)
     from evstore_tpu_torch.parallel.mesh import Mesh
@@ -529,13 +528,8 @@ def run_cached_training(cfg: DLRMConfig, tcfg: TrainConfig, ccfg,
                     break
             else:
                 chunk = batch_iter
-            if window and window > 1:
-                stream = tc.train_batches_windowed(
-                    model, dstate, chunk, window=window, start_step=step + 1)
-            else:
-                stream = tc.train_batches(model, dstate, chunk,
-                                          start_step=step + 1)
-            for _, _, loss in stream:
+            for _, _, loss in tc.train_batches(model, dstate, chunk,
+                                               start_step=step + 1):
                 step += 1
                 n_since += 1
                 if step % max(tcfg.print_freq, 1) == 0:

@@ -64,7 +64,7 @@ from evstore_tpu_torch.parallel.sharded import (_all_gather_cat,
                                                 optimizer_of)
 from evstore_tpu_torch.train.optim import (PAD_ROW, OptState,
                                            dense_parameters, lr_schedule,
-                                           make_optimizer, row_update)
+                                           make_optimizer, update_rows)
 from evstore_tpu_torch.train.train_loop import (_ids, _tensor,
                                                 init_opt_state)
 
@@ -357,14 +357,9 @@ def make_butterfly_train_step(cfg: DLRMConfig, tcfg: TrainConfig,
 def _update(name, tcfg, state: ButterflyState, ids, grads, lr) -> None:
     """The grouped row update of the rank's slots (K5)."""
     st = state.row_state
-    if tcfg.use_update_kernel:
-        flat = None if st is None else (st.view(-1) if st.dim() == 2
-                                        else st.view(-1, st.shape[-1]))
-        row_update(name, flat, state.tables, ids, grads, lr)
-        return
-    for j, tab in enumerate(state.tables):
-        row_update(name, None if st is None else st[j], tab, ids[:, j],
-                   grads[:, j], lr, use_kernel=False)
+    update_rows(name, None if st is None else st.flatten(0, 1),
+                [None] * len(state.tables) if st is None else list(st),
+                state.tables, ids, grads, lr, tcfg.use_update_kernel)
 
 
 def make_butterfly_eval_step(cfg: DLRMConfig, mesh: Mesh,

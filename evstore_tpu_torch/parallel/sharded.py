@@ -66,9 +66,9 @@ from evstore_tpu_torch.ops.cuda_gather import (gather_rows_grouped,
                                                gather_rows_grouped_ref)
 from evstore_tpu_torch.parallel.mesh import Mesh, shard_rows
 from evstore_tpu_torch.train.optim import (PAD_ROW, OptState,
-                                           dense_parameters, flat_row_state,
-                                           lr_schedule, make_optimizer,
-                                           row_update, update_groups)
+                                           apply_row_updates,
+                                           dense_parameters, lr_schedule,
+                                           make_optimizer, row_update_plan)
 from evstore_tpu_torch.train.train_loop import (_bag_weights, _ids,
                                                 _tensor, init_opt_state)
 
@@ -393,13 +393,8 @@ def make_sharded_train_step(cfg: DLRMConfig, tcfg: TrainConfig, mesh: Mesh,
         labels = _tensor(labels, dev, torch.float32)[lo:hi]
         look = _Lookup(model, mesh, flat, dedup_exchange, train=True)
         sources, groups = look.sources, look.groups
-        updates = [u for u in update_groups(sources, name, groups)
-                   if learned or sources[u.members[0]].part != "pool_w"]
-        flats = [flat_row_state(opt_state.sparse,
-                                [sources[i].param for i in u.members],
-                                [sources[i].name for i in u.members])
-                 if tcfg.use_update_kernel and u.rule != "sgd" else None
-                 for u in updates]
+        plan = row_update_plan(sources, name, opt_state.sparse,
+                               tcfg.use_update_kernel, learned, groups)
         params = dense_parameters(model)
         for p in params.values():
             p.grad = None
@@ -413,7 +408,7 @@ def make_sharded_train_step(cfg: DLRMConfig, tcfg: TrainConfig, mesh: Mesh,
             # the row grads (and under dedup the unique ids): one
             # all_gather over data each
             parts = [_grad(look.leaves[u.gather])[:, u.lo:u.hi]
-                     for u in updates]
+                     for u, _ in plan]
             row_g = _all_gather_cat(torch.cat(
                 [g.reshape(-1) for g in parts]).reshape(1, -1),
                 mesh.data_group, n_data) / n_data
@@ -423,9 +418,11 @@ def make_sharded_train_step(cfg: DLRMConfig, tcfg: TrainConfig, mesh: Mesh,
                                             mesh.data_group, n_data)
         lr = lr_fn(opt_state.step)
         dense_update(opt_state.dense, params, lr)
-        with torch.no_grad():
+
+        def rows():
+            # the row grads of the global batch and the shard's ids
             off = 0
-            for u, g_l, st in zip(updates, parts, flats):
+            for (u, _), g_l in zip(plan, parts):
                 k = g_l.numel()
                 grads = row_g[:, off:off + k].reshape(-1, *g_l.shape[1:])
                 off += k
@@ -438,14 +435,11 @@ def make_sharded_train_step(cfg: DLRMConfig, tcfg: TrainConfig, mesh: Mesh,
                     ids = ids[:, u.lo:u.hi]
                 else:
                     ids = group_ids(sources, members, flat_g)[:, u.lo:u.hi]
-                tabs = [sources[i].param for i in u.members]
-                if tcfg.use_update_kernel:
-                    row_update(u.rule, st, tabs, ids, grads, lr)
-                    continue
-                for j, i in enumerate(u.members):
-                    row_update(u.rule, opt_state.sparse.get(sources[i].name),
-                               tabs[j], ids[:, j], grads[:, j], lr,
-                               use_kernel=False)
+                yield ids, grads
+
+        with torch.no_grad():
+            apply_row_updates(plan, sources, opt_state.sparse, rows(), lr,
+                              tcfg.use_update_kernel)
         opt_state.step += 1
         return loss
 

@@ -30,8 +30,8 @@ changes nothing (their gradient is 0).
 from __future__ import annotations
 
 import dataclasses
-from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
-                    Tuple)
+from typing import (Callable, Dict, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -301,3 +301,55 @@ def row_update(name: str, state, table: torch.Tensor, ids: torch.Tensor,
     rows, summed = dedup_rows(ids, grads, table.shape[0])
     make_optimizer(name, eps)[2](state, table, rows, summed, lr)
     return state, table
+
+
+def row_update_plan(sources: Sequence, name: str,
+                    sparse: Dict[str, torch.Tensor], use_kernel: bool,
+                    learned: bool,
+                    groups: Optional[Sequence[Sequence[int]]] = None
+                    ) -> List[Tuple[UpdateGroup, Optional[torch.Tensor]]]:
+    """A train step's row updates: its update groups (`update_groups` of
+    `gather_groups` or of the caller's `groups`), less the pooling
+    weights' unless `learned`, each with its flat state (`flat_row_state`,
+    so a state that cannot take the grouped update raises before anything
+    is updated), or None under sgd or with `use_kernel` off."""
+    return [(u, flat_row_state(sparse, [sources[i].param for i in u.members],
+                               [sources[i].name for i in u.members])
+             if use_kernel and u.rule != "sgd" else None)
+            for u in update_groups(sources, name.lower(), groups)
+            if learned or sources[u.members[0]].part != "pool_w"]
+
+
+def apply_row_updates(plan, sources: Sequence,
+                      sparse: Dict[str, torch.Tensor],
+                      rows: Iterable[Tuple[torch.Tensor, torch.Tensor]],
+                      lr, use_kernel: bool,
+                      columns: Sequence[int] = ()) -> None:
+    """`row_update_plan`'s updates, in place, in plan order: `rows` yields
+    each update's (ids [R, C], grads [R, C, D]), its sources' columns, and
+    is read one update at a time (`update_rows`)."""
+    for (u, flat), (ids, grads) in zip(plan, rows):
+        update_rows(u.rule, flat,
+                    [sparse.get(sources[i].name) for i in u.members],
+                    [sources[i].param for i in u.members], ids, grads, lr,
+                    use_kernel, columns)
+
+
+@torch.no_grad()
+def update_rows(rule: str, flat, states: Sequence, tables: Sequence,
+                ids: torch.Tensor, grads: torch.Tensor, lr,
+                use_kernel: bool, columns: Sequence[int] = ()) -> None:
+    """One update group's rows, in place: ids [R, C] and grads [R, C, D],
+    column c table c's, or under `columns` (bags of a length per table)
+    table columns[c]'s.  With `use_kernel` on, one grouped `row_update`
+    over `tables` and their `flat` state; off, each table's plain update
+    (`dedup_rows`) with its own state `states[j]`, on its columns."""
+    if use_kernel:
+        row_update(rule, flat, tables, ids, grads, lr, columns=columns)
+        return
+    for j, tab in enumerate(tables):
+        # table j's columns: its one, or its bag's L_j
+        sel = [c for c, t in enumerate(columns) if t == j] or [j]
+        row_update(rule, states[j], tab, ids[:, sel].reshape(-1),
+                   grads[:, sel].reshape(-1, grads.shape[-1]), lr,
+                   use_kernel=False)

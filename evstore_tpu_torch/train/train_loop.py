@@ -42,10 +42,9 @@ from evstore_tpu_torch.models.embedding import (bag_columns, check_ids,
                                                 gather_groups, gather_rows_of,
                                                 group_ids)
 from evstore_tpu_torch.train.metrics import binary_metrics
-from evstore_tpu_torch.train.optim import (OptState, dense_parameters,
-                                           flat_row_state, lr_schedule,
-                                           make_optimizer, row_update,
-                                           update_groups)
+from evstore_tpu_torch.train.optim import (OptState, apply_row_updates,
+                                           dense_parameters, lr_schedule,
+                                           make_optimizer, row_update_plan)
 from evstore_tpu_torch.utils.profiling import span
 
 
@@ -124,6 +123,14 @@ def _bag_weights(w, idx: torch.Tensor, dev: torch.device,
     return w
 
 
+def _group_columns(u, ids: torch.Tensor, grads: torch.Tensor, cols):
+    """An update group's ids and grads in its gather group's: its columns
+    [lo, hi), or under `cols` every column."""
+    if not cols and (u.lo, u.hi) != (0, ids.shape[1]):
+        return ids[:, u.lo:u.hi], grads[:, u.lo:u.hi]
+    return ids, grads
+
+
 def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     """Builds the train step: (model, opt_state, dense_x [B, nd], idx [B, T],
     [B, T, L] or under `multi_hot_sizes` [B, sum L_t] (`unpack_batch`),
@@ -142,12 +149,15 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     kernels on, the gather is one launch per width and the row update one
     call per update group (for a one-hot batch over plain tables, one each
     for all tables; bags of a length per table gather B x sum L_t rows and
-    coalesce a row's entries from all its bags in the one sort), a launch of the row-update kernel under sgd and two
-    under adagrad and rwsadagrad; the grouped updates need `opt_state`'s
-    sums to be the views of one flat buffer a group that `init_opt_state` and
-    `opt_state_from_jax` build (ValueError otherwise).  Under
-    `weighted_pooling="learned"` the pooling weights take the optimizer's
-    row update; "fixed" leaves them alone."""
+    coalesce a row's entries from all its bags in the one sort), one
+    launch of the row-update kernel under sgd and under rwsadagrad (its
+    fused row-wise rule, at D up to 444) and two under adagrad
+    (`train/optim.py::row_update_plan`, `apply_row_updates`); the grouped
+    updates need `opt_state`'s sums to be the views of one flat buffer a
+    group that `init_opt_state` and `opt_state_from_jax` build
+    (ValueError otherwise).  Under `weighted_pooling="learned"` the
+    pooling weights take the optimizer's row update; "fixed" leaves them
+    alone."""
     name = tcfg.optimizer.lower()
     _, dense_update, _ = make_optimizer(name)
     learned = cfg.weighted_pooling == "learned"
@@ -172,21 +182,15 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
             bw = _bag_weights(bag_weights, idx, dev, cfg)
         sources = model.row_sources()
         groups = gather_groups(sources)
-        updates = [u for u in update_groups(sources, name)
-                   if learned or sources[u.members[0]].part != "pool_w"]
-        # checked before anything is updated
-        flats = [flat_row_state(opt_state.sparse,
-                                [sources[i].param for i in u.members],
-                                [sources[i].name for i in u.members])
-                 if tcfg.use_update_kernel and u.rule != "sgd" else None
-                 for u in updates]
+        plan = row_update_plan(sources, name, opt_state.sparse,
+                               tcfg.use_update_kernel, learned)
         flat = flat_ids(idx)
         cols = bag_columns(cfg, idx)
         with span("train_step.gather"), torch.no_grad():
             ids_of = [group_ids(sources, m, flat, cols) for m in groups]
             gathered = gather_rows_of(sources, groups, ids_of,
                                       cfg.use_gather_kernel, cols)
-        for g in {u.gather for u in updates}:
+        for g in {u.gather for u, _ in plan}:
             gathered[g].requires_grad_(True)
         params = dense_parameters(model)
         with span("train_step.forward_backward"):
@@ -201,22 +205,11 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
         with span("train_step.dense_update"):
             dense_update(opt_state.dense, params, lr)
         with span("train_step.row_update"), torch.no_grad():
-            for u, st in zip(updates, flats):
-                ids, grads = ids_of[u.gather], gathered[u.gather].grad
-                if not cols and (u.lo, u.hi) != (0, ids.shape[1]):
-                    ids, grads = ids[:, u.lo:u.hi], grads[:, u.lo:u.hi]
-                tabs = [sources[i].param for i in u.members]
-                if tcfg.use_update_kernel:
-                    row_update(u.rule, st, tabs, ids, grads, lr,
-                               columns=cols)
-                    continue
-                for j, i in enumerate(u.members):
-                    # table j's columns: its one, or its bag's L_j
-                    sel = [c for c, t in enumerate(cols) if t == j] or [j]
-                    row_update(u.rule, opt_state.sparse.get(sources[i].name),
-                               tabs[j], ids[:, sel].reshape(-1),
-                               grads[:, sel].reshape(-1, grads.shape[-1]),
-                               lr, use_kernel=False)
+            apply_row_updates(plan, sources, opt_state.sparse,
+                              (_group_columns(u, ids_of[u.gather],
+                                              gathered[u.gather].grad, cols)
+                               for u, _ in plan),
+                              lr, tcfg.use_update_kernel, cols)
         opt_state.step += 1
         return loss.detach()
 

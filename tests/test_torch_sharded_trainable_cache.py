@@ -25,8 +25,8 @@ tests/conftest.py, from the same numpy weights (`init_dlrm`'s, through
   are byte-equal to the one-device class's on the same batches; on a
   (2, 2) mesh the files each class writes the other reads and writes back
   byte for byte, both export the loaded tables byte for byte, and a run
-  resumed from them continues within JAX's tolerances; `train_batches` and `train_batches_windowed` give
-  `train_batch`'s stream bit for bit; `run_cached_training(mesh=)` with a
+  resumed from them continues within JAX's tolerances; `train_batches`
+  gives `train_batch`'s stream bit for bit; `run_cached_training(mesh=)` with a
   periodic eval, a save and an EV export against JAX's
   `run_cached_training(mesh=make_mesh(2, 2))` and the port's one-device
   run (losses and tables within 1e-5·(1 + |ref|), metrics 5e-5), every
@@ -103,10 +103,8 @@ def _train(tc, model, dst, batches, start=0, how="batch"):
     if how == "batch":
         return [float(tc.train_batch(model, dst, k + start, *b)[2])
                 for k, b in enumerate(batches)]
-    drive = (tc.train_batches if how == "pipelined"
-             else functools.partial(tc.train_batches_windowed, window=4))
-    return [float(x[2]) for x in drive(model, dst, batches,
-                                       start_step=start)]
+    return [float(x[2]) for x in tc.train_batches(model, dst, batches,
+                                                  start_step=start)]
 
 
 def _result(tc, model, losses):
@@ -245,7 +243,7 @@ def _drivers_case(mesh, inputs):
     state, tables, batches = inputs
     cfg, tcfg, ccfg = _cfgs(16, 16, 32)
     out = {}
-    for how in ("batch", "pipelined", "windowed"):
+    for how in ("batch", "pipelined"):
         model, dst = _model(cfg, state)
         tc = ShardedTrainableDeviceCache(cfg, tcfg, ccfg, tables, mesh)
         out[how] = _result(tc, model, _train(tc, model, dst, batches[:12],
@@ -470,13 +468,12 @@ def test_drivers_give_the_per_batch_stream(world4):
     res, _ = world4
     for r in range(4):
         out = res[r]["drivers"]
-        for how in ("pipelined", "windowed"):
-            assert out[how]["losses"] == out["batch"]["losses"], how
-            np.testing.assert_array_equal(out[how]["cells"],
-                                          out["batch"]["cells"])
-            if r == 0:
-                for a, b in zip(out[how]["tables"], out["batch"]["tables"]):
-                    np.testing.assert_array_equal(a, b)
+        got = out["pipelined"]
+        assert got["losses"] == out["batch"]["losses"]
+        np.testing.assert_array_equal(got["cells"], out["batch"]["cells"])
+        if r == 0:
+            for a, b in zip(got["tables"], out["batch"]["tables"]):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_capacity_must_divide_the_model_axis():

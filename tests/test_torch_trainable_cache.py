@@ -19,10 +19,9 @@ Held to JAX, the port's cases take JAX's draws for the same step (the
 `jax_draws` fixture swaps them in); the port's own codec is held by
 distribution: every code within one of the deterministic encode, and the
 mean decode within 3σ of the value over 20,000 draws.  Besides: the
-training assigner's binding against JAX's, the port's per-batch,
-pipelined and windowed drivers bit for bit with each other (float32 and
-int8, windows 1, 4 and 8), the refusals, and the `save` files read by the
-other package both ways.
+training assigner's binding against JAX's, the port's per-batch and
+pipelined drivers bit for bit with each other (float32 and int8), the
+refusals, and the `save` files read by the other package both ways.
 """
 
 import dataclasses
@@ -142,9 +141,8 @@ def _run_jax(c, capacity, precision=32, tables=None, start=0):
     return out
 
 
-def _run_port(c, capacity, precision=32, mode="batch", window=4,
-              tables=None, start=0, tc=None, keep=False, model=None,
-              dst=None):
+def _run_port(c, capacity, precision=32, mode="batch", tables=None,
+              start=0, tc=None, keep=False, model=None, dst=None):
     if tc is None:
         tc = ptr.TrainableDeviceCache(c.cp, c.tp,
                                       c.ccfg(pcfg, capacity, precision),
@@ -156,14 +154,9 @@ def _run_port(c, capacity, precision=32, mode="batch", window=4,
         for k, (dx, idx, y) in enumerate(c.batches):
             _, _, loss = tc.train_batch(model, dst, k + start, dx, idx, y)
             losses.append(float(loss))
-    elif mode == "pipelined":
+    else:
         for _, _, loss in tc.train_batches(model, dst, iter(c.batches),
                                            start_step=start):
-            losses.append(float(loss))
-    else:
-        for _, _, loss in tc.train_batches_windowed(
-                model, dst, iter(c.batches), window=window,
-                start_step=start):
             losses.append(float(loss))
     tc.flush_to_host()
     out = dict(tables=[t.copy() for t in tc.host_tables],
@@ -534,25 +527,9 @@ def test_pipelined_int8_runs_and_learns(jax_draws):
     assert np.mean(got["losses"][-8:]) < np.mean(got["losses"][:8])
 
 
-@pytest.mark.parametrize("precision", [32, 8])
-def test_windowed_matches_synchronous_bitexact(precision):
-    c = _case(n_batches=30, bs=32, seed=5, dist="zipf", learnable=False,
-              tables_seed=0)
-    ref = _run_port(c, 24, precision, start=1)
-    for w in (1, 4, 8):
-        _same(_run_port(c, 24, precision, "windowed", w, start=1), ref)
-
-
-def test_windowed_int8_runs_and_learns(jax_draws):
-    c = _case(n_batches=40, bs=64, seed=2, lr=0.3, param_seed=3)
-    got = _run_port(c, 48, 8, "windowed", 8, start=1)
-    _held_to_jax(got, _run_jax(c, 48, 8, start=1))
-    assert np.mean(got["losses"][-8:]) < np.mean(got["losses"][:8])
-
-
 def test_long_horizon_cached_auc_matches_full_table(jax_draws):
     """Two epochs with the cache below the distinct keys (evictions and
-    write-backs live, windows of 4): held-out AUC within 1e-3 of the
+    write-backs live, the pipelined driver): held-out AUC within 1e-3 of the
     port's full-table run at float32, no worse than 1.5e-2 below it at
     int8; each run's stats held to JAX's assigner over the same stream.
     At this size the packages' trajectories part, at every capacity:
@@ -603,7 +580,7 @@ def test_long_horizon_cached_auc_matches_full_table(jax_draws):
     ref_stats = dict(asg.stats(), capacity=600)
     eng.close()
     for prec, bound, two_sided in ((32, 1e-3, True), (8, 1.5e-2, False)):
-        got = _run_port(epochs, 600, prec, "windowed", 4, start=1)
+        got = _run_port(epochs, 600, prec, "pipelined", start=1)
         hbm = 600 * (8 * (4 if prec == 32 else 1) + 4)
         ref_stats.update(hbm_bytes=hbm, hbm_bytes_per_chip=hbm,
                          dropped_updates=0)
