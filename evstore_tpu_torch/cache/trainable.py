@@ -86,6 +86,7 @@ from evstore_tpu_torch.parallel.sharded import (_all_gather_cat, _slice,
 from evstore_tpu_torch.train.optim import (dense_parameters, lr_schedule,
                                            make_optimizer, row_update)
 from evstore_tpu_torch.utils.device import resolve_device
+from evstore_tpu_torch.utils.staging import _Staging
 
 KEY_ROW = (1 << 40) - 1     # packed key: table << 40 | row
 
@@ -118,36 +119,6 @@ def init_dense_state(model) -> Dict[str, torch.Tensor]:
     """Zero rwsadagrad sums of the model's dense parameters (the MLPs)."""
     return {n: torch.zeros_like(p, dtype=torch.float32)
             for n, p in dense_parameters(model).items()}
-
-
-class _Staging:
-    """A host buffer for one copy to or from the card at a time: pinned on
-    the card's machine, and not handed out again before the copy that last
-    used it has finished (a CUDA event, not a device-wide wait)."""
-
-    def __init__(self, dev: torch.device, dtype: torch.dtype):
-        self.dev, self.dtype = dev, dtype
-        self.buf: Optional[torch.Tensor] = None
-        self.event = None
-
-    def take(self, n: int) -> torch.Tensor:
-        self.wait()
-        if self.buf is None or self.buf.numel() < n:
-            size = max(n, 2 * (0 if self.buf is None else self.buf.numel()))
-            self.buf = torch.empty(size, dtype=self.dtype,
-                                   pin_memory=self.dev.type == "cuda")
-        return self.buf[:n]
-
-    def mark(self) -> None:
-        """Call after queueing the copy that reads or fills the buffer."""
-        if self.dev.type == "cuda":
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(self.dev))
-
-    def wait(self) -> None:
-        if self.event is not None:
-            self.event.synchronize()
-            self.event = None
 
 
 def _map_files(bin_dir: str, table_sizes: Sequence[int], dim: int):

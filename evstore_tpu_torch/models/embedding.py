@@ -474,12 +474,19 @@ class _PoolColumns(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rows, sizes):
+        if rows.shape[1] != sum(sizes):
+            raise ValueError(f"rows of {rows.shape[1]} slots a sample for "
+                             f"bags of {sizes}")
         ctx.cols = column_tables(
             tuple(t for t, n in enumerate(sizes) for _ in range(n)),
             rows.device)
+        # the lengths are checked above, on the host: `unsafe` skips
+        # segment_reduce's own check, which reads them back from the
+        # device and so waits for it
         return torch.segment_reduce(
             rows, "sum", lengths=_bag_lengths(sizes, rows.shape[0],
-                                              rows.device), axis=1)
+                                              rows.device), axis=1,
+            unsafe=True)
 
     @staticmethod
     def backward(ctx, g):

@@ -30,7 +30,7 @@ periodic eval and resume is `drivers/train.py::run_training`.
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ from evstore_tpu_torch.train.optim import (OptState, apply_row_updates,
                                            dense_parameters, lr_schedule,
                                            make_optimizer, row_update_plan)
 from evstore_tpu_torch.utils.profiling import span
+from evstore_tpu_torch.utils.staging import InputRing
 
 
 def init_opt_state(model: DLRM, tcfg: TrainConfig) -> OptState:
@@ -74,10 +75,16 @@ def _check(model: DLRM, cfg: DLRMConfig) -> torch.device:
     return next(model.parameters()).device
 
 
+def _host(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor over its memory where it is
+    contiguous; a tensor as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
 def _tensor(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.ascontiguousarray(a))
-    return a.to(device=dev, dtype=dtype)
+    return _host(a).to(device=dev, dtype=dtype)
 
 
 def _checked_ids(idx, cfg: DLRMConfig):
@@ -104,23 +111,65 @@ def _ids(idx, cfg: DLRMConfig, dev: torch.device) -> torch.Tensor:
     return _tensor(_checked_ids(idx, cfg), dev, torch.int32)
 
 
-def _copy(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """`_tensor` in the train step's span for its host-to-device copies."""
-    with span("train_step.inputs.copy"):
-        return _tensor(a, dev, dtype)
+def _bag_shape(w, idx, cfg: DLRMConfig = None) -> None:
+    """ValueError unless bag weights `w` have the shape of bags `idx`."""
+    bags = idx.ndim == 3 or (idx.ndim == 2 and cfg is not None
+                             and bool(cfg.multi_hot_sizes))
+    if not bags or tuple(w.shape) != tuple(idx.shape):
+        raise ValueError(f"bag weights {tuple(w.shape)} need bags idx of "
+                         f"the same shape, got {tuple(idx.shape)}")
 
 
 def _bag_weights(w, idx: torch.Tensor, dev: torch.device,
                  cfg: DLRMConfig = None):
     if w is None:
         return None
-    w = _tensor(w, dev, torch.float32)
-    bags = idx.dim() == 3 or (idx.dim() == 2 and cfg is not None
-                              and bool(cfg.multi_hot_sizes))
-    if not bags or tuple(w.shape) != tuple(idx.shape):
-        raise ValueError(f"bag weights {tuple(w.shape)} need bags idx of "
-                         f"the same shape, got {tuple(idx.shape)}")
-    return w
+    _bag_shape(w, idx, cfg)
+    return _tensor(w, dev, torch.float32)
+
+
+# the train step's inputs in order, cast to these: dense features, ids,
+# labels, bag weights
+_INPUT_DTYPES = (torch.float32, torch.int32, torch.float32, torch.float32)
+
+
+def _staged(a, dev: torch.device) -> bool:
+    """Whether an input goes through the staging ring: a numpy array, or
+    a CPU tensor for a model on a card.  A tensor where the model is
+    takes no copy."""
+    return not isinstance(a, torch.Tensor) or (
+        a.device.type == "cpu" and dev.type != "cpu")
+
+
+def _inputs(ring: InputRing, slot, cfg: DLRMConfig, dev: torch.device,
+            dense_x, idx, labels, bag_weights) -> List:
+    """The train step's prologue: [dense_x, idx, labels, bag_weights or
+    None] on `dev`, host inputs through `slot`, the compute stream waiting
+    for their copies."""
+    if not slot.ready():
+        with span("train_step.inputs.wait"):
+            slot.wait()
+    with span("train_step.inputs"):
+        with span("train_step.inputs.check"):
+            idx = _checked_ids(idx, cfg)
+        if bag_weights is not None:
+            _bag_shape(bag_weights, idx, cfg)
+        out = []
+        try:
+            for i, a in enumerate((dense_x, idx, labels, bag_weights)):
+                if a is None:
+                    out.append(None)
+                elif _staged(a, dev):
+                    with span("train_step.inputs.stage"):
+                        host = ring.stage(slot, i, _host(a))
+                    with span("train_step.inputs.copy"):
+                        out.append(ring.enqueue(slot, i, host))
+                else:
+                    with span("train_step.inputs.copy"):
+                        out.append(_tensor(a, dev, _INPUT_DTYPES[i]))
+        finally:
+            ring.hand_over(slot)
+    return out
 
 
 def _group_columns(u, ids: torch.Tensor, grads: torch.Tensor, cols):
@@ -136,22 +185,32 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     [B, T, L] or under `multi_hot_sizes` [B, sum L_t] (`unpack_batch`),
     labels [B], bag_weights of idx's shape or None) -> loss.
 
-    The inputs are numpy arrays or tensors.  The step updates the model's
-    parameters and `opt_state` in place and returns the loss as a 0-d tensor
-    on the model's device (reading it waits for the device).  While a
-    profiler runs, the step is the span `train_step`; inside it
-    `train_step.inputs` brings the batch to the device (its host id check
-    `train_step.inputs.check` and each copy `train_step.inputs.copy`), and
-    the four stages are `train_step.<stage>`.  The prologue checks the
-    host ids before its first copy: a copy from pageable memory waits for
-    the device's previous step, so the check runs while the device still
-    works, and a bad id raises before any copy or update.  With the
-    kernels on, the gather is one launch per width and the row update one
-    call per update group (for a one-hot batch over plain tables, one each
-    for all tables; bags of a length per table gather B x sum L_t rows and
-    coalesce a row's entries from all its bags in the one sort), one
-    launch of the row-update kernel under sgd and under rwsadagrad (its
-    fused row-wise rule, at D up to 444) and two under adagrad
+    The inputs are numpy arrays or tensors.  Host inputs (numpy arrays, or
+    CPU tensors for a model on a card) go through the step's
+    `utils/staging.py::InputRing`: each is cast into a host buffer of the
+    ring's, pinned on a card's machine, before the step returns (the
+    caller may then overwrite its arrays), its copy runs on the ring's
+    copy stream, and the compute stream waits for it on an event.  The
+    ring's two slots take turns, and a slot is staged again only after
+    the device has finished the step that last used it, so the host runs
+    at most two steps ahead; nothing else waits for the device.  Inputs
+    already on the model's device take no copy.  The step updates the
+    model's parameters and `opt_state` in place and returns the loss as a
+    0-d tensor on the model's device (reading it waits for the device).
+    While a profiler runs, the step is the span `train_step`; inside it
+    `train_step.inputs.wait` (only where the host waits for its slot),
+    then `train_step.inputs` brings the batch to the device (its host id
+    check `.inputs.check`, each host write into a staging buffer
+    `.inputs.stage` and each input's copy, queued, `.inputs.copy`), and
+    the four stages are `train_step.<stage>`.  The host ids are checked
+    before any staging write, copy or update, so a bad id raises before
+    any.  With the kernels on, the gather is one launch per width and the
+    row update one call per update group (for a one-hot batch over plain
+    tables, one each for all tables; bags of a length per table gather
+    B x sum L_t rows and coalesce a row's entries from all its bags in
+    the one sort), one launch of the row-update kernel under sgd and
+    under rwsadagrad (its fused row-wise rule, at D up to 444) and two
+    under adagrad
     (`train/optim.py::row_update_plan`, `apply_row_updates`); the grouped
     updates need `opt_state`'s sums to be the views of one flat buffer a
     group that `init_opt_state` and `opt_state_from_jax` build
@@ -164,22 +223,23 @@ def make_train_step(cfg: DLRMConfig, tcfg: TrainConfig):
     lr_fn = lr_schedule(tcfg.learning_rate, tcfg.lr_num_warmup_steps,
                         tcfg.lr_decay_start_step, tcfg.lr_num_decay_steps)
 
+    rings: Dict[torch.device, InputRing] = {}
+
     def train_step(model: DLRM, opt_state: OptState, dense_x, idx,
                    labels, bag_weights=None) -> torch.Tensor:
         with span("train_step"):
-            return step(model, opt_state, dense_x, idx, labels, bag_weights)
+            dev = _check(model, cfg)
+            ring = rings.get(dev)
+            if ring is None:
+                ring = rings[dev] = InputRing(dev, _INPUT_DTYPES)
+            slot = ring.take()
+            try:
+                return step(model, opt_state, *_inputs(
+                    ring, slot, cfg, dev, dense_x, idx, labels, bag_weights))
+            finally:
+                ring.release(slot)
 
-    def step(model, opt_state, dense_x, idx, labels, bag_weights):
-        dev = _check(model, cfg)
-        with span("train_step.inputs"):
-            with span("train_step.inputs.check"):
-                idx = _checked_ids(idx, cfg)
-            dense_x = _copy(dense_x, dev, torch.float32)
-            idx = _copy(idx, dev, torch.int32)
-            labels = _copy(labels, dev, torch.float32)
-            if bag_weights is not None:
-                bag_weights = _copy(bag_weights, dev, torch.float32)
-            bw = _bag_weights(bag_weights, idx, dev, cfg)
+    def step(model, opt_state, dense_x, idx, labels, bw):
         sources = model.row_sources()
         groups = gather_groups(sources)
         plan = row_update_plan(sources, name, opt_state.sparse,

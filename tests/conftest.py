@@ -24,3 +24,8 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "card: runs on an NVIDIA card; skips without one")

@@ -14,6 +14,7 @@ from evstore_tpu_torch.config import TrainConfig, make_dlrm_config
 from evstore_tpu_torch.models.dlrm import DLRM
 from evstore_tpu_torch.train.train_loop import (init_opt_state,
                                                 make_train_step, train)
+from evstore_tpu_torch.utils import staging
 from evstore_tpu_torch.utils.profiling import profile_trace, span
 
 SIZES = (50, 35, 20)
@@ -106,17 +107,23 @@ def test_a_bad_id_raises_before_any_copy_or_update(monkeypatch, bad):
     dense, idx, y = _batches(1)[0]
     idx[5, 1] = bad
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    copies = []
+    copies, staged = [], []
     real = train_loop._tensor
+    real_stage = staging.InputRing.stage
 
     def tensor(*args):
         copies.append(args)
         return real(*args)
+
+    def stage(*args):
+        staged.append(args)
+        return real_stage(*args)
     monkeypatch.setattr(train_loop, "_tensor", tensor)
+    monkeypatch.setattr(staging.InputRing, "stage", staticmethod(stage))
     with pytest.raises(ValueError, match=f"row id {bad} of table 1 is "
                        r"outside \[0, 35\)"):
         step(model, opt_state, dense, idx, y)
-    assert copies == []
+    assert copies == [] and staged == []
     assert opt_state.step == 0
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k]), k
